@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of lbm_tpu_torch: builds the CUDA kernels, holds each
 against its plain PyTorch version, anchors the main path to the numpy
-oracle, drives the CLI end to end, and times kernels and twin.
+oracle and to the 1024x1024 golden run, drives the CLI end to end, and
+times kernels and twin.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -19,14 +20,33 @@ power limit as nvidia-smi reports them):
 3. K2 (persistent multi-step kernel) vs its plain version: 128x128, 256x128,
    256x256 with (steps, chunk) in {(7,4), (8,4), (5,8), (600,256)}, and
    256x256 from the perturbed state for 600 steps; same bounds;
+3b. K3 (in-place persistent kernel) vs its plain version: 1024x1024 from
+   rest and from the perturbed state, 200 steps; 60x100 and 7x33 (a wall
+   on the driven row) with (steps, chunk) in
+   {(7,4), (8,4), (5,8), (600,256)}; same bounds; and K3 vs K1, both
+   kernels, at 1024x1024 over 20000 steps: fields torch.equal, tot_u
+   within rtol 1e-6;
+3c. the int16 kernels vs their plain version (int16 fields torch.equal,
+   tot_u rtol 1e-6): K1-i16 at 2048x2048 x 50 steps, K3-i16 at 1024x1024
+   and 1536x1536 from rest and perturbed starts (200 steps) and on the
+   small grids above, and K3-i16 vs K1-i16 at 1024x1024 over 20000 steps;
 4. the cuda main path on a 128x128 scene for 120 steps vs core/oracle:
    fields atol 2e-7, av rtol 1e-4;
 5. ``lbm_tpu_torch run`` on 256x256 (8000 steps: K2, two segments) and
-   1024x1024 (2000 steps: K1) as --variant cuda and --variant torch;
-   ``check`` of cuda against torch must pass; the launch counters, zeroed
-   just before the cuda runs, must have gone up;
-6. MLUPS of those runs, and K1 / K2 / twin times at 128^2 .. 1024^2
-   (tools/kernel_times.py) beside a 1 GiB device copy's bandwidth;
+   1024x1024 (2000 steps) as --variant cuda and --variant torch;
+   ``check`` of cuda against torch must pass; the K1 and K2 launch
+   counters, zeroed just before the cuda runs, must have gone up;
+5b. the golden run: the 1024x1024 reference scene rebuilt from golden/
+   (obstacles from column 7 of the final state), ``run --variant cuda``
+   for the full 20000 steps with --storage f32 (variant cuda-inplace) and
+   --storage i16, each passing ``check`` against golden/ (1%); the K3 and
+   K3-i16 counters, zeroed just before, must have gone up;
+5c. ``run --storage i16`` on 1536x1536 and 2048x2048 channel scenes (2000
+   steps, K1-i16), each passing ``check`` against the same scene's f32
+   cuda run; the K1-i16 counter, zeroed just before, must have gone up;
+6. MLUPS of those runs, and K1 / K2 / K3 / K1-i16 / K3-i16 / twin times at
+   128^2 .. 1024^2 and the int16 ones at 1536^2 (tools/kernel_times.py)
+   beside a 1 GiB device copy's bandwidth;
 7. one JSON line of kernel findings, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -93,7 +113,7 @@ def compare(name: str, f_k, tot_k, f_p, tot_p) -> tuple[float, float]:
 
     if not (bool(torch.isfinite(f_k).all()) and bool(torch.isfinite(f_p).all())):
         fail(f"{name}: non-finite state")
-    err = float((f_k - f_p).abs().max())
+    err = float((f_k.double() - f_p.double()).abs().max())
     if not torch.equal(f_k, f_p):
         fail(f"{name}: fields differ from the plain version (max |diff| {err:.3e})")
     rel = float(((tot_k - tot_p).abs() / tot_p.abs().clamp_min(1e-30)).max()) if len(tot_p) else 0.0
@@ -114,7 +134,7 @@ def main() -> int:
     from lbm_tpu_torch.core import lattice, oracle
     from lbm_tpu_torch.io.scene import Scene
     from lbm_tpu_torch.models.driver import RunConfig, run_simulation
-    from lbm_tpu_torch.ops import _build, fused_cuda, resident_cuda
+    from lbm_tpu_torch.ops import _build, fused_cuda, inplace_cuda, quant, resident_cuda
     from lbm_tpu_torch.params import LBMParams
     from lbm_tpu_torch.tools import bench, kernel_times, scenegen
 
@@ -171,6 +191,79 @@ def main() -> int:
           f"x (7,4) (8,4) (5,8) (600,256)) + 256x256 mixed start 600 steps: "
           f"fields equal, tot_u max rel {k2_rel:.2e}")
 
+    # Phase 3b: K3 vs plain, and K3 vs K1 at full length.
+    k3_err, k3_rel, n_cases = 0.0, 0.0, 0
+    for start in ("rest", "mixed"):
+        p, _, obst, f0 = field(1024, 1024, 0.01)
+        if start == "mixed":
+            f0 = mixed_state(p, dev)
+        f_k, tot_k = inplace_cuda.make_run_all(p, obst, 200)(f0)
+        f_p, tot_p = inplace_cuda.run_plain(f0, obst, p, 200)
+        e, r = compare(f"K3 1024x1024 {start}", f_k, tot_k, f_p, tot_p)
+        k3_err, k3_rel = max(k3_err, e), max(k3_rel, r)
+    for ny, nx in ((60, 100), (7, 33)):
+        p, _, obst, _ = field(ny, nx)
+        f0 = mixed_state(p, dev)
+        for steps, chunk in ((7, 4), (8, 4), (5, 8), (600, 256)):
+            f_k, tot_k = inplace_cuda.make_run_all(p, obst, steps, chunk=chunk)(f0)
+            f_p, tot_p = inplace_cuda.run_plain(f0, obst, p, steps)
+            e, r = compare(f"K3 {ny}x{nx} steps={steps} chunk={chunk}", f_k, tot_k, f_p, tot_p)
+            k3_err, k3_rel = max(k3_err, e), max(k3_rel, r)
+            n_cases += 1
+    p, _, obst, f0 = field(1024, 1024, 0.01)
+    f_k, tot_k = inplace_cuda.make_run_all(p, obst, 20000)(f0)
+    f_k, tot_k = f_k.clone(), tot_k.clone()
+    f_1, tot_1 = fused_cuda.make_run_all(p, obst, 20000)(f0)
+    _, k3_k1_rel = compare("K3 vs K1 1024x1024 20000 steps", f_k, tot_k, f_1, tot_1)
+    print(f"[3b K3 vs plain] card: {card} | 1024x1024 rest and perturbed, 200 steps; "
+          f"{n_cases} cases (60x100, 7x33 x (7,4) (8,4) (5,8) (600,256), perturbed start): "
+          f"fields equal, tot_u max rel {k3_rel:.2e} | "
+          f"K3 vs K1 1024x1024 x 20000 steps: fields equal, tot_u max rel {k3_k1_rel:.2e}")
+
+    # Phase 3c: the int16 kernels vs plain, and K3-i16 vs K1-i16 at full length.
+    def i16_start(p, f):
+        return quant.quantize(f, p.density)
+
+    k1i_err, k1i_rel = 0.0, 0.0
+    for start in ("rest", "mixed"):
+        p, _, obst, f0 = field(2048, 2048, 0.01)
+        q0 = i16_start(p, f0 if start == "rest" else mixed_state(p, dev))
+        q_k, tot_k = fused_cuda.make_run_all(p, obst, 50, "i16")(q0)
+        q_p, tot_p = fused_cuda.run_plain(q0, obst, p, 50, "i16")
+        e, r = compare(f"K1-i16 2048x2048 {start}", q_k, tot_k, q_p, tot_p)
+        k1i_err, k1i_rel = max(k1i_err, e), max(k1i_rel, r)
+    k3i_err, k3i_rel, n_cases = 0.0, 0.0, 0
+    for n in (1024, 1536):
+        for start in ("rest", "mixed"):
+            p, _, obst, f0 = field(n, n, 0.01)
+            q0 = i16_start(p, f0 if start == "rest" else mixed_state(p, dev))
+            q_k, tot_k = inplace_cuda.make_run_all(p, obst, 200, storage="i16")(q0)
+            q_p, tot_p = inplace_cuda.run_plain(q0, obst, p, 200, "i16")
+            e, r = compare(f"K3-i16 {n}x{n} {start}", q_k, tot_k, q_p, tot_p)
+            k3i_err, k3i_rel = max(k3i_err, e), max(k3i_rel, r)
+    for ny, nx in ((60, 100), (7, 33)):
+        p, _, obst, _ = field(ny, nx)
+        q0 = i16_start(p, mixed_state(p, dev))
+        for steps, chunk in ((7, 4), (8, 4), (5, 8), (600, 256)):
+            q_k, tot_k = inplace_cuda.make_run_all(p, obst, steps, chunk=chunk,
+                                                   storage="i16")(q0)
+            q_p, tot_p = inplace_cuda.run_plain(q0, obst, p, steps, "i16")
+            e, r = compare(f"K3-i16 {ny}x{nx} steps={steps} chunk={chunk}", q_k, tot_k, q_p,
+                           tot_p)
+            k3i_err, k3i_rel = max(k3i_err, e), max(k3i_rel, r)
+            n_cases += 1
+    p, _, obst, f0 = field(1024, 1024, 0.01)
+    q0 = i16_start(p, f0)
+    q_k, tot_k = inplace_cuda.make_run_all(p, obst, 20000, storage="i16")(q0)
+    q_k, tot_k = q_k.clone(), tot_k.clone()
+    q_1, tot_1 = fused_cuda.make_run_all(p, obst, 20000, "i16")(q0)
+    _, k3i_k1i_rel = compare("K3-i16 vs K1-i16 1024x1024 20000 steps", q_k, tot_k, q_1, tot_1)
+    print(f"[3c i16 kernels vs plain] card: {card} | K1-i16 2048x2048 x 50 steps, rest and "
+          f"perturbed: int16 fields equal, tot_u max rel {k1i_rel:.2e} | K3-i16 1024x1024 and "
+          f"1536x1536 x 200 steps, rest and perturbed, + {n_cases} small cases: int16 fields "
+          f"equal, tot_u max rel {k3i_rel:.2e} | K3-i16 vs K1-i16 1024x1024 x 20000 steps: "
+          f"int16 fields equal, tot_u max rel {k3i_k1i_rel:.2e}")
+
     # Phase 4: oracle anchor on the cuda main path.
     p128 = LBMParams(nx=128, ny=128, max_iters=120, reynolds_dim=10,
                      density=0.1, accel=0.005, omega=1.85)
@@ -187,83 +280,160 @@ def main() -> int:
     # Phase 5: end to end through the CLI, in this process so the launch
     # counters of the main path can be read.
     mlups: dict[str, float] = {}
-    k1_launches = k2_launches = 0
+    launches: dict[str, int] = {}
     with tempfile.TemporaryDirectory() as td:
-        runs = []
-        for n, steps, preset in ((256, 8000, "cylinder"), (1024, 2000, "channel")):
-            params = LBMParams(nx=n, ny=n, max_iters=steps, reynolds_dim=10,
-                                        density=0.1, accel=0.01 if n >= 1024 else 0.005,
-                                        omega=1.85)
-            pfile, ofile = scenegen.write_scene(td, preset, params)
-            runs.append((f"{n}x{n}", steps, pfile, ofile))
 
-        def cli_run(tag, steps, pfile, ofile, variant):
-            out_dir = os.path.join(td, f"{tag}-{variant}")
+        def cli_run(tag, pfile, ofile, variant, *extra):
+            out_dir = os.path.join(td, f"{tag}-{variant}{'-'.join(extra)}")
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 rc = cli.main(["run", pfile, ofile, "--variant", variant, "--device", "cuda",
-                               "--steps", str(steps), "--out-dir", out_dir])
+                               "--out-dir", out_dir, *extra])
             text = buf.getvalue()
             if rc != 0:
-                fail(f"run {tag} --variant {variant} exited {rc}:\n{text}")
+                fail(f"run {tag} --variant {variant} {' '.join(extra)} exited {rc}:\n{text}")
             rate = [ln for ln in text.splitlines() if ln.startswith("Compute rate:")]
-            mlups[f"{tag} {variant}"] = float(rate[0].split()[-2])
-            return out_dir
+            run_variant = [ln for ln in text.splitlines() if ln.startswith("Variant:")]
+            mlups[f"{tag} {run_variant[0].split()[-1]}"] = float(rate[0].split()[-2])
+            return out_dir, run_variant[0].split()[-1]
 
-        fused_cuda.LAUNCHES = 0
-        resident_cuda.LAUNCHES = 0
-        cuda_dirs = {tag: cli_run(tag, steps, pf, of, "cuda") for tag, steps, pf, of in runs}
-        k1_launches, k2_launches = fused_cuda.LAUNCHES, resident_cuda.LAUNCHES
-        if k1_launches <= 0 or k2_launches <= 0:
-            fail(f"main path skipped a kernel: K1 launches {k1_launches}, K2 {k2_launches}")
-        torch_dirs = {tag: cli_run(tag, steps, pf, of, "torch") for tag, steps, pf, of in runs}
-        checks = []
-        for tag, *_ in runs:
-            a, b = cuda_dirs[tag], torch_dirs[tag]
+        def cli_check(ref_av, ref_fs, run_dir, what):
+            """``check`` a run's files against reference files; returns the
+            (av_vels, final_state) max deviations in percent as printed."""
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
-                rc = cli.main(["check",
-                               "--ref-av-vels-file", os.path.join(b, "av_vels.dat"),
-                               "--ref-final-state-file", os.path.join(b, "final_state.dat"),
-                               "--av-vels-file", os.path.join(a, "av_vels.dat"),
-                               "--final-state-file", os.path.join(a, "final_state.dat")])
-            if rc != 0 or "Both tests passed!" not in buf.getvalue():
-                fail(f"check {tag} cuda vs torch failed (rc {rc}):\n{buf.getvalue()}")
+                rc = cli.main(["check", "--ref-av-vels-file", ref_av,
+                               "--ref-final-state-file", ref_fs,
+                               "--av-vels-file", os.path.join(run_dir, "av_vels.dat"),
+                               "--final-state-file", os.path.join(run_dir, "final_state.dat")])
+            text = buf.getvalue()
+            if rc != 0 or "Both tests passed!" not in text:
+                fail(f"check {what} failed (rc {rc}):\n{text}")
+            return [ln.split("=")[-1].strip() for ln in text.splitlines() if ln.endswith("%")]
+
+        def scene_files(n, steps, preset, accel):
+            params = LBMParams(nx=n, ny=n, max_iters=steps, reynolds_dim=10,
+                               density=0.1, accel=accel, omega=1.85)
+            return scenegen.write_scene(td, preset, params)
+
+        runs = [("256x256", *scene_files(256, 8000, "cylinder", 0.005)),
+                ("1024x1024", *scene_files(1024, 2000, "channel", 0.01))]
+        resident_cuda.LAUNCHES = 0
+        inplace_cuda.LAUNCHES = 0
+        cuda_runs = {tag: cli_run(tag, pf, of, "cuda") for tag, pf, of in runs}
+        launches["K2"], k3_cli = resident_cuda.LAUNCHES, inplace_cuda.LAUNCHES
+        if launches["K2"] <= 0 or k3_cli <= 0:
+            fail(f"main path skipped a kernel: K2 launches {launches['K2']}, K3 {k3_cli}")
+        variants = {tag: v for tag, (_, v) in cuda_runs.items()}
+        if variants != {"256x256": "cuda-resident", "1024x1024": "cuda-inplace"}:
+            fail(f"unexpected kernels for the CLI runs: {variants}")
+        torch_dirs = {tag: cli_run(tag, pf, of, "torch")[0] for tag, pf, of in runs}
+        checks = []
+        for tag, *_ in runs:
+            a, b = cuda_runs[tag][0], torch_dirs[tag]
+            cli_check(os.path.join(b, "av_vels.dat"), os.path.join(b, "final_state.dat"), a,
+                      f"{tag} cuda vs torch")
             # Fields are bitwise equal, so the final states are byte-identical;
             # av_vels differ only by the order of the |u| sums.
             with open(os.path.join(a, "final_state.dat"), "rb") as fa, \
                     open(os.path.join(b, "final_state.dat"), "rb") as fb:
                 if fa.read() != fb.read():
                     fail(f"{tag}: cuda and torch final_state.dat differ")
-            checks.append(f"{tag} passed, final_state.dat byte-identical")
-    print(f"[5 CLI end to end] card: {card} | 256x256 x 8000 steps, 1024x1024 x 2000 steps | "
-          f"check cuda vs torch: {'; '.join(checks)} | launches K1 {k1_launches}, "
-          f"K2 {k2_launches}")
+            checks.append(f"{tag} ({variants[tag]}) passed, final_state.dat byte-identical")
+        print(f"[5 CLI end to end] card: {card} | 256x256 x 8000 steps, 1024x1024 x 2000 steps "
+              f"| check cuda vs torch: {'; '.join(checks)} | launches K2 {launches['K2']}, "
+              f"K3 {k3_cli}")
+
+        # Phase 5b: the 1024x1024 reference scene at full length against golden/.
+        golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+        ref_fs = os.path.join(golden, "1024x1024.final_state.dat.gz")
+        ref_av = os.path.join(golden, "1024x1024.av_vels.dat.gz")
+        cells = np.loadtxt(ref_fs, usecols=[0, 1, 6], dtype=np.int64)
+        walls = cells[cells[:, 2] != 0]
+        gparams = LBMParams(nx=1024, ny=1024, max_iters=20000, reynolds_dim=10,
+                            density=0.1, accel=0.01, omega=1.85)
+        gp, go = os.path.join(td, "input_1024x1024_golden.params"), \
+            os.path.join(td, "obstacles_1024x1024_golden.dat")
+        with open(gp, "w") as fp:
+            fp.write("1024\n1024\n20000\n10\n0.1\n0.01\n1.85\n")
+        with open(go, "w") as fp:
+            fp.writelines(f"{x} {y} 1\n" for x, y, _ in walls)
+        golden_dev = {}
+        inplace_cuda.LAUNCHES = 0
+        inplace_cuda.LAUNCHES_I16 = 0
+        for storage, want in (("f32", "cuda-inplace"), ("i16", "cuda-inplace-i16")):
+            out_dir, got = cli_run("golden1024", gp, go, "cuda", "--storage", storage)
+            if got != want:
+                fail(f"golden run --storage {storage}: variant {got}, expected {want}")
+            golden_dev[storage] = cli_check(ref_av, ref_fs, out_dir, f"golden {storage}")
+        launches["K3"], launches["K3-i16"] = inplace_cuda.LAUNCHES, inplace_cuda.LAUNCHES_I16
+        if launches["K3"] <= 0 or launches["K3-i16"] <= 0:
+            fail(f"golden runs skipped a kernel: K3 {launches['K3']}, "
+                 f"K3-i16 {launches['K3-i16']}")
+        print(f"[5b golden 1024x1024] card: {card} | scene from golden/ ({len(walls)} wall "
+              f"cells, {gparams.max_iters} steps, accel {gparams.accel}) | check vs golden "
+              f"(max deviation av_vels, final_state): f32 cuda-inplace "
+              f"{', '.join(golden_dev['f32'])}; i16 cuda-inplace-i16 "
+              f"{', '.join(golden_dev['i16'])} | launches K3 {launches['K3']}, "
+              f"K3-i16 {launches['K3-i16']}")
+
+        # Phase 5c: int16 runs of large grids against the same scene in f32.
+        big = [(f"{n}x{n}", *scene_files(n, 2000, "channel", 0.01)) for n in (1536, 2048)]
+        fused_cuda.LAUNCHES = 0
+        fused_cuda.LAUNCHES_I16 = 0
+        i16_dev = []
+        for tag, pf, of in big:
+            ref_dir, ref_variant = cli_run(tag, pf, of, "cuda", "--storage", "f32")
+            out_dir, got = cli_run(tag, pf, of, "cuda", "--storage", "i16")
+            if (ref_variant, got) != ("cuda-step", "cuda-step-i16"):
+                fail(f"{tag}: variants {ref_variant}, {got}; expected cuda-step(-i16)")
+            dev_pct = cli_check(os.path.join(ref_dir, "av_vels.dat"),
+                                os.path.join(ref_dir, "final_state.dat"), out_dir,
+                                f"{tag} i16 vs f32")
+            i16_dev.append(f"{tag} {', '.join(dev_pct)}")
+        launches["K1"], launches["K1-i16"] = fused_cuda.LAUNCHES, fused_cuda.LAUNCHES_I16
+        if launches["K1"] <= 0 or launches["K1-i16"] <= 0:
+            fail(f"main path skipped a kernel: K1 {launches['K1']}, K1-i16 {launches['K1-i16']}")
+        print(f"[5c CLI i16] card: {card} | channel x 2000 steps, --storage i16 checked "
+              f"against --storage f32 (max deviation av_vels, final_state): "
+              f"{'; '.join(i16_dev)} | launches K1 {launches['K1']}, "
+              f"K1-i16 {launches['K1-i16']}")
 
     # Phase 6: rates.
     print(f"[6a run MLUPS] card: {card} | "
           + "; ".join(f"{k} {v:.1f}" for k, v in mlups.items()))
     gbps = kernel_times.copy_gbps(dev, repeats=5)
-    table = {n: kernel_times.time_grid(n, dev, repeats=5) for n in GRID_SIZES}
+    table = {n: kernel_times.time_grid(n, dev, repeats=5) for n in GRID_SIZES + (1536,)}
     print(f"[6b us/step: median [q1, q3], MLUPS, GB/s] card: {card} | "
           f"copy 1 GiB {gbps[0]:.1f} GB/s | "
           + " ; ".join(kernel_times.format_grid(n, t) for n, t in table.items()))
 
-    # Phase 7: kernel findings, then the last line.
-    k1_ms, k1_plain = table[1024]["K1"][0] / 1e3, table[1024]["twin"][0] / 1e3
-    k2_step_ms, k2_plain_step = table[256]["K2"][0] / 1e3, table[256]["twin"][0] / 1e3
+    # Phase 7: kernel findings, then the last line.  A launch of K1 is one
+    # step; one of K2 or K3 is 256 steps.
+    chunk = inplace_cuda.DEFAULT_CHUNK
+
+    def row(name, source, replaces, key, err, n, plain, per_launch):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[key], "max_abs_err": err,
+                "ms": table[n][key][0] / 1e3 * per_launch,
+                "plain_ms": table[n][plain][0] / 1e3 * per_launch}
+
     kernels = [
-        {"name": "K1 one-step fused kernel (ms per launch = 1 step, 1024x1024)",
-         "route": "cuda", "source": "lbm_tpu_torch/csrc/step.cu",
-         "replaces": "lbm_tpu/ops/fused_pallas.py:249",
-         "launches": k1_launches, "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "K2 persistent multi-step kernel (ms per launch = 256 steps, 256x256)",
-         "route": "cuda", "source": "lbm_tpu_torch/csrc/resident.cu",
-         "replaces": "lbm_tpu/ops/resident_pallas.py:213",
-         "launches": k2_launches, "max_abs_err": k2_err,
-         "ms": k2_step_ms * resident_cuda.DEFAULT_CHUNK,
-         "plain_ms": k2_plain_step * resident_cuda.DEFAULT_CHUNK},
+        row("K1 one-step fused kernel (ms per launch = 1 step, 1024x1024)",
+            "lbm_tpu_torch/csrc/step.cu", "lbm_tpu/ops/fused_pallas.py:249",
+            "K1", k1_err, 1024, "twin", 1),
+        row("K2 persistent multi-step kernel (ms per launch = 256 steps, 256x256)",
+            "lbm_tpu_torch/csrc/resident.cu", "lbm_tpu/ops/resident_pallas.py:213",
+            "K2", k2_err, 256, "twin", resident_cuda.DEFAULT_CHUNK),
+        row("K3 in-place persistent kernel (ms per launch = 256 steps, 1024x1024)",
+            "lbm_tpu_torch/csrc/inplace.cu", "lbm_tpu/ops/resident_pallas.py:601",
+            "K3", k3_err, 1024, "twin", chunk),
+        row("K3-i16 in-place persistent kernel, int16 state (ms per launch = 256 steps, "
+            "1024x1024)", "lbm_tpu_torch/csrc/inplace.cu",
+            "lbm_tpu/ops/resident_pallas.py:601", "K3-i16", k3i_err, 1024, "twin-i16", chunk),
+        row("K1-i16 one-step fused kernel, int16 state (ms per launch = 1 step, 1536x1536)",
+            "lbm_tpu_torch/csrc/step.cu", "lbm_tpu/ops/fused_pallas.py:249",
+            "K1-i16", k1i_err, 1536, "twin-i16", 1),
     ]
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

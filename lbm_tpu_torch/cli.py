@@ -54,7 +54,8 @@ def _add_run_args(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--storage", choices=["f32", "i16"], default="f32",
-        help="state representation; only f32 is ported",
+        help="state representation: f32, or i16 (int16 fixed-point deviations, "
+        "half the bytes; needs the cuda variant, which --variant auto picks)",
     )
     p.add_argument("--steps", type=int, default=None, help="override maxIters")
     p.add_argument("--out-dir", default=".", help="output directory")
@@ -86,9 +87,6 @@ def cmd_run(args: argparse.Namespace) -> int:
     for dest, flag in _UNPORTED_RUN_FLAGS.items():
         if getattr(args, dest) not in (None, False):
             raise NotPortedError(flag)
-    if args.storage != "f32":
-        raise NotPortedError(f"--storage {args.storage}")
-
     device = resolve_device(args.device)
     scene = load_scene(args.paramfile, args.obstaclefile)
     config = RunConfig(
@@ -96,6 +94,7 @@ def cmd_run(args: argparse.Namespace) -> int:
         device=args.device,
         num_steps=args.steps,
         segment_steps=args.segment_steps,
+        storage=args.storage,
     )
     print(f"lbm_tpu_torch: device={device} ({device_name(device)})")
 
@@ -130,6 +129,7 @@ def cmd_bench(args: argparse.Namespace) -> int:
         steps=args.steps,
         repeats=args.repeats,
         device=args.device,
+        storage=args.storage,
     )
     print(json.dumps(report))
     return 0
@@ -174,6 +174,7 @@ def main(argv: list[str] | None = None) -> int:
     p_bench.add_argument("--steps", type=int, default=None)
     p_bench.add_argument("--repeats", type=int, default=3)
     p_bench.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p_bench.add_argument("--storage", choices=["f32", "i16"], default="f32")
 
     sub.add_parser("info", help="print device/runtime info")
 

@@ -1,16 +1,24 @@
 // Shared per-cell D2Q9-BGK update for the CUDA kernels of lbm_tpu_torch.
 //
-// Both kernels (step.cu, resident.cu) pull the 9 values of a cell with
-// lbm_pull() and update it with lbm_collide(), so they stay bitwise equal to
-// each other and to the plain torch step (ops/stencil_math.py, which this
-// file follows op for op, in the same association order).
+// Every kernel (step.cu, resident.cu, inplace.cu) loads state through
+// lbm_load(), updates a cell with lbm_collide() and stores with
+// lbm_encode(), so they stay bitwise equal to each other and to the plain
+// torch step (ops/stencil_math.py, which this file follows op for op, in
+// the same association order).  step.cu and resident.cu pull a cell's 9
+// values with lbm_pull(); inplace.cu reads them from its in-place layout.
+//
+// Storage: the state is float32, or int16 fixed-point deviations from rest
+// (ops/quant.py).  lbm_load() dequantizes and lbm_encode() quantizes with
+// the host-computed float32 constants in StepParams::q, so every kernel
+// computes in float32 whatever the storage, and the injection guard sees
+// dequantized values, as B1 does (lbm_tpu/ops/fused_pallas.py:304-307).
 //
 // Bitwise equality with the torch step needs uncontracted IEEE float32: the
 // library is built with --fmad=false (no a*b+c -> FMA), -prec-div=true and
 // -prec-sqrt=true (correctly rounded / and sqrt), and never with
 // --use_fast_math (ops/_build.py).
 //
-// Layout: f is (9, ny, nx) float32, plane k at f + k*ny*nx, row-major; the
+// Layout: f is (9, ny, nx) float32 or int16, plane k at f + k*ny*nx, row-major; the
 // obstacle mask is (ny, nx) bytes, nonzero = wall.  Speed numbering as in
 // core/lattice.py:
 //
@@ -32,6 +40,15 @@ constexpr int kThreads = 256;  // threads per block of every kernel
 #define LBM_W1 (static_cast<float>(1.0 / 9.0))
 #define LBM_W2 (static_cast<float>(1.0 / 36.0))
 
+// int16 codec constants, float32 values computed on the host
+// (ops/quant.py codec_constants): q = clamp(rint((f - rest) * scale)),
+// f = q * inv + rest.  Unused (zero) for float32 state.
+struct Codec {
+  float scale[9];
+  float inv[9];
+  float rest[9];
+};
+
 struct StepParams {
   int ny;
   int nx;
@@ -39,33 +56,70 @@ struct StepParams {
   float omega;
   float w1;  // density * accel / 9
   float w2;  // density * accel / 36
+  Codec q;
 };
 
-// State loads.  kL2 = true reads through L2 only (ld.global.cg), bypassing
-// the per-SM L1, which is not coherent with other SMs' writes: the persistent
-// kernel reads, after a grid barrier, values other blocks wrote in the same
-// launch.  The one-step kernel reads a buffer no one writes during its launch
-// and takes the default cached load.
-template <bool kL2>
-__device__ __forceinline__ float lbm_load(const float* a) {
-  if constexpr (kL2) {
-    return __ldcg(a);
-  } else {
-    return *a;
+// Fill p.q from a host array of 27 floats (scales, inverse scales, rest
+// values), or leave it zero for a null pointer (float32 state).
+inline void lbm_set_codec(StepParams& p, const float* codec) {
+  if (codec == nullptr) return;
+  for (int k = 0; k < 9; ++k) {
+    p.q.scale[k] = codec[k];
+    p.q.inv[k] = codec[9 + k];
+    p.q.rest[k] = codec[18 + k];
   }
 }
 
-// Injection guard of the driven row, evaluated at the SOURCE cell (sj, si)
-// on its pre-injection values: fluid, and f3 - w1, f6 - w2, f7 - w2 all
-// strictly positive (SerialCode/d2q9-bgk.c:216-246).
-template <bool kL2>
-__device__ __forceinline__ float lbm_accel_gate(const float* f, const uint8_t* obst,
+__device__ __forceinline__ float lbm_decode(float v, int, const StepParams&) { return v; }
+__device__ __forceinline__ float lbm_decode(int16_t v, int k, const StepParams& p) {
+  return static_cast<float>(v) * p.q.inv[k] + p.q.rest[k];  // --fmad=false: no FMA
+}
+
+template <typename T>
+__device__ __forceinline__ T lbm_encode(float v, int k, const StepParams& p);
+template <>
+__device__ __forceinline__ float lbm_encode<float>(float v, int, const StepParams&) {
+  return v;
+}
+template <>
+__device__ __forceinline__ int16_t lbm_encode<int16_t>(float v, int k, const StepParams& p) {
+  // torch.round and rintf both round half to even.
+  const float r = rintf((v - p.q.rest[k]) * p.q.scale[k]);
+  return static_cast<int16_t>(fminf(fmaxf(r, -32767.0f), 32767.0f));
+}
+
+// State loads of plane k, decoded to float32.  kL2 = true reads through L2
+// only (ld.global.cg), bypassing the per-SM L1, which is not coherent with
+// other SMs' writes: the persistent kernels read values other blocks wrote
+// in the same launch.  The one-step kernel reads a buffer no one writes
+// during its launch and takes the default cached load.
+template <bool kL2, typename T>
+__device__ __forceinline__ float lbm_load(const T* a, int k, const StepParams& p) {
+  if constexpr (kL2) {
+    return lbm_decode(__ldcg(a), k, p);
+  } else {
+    return lbm_decode(*a, k, p);
+  }
+}
+
+// Injection guard of a driven-row cell from its pre-injection values: fluid,
+// and f3 - w1, f6 - w2, f7 - w2 all strictly positive
+// (SerialCode/d2q9-bgk.c:216-246).
+__device__ __forceinline__ bool lbm_guard(bool fluid, float f3, float f6, float f7,
+                                          const StepParams& p) {
+  return fluid && (f3 - p.w1 > 0.0f) && (f6 - p.w2 > 0.0f) && (f7 - p.w2 > 0.0f);
+}
+
+// The injection of the driven row's cell (sj, si), guarded on its
+// pre-injection values: w, or 0.0f where the guard is false.
+template <bool kL2, typename T>
+__device__ __forceinline__ float lbm_accel_gate(const T* f, const uint8_t* obst,
                                                 size_t plane, int sj, int si,
                                                 float w, const StepParams& p) {
   const size_t c = static_cast<size_t>(sj) * p.nx + si;
-  const bool ok = !obst[c] && (lbm_load<kL2>(f + 3 * plane + c) - p.w1 > 0.0f) &&
-                  (lbm_load<kL2>(f + 6 * plane + c) - p.w2 > 0.0f) &&
-                  (lbm_load<kL2>(f + 7 * plane + c) - p.w2 > 0.0f);
+  const bool ok = lbm_guard(!obst[c], lbm_load<kL2>(f + 3 * plane + c, 3, p),
+                            lbm_load<kL2>(f + 6 * plane + c, 6, p),
+                            lbm_load<kL2>(f + 7 * plane + c, 7, p), p);
   return ok ? w : 0.0f;
 }
 
@@ -74,8 +128,8 @@ __device__ __forceinline__ float lbm_accel_gate(const float* f, const uint8_t* o
 // from the driven row carries its source cell's own injection.  The guard is
 // recomputed here from the source cell (the TPU kernel does the same for its
 // ghost rows, lbm_tpu/ops/fused_pallas.py:316-325).
-template <bool kL2>
-__device__ __forceinline__ void lbm_pull(const float* f, const uint8_t* obst, int j,
+template <bool kL2, typename T>
+__device__ __forceinline__ void lbm_pull(const T* f, const uint8_t* obst, int j,
                                          int i, const StepParams& p, float t[9]) {
   const size_t plane = static_cast<size_t>(p.ny) * p.nx;
   const int js = (j == 0) ? p.ny - 1 : j - 1;      // source row of cy = +1
@@ -86,15 +140,15 @@ __device__ __forceinline__ void lbm_pull(const float* f, const uint8_t* obst, in
   const size_t rs = static_cast<size_t>(js) * p.nx;
   const size_t rn = static_cast<size_t>(jn) * p.nx;
 
-  t[0] = lbm_load<kL2>(f + 0 * plane + rj + i);
-  t[1] = lbm_load<kL2>(f + 1 * plane + rj + iw);
-  t[2] = lbm_load<kL2>(f + 2 * plane + rs + i);
-  t[3] = lbm_load<kL2>(f + 3 * plane + rj + ie);
-  t[4] = lbm_load<kL2>(f + 4 * plane + rn + i);
-  t[5] = lbm_load<kL2>(f + 5 * plane + rs + iw);
-  t[6] = lbm_load<kL2>(f + 6 * plane + rs + ie);
-  t[7] = lbm_load<kL2>(f + 7 * plane + rn + ie);
-  t[8] = lbm_load<kL2>(f + 8 * plane + rn + iw);
+  t[0] = lbm_load<kL2>(f + 0 * plane + rj + i, 0, p);
+  t[1] = lbm_load<kL2>(f + 1 * plane + rj + iw, 1, p);
+  t[2] = lbm_load<kL2>(f + 2 * plane + rs + i, 2, p);
+  t[3] = lbm_load<kL2>(f + 3 * plane + rj + ie, 3, p);
+  t[4] = lbm_load<kL2>(f + 4 * plane + rn + i, 4, p);
+  t[5] = lbm_load<kL2>(f + 5 * plane + rs + iw, 5, p);
+  t[6] = lbm_load<kL2>(f + 6 * plane + rs + ie, 6, p);
+  t[7] = lbm_load<kL2>(f + 7 * plane + rn + ie, 7, p);
+  t[8] = lbm_load<kL2>(f + 8 * plane + rn + iw, 8, p);
 
   // Speeds 1, 3 come from row j; 5, 6 from row js; 7, 8 from row jn.
   if (j == p.accel_row) {
@@ -196,7 +250,7 @@ __device__ __forceinline__ void lbm_reduce_row(const float* partials, int n, int
                                                float* out, float* sh) {
   const float* r = partials + static_cast<size_t>(row) * n;
   float acc = 0.0f;
-  for (int b = threadIdx.x; b < n; b += kThreads) acc = acc + lbm_load<true>(r + b);
+  for (int b = threadIdx.x; b < n; b += kThreads) acc = acc + __ldcg(r + b);
   const float total = lbm_block_sum(acc, sh);
   if (threadIdx.x == 0) out[row] = total;
 }

@@ -1,18 +1,20 @@
 """Simulation driver: initialise, run the step loop, collate.
 
-The counterpart of ``lbm_tpu/models/driver.py`` for a single-device f32
-run: the init / compute / collate phases of the reference's ``main()``
-(SerialCode/d2q9-bgk.c:132-205), long runs cut into 4000-step segments
-(``_segment_lengths``), the first launch and the kernel build billed to
-init, and av = tot_u / fluid cells in float32.
+The counterpart of ``lbm_tpu/models/driver.py`` for a single-device run
+with f32 or i16 storage: the init / compute / collate phases of the
+reference's ``main()`` (SerialCode/d2q9-bgk.c:132-205), long runs cut into
+4000-step segments (``_segment_lengths``), the first launch and the kernel
+build billed to init, av = tot_u / fluid cells in float32, and the output
+state taken through the program's ``f_of`` (dequantized for i16,
+lbm_tpu/models/driver.py:759).
 
 Launches are asynchronous, so the compute bracket ends with
 ``torch.cuda.synchronize()``; without it the run would report the rate at
 which launches were queued.  Inside the loop nothing waits for the device
 and nothing is allocated per step: each segment's runner holds its buffers.
 
-Not yet ported: frames, debug, checkpoint/resume, i16 storage, plans,
-temporal blocking and the sharded variants.
+Not yet ported: frames, debug, checkpoint/resume, plans, temporal blocking
+(``--temporal-k``) and the sharded variants.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from lbm_tpu_torch.core import oracle
 from lbm_tpu_torch.io.scene import Scene
 from lbm_tpu_torch.models.program import StepProgram, build_single_program
 from lbm_tpu_torch.models.variants import resolve_variant
+from lbm_tpu_torch.ops import quant
 from lbm_tpu_torch.utils.invariants import calc_reynolds
 from lbm_tpu_torch.utils.timing import PhaseTimer
 
@@ -44,6 +47,7 @@ class RunConfig:
     # Steps per runner call: None = auto (_SEGMENT_STEPS for longer runs),
     # 0 = one call for the whole run, N > 0 = segments of N steps.
     segment_steps: int | None = None
+    storage: str = "f32"  # "f32" or "i16" (int16 state; needs the cuda variant)
 
 
 @dataclasses.dataclass
@@ -81,8 +85,18 @@ def device_name(dev: torch.device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
-def pick_variant(variant: str, device: torch.device) -> str:
+def pick_variant(variant: str, device: torch.device, storage: str = "f32") -> str:
+    """The variant to run; i16 storage needs the cuda variant (whose
+    wrappers run their plain versions on the CPU), as lbm_tpu's needs
+    pallas (lbm_tpu/models/driver.py:208-216, 786-788)."""
+    quant.check_storage(storage)
     v = resolve_variant(variant)
+    if storage == "i16":
+        if v == "serial":
+            raise ValueError("storage 'i16' is not supported by the serial oracle variant")
+        if v == "torch":
+            raise ValueError("storage 'i16' requires the cuda variant; drop --variant torch")
+        return "cuda"
     if v == "auto":
         return "cuda" if device.type == "cuda" else "torch"
     return v
@@ -117,7 +131,7 @@ def run_simulation(
     from ``lbm_tpu`` by io/state.py) instead of the rest equilibrium."""
     config = config or RunConfig()
     device = resolve_device(config.device)
-    variant = pick_variant(config.variant, device)
+    variant = pick_variant(config.variant, device, config.storage)
     params = scene.params
     num_steps = config.num_steps if config.num_steps is not None else params.max_iters
     timer = PhaseTimer()
@@ -134,7 +148,7 @@ def run_simulation(
 
     timer.start("init")
     program: StepProgram = build_single_program(
-        params, scene.obstacles, device, backend=variant, f0=f0
+        params, scene.obstacles, device, backend=variant, f0=f0, storage=config.storage
     )
     seg_lengths = _segment_lengths(num_steps, config) or ([num_steps] if num_steps else [])
     runners = {n: program.make_run_all(n) for n in sorted(set(seg_lengths))}
@@ -158,7 +172,7 @@ def run_simulation(
         tot_us = torch.cat(parts).cpu().numpy().astype(np.float32, copy=False)
     else:
         tot_us = np.zeros(0, dtype=np.float32)
-    f = state.cpu().numpy().astype(np.float32, copy=False)
+    f = program.f_of(state).cpu().numpy().astype(np.float32, copy=False)
     av_vels = tot_us / np.float32(program.tot_cells)
     timer.stop("collate")
 

@@ -51,9 +51,12 @@ _F = ctypes.c_float
 # name -> argtypes; every entry point returns int (a cudaError_t, or a count).
 _SIGNATURES = {
     "lbm_step_blocks": [_I, _I],
-    "lbm_step_run": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P, _I],
+    "lbm_step_run": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P, _I, _I, _P, _I],
     "lbm_resident_grid": [_I, _I, _I],
     "lbm_resident_chunk": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P, _I],
+    "lbm_inplace_grid": [_I, _I, _I, _I],
+    "lbm_inplace_chunk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P, _I, _I, _I,
+                          _I, _I, _P, _I],
 }
 
 _lock = threading.Lock()

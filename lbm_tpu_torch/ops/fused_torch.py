@@ -6,6 +6,12 @@ bounce-back, BGK collision and the per-step |u| sum, with the cell math of
 ops/stencil_math.py.  It runs on any device and is the plain version every
 CUDA kernel of this package is held to, bitwise on fields.
 
+``fused_step_i16`` is the same step on int16 storage (ops/quant.py):
+dequantize, step in float32, quantize.  That is B1's i16 order, load ->
+dequant -> accel -> stream -> collide -> quant
+(``lbm_tpu/ops/fused_pallas.py:304-351``), and the plain version of every
+i16 kernel here.
+
 The slab form (``stream_slab`` / ``fused_step_slab``) belongs to the
 sharded modes and is not ported yet.
 """
@@ -18,7 +24,7 @@ import numpy as np
 import torch
 
 from lbm_tpu_torch.core import lattice
-from lbm_tpu_torch.ops import stencil_math
+from lbm_tpu_torch.ops import quant, stencil_math
 from lbm_tpu_torch.params import LBMParams
 
 
@@ -71,14 +77,30 @@ def fused_step_single(
     return StepOutput(torch.stack(out_planes), tot_u)
 
 
+def fused_step_i16(
+    q: torch.Tensor, obstacles: torch.Tensor, params: LBMParams
+) -> StepOutput:
+    """One step on int16 state: ``q`` (9, ny, nx) int16 -> (int16 state,
+    tot_u), tot_u taken from the dequantized values."""
+    f_new, tot_u = fused_step_single(quant.dequantize(q, params.density), obstacles, params)
+    return StepOutput(quant.quantize(f_new, params.density), tot_u)
+
+
 def run_steps(
-    f: torch.Tensor, obstacles: torch.Tensor, params: LBMParams, num_steps: int
+    f: torch.Tensor,
+    obstacles: torch.Tensor,
+    params: LBMParams,
+    num_steps: int,
+    storage: str = "f32",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``num_steps`` twin steps: returns (f_final, tot_us (num_steps,)).
+    With ``storage="i16"`` the state is int16 in and out.
 
     The per-step sums are written into one tensor on ``f``'s device, so the
     loop never waits for the device."""
+    quant.check_storage(storage)
+    step = fused_step_i16 if storage == "i16" else fused_step_single
     tot_us = torch.empty(num_steps, dtype=torch.float32, device=f.device)
     for t in range(num_steps):
-        f, tot_us[t] = fused_step_single(f, obstacles, params)
+        f, tot_us[t] = step(f, obstacles, params)
     return f, tot_us

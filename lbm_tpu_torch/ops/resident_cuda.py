@@ -33,10 +33,10 @@ from lbm_tpu_torch.params import LBMParams
 LAUNCHES = 0
 DEFAULT_CHUNK = 256
 
-# Two f32 copies of the state must fit this share of the H100's 50 MB L2
-# for the multi-step kernel to be chosen.  A first guess, to be set by the
-# K1/K2 measurements across grids in PERF.md.
-L2_STATE_BUDGET = 24 * 2**20
+# Two f32 copies of the state must fit this many bytes for the multi-step
+# kernel to be chosen: up to 768^2 (40.5 MiB), where K2 measured 12.86
+# us/step against K1's 14.81 and K3's 14.0-14.6 (PERF.md, Findings PR 2).
+L2_STATE_BUDGET = 42 * 2**20
 
 
 def fits_l2(ny: int, nx: int) -> bool:

@@ -63,12 +63,13 @@ def run_bench(
     steps: int | None = None,
     repeats: int = 3,
     device: str = "cuda",
+    storage: str = "f32",
 ) -> dict:
     from lbm_tpu_torch.models.driver import RunConfig, run_simulation
 
     scene = make_scene(grid)
     num_steps = steps if steps is not None else scene.params.max_iters
-    config = RunConfig(variant=variant, device=device, num_steps=num_steps)
+    config = RunConfig(variant=variant, device=device, num_steps=num_steps, storage=storage)
 
     best = None
     for _ in range(max(1, repeats)):
@@ -79,7 +80,7 @@ def run_bench(
     baseline = REFERENCE_BEST_MLUPS.get(grid)
     return {
         "metric": f"MLUPS {grid} {best.variant}",
-        "storage": "f32",
+        "storage": storage,
         "value": round(best.mlups, 1),
         "unit": "MLUPS",
         "vs_baseline": round(best.mlups / baseline, 3) if baseline else None,

@@ -1,14 +1,17 @@
 """Time the CUDA kernels and the torch twin on the card.
 
 For each grid (a closed box with the reference scenes' parameters,
-tools/bench.make_scene): K1 as a loop of launches, K2 in 256-step chunks,
-and the twin, each run from rest and timed with CUDA events over repeated
-calls after a warm call.  Prints microseconds per step (median and
-quartiles), MLUPS, and the computed traffic rate (73 B per cell-step), next
-to the bandwidth of a 1 GiB device copy measured in the same process, and
-the card's name and power limit::
+tools/bench.make_scene): K1 as a loop of launches, K2 and K3 in 256-step
+chunks, the int16 kernels K1-i16 and K3-i16, and the plain versions (the
+twin, and its int16 form), each run from rest and timed with CUDA events
+over repeated calls after a warm call.  Grids up to 1024^2 time every
+kernel; larger grids only the int16 ones.  Prints
+microseconds per step (median and quartiles), MLUPS, and the computed
+traffic rate (73 B per cell-step in f32, 37 B in int16), next to the
+bandwidth of a 1 GiB device copy measured in the same process, and the
+card's name and power limit::
 
-    python -m lbm_tpu_torch.tools.kernel_times [--grids 128,256,512,1024] [--repeats 7]
+    python -m lbm_tpu_torch.tools.kernel_times [--grids 128,256,512,1024,1536] [--repeats 7]
 
 Needs a CUDA device; without one it exits 1.
 """
@@ -19,7 +22,11 @@ import argparse
 import statistics
 import sys
 
-BYTES_PER_CELL_STEP = 2 * 9 * 4 + 1  # state read + written, obstacle byte
+BYTES_PER_CELL_STEP = 2 * 9 * 4 + 1  # f32 state read + written, obstacle byte
+BYTES_PER_CELL_STEP_I16 = 2 * 9 * 2 + 1
+
+F32_KERNELS = ("K1", "K2", "K3", "twin")
+I16_KERNELS = ("K1-i16", "K3-i16", "twin-i16")
 
 
 def _timed_ms(fn, repeats: int) -> list[float]:
@@ -57,30 +64,39 @@ def copy_gbps(device, repeats: int = 7, nbytes: int = 2**30) -> tuple[float, flo
 
 
 def time_grid(n: int, device, repeats: int = 7) -> dict[str, tuple[float, float, float]]:
-    """us/step (median, q1, q3) of K1, K2 and the twin on an n x n grid."""
+    """us/step (median, q1, q3) of every kernel and plain version on an
+    n x n grid up to 1024^2, of the int16 ones above."""
     import torch
 
     from lbm_tpu_torch.core import lattice
-    from lbm_tpu_torch.ops import fused_cuda, fused_torch, resident_cuda
+    from lbm_tpu_torch.ops import fused_cuda, fused_torch, inplace_cuda, quant, resident_cuda
     from lbm_tpu_torch.tools.bench import make_scene
 
+    kernels = (F32_KERNELS if n <= 1024 else ()) + I16_KERNELS
     scene = make_scene(f"{n}x{n}")
     p = scene.params
     obst = torch.from_numpy(scene.obstacles).to(device)
     f0 = lattice.equilibrium_rest_device(p.density, n, n, device)
+    q0 = quant.quantize(f0, p.density)
     steps = 4000 if n <= 512 else 2000
     twin_steps = 50
-    k1 = fused_cuda.make_run_all(p, obst, steps)
-    k2 = resident_cuda.make_run_all(p, obst, steps)
-    runs = {
-        "K1": (lambda: k1(f0), steps, repeats),
-        "K2": (lambda: k2(f0), steps, repeats),
-        "twin": (lambda: fused_torch.run_steps(f0, obst, p, twin_steps), twin_steps,
-                 max(1, min(repeats, 5))),
+    twin_reps = max(1, min(repeats, 5))
+    makers = {
+        "K1": lambda: (fused_cuda.make_run_all(p, obst, steps), f0, steps, repeats),
+        "K2": lambda: (resident_cuda.make_run_all(p, obst, steps), f0, steps, repeats),
+        "K3": lambda: (inplace_cuda.make_run_all(p, obst, steps), f0, steps, repeats),
+        "K1-i16": lambda: (fused_cuda.make_run_all(p, obst, steps, "i16"), q0, steps, repeats),
+        "K3-i16": lambda: (inplace_cuda.make_run_all(p, obst, steps, storage="i16"), q0,
+                           steps, repeats),
+        "twin": lambda: (lambda f: fused_torch.run_steps(f, obst, p, twin_steps), f0,
+                         twin_steps, twin_reps),
+        "twin-i16": lambda: (lambda f: fused_torch.run_steps(f, obst, p, twin_steps, "i16"),
+                             q0, twin_steps, twin_reps),
     }
     out = {}
-    for name, (fn, n_steps, reps) in runs.items():
-        med, q1, q3 = _quartiles(_timed_ms(fn, reps))
+    for name in kernels:
+        run, start, n_steps, reps = makers[name]()
+        med, q1, q3 = _quartiles(_timed_ms(lambda: run(start), reps))
         out[name] = (med * 1e3 / n_steps, q1 * 1e3 / n_steps, q3 * 1e3 / n_steps)
     return out
 
@@ -88,9 +104,10 @@ def time_grid(n: int, device, repeats: int = 7) -> dict[str, tuple[float, float,
 def format_grid(n: int, times: dict[str, tuple[float, float, float]]) -> str:
     parts = []
     for name, (med, q1, q3) in times.items():
+        nbytes = BYTES_PER_CELL_STEP_I16 if name.endswith("-i16") else BYTES_PER_CELL_STEP
         parts.append(
             f"{name} {med:.3f} us/step [{q1:.3f}, {q3:.3f}] {n * n / med:.0f} MLUPS "
-            f"{BYTES_PER_CELL_STEP * n * n / med / 1e3:.0f} GB/s"
+            f"{nbytes * n * n / med / 1e3:.0f} GB/s"
         )
     return f"{n}^2: " + " | ".join(parts)
 
@@ -101,7 +118,7 @@ def main(argv: list[str] | None = None) -> int:
     from lbm_tpu_torch.tools.bench import card_line
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--grids", default="128,256,512,1024")
+    parser.add_argument("--grids", default="128,256,512,1024,1536")
     parser.add_argument("--repeats", type=int, default=7)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():

@@ -184,7 +184,7 @@ def test_cli_outputs_match_lbm_tpu(tmp_path, scene_files, capsys):
 
 @pytest.mark.parametrize(
     "extra",
-    [["--debug"], ["--frame-interval", "5"], ["--storage", "i16"], ["--plan"],
+    [["--debug"], ["--frame-interval", "5"], ["--plan"],
      ["--resume", "x.npz"], ["--checkpoint-every", "5"], ["--temporal-k", "2"],
      ["--devices", "2"], ["--variant", "sync"], ["--variant", "ca"]],
     ids=lambda a: " ".join(a),
@@ -197,6 +197,77 @@ def test_cli_unported_flags_exit_1(tmp_path, scene_files, capsys, extra):
     assert rc == 1
     assert err.startswith("Error:") and "not yet ported to lbm_tpu_torch" in err
     assert not out.exists()
+
+
+@pytest.mark.parametrize("variant", ["torch", "jnp", "serial"])
+def test_cli_i16_needs_the_cuda_variant(tmp_path, scene_files, capsys, variant):
+    pfile, ofile = scene_files
+    out = tmp_path / "out"
+    rc = cli.main(["run", pfile, ofile, "--device", "cpu", "--storage", "i16",
+                   "--variant", variant, "--out-dir", str(out)])
+    err = capsys.readouterr().err
+    assert rc == 1 and err.startswith("Error:") and "storage 'i16'" in err
+    assert not out.exists()
+
+
+def test_cli_i16_run_passes_check_against_f32(tmp_path, capsys):
+    """``run --storage i16`` on the CPU (the cuda variant's plain versions)
+    writes files that pass ``check`` against the same run in f32."""
+    params = LBMParams(nx=64, ny=32, max_iters=200, reynolds_dim=10,
+                       density=0.1, accel=0.005, omega=1.85)
+    pfile, ofile = scenegen.write_scene(str(tmp_path / "scene"), "cylinder", params)
+    for storage in ("f32", "i16"):
+        rc = cli.main(["run", pfile, ofile, "--device", "cpu", "--storage", storage,
+                       "--steps", "200", "--out-dir", str(tmp_path / storage)])
+        out = capsys.readouterr().out
+        assert rc == 0
+        want = "cuda-inplace-i16" if storage == "i16" else "torch"
+        assert f"Variant:\t\t\t{want}" in out
+    rc = cli.main([
+        "check",
+        "--ref-av-vels-file", str(tmp_path / "f32" / "av_vels.dat"),
+        "--ref-final-state-file", str(tmp_path / "f32" / "final_state.dat"),
+        "--av-vels-file", str(tmp_path / "i16" / "av_vels.dat"),
+        "--final-state-file", str(tmp_path / "i16" / "final_state.dat"),
+    ])
+    assert rc == 0 and "Both tests passed!" in capsys.readouterr().out
+
+
+def test_i16_run_matches_f32_run():
+    """30 steps on a 16x128 box: the quantized run tracks the exact one to
+    quantization noise (the bounds of tests/test_quant.py:74-86)."""
+    params = LBMParams(nx=128, ny=16, max_iters=30, reynolds_dim=10,
+                       density=0.1, accel=0.005, omega=1.85)
+    mask = np.zeros((16, 128), dtype=bool)
+    mask[0, :] = mask[-1, :] = True
+    mask[:, 0] = mask[:, -1] = True
+    scene = Scene(params, mask)
+    ref = driver.run_simulation(scene, _cpu("torch"))
+    res = driver.run_simulation(scene, _cpu("auto", storage="i16"))
+    assert res.variant == "cuda-inplace-i16"
+    assert res.f.dtype == np.float32  # f_of dequantizes
+    assert np.abs(res.f - ref.f).max() / np.abs(ref.f).max() < 5e-4
+    np.testing.assert_allclose(res.av_vels, ref.av_vels, rtol=1e-2)
+
+
+def test_i16_segmented_equals_unsegmented():
+    scene = _scene(16, 24, steps=30)
+    whole = driver.run_simulation(scene, _cpu("cuda", segment_steps=0, storage="i16"))
+    parts = driver.run_simulation(scene, _cpu("cuda", segment_steps=7, storage="i16"))
+    np.testing.assert_array_equal(parts.f, whole.f)
+    np.testing.assert_array_equal(parts.av_vels, whole.av_vels)
+    with pytest.raises(ValueError, match="unknown storage"):
+        driver.run_simulation(scene, _cpu("cuda", storage="bf16"))
+
+
+def test_cli_bench_i16(capsys):
+    assert cli.main(["bench", "--grid", "16x16", "--steps", "5", "--repeats", "1",
+                     "--device", "cpu", "--storage", "i16"]) == 0
+    import json
+
+    report = json.loads(capsys.readouterr().out)
+    assert report["storage"] == "i16" and report["variant"] == "cuda-inplace-i16"
+    assert report["metric"] == "MLUPS 16x16 cuda-inplace-i16" and report["device"] == "cpu"
 
 
 @pytest.mark.parametrize("command", ["viz", "animate", "golden", "sweep", "speedup"])

@@ -24,7 +24,7 @@ import torch
 from lbm_tpu_torch.core import lattice
 from lbm_tpu_torch.io.scene import Scene
 from lbm_tpu_torch.models import driver, program
-from lbm_tpu_torch.ops import _build, fused_cuda, fused_torch, resident_cuda
+from lbm_tpu_torch.ops import _build, fused_cuda, fused_torch, inplace_cuda, quant, resident_cuda
 from lbm_tpu_torch.params import LBMParams
 from lbm_tpu_torch.tools import kernel_times
 
@@ -100,6 +100,108 @@ def test_k2_matches_plain_on_card(cuda_device, steps, chunk, kind):
     _assert_matches(f_k, tot_k, f_p, tot_p)
 
 
+def _start(params, kind, device, storage):
+    f = _state(params, kind, device)
+    return quant.quantize(f, params.density) if storage == "i16" else f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["f32", "i16"])
+@pytest.mark.parametrize("kind", ["rest", "mixed"])
+@pytest.mark.parametrize("steps,chunk", [(1, 4), (7, 4), (8, 4), (5, 8), (40, 16)])
+@pytest.mark.parametrize("shape", [(60, 100), (7, 33), (5, 6)], ids=str)
+def test_k3_matches_plain_on_card(cuda_device, shape, steps, chunk, kind, storage):
+    params, mask = _scene(*shape)
+    obst = torch.from_numpy(mask).to(cuda_device)
+    f0 = _start(params, kind, cuda_device, storage)
+    counter = "LAUNCHES_I16" if storage == "i16" else "LAUNCHES"
+    before = getattr(inplace_cuda, counter)
+    run = inplace_cuda.make_run_all(params, obst, steps, chunk=chunk, storage=storage)
+    f_k, tot_k = run(f0)
+    assert getattr(inplace_cuda, counter) == before + -(-steps // chunk)
+    f_p, tot_p = inplace_cuda.run_plain(f0, obst, params, steps, storage)
+    assert f_k.dtype == f0.dtype
+    _assert_matches(f_k, tot_k, f_p, tot_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rest", "mixed"])
+@pytest.mark.parametrize("shape", [(60, 100), (7, 33)], ids=str)
+def test_k1_i16_matches_plain_on_card(cuda_device, shape, kind):
+    params, mask = _scene(*shape)
+    obst = torch.from_numpy(mask).to(cuda_device)
+    q0 = _start(params, kind, cuda_device, "i16")
+    before = fused_cuda.LAUNCHES_I16
+    q_k, tot_k = fused_cuda.make_run_all(params, obst, 20, "i16")(q0)
+    assert fused_cuda.LAUNCHES_I16 == before + 20
+    q_p, tot_p = fused_cuda.run_plain(q0, obst, params, 20, "i16")
+    assert q_k.dtype == torch.int16
+    _assert_matches(q_k, tot_k, q_p, tot_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["f32", "i16"])
+def test_k3_and_i16_deterministic_and_segmentable_on_card(cuda_device, storage):
+    params, mask = _scene(48, 40)
+    obst = torch.from_numpy(mask).to(cuda_device)
+    f0 = _start(params, "mixed", cuda_device, storage)
+    makers = [lambda n: inplace_cuda.make_run_all(params, obst, n, chunk=8, storage=storage)]
+    if storage == "i16":
+        makers.append(lambda n: fused_cuda.make_run_all(params, obst, n, "i16"))
+    for make in makers:
+        odd = make(7)(f0)[0].clone()  # an odd run ends in the second buffer
+        assert torch.equal(odd, make(7)(f0)[0])
+        f_a, tot_a = make(30)(f0)
+        f_a, tot_a = f_a.clone(), tot_a.clone()
+        f_b, tot_b = make(30)(f0)
+        assert torch.equal(f_a, f_b) and torch.equal(tot_a, tot_b)
+        seg = make(10)
+        f_s, parts = f0, []
+        for _ in range(3):
+            f_s, t = seg(f_s)
+            parts.append(t.clone())
+        assert torch.equal(f_s, f_a)
+        assert torch.equal(torch.cat(parts), tot_a)
+    assert torch.equal(f0, _start(params, "mixed", cuda_device, storage))  # f0 untouched
+
+
+@pytest.mark.cuda
+def test_k3_and_i16_wrappers_reject_bad_input_on_card(cuda_device):
+    params, mask = _scene(16, 24)
+    obst = torch.from_numpy(mask).to(cuda_device)
+    f0 = _state(params, "rest", cuda_device)
+    q0 = quant.quantize(f0, params.density)
+    runs = [(inplace_cuda.make_run_all(params, obst, 3), f0),
+            (inplace_cuda.make_run_all(params, obst, 3, storage="i16"), q0),
+            (fused_cuda.make_run_all(params, obst, 3, "i16"), q0)]
+    for run, good in runs:
+        with pytest.raises(ValueError):
+            run(good.double())
+        with pytest.raises(ValueError):
+            run(good[:, :, :-1])
+        with pytest.raises(ValueError):
+            run(good.cpu())
+    with pytest.raises(ValueError):
+        runs[1][0](f0)  # f32 state to an int16 runner
+    with pytest.raises(ValueError):
+        runs[0][0](q0)
+    with pytest.raises(ValueError):
+        inplace_cuda.make_run_all(params, obst.to(torch.uint8), 3)
+
+
+@pytest.mark.cuda
+def test_cuda_i16_run_on_card(cuda_device):
+    params, mask = _scene(32, 48)
+    scene = Scene(params, mask)
+    res = driver.run_simulation(scene, driver.RunConfig(variant="cuda", num_steps=25,
+                                                        storage="i16"))
+    ref = driver.run_simulation(scene, driver.RunConfig(variant="cuda", device="cpu",
+                                                        num_steps=25, storage="i16"))
+    assert res.variant == ref.variant == "cuda-inplace-i16"
+    np.testing.assert_array_equal(res.f, ref.f)
+    np.testing.assert_allclose(res.av_vels, ref.av_vels, rtol=1e-6)
+
+
 @pytest.mark.cuda
 def test_kernels_deterministic_and_segmentable_on_card(cuda_device):
     params, mask = _scene(48, 40)
@@ -152,7 +254,7 @@ def test_cuda_run_equals_torch_run_on_card(cuda_device):
 @pytest.mark.cuda
 def test_kernel_times_on_card(cuda_device):
     times = kernel_times.time_grid(32, cuda_device, repeats=2)
-    assert set(times) == {"K1", "K2", "twin"}
+    assert set(times) == set(kernel_times.F32_KERNELS + kernel_times.I16_KERNELS)
     for med, q1, q3 in times.values():
         assert 0 < q1 <= med <= q3
     med, q1, q3 = kernel_times.copy_gbps(cuda_device, repeats=2, nbytes=2**24)
@@ -202,6 +304,7 @@ def test_other_devices_raise():
 def test_kernel_policy(monkeypatch):
     assert resident_cuda.fits_l2(128, 128) and resident_cuda.fits_l2(256, 256)
     assert resident_cuda.fits_l2(512, 512)  # 18 MiB of ping-pong state
+    assert resident_cuda.fits_l2(768, 768)  # 40.5 MiB
     assert not resident_cuda.fits_l2(1024, 1024)  # 72 MiB
     params, mask = _scene(16, 24)
     prog = program.build_single_program(params, mask, torch.device("cpu"), backend="cuda")
@@ -210,6 +313,9 @@ def test_kernel_policy(monkeypatch):
     f1_p, tot1_p = fused_torch.fused_step_single(prog.init_state, torch.from_numpy(mask), params)
     assert torch.equal(f1, f1_p) and torch.equal(tot1, tot1_p)
     monkeypatch.setattr(resident_cuda, "L2_STATE_BUDGET", 1024)
+    prog = program.build_single_program(params, mask, torch.device("cpu"), backend="cuda")
+    assert prog.variant == "cuda-inplace"
+    monkeypatch.setattr(inplace_cuda, "L2_INPLACE_BUDGET", 1024)
     prog = program.build_single_program(params, mask, torch.device("cpu"), backend="cuda")
     assert prog.variant == "cuda-step"
     f, tot = prog.make_run_all(5)(prog.init_state)
@@ -222,12 +328,69 @@ def test_kernel_policy(monkeypatch):
         program.build_single_program(params, mask, "cpu", f0=np.zeros((9, 3, 3), np.float32))
 
 
+def test_kernel_policy_inplace_and_i16(monkeypatch):
+    """The variant names by grid and budget: K2, K3 or a K1 loop for f32;
+    K3-i16 or a K1-i16 loop for i16 (which needs the cuda backend)."""
+    params, mask = _scene(16, 24)
+    obst = torch.from_numpy(mask)
+    cpu = torch.device("cpu")
+    build = program.build_single_program
+    prog = build(params, mask, cpu, backend="cuda", storage="i16")
+    assert prog.variant == "cuda-inplace-i16"
+    assert prog.init_state.dtype == torch.int16
+    assert torch.equal(prog.f_of(prog.init_state),
+                       quant.dequantize(prog.init_state, params.density))
+    q, tot = prog.make_run_all(5)(prog.init_state)
+    q_p, tot_p = fused_torch.run_steps(prog.init_state, obst, params, 5, "i16")
+    assert torch.equal(q, q_p) and torch.equal(tot, tot_p)
+    q1, tot1 = prog.step(prog.init_state)
+    q1_p, tot1_p = fused_torch.fused_step_i16(prog.init_state, obst, params)
+    assert torch.equal(q1, q1_p) and torch.equal(tot1, tot1_p)
+    assert build(params, mask, cpu, backend="cuda").f_of(prog.init_state) is prog.init_state
+    monkeypatch.setattr(inplace_cuda, "L2_INPLACE_BUDGET", inplace_cuda.state_bytes(16, 24, "i16"))
+    assert build(params, mask, cpu, backend="cuda", storage="i16").variant == "cuda-inplace-i16"
+    monkeypatch.setattr(resident_cuda, "L2_STATE_BUDGET", 0)
+    assert build(params, mask, cpu, backend="cuda").variant == "cuda-step"  # f32 needs 2x
+    monkeypatch.setattr(inplace_cuda, "L2_INPLACE_BUDGET", inplace_cuda.state_bytes(16, 24, "i16") - 1)
+    assert build(params, mask, cpu, backend="cuda", storage="i16").variant == "cuda-step-i16"
+    with pytest.raises(ValueError, match="requires the cuda backend"):
+        build(params, mask, cpu, backend="torch", storage="i16")
+    with pytest.raises(ValueError, match="unknown storage"):
+        build(params, mask, cpu, backend="cuda", storage="bf16")
+
+
+def test_i16_wrappers_on_cpu_take_the_plain_version():
+    params, mask = _scene(16, 24)
+    obst = torch.from_numpy(mask)
+    q0 = quant.quantize(_state(params, "mixed", "cpu"), params.density)
+    counts = (fused_cuda.LAUNCHES_I16, inplace_cuda.LAUNCHES, inplace_cuda.LAUNCHES_I16)
+    q_p, tot_p = fused_torch.run_steps(q0, obst, params, 9, "i16")
+    for run in (fused_cuda.make_run_all(params, obst, 9, "i16"),
+                inplace_cuda.make_run_all(params, obst, 9, chunk=4, storage="i16")):
+        q, tot = run(q0)
+        assert torch.equal(q, q_p) and torch.equal(tot, tot_p)
+    f0 = _state(params, "mixed", "cpu")
+    f, tot = inplace_cuda.make_run_all(params, obst, 9, chunk=4)(f0)
+    f_p, tot_p = fused_torch.run_steps(f0, obst, params, 9)
+    assert torch.equal(f, f_p) and torch.equal(tot, tot_p)
+    assert (fused_cuda.LAUNCHES_I16, inplace_cuda.LAUNCHES, inplace_cuda.LAUNCHES_I16) == counts
+    q1, _ = fused_cuda.step(q0, obst, params, "i16")
+    assert torch.equal(q1, fused_torch.fused_step_i16(q0, obst, params).f)
+
+
+def test_kernel_times_report_i16():
+    line = kernel_times.format_grid(128, {"K3-i16": (2.0, 1.5, 2.5)})
+    assert line == "128^2: K3-i16 2.000 us/step [1.500, 2.500] 8192 MLUPS 303 GB/s"
+
+
 def test_build_flags_and_sources(tmp_path, monkeypatch):
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "--fmad=false" in flags
     assert "-prec-div=true" in flags and "-prec-sqrt=true" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
-    assert {s.name for s in _build.sources()} == {"step.cu", "resident.cu", "lbm_common.cuh"}
+    assert {s.name for s in _build.sources()} == {
+        "step.cu", "resident.cu", "inplace.cu", "lbm_common.cuh"}
+    assert {"lbm_inplace_grid", "lbm_inplace_chunk", "lbm_step_run"} <= set(_build._SIGNATURES)
     d0 = _build.build_dir()
     assert d0.parent == _build.BUILD_ROOT and len(d0.name) == 16
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
