@@ -12,11 +12,11 @@ Phases (each prints one line; every number sits beside the card's name and
 power limit as nvidia-smi reports them):
 
 1. the card, torch and CUDA versions, and the kernel build;
-2. K1 (one-step kernel) vs its plain version: 1024x1024 and 60x100 closed
-   boxes with an interior block and the driven row, 50 steps, from rest and
-   (60x100) from a seeded random perturbation of rest with the injection
-   guard false at some driven-row cells; fields torch.equal, per-step tot_u
-   within rtol 1e-6;
+2. K1 (one-step kernel) vs its plain version: 1024x1024, 1536x1536,
+   2048x2048 and 60x100 closed boxes with an interior block and the driven
+   row, 50 steps, from rest and (all but 1024x1024) from a seeded random
+   perturbation of rest with the injection guard false at some driven-row
+   cells; fields torch.equal, per-step tot_u within rtol 1e-6;
 3. K2 (persistent multi-step kernel) vs its plain version: 128x128, 256x128,
    256x256 with (steps, chunk) in {(7,4), (8,4), (5,8), (600,256)}, and
    256x256 from the perturbed state for 600 steps; same bounds;
@@ -27,7 +27,8 @@ power limit as nvidia-smi reports them):
    kernels, at 1024x1024 over 20000 steps: fields torch.equal, tot_u
    within rtol 1e-6;
 3c. the int16 kernels vs their plain version (int16 fields torch.equal,
-   tot_u rtol 1e-6): K1-i16 at 2048x2048 x 50 steps, K3-i16 at 1024x1024
+   tot_u rtol 1e-6): K1-i16 at 1536x1536 and 2048x2048 x 50 steps from
+   rest and perturbed starts, K3-i16 at 1024x1024
    and 1536x1536 from rest and perturbed starts (200 steps) and on the
    small grids above, and K3-i16 vs K1-i16 at 1024x1024 over 20000 steps;
 4. the cuda main path on a 128x128 scene for 120 steps vs core/oracle:
@@ -41,12 +42,15 @@ power limit as nvidia-smi reports them):
    for the full 20000 steps with --storage f32 (variant cuda-inplace) and
    --storage i16, each passing ``check`` against golden/ (1%); the K3 and
    K3-i16 counters, zeroed just before, must have gone up;
-5c. ``run --storage i16`` on 1536x1536 and 2048x2048 channel scenes (2000
-   steps, K1-i16), each passing ``check`` against the same scene's f32
-   cuda run; the K1-i16 counter, zeroed just before, must have gone up;
+5c. 1536x1536 and 2048x2048 channel scenes (2000 steps) run as
+   ``--variant cuda`` in f32 (K1) and in i16 (K1-i16) and as
+   ``--variant torch``: the f32 cuda run passes ``check`` against torch with
+   a byte-identical final_state.dat, and the i16 run passes ``check``
+   against the f32 cuda run; the K1 and K1-i16 counters, zeroed just
+   before, must have gone up;
 6. MLUPS of those runs, and K1 / K2 / K3 / K1-i16 / K3-i16 / twin times at
-   128^2 .. 1024^2 and the int16 ones at 1536^2 (tools/kernel_times.py)
-   beside a 1 GiB device copy's bandwidth;
+   128^2 .. 1024^2 and K1 / K1-i16 / K3-i16 / twin at 1536^2
+   (tools/kernel_times.py) beside a 1 GiB device copy's bandwidth;
 7. one JSON line of kernel findings, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -161,7 +165,9 @@ def main() -> int:
 
     # Phase 2: K1 vs plain.
     k1_err, k1_rel, notes = 0.0, 0.0, []
-    for ny, nx, start in ((1024, 1024, "rest"), (60, 100, "rest"), (60, 100, "mixed")):
+    for ny, nx, start in ((1024, 1024, "rest"), (1536, 1536, "rest"), (1536, 1536, "mixed"),
+                          (2048, 2048, "rest"), (2048, 2048, "mixed"), (60, 100, "rest"),
+                          (60, 100, "mixed")):
         p, _, obst, f0 = field(ny, nx, 0.01 if ny >= 1024 else 0.005)
         if start == "mixed":
             f0 = mixed_state(p, dev)
@@ -225,13 +231,14 @@ def main() -> int:
         return quant.quantize(f, p.density)
 
     k1i_err, k1i_rel = 0.0, 0.0
-    for start in ("rest", "mixed"):
-        p, _, obst, f0 = field(2048, 2048, 0.01)
-        q0 = i16_start(p, f0 if start == "rest" else mixed_state(p, dev))
-        q_k, tot_k = fused_cuda.make_run_all(p, obst, 50, "i16")(q0)
-        q_p, tot_p = fused_cuda.run_plain(q0, obst, p, 50, "i16")
-        e, r = compare(f"K1-i16 2048x2048 {start}", q_k, tot_k, q_p, tot_p)
-        k1i_err, k1i_rel = max(k1i_err, e), max(k1i_rel, r)
+    for n in (1536, 2048):
+        for start in ("rest", "mixed"):
+            p, _, obst, f0 = field(n, n, 0.01)
+            q0 = i16_start(p, f0 if start == "rest" else mixed_state(p, dev))
+            q_k, tot_k = fused_cuda.make_run_all(p, obst, 50, "i16")(q0)
+            q_p, tot_p = fused_cuda.run_plain(q0, obst, p, 50, "i16")
+            e, r = compare(f"K1-i16 {n}x{n} {start}", q_k, tot_k, q_p, tot_p)
+            k1i_err, k1i_rel = max(k1i_err, e), max(k1i_rel, r)
     k3i_err, k3i_rel, n_cases = 0.0, 0.0, 0
     for n in (1024, 1536):
         for start in ("rest", "mixed"):
@@ -258,8 +265,8 @@ def main() -> int:
     q_k, tot_k = q_k.clone(), tot_k.clone()
     q_1, tot_1 = fused_cuda.make_run_all(p, obst, 20000, "i16")(q0)
     _, k3i_k1i_rel = compare("K3-i16 vs K1-i16 1024x1024 20000 steps", q_k, tot_k, q_1, tot_1)
-    print(f"[3c i16 kernels vs plain] card: {card} | K1-i16 2048x2048 x 50 steps, rest and "
-          f"perturbed: int16 fields equal, tot_u max rel {k1i_rel:.2e} | K3-i16 1024x1024 and "
+    print(f"[3c i16 kernels vs plain] card: {card} | K1-i16 1536x1536 and 2048x2048 x 50 "
+          f"steps, rest and perturbed: int16 fields equal, tot_u max rel {k1i_rel:.2e} | K3-i16 1024x1024 and "
           f"1536x1536 x 200 steps, rest and perturbed, + {n_cases} small cases: int16 fields "
           f"equal, tot_u max rel {k3i_rel:.2e} | K3-i16 vs K1-i16 1024x1024 x 20000 steps: "
           f"int16 fields equal, tot_u max rel {k3i_k1i_rel:.2e}")
@@ -296,6 +303,11 @@ def main() -> int:
             run_variant = [ln for ln in text.splitlines() if ln.startswith("Variant:")]
             mlups[f"{tag} {run_variant[0].split()[-1]}"] = float(rate[0].split()[-2])
             return out_dir, run_variant[0].split()[-1]
+
+        def same_final_state(a, b):
+            with open(os.path.join(a, "final_state.dat"), "rb") as fa, \
+                    open(os.path.join(b, "final_state.dat"), "rb") as fb:
+                return fa.read() == fb.read()
 
         def cli_check(ref_av, ref_fs, run_dir, what):
             """``check`` a run's files against reference files; returns the
@@ -335,10 +347,8 @@ def main() -> int:
                       f"{tag} cuda vs torch")
             # Fields are bitwise equal, so the final states are byte-identical;
             # av_vels differ only by the order of the |u| sums.
-            with open(os.path.join(a, "final_state.dat"), "rb") as fa, \
-                    open(os.path.join(b, "final_state.dat"), "rb") as fb:
-                if fa.read() != fb.read():
-                    fail(f"{tag}: cuda and torch final_state.dat differ")
+            if not same_final_state(a, b):
+                fail(f"{tag}: cuda and torch final_state.dat differ")
             checks.append(f"{tag} ({variants[tag]}) passed, final_state.dat byte-identical")
         print(f"[5 CLI end to end] card: {card} | 256x256 x 8000 steps, 1024x1024 x 2000 steps "
               f"| check cuda vs torch: {'; '.join(checks)} | launches K2 {launches['K2']}, "
@@ -377,16 +387,23 @@ def main() -> int:
               f"{', '.join(golden_dev['i16'])} | launches K3 {launches['K3']}, "
               f"K3-i16 {launches['K3-i16']}")
 
-        # Phase 5c: int16 runs of large grids against the same scene in f32.
+        # Phase 5c: large grids, f32 cuda against torch and i16 against f32.
         big = [(f"{n}x{n}", *scene_files(n, 2000, "channel", 0.01)) for n in (1536, 2048)]
         fused_cuda.LAUNCHES = 0
         fused_cuda.LAUNCHES_I16 = 0
-        i16_dev = []
+        f32_dev, i16_dev = [], []
         for tag, pf, of in big:
             ref_dir, ref_variant = cli_run(tag, pf, of, "cuda", "--storage", "f32")
             out_dir, got = cli_run(tag, pf, of, "cuda", "--storage", "i16")
             if (ref_variant, got) != ("cuda-step", "cuda-step-i16"):
                 fail(f"{tag}: variants {ref_variant}, {got}; expected cuda-step(-i16)")
+            torch_dir, _ = cli_run(tag, pf, of, "torch")
+            dev_pct = cli_check(os.path.join(torch_dir, "av_vels.dat"),
+                                os.path.join(torch_dir, "final_state.dat"), ref_dir,
+                                f"{tag} cuda vs torch")
+            if not same_final_state(ref_dir, torch_dir):
+                fail(f"{tag}: cuda and torch final_state.dat differ")
+            f32_dev.append(f"{tag} {', '.join(dev_pct)}")
             dev_pct = cli_check(os.path.join(ref_dir, "av_vels.dat"),
                                 os.path.join(ref_dir, "final_state.dat"), out_dir,
                                 f"{tag} i16 vs f32")
@@ -394,8 +411,9 @@ def main() -> int:
         launches["K1"], launches["K1-i16"] = fused_cuda.LAUNCHES, fused_cuda.LAUNCHES_I16
         if launches["K1"] <= 0 or launches["K1-i16"] <= 0:
             fail(f"main path skipped a kernel: K1 {launches['K1']}, K1-i16 {launches['K1-i16']}")
-        print(f"[5c CLI i16] card: {card} | channel x 2000 steps, --storage i16 checked "
-              f"against --storage f32 (max deviation av_vels, final_state): "
+        print(f"[5c CLI large grids] card: {card} | channel x 2000 steps (max deviation "
+              f"av_vels, final_state) | f32 cuda-step vs torch, final_state.dat "
+              f"byte-identical: {'; '.join(f32_dev)} | --storage i16 vs --storage f32: "
               f"{'; '.join(i16_dev)} | launches K1 {launches['K1']}, "
               f"K1-i16 {launches['K1-i16']}")
 
@@ -419,9 +437,9 @@ def main() -> int:
                 "plain_ms": table[n][plain][0] / 1e3 * per_launch}
 
     kernels = [
-        row("K1 one-step fused kernel (ms per launch = 1 step, 1024x1024)",
+        row("K1 one-step fused kernel (ms per launch = 1 step, 1536x1536)",
             "lbm_tpu_torch/csrc/step.cu", "lbm_tpu/ops/fused_pallas.py:249",
-            "K1", k1_err, 1024, "twin", 1),
+            "K1", k1_err, 1536, "twin", 1),
         row("K2 persistent multi-step kernel (ms per launch = 256 steps, 256x256)",
             "lbm_tpu_torch/csrc/resident.cu", "lbm_tpu/ops/resident_pallas.py:213",
             "K2", k2_err, 256, "twin", resident_cuda.DEFAULT_CHUNK),

@@ -16,8 +16,8 @@ Policy for the ``cuda`` backend (variant names in brackets):
   (``cuda-step``);
 - i16 (``storage="i16"``, which needs the cuda backend): ``step`` is
   K1-i16; ``make_run_all`` is K3-i16 (``cuda-inplace-i16``) where one int16
-  copy fits the same budget (up to 1536^2), else a loop of K1-i16 launches
-  (``cuda-step-i16``; 2048^2 is 72 MiB).
+  copy fits the same budget (square grids up to 1448^2: 1024^2 is 18 MiB),
+  else a loop of K1-i16 launches (``cuda-step-i16``; 1536^2 is 40.5 MiB).
 
 The ``torch`` backend runs the plain twin on either device, f32 only.  On
 the CPU the ``cuda`` backend's wrappers run their plain versions.

@@ -43,9 +43,11 @@ DEFAULT_CHUNK = 256
 # One copy of the state must fit this many bytes for the program to pick K3
 # (where K2 has not been picked): the 1024^2 f32 headline (36 MiB) and the
 # int16 grids up to 1024^2.  On the card K3 was the fastest kernel at 1024^2
-# f32 (29.0 us/step against K2's 30.1 and K1's 31.5) and within 2% of K1-i16
-# at 1024^2 int16 (26.8 against 26.3); K1-i16 won at 1536^2 int16 (59.1
-# against 65.6, 40.5 MiB), which this budget leaves to it (PERF.md).
+# f32 (29.0 us/step against K2's 30.1 and K1's 31.5).  At 1024^2 int16 it
+# read 0.4-2.3% slower than K1-i16 (26.7-26.9 against 26.1-26.6) and keeps
+# the grid all the same, as the int16 in-place path; int16 has no budget of
+# its own yet.  K1-i16 won at 1536^2 int16 (59.1 against 65.6, 40.5 MiB),
+# which this budget leaves to it (PERF.md).
 L2_INPLACE_BUDGET = 36 * 2**20
 
 

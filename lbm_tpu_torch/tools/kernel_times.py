@@ -5,11 +5,11 @@ tools/bench.make_scene): K1 as a loop of launches, K2 and K3 in 256-step
 chunks, the int16 kernels K1-i16 and K3-i16, and the plain versions (the
 twin, and its int16 form), each run from rest and timed with CUDA events
 over repeated calls after a warm call.  Grids up to 1024^2 time every
-kernel; larger grids only the int16 ones.  Prints
-microseconds per step (median and quartiles), MLUPS, and the computed
-traffic rate (73 B per cell-step in f32, 37 B in int16), next to the
-bandwidth of a 1 GiB device copy measured in the same process, and the
-card's name and power limit::
+kernel; larger grids, where the program runs a K1 loop, time K1, the twin
+and the int16 ones.  Prints microseconds per step (median and quartiles),
+MLUPS, and the computed traffic rate (73 B per cell-step in f32, 37 B in
+int16), next to the bandwidth of a 1 GiB device copy measured in the same
+process, and the card's name and power limit::
 
     python -m lbm_tpu_torch.tools.kernel_times [--grids 128,256,512,1024,1536] [--repeats 7]
 
@@ -26,6 +26,7 @@ BYTES_PER_CELL_STEP = 2 * 9 * 4 + 1  # f32 state read + written, obstacle byte
 BYTES_PER_CELL_STEP_I16 = 2 * 9 * 2 + 1
 
 F32_KERNELS = ("K1", "K2", "K3", "twin")
+LARGE_F32_KERNELS = ("K1", "twin")  # above 1024^2, where the program runs K1
 I16_KERNELS = ("K1-i16", "K3-i16", "twin-i16")
 
 
@@ -65,14 +66,14 @@ def copy_gbps(device, repeats: int = 7, nbytes: int = 2**30) -> tuple[float, flo
 
 def time_grid(n: int, device, repeats: int = 7) -> dict[str, tuple[float, float, float]]:
     """us/step (median, q1, q3) of every kernel and plain version on an
-    n x n grid up to 1024^2, of the int16 ones above."""
+    n x n grid up to 1024^2; above it, of K1, the twin and the int16 ones."""
     import torch
 
     from lbm_tpu_torch.core import lattice
     from lbm_tpu_torch.ops import fused_cuda, fused_torch, inplace_cuda, quant, resident_cuda
     from lbm_tpu_torch.tools.bench import make_scene
 
-    kernels = (F32_KERNELS if n <= 1024 else ()) + I16_KERNELS
+    kernels = (F32_KERNELS if n <= 1024 else LARGE_F32_KERNELS) + I16_KERNELS
     scene = make_scene(f"{n}x{n}")
     p = scene.params
     obst = torch.from_numpy(scene.obstacles).to(device)
