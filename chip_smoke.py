@@ -11,7 +11,9 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases (each prints one line; every number sits beside the card's name and
 power limit as nvidia-smi reports them):
 
-1. the card, torch and CUDA versions, and the kernel build;
+1. the card, torch and CUDA versions, the kernel build (one nvcc per
+   source, all started together) and the C++ writer of final_state.dat
+   (``make native``; the Python writer where it cannot be built);
 2. K1 (one-step kernel) vs its plain version: 1024x1024, 1536x1536,
    2048x2048 and 60x100 closed boxes with an interior block and the driven
    row, 50 steps, from rest and (all but 1024x1024) from a seeded random
@@ -27,31 +29,65 @@ power limit as nvidia-smi reports them):
    kernels, at 1024x1024 over 20000 steps: fields torch.equal, tot_u
    within rtol 1e-6;
 3c. the int16 kernels vs their plain version (int16 fields torch.equal,
-   tot_u rtol 1e-6): K1-i16 at 1536x1536 and 2048x2048 x 50 steps from
-   rest and perturbed starts, K3-i16 at 1024x1024
-   and 1536x1536 from rest and perturbed starts (200 steps) and on the
-   small grids above, and K3-i16 vs K1-i16 at 1024x1024 over 20000 steps;
+   tot_u rtol 1e-6): K1-i16 at 1024x1024, 1536x1536 and 2048x2048 x 50
+   steps from rest and perturbed starts, K3-i16 at 256x256 (the largest
+   grid the policy gives it), 1024x1024 and 1536x1536 from rest and
+   perturbed starts (200 steps), on the small grids above and at 256x256
+   with (steps, chunk) = (600, 256), and K3-i16 vs K1-i16 at 1024x1024
+   over 20000 steps;
+3d. the sweep kernels K4 (trapezoid) and K5 (skewed) vs their plain
+   version, f32 and int16: 1024x1024, 1536x1536, 2048x2048 and a ragged
+   1000x1500 at K in {2, 4, 8}, 50 steps (51 at K=2, so that every run
+   ends in a K1 tail), and 4096x4096 over 2K steps, from rest and from the
+   perturbed state; fields (int16 too) torch.equal, tot_u within rtol 1e-6;
+3e. at 2048x2048 over 8000 steps, K=4: K4 and K5 vs K1 (fields
+   torch.equal, tot_u rtol 1e-6), and K4-i16 vs K5-i16 (both quantize
+   once per sweep: int16 fields torch.equal);
 4. the cuda main path on a 128x128 scene for 120 steps vs core/oracle:
    fields atol 2e-7, av rtol 1e-4;
 5. ``lbm_tpu_torch run`` on 256x256 (8000 steps: K2, two segments) and
    1024x1024 (2000 steps) as --variant cuda and --variant torch;
-   ``check`` of cuda against torch must pass; the K1 and K2 launch
-   counters, zeroed just before the cuda runs, must have gone up;
+   ``check`` of cuda against torch must pass; 256x256 also with
+   --storage i16 (K3-i16), passing ``check`` against the f32 run; the K2,
+   K3 and K3-i16 launch counters, zeroed just before the cuda runs, must
+   have gone up;
 5b. the golden run: the 1024x1024 reference scene rebuilt from golden/
    (obstacles from column 7 of the final state), ``run --variant cuda``
-   for the full 20000 steps with --storage f32 (variant cuda-inplace) and
-   --storage i16, each passing ``check`` against golden/ (1%); the K3 and
-   K3-i16 counters, zeroed just before, must have gone up;
+   for the full 20000 steps with --storage f32 (variant cuda-inplace),
+   --storage i16 (the default, cuda-step-i16: one quantization per step)
+   and --storage i16 --temporal-k 4 (cuda-trapezoid-i16: one per 4 steps),
+   each passing ``check`` against golden/ (1%); the K3, K1-i16 and K4-i16
+   counters, zeroed just before, must have gone up;
 5c. 1536x1536 and 2048x2048 channel scenes (2000 steps) run as
-   ``--variant cuda`` in f32 (K1) and in i16 (K1-i16) and as
-   ``--variant torch``: the f32 cuda run passes ``check`` against torch with
-   a byte-identical final_state.dat, and the i16 run passes ``check``
+   ``--variant cuda --temporal-k 1`` in f32 (K1), as ``--variant cuda
+   --storage i16`` (the default policy: K1-i16) and as ``--variant
+   torch``: the f32 cuda run passes ``check`` against torch with a
+   byte-identical final_state.dat, and the i16 run passes ``check`` (1%)
    against the f32 cuda run; the K1 and K1-i16 counters, zeroed just
    before, must have gone up;
+5d. the temporal path through the CLI, ``--variant cuda`` in f32 and
+   int16, under the default policy and with ``--temporal-k 4`` under
+   LBM_TEMPORAL_IMPL=trapezoid and =skew: 1536x1536 f32 (default policy
+   only) and 2048x2048 channel x 2000 steps, 4096x4096 x 400; each run
+   reports the variant the policy table gives; the 1536x1536 and
+   2048x2048 f32 runs write a final_state.dat byte-identical to 5c's
+   --variant torch run (2048x2048 also passing ``check``), the 4096x4096
+   f32 runs byte-identical to each other; the default int16 runs (K1-i16)
+   pass ``check`` against their grid's default f32 run (1%), the forced
+   int16 sweeps at 2048x2048 within I16_SWEEP_TOLERANCE (2.5%, the
+   envelope measured for int16 quantized once per sweep there), and the
+   forced K4-i16 and K5-i16 runs (both K=4) are byte-identical;
+   ``bench --grid 2048x2048`` runs the default policy's variant; the K4,
+   K4-i16, K5 and K5-i16 counters, zeroed just before, must have gone up;
 6. MLUPS of those runs, and K1 / K2 / K3 / K1-i16 / K3-i16 / twin times at
    128^2 .. 1024^2 and K1 / K1-i16 / K3-i16 / twin at 1536^2
-   (tools/kernel_times.py) beside a 1 GiB device copy's bandwidth;
-7. one JSON line of kernel findings, then the last line
+   (tools/kernel_times.py) beside a 1 GiB device copy's bandwidth; and
+   K4 / K5 / K4-i16 / K5-i16 at K in {2, 4, 8} at 1536^2, 2048^2 and
+   4096^2, in turns with K1 / K1-i16, beside the plain sweep's time;
+7. one JSON line of kernel findings (one row per kernel, with the
+   launches of the main path's run; K4, K5 and their int16 forms timed at
+   2048x2048, K=4, and at each grid and depth of 6c under
+   "by_grid_and_depth"), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no final line.  It
@@ -62,14 +98,35 @@ beside it.
 from __future__ import annotations
 
 import contextlib
+import filecmp
 import io
 import json
 import os
+import shutil
+import subprocess
 import sys
 import tempfile
 import time
 
 GRID_SIZES = (128, 256, 512, 1024)
+SWEEP_GRIDS = (1536, 2048, 4096)
+SWEEP_DEPTHS = (2, 4, 8)
+# The forced int16 sweeps (--temporal-k 4: one quantization per 4 steps, as
+# lbm_tpu) against f32, in percent: measured 1.5-2.1% max av_vels deviation
+# on the 1536^2-2048^2 channel x 2000 steps at K = 2-4, where the default
+# int16 (K1-i16, one quantization per step) stays under 1% (0.43-0.55%) but
+# reaches 2.3% by 8000 steps (PERF.md, Findings).  That is why the
+# default policy does not sweep int16; every default-policy run, int16
+# included, is held to the checker's 1%.
+I16_SWEEP_TOLERANCE = 2.5
+# The variant the default policy runs for each CLI scene of phase 5d (the
+# H100 table, PERF.md section 5: f32 on K4 at K=4 from 1024^2 cells, int16
+# on K1-i16).
+DEFAULT_VARIANTS = {("1536x1536", "f32"): "cuda-trapezoid",
+                    ("2048x2048", "f32"): "cuda-trapezoid",
+                    ("2048x2048", "i16"): "cuda-step-i16",
+                    ("4096x4096", "f32"): "cuda-trapezoid",
+                    ("4096x4096", "i16"): "cuda-step-i16"}
 
 
 def fail(msg: str) -> None:
@@ -126,6 +183,37 @@ def compare(name: str, f_k, tot_k, f_p, tot_p) -> tuple[float, float]:
     return err, rel
 
 
+def build_native_writer() -> str:
+    """Build the C++ writer of final_state.dat (``make native``, into the
+    gitignored native/build/), so that the large-grid CLI runs do not format
+    millions of lines in Python.  Without make or a compiler the Python
+    writer runs: slower, same bytes."""
+    from lbm_tpu_torch.io import native
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    try:
+        proc = subprocess.run(["make", "-C", root, "native"], capture_output=True, text=True,
+                              timeout=120)
+        built = proc.returncode == 0
+    except (OSError, subprocess.TimeoutExpired):
+        built = False
+    return "C++ writer" if built and native.available() else "Python writer (make native failed)"
+
+
+@contextlib.contextmanager
+def temporal_impl(impl: str | None):
+    """LBM_TEMPORAL_IMPL set to ``impl`` (unset for None) inside the block."""
+    old = os.environ.pop("LBM_TEMPORAL_IMPL", None)
+    if impl is not None:
+        os.environ["LBM_TEMPORAL_IMPL"] = impl
+    try:
+        yield
+    finally:
+        os.environ.pop("LBM_TEMPORAL_IMPL", None)
+        if old is not None:
+            os.environ["LBM_TEMPORAL_IMPL"] = old
+
+
 def main() -> int:
     import torch
 
@@ -138,7 +226,15 @@ def main() -> int:
     from lbm_tpu_torch.core import lattice, oracle
     from lbm_tpu_torch.io.scene import Scene
     from lbm_tpu_torch.models.driver import RunConfig, run_simulation
-    from lbm_tpu_torch.ops import _build, fused_cuda, inplace_cuda, quant, resident_cuda
+    from lbm_tpu_torch.ops import (
+        _build,
+        fused_cuda,
+        inplace_cuda,
+        quant,
+        resident_cuda,
+        skew_cuda,
+        temporal_cuda,
+    )
     from lbm_tpu_torch.params import LBMParams
     from lbm_tpu_torch.tools import bench, kernel_times, scenegen
 
@@ -150,13 +246,15 @@ def main() -> int:
 
     # Phase 1: card, versions, build.
     print(card)
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.load()
     build_s = time.perf_counter() - t0
+    writer = build_native_writer()
     regs = [ln.strip() for ln in (_build.build_dir() / "nvcc.log").read_text().splitlines()
             if "registers" in ln]
     print(f"[1 build] card: {card} | torch {torch.__version__} CUDA {torch.version.cuda} "
-          f"| kernels built in {build_s:.2f} s | ptxas: {'; '.join(regs)}")
+          f"| kernels built in {build_s:.2f} s | final_state.dat: {writer} | ptxas: "
+          f"{'; '.join(regs)}")
 
     def field(ny, nx, accel=0.005):
         p, m = box_scene(ny, nx, accel)
@@ -231,7 +329,7 @@ def main() -> int:
         return quant.quantize(f, p.density)
 
     k1i_err, k1i_rel = 0.0, 0.0
-    for n in (1536, 2048):
+    for n in (1024, 1536, 2048):
         for start in ("rest", "mixed"):
             p, _, obst, f0 = field(n, n, 0.01)
             q0 = i16_start(p, f0 if start == "rest" else mixed_state(p, dev))
@@ -240,7 +338,7 @@ def main() -> int:
             e, r = compare(f"K1-i16 {n}x{n} {start}", q_k, tot_k, q_p, tot_p)
             k1i_err, k1i_rel = max(k1i_err, e), max(k1i_rel, r)
     k3i_err, k3i_rel, n_cases = 0.0, 0.0, 0
-    for n in (1024, 1536):
+    for n in (256, 1024, 1536):
         for start in ("rest", "mixed"):
             p, _, obst, f0 = field(n, n, 0.01)
             q0 = i16_start(p, f0 if start == "rest" else mixed_state(p, dev))
@@ -248,10 +346,10 @@ def main() -> int:
             q_p, tot_p = inplace_cuda.run_plain(q0, obst, p, 200, "i16")
             e, r = compare(f"K3-i16 {n}x{n} {start}", q_k, tot_k, q_p, tot_p)
             k3i_err, k3i_rel = max(k3i_err, e), max(k3i_rel, r)
-    for ny, nx in ((60, 100), (7, 33)):
+    for ny, nx in ((60, 100), (7, 33), (256, 256)):
         p, _, obst, _ = field(ny, nx)
         q0 = i16_start(p, mixed_state(p, dev))
-        for steps, chunk in ((7, 4), (8, 4), (5, 8), (600, 256)):
+        for steps, chunk in ((7, 4), (8, 4), (5, 8), (600, 256))[3 if ny == 256 else 0:]:
             q_k, tot_k = inplace_cuda.make_run_all(p, obst, steps, chunk=chunk,
                                                    storage="i16")(q0)
             q_p, tot_p = inplace_cuda.run_plain(q0, obst, p, steps, "i16")
@@ -265,11 +363,61 @@ def main() -> int:
     q_k, tot_k = q_k.clone(), tot_k.clone()
     q_1, tot_1 = fused_cuda.make_run_all(p, obst, 20000, "i16")(q0)
     _, k3i_k1i_rel = compare("K3-i16 vs K1-i16 1024x1024 20000 steps", q_k, tot_k, q_1, tot_1)
-    print(f"[3c i16 kernels vs plain] card: {card} | K1-i16 1536x1536 and 2048x2048 x 50 "
-          f"steps, rest and perturbed: int16 fields equal, tot_u max rel {k1i_rel:.2e} | K3-i16 1024x1024 and "
-          f"1536x1536 x 200 steps, rest and perturbed, + {n_cases} small cases: int16 fields "
+    print(f"[3c i16 kernels vs plain] card: {card} | K1-i16 1024x1024, 1536x1536 and "
+          f"2048x2048 x 50 steps, rest and perturbed: int16 fields equal, tot_u max rel "
+          f"{k1i_rel:.2e} | K3-i16 256x256, 1024x1024 and 1536x1536 x 200 steps, rest and "
+          f"perturbed, + {n_cases} chunked cases: int16 fields "
           f"equal, tot_u max rel {k3i_rel:.2e} | K3-i16 vs K1-i16 1024x1024 x 20000 steps: "
           f"int16 fields equal, tot_u max rel {k3i_k1i_rel:.2e}")
+
+    # Phase 3d: the sweep kernels vs their plain version (one plain run per
+    # case serves both kernels: K4 and K5 compute the same K-step sweeps).
+    sweep_mods = (("K4", temporal_cuda), ("K5", skew_cuda))
+    # max |diff| per (kernel, grid, K), over both starts: the kernels line
+    # reports each timed configuration's own case.
+    sweep_err: dict[tuple[str, int, int, int], float] = {}
+    sweep_rel, n_cases = 0.0, 0
+    for ny, nx in ((1024, 1024), (1536, 1536), (2048, 2048), (1000, 1500), (4096, 4096)):
+        p, _, obst, f0 = field(ny, nx, 0.01)
+        for start in ("rest", "mixed"):
+            s32 = f0 if start == "rest" else mixed_state(p, dev)
+            for storage in ("f32", "i16"):
+                sfx = "-i16" if storage == "i16" else ""
+                s0 = i16_start(p, s32) if storage == "i16" else s32
+                for K in SWEEP_DEPTHS:
+                    steps = 2 * K if ny == 4096 else (50 if 50 % K else 51)
+                    f_p, tot_p = temporal_cuda.run_plain(s0, obst, p, steps, K, storage)
+                    for name, mod in sweep_mods:
+                        f_k, tot_k = mod.make_run_all(p, obst, steps, K, storage)(s0)
+                        e, r = compare(f"{name}{sfx} {ny}x{nx} K={K} {steps} steps {start}",
+                                       f_k, tot_k, f_p, tot_p)
+                        key = (name + sfx, ny, nx, K)
+                        sweep_err[key] = max(sweep_err.get(key, 0.0), e)
+                        sweep_rel = max(sweep_rel, r)
+                        n_cases += 1
+    print(f"[3d sweep kernels vs plain] card: {card} | K4, K5, K4-i16, K5-i16 at 1024x1024, "
+          f"1536x1536, 2048x2048, 1000x1500 x K in {SWEEP_DEPTHS} x 50 steps (51 at K=2) and "
+          f"4096x4096 x 2K steps, rest and perturbed: {n_cases} cases, fields equal (int16 "
+          f"too), tot_u max rel {sweep_rel:.2e}")
+
+    # Phase 3e: the sweeps against K1 at full length, and the two int16
+    # sweeps against each other (each quantizes once per sweep).
+    long_steps, long_k = 8000, 4
+    p, _, obst, f0 = field(2048, 2048, 0.01)
+    f_1, tot_1 = (t.clone() for t in fused_cuda.make_run_all(p, obst, long_steps)(f0))
+    long_rel = []
+    for name, mod in sweep_mods:
+        f_k, tot_k = mod.make_run_all(p, obst, long_steps, long_k)(f0)
+        _, r = compare(f"{name} vs K1 2048x2048 {long_steps} steps", f_k, tot_k, f_1, tot_1)
+        long_rel.append(f"{name} vs K1 tot_u max rel {r:.2e}")
+    q0 = i16_start(p, f0)
+    q_4, tot_4 = (t.clone() for t in
+                  temporal_cuda.make_run_all(p, obst, long_steps, long_k, "i16")(q0))
+    q_5, tot_5 = skew_cuda.make_run_all(p, obst, long_steps, long_k, "i16")(q0)
+    _, r = compare(f"K4-i16 vs K5-i16 2048x2048 {long_steps} steps", q_4, tot_4, q_5, tot_5)
+    long_rel.append(f"K4-i16 vs K5-i16 int16 fields equal, tot_u max rel {r:.2e}")
+    print(f"[3e sweeps at full length] card: {card} | 2048x2048 x {long_steps} steps, "
+          f"K={long_k}: fields equal; {'; '.join(long_rel)}")
 
     # Phase 4: oracle anchor on the cuda main path.
     p128 = LBMParams(nx=128, ny=128, max_iters=120, reynolds_dim=10,
@@ -305,19 +453,20 @@ def main() -> int:
             return out_dir, run_variant[0].split()[-1]
 
         def same_final_state(a, b):
-            with open(os.path.join(a, "final_state.dat"), "rb") as fa, \
-                    open(os.path.join(b, "final_state.dat"), "rb") as fb:
-                return fa.read() == fb.read()
+            return filecmp.cmp(os.path.join(a, "final_state.dat"),
+                               os.path.join(b, "final_state.dat"), shallow=False)
 
-        def cli_check(ref_av, ref_fs, run_dir, what):
-            """``check`` a run's files against reference files; returns the
-            (av_vels, final_state) max deviations in percent as printed."""
+        def cli_check(ref_av, ref_fs, run_dir, what, tolerance=1.0):
+            """``check`` a run's files against reference files (``tolerance``
+            percent, the checker's default 1); returns the (av_vels,
+            final_state) max deviations in percent as printed."""
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 rc = cli.main(["check", "--ref-av-vels-file", ref_av,
                                "--ref-final-state-file", ref_fs,
                                "--av-vels-file", os.path.join(run_dir, "av_vels.dat"),
-                               "--final-state-file", os.path.join(run_dir, "final_state.dat")])
+                               "--final-state-file", os.path.join(run_dir, "final_state.dat"),
+                               "--tolerance", str(tolerance)])
             text = buf.getvalue()
             if rc != 0 or "Both tests passed!" not in text:
                 fail(f"check {what} failed (rc {rc}):\n{text}")
@@ -332,13 +481,23 @@ def main() -> int:
                 ("1024x1024", *scene_files(1024, 2000, "channel", 0.01))]
         resident_cuda.LAUNCHES = 0
         inplace_cuda.LAUNCHES = 0
+        inplace_cuda.LAUNCHES_I16 = 0
         cuda_runs = {tag: cli_run(tag, pf, of, "cuda") for tag, pf, of in runs}
+        i16_dir, i16_variant = cli_run("256x256", *runs[0][1:], "cuda", "--storage", "i16")
         launches["K2"], k3_cli = resident_cuda.LAUNCHES, inplace_cuda.LAUNCHES
-        if launches["K2"] <= 0 or k3_cli <= 0:
-            fail(f"main path skipped a kernel: K2 launches {launches['K2']}, K3 {k3_cli}")
+        launches["K3-i16"] = inplace_cuda.LAUNCHES_I16
+        if launches["K2"] <= 0 or k3_cli <= 0 or launches["K3-i16"] <= 0:
+            fail(f"main path skipped a kernel: K2 launches {launches['K2']}, K3 {k3_cli}, "
+                 f"K3-i16 {launches['K3-i16']}")
         variants = {tag: v for tag, (_, v) in cuda_runs.items()}
-        if variants != {"256x256": "cuda-resident", "1024x1024": "cuda-inplace"}:
+        variants["256x256 i16"] = i16_variant
+        if variants != {"256x256": "cuda-resident", "1024x1024": "cuda-inplace",
+                        "256x256 i16": "cuda-inplace-i16"}:
             fail(f"unexpected kernels for the CLI runs: {variants}")
+        f32_256 = cuda_runs["256x256"][0]
+        i16_256 = cli_check(os.path.join(f32_256, "av_vels.dat"),
+                            os.path.join(f32_256, "final_state.dat"), i16_dir,
+                            "256x256 i16 vs f32")
         torch_dirs = {tag: cli_run(tag, pf, of, "torch")[0] for tag, pf, of in runs}
         checks = []
         for tag, *_ in runs:
@@ -351,8 +510,10 @@ def main() -> int:
                 fail(f"{tag}: cuda and torch final_state.dat differ")
             checks.append(f"{tag} ({variants[tag]}) passed, final_state.dat byte-identical")
         print(f"[5 CLI end to end] card: {card} | 256x256 x 8000 steps, 1024x1024 x 2000 steps "
-              f"| check cuda vs torch: {'; '.join(checks)} | launches K2 {launches['K2']}, "
-              f"K3 {k3_cli}")
+              f"| check cuda vs torch: {'; '.join(checks)} | 256x256 --storage i16 "
+              f"(cuda-inplace-i16) vs f32, max deviation av_vels, final_state: "
+              f"{', '.join(i16_256)} | launches K2 {launches['K2']}, K3 {k3_cli}, "
+              f"K3-i16 {launches['K3-i16']}")
 
         # Phase 5b: the 1024x1024 reference scene at full length against golden/.
         golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -370,34 +531,40 @@ def main() -> int:
             fp.writelines(f"{x} {y} 1\n" for x, y, _ in walls)
         golden_dev = {}
         inplace_cuda.LAUNCHES = 0
-        inplace_cuda.LAUNCHES_I16 = 0
-        for storage, want in (("f32", "cuda-inplace"), ("i16", "cuda-inplace-i16")):
-            out_dir, got = cli_run("golden1024", gp, go, "cuda", "--storage", storage)
+        fused_cuda.LAUNCHES_I16 = 0
+        temporal_cuda.LAUNCHES_I16 = 0
+        for storage, extra, want in (("f32", (), "cuda-inplace"), ("i16", (), "cuda-step-i16"),
+                                     ("i16", ("--temporal-k", "4"), "cuda-trapezoid-i16")):
+            out_dir, got = cli_run("golden1024", gp, go, "cuda", "--storage", storage, *extra)
             if got != want:
-                fail(f"golden run --storage {storage}: variant {got}, expected {want}")
-            golden_dev[storage] = cli_check(ref_av, ref_fs, out_dir, f"golden {storage}")
-        launches["K3"], launches["K3-i16"] = inplace_cuda.LAUNCHES, inplace_cuda.LAUNCHES_I16
-        if launches["K3"] <= 0 or launches["K3-i16"] <= 0:
-            fail(f"golden runs skipped a kernel: K3 {launches['K3']}, "
-                 f"K3-i16 {launches['K3-i16']}")
+                fail(f"golden run --storage {storage} {' '.join(extra)}: variant {got}, "
+                     f"expected {want}")
+            golden_dev[want] = cli_check(ref_av, ref_fs, out_dir, f"golden {want}")
+        launches["K3"] = inplace_cuda.LAUNCHES
+        golden_k1i, golden_k4i = fused_cuda.LAUNCHES_I16, temporal_cuda.LAUNCHES_I16
+        if min(launches["K3"], golden_k1i, golden_k4i) <= 0:
+            fail(f"golden runs skipped a kernel: K3 {launches['K3']}, K1-i16 {golden_k1i}, "
+                 f"K4-i16 {golden_k4i}")
         print(f"[5b golden 1024x1024] card: {card} | scene from golden/ ({len(walls)} wall "
               f"cells, {gparams.max_iters} steps, accel {gparams.accel}) | check vs golden "
-              f"(max deviation av_vels, final_state): f32 cuda-inplace "
-              f"{', '.join(golden_dev['f32'])}; i16 cuda-inplace-i16 "
-              f"{', '.join(golden_dev['i16'])} | launches K3 {launches['K3']}, "
-              f"K3-i16 {launches['K3-i16']}")
+              f"(max deviation av_vels, final_state): "
+              + "; ".join(f"{v} {', '.join(d)}" for v, d in golden_dev.items())
+              + f" | launches K3 {launches['K3']}, K1-i16 {golden_k1i}, K4-i16 {golden_k4i}")
 
         # Phase 5c: large grids, f32 cuda against torch and i16 against f32.
         big = [(f"{n}x{n}", *scene_files(n, 2000, "channel", 0.01)) for n in (1536, 2048)]
         fused_cuda.LAUNCHES = 0
         fused_cuda.LAUNCHES_I16 = 0
         f32_dev, i16_dev = [], []
+        torch_big = {}
         for tag, pf, of in big:
-            ref_dir, ref_variant = cli_run(tag, pf, of, "cuda", "--storage", "f32")
-            out_dir, got = cli_run(tag, pf, of, "cuda", "--storage", "i16")
+            ref_dir, ref_variant = cli_run(tag, pf, of, "cuda", "--storage", "f32",
+                                           "--temporal-k", "1")
+            out_dir, got = cli_run(tag, pf, of, "cuda", "--storage", "i16")  # the default
             if (ref_variant, got) != ("cuda-step", "cuda-step-i16"):
                 fail(f"{tag}: variants {ref_variant}, {got}; expected cuda-step(-i16)")
             torch_dir, _ = cli_run(tag, pf, of, "torch")
+            torch_big[tag] = torch_dir
             dev_pct = cli_check(os.path.join(torch_dir, "av_vels.dat"),
                                 os.path.join(torch_dir, "final_state.dat"), ref_dir,
                                 f"{tag} cuda vs torch")
@@ -412,10 +579,81 @@ def main() -> int:
         if launches["K1"] <= 0 or launches["K1-i16"] <= 0:
             fail(f"main path skipped a kernel: K1 {launches['K1']}, K1-i16 {launches['K1-i16']}")
         print(f"[5c CLI large grids] card: {card} | channel x 2000 steps (max deviation "
-              f"av_vels, final_state) | f32 cuda-step vs torch, final_state.dat "
-              f"byte-identical: {'; '.join(f32_dev)} | --storage i16 vs --storage f32: "
+              f"av_vels, final_state) | f32 --temporal-k 1 (cuda-step) vs torch, "
+              f"final_state.dat byte-identical: {'; '.join(f32_dev)} | --storage i16 "
+              f"(default: cuda-step-i16) vs f32: "
               f"{'; '.join(i16_dev)} | launches K1 {launches['K1']}, "
               f"K1-i16 {launches['K1-i16']}")
+
+        # Phase 5d: the temporal path through the CLI, under the default
+        # policy and with a forced depth under each LBM_TEMPORAL_IMPL.
+        for mod in (temporal_cuda, skew_cuda):
+            mod.LAUNCHES = 0
+            mod.LAUNCHES_I16 = 0
+        policies = (("default", None, ()), ("trapezoid", "trapezoid", ("--temporal-k", "4")),
+                    ("skew", "skew", ("--temporal-k", "4")))
+        scenes = {tag: (pf, of) for tag, pf, of in big}
+        scenes["4096x4096"] = scene_files(4096, 400, "channel", 0.01)
+        notes = []
+        for tag, (pf, of) in scenes.items():
+            dirs = {}
+            for storage in ("f32", "i16"):
+                sfx = "-i16" if storage == "i16" else ""
+                for label, impl, extra in policies:
+                    if tag == "1536x1536" and (storage, label) != ("f32", "default"):
+                        continue
+                    with temporal_impl(impl):
+                        out_dir, got = cli_run(f"{tag}-{label}", pf, of, "cuda", "--storage",
+                                               storage, *extra)
+                    want = (DEFAULT_VARIANTS[(tag, storage)] if impl is None
+                            else f"cuda-{impl}{sfx}")
+                    if got != want:
+                        fail(f"{tag} {storage} {label}: variant {got}, expected {want}")
+                    dirs[(storage, label)] = out_dir
+            ref = torch_big.get(tag, dirs[("f32", "default")])
+            for (storage, label), d in dirs.items():
+                if storage == "f32" and not same_final_state(d, ref):
+                    fail(f"{tag} f32 {label}: final_state.dat differs from {ref}")
+            note = [f"{tag}: default " + ", ".join(
+                DEFAULT_VARIANTS[(tag, s)] for s in ("f32", "i16") if (tag, s) in DEFAULT_VARIANTS)]
+            if tag == "2048x2048":
+                dev_pct = cli_check(os.path.join(ref, "av_vels.dat"),
+                                    os.path.join(ref, "final_state.dat"),
+                                    dirs[("f32", "default")], f"{tag} temporal f32 vs torch")
+                note.append(f"f32 default vs torch {', '.join(dev_pct)}")
+            note.append("f32 final_state.dat byte-identical to "
+                        + ("--variant torch" if tag in torch_big else "each other"))
+            f32_ref = dirs[("f32", "default")]
+            for (storage, label), d in dirs.items():
+                if storage == "i16" and (label == "default" or tag != "4096x4096"):
+                    tol = 1.0 if label == "default" else I16_SWEEP_TOLERANCE
+                    dev_pct = cli_check(os.path.join(f32_ref, "av_vels.dat"),
+                                        os.path.join(f32_ref, "final_state.dat"), d,
+                                        f"{tag} i16 {label} vs f32", tol)
+                    note.append(f"i16 {label} vs f32 ({tol}%) {', '.join(dev_pct)}")
+            if ("i16", "skew") in dirs:
+                if not same_final_state(dirs[("i16", "trapezoid")], dirs[("i16", "skew")]):
+                    fail(f"{tag}: K4-i16 and K5-i16 final_state.dat differ")
+                note.append("K4-i16 and K5-i16 final_state.dat byte-identical")
+            notes.append("; ".join(note))
+            if tag == "4096x4096":  # 1.5 GB per final_state.dat
+                for d in dirs.values():
+                    shutil.rmtree(d)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["bench", "--grid", "2048x2048", "--steps", "2000", "--repeats", "1"])
+        report = json.loads(buf.getvalue().splitlines()[-1])
+        if rc != 0 or report["variant"] != DEFAULT_VARIANTS[("2048x2048", "f32")]:
+            fail(f"bench --grid 2048x2048 exited {rc}: {report}")
+        notes.append(f"bench --grid 2048x2048: {report['variant']} {report['value']} MLUPS")
+        for key, mod in (("K4", temporal_cuda), ("K5", skew_cuda)):
+            launches[key], launches[key + "-i16"] = mod.LAUNCHES, mod.LAUNCHES_I16
+        if min(launches[k] for k in ("K4", "K4-i16", "K5", "K5-i16")) <= 0:
+            fail(f"temporal CLI runs skipped a kernel: {launches}")
+        print(f"[5d CLI temporal path] card: {card} | channel, 2000 steps (4096x4096: 400); "
+              f"default policy, --temporal-k 4 with LBM_TEMPORAL_IMPL=trapezoid and =skew "
+              f"(max deviation av_vels, final_state) | {' | '.join(notes)} | launches "
+              + ", ".join(f"{k} {launches[k]}" for k in ("K4", "K4-i16", "K5", "K5-i16")))
 
     # Phase 6: rates.
     print(f"[6a run MLUPS] card: {card} | "
@@ -426,8 +664,13 @@ def main() -> int:
           f"copy 1 GiB {gbps[0]:.1f} GB/s | "
           + " ; ".join(kernel_times.format_grid(n, t) for n, t in table.items()))
 
+    sweeps = {n: kernel_times.time_sweeps(n, dev, SWEEP_DEPTHS, repeats=5) for n in SWEEP_GRIDS}
+    print(f"[6c sweeps in turns with K1: us/step median [q1, q3], MLUPS, one-step GB/s] "
+          f"card: {card} | " + " ; ".join(kernel_times.format_grid(n, t)
+                                           for n, t in sweeps.items()))
+
     # Phase 7: kernel findings, then the last line.  A launch of K1 is one
-    # step; one of K2 or K3 is 256 steps.
+    # step; one of K2 or K3 is 256 steps; one of K4 or K5 is K steps.
     chunk = inplace_cuda.DEFAULT_CHUNK
 
     def row(name, source, replaces, key, err, n, plain, per_launch):
@@ -447,12 +690,38 @@ def main() -> int:
             "lbm_tpu_torch/csrc/inplace.cu", "lbm_tpu/ops/resident_pallas.py:601",
             "K3", k3_err, 1024, "twin", chunk),
         row("K3-i16 in-place persistent kernel, int16 state (ms per launch = 256 steps, "
-            "1024x1024)", "lbm_tpu_torch/csrc/inplace.cu",
-            "lbm_tpu/ops/resident_pallas.py:601", "K3-i16", k3i_err, 1024, "twin-i16", chunk),
+            "256x256)", "lbm_tpu_torch/csrc/inplace.cu",
+            "lbm_tpu/ops/resident_pallas.py:601", "K3-i16", k3i_err, 256, "twin-i16", chunk),
         row("K1-i16 one-step fused kernel, int16 state (ms per launch = 1 step, 1536x1536)",
             "lbm_tpu_torch/csrc/step.cu", "lbm_tpu/ops/fused_pallas.py:249",
             "K1-i16", k1i_err, 1536, "twin-i16", 1),
     ]
+    # One row per sweep kernel: the launches of phase 5d, which run K=4, its
+    # largest difference from plain over every case of phase 3d, and its
+    # time at 2048x2048, K=4 (the bench grid).  Its other timed
+    # configurations sit in "by_grid_and_depth", each with its own case's
+    # difference from phase 3d.
+    sweep_rows = (("K4", "trapezoid sweep kernel", "temporal.cu", "temporal_pallas.py:169"),
+                  ("K5", "skewed sweep kernel", "skew.cu", "skew_pallas.py:211"))
+
+    def per_launch_ms(n, name, K):
+        return sweeps[n][f"{name} K={K}"][0] / 1e3 * K
+
+    for key, what, source, replaces in sweep_rows:
+        for sfx, state in (("", ""), ("-i16", ", int16 state")):
+            kern, plain = key + sfx, "plain" + sfx
+            kernels.append({
+                "name": f"{kern} {what}{state} (ms per launch = 4 steps, 2048x2048, K=4)",
+                "route": "cuda", "source": f"lbm_tpu_torch/csrc/{source}",
+                "replaces": f"lbm_tpu/ops/{replaces}", "launches": launches[kern],
+                "max_abs_err": max(e for k, e in sweep_err.items() if k[0] == kern),
+                "ms": per_launch_ms(2048, kern, 4), "plain_ms": per_launch_ms(2048, plain, 4),
+                "by_grid_and_depth": [
+                    {"grid": f"{n}x{n}", "K": K, "ms": per_launch_ms(n, kern, K),
+                     "plain_ms": per_launch_ms(n, plain, K),
+                     "max_abs_err": sweep_err[(kern, n, n, K)]}
+                    for n in SWEEP_GRIDS for K in SWEEP_DEPTHS]})
+    print(f"[7 elapsed] card: {card} | {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -28,7 +28,6 @@ _UNPORTED_RUN_FLAGS = {
     "checkpoint_dir": "--checkpoint-dir",
     "resume": "--resume",
     "plan": "--plan",
-    "temporal_k": "--temporal-k",
     "devices": "--devices",
     "staleness": "--staleness",
     "backend": "--backend",
@@ -67,6 +66,12 @@ def _add_run_args(p: argparse.ArgumentParser) -> None:
         help="steps per runner call (default: 4000-step segments for longer "
         "runs; 0 = one call for the whole run)",
     )
+    p.add_argument(
+        "--temporal-k", type=int, default=None,
+        help="timesteps advanced per HBM sweep on the single-device block-"
+        "kernel path (default: auto by grid size; 1 = disable temporal "
+        "blocking)",
+    )
     for dest, flag in _UNPORTED_RUN_FLAGS.items():
         if dest in ("debug", "plan", "divergence"):
             p.add_argument(flag, dest=dest, action="store_true", help=argparse.SUPPRESS)
@@ -95,6 +100,7 @@ def cmd_run(args: argparse.Namespace) -> int:
         num_steps=args.steps,
         segment_steps=args.segment_steps,
         storage=args.storage,
+        temporal_k=args.temporal_k,
     )
     print(f"lbm_tpu_torch: device={device} ({device_name(device)})")
 

@@ -1,11 +1,13 @@
 // Shared per-cell D2Q9-BGK update for the CUDA kernels of lbm_tpu_torch.
 //
-// Every kernel (step.cu, resident.cu, inplace.cu) loads state through
-// lbm_load(), updates a cell with lbm_collide() and stores with
-// lbm_encode(), so they stay bitwise equal to each other and to the plain
-// torch step (ops/stencil_math.py, which this file follows op for op, in
-// the same association order).  step.cu and resident.cu pull a cell's 9
-// values with lbm_pull(); inplace.cu reads them from its in-place layout.
+// Every kernel (step.cu, resident.cu, inplace.cu, temporal.cu, skew.cu)
+// loads state through lbm_load(), updates a cell with lbm_collide() and
+// stores with lbm_encode(), so they stay bitwise equal to each other and to
+// the plain torch step (ops/stencil_math.py, which this file follows op for
+// op, in the same association order).  step.cu and resident.cu pull a
+// cell's 9 values with lbm_pull(); inplace.cu reads them from its in-place
+// layout; temporal.cu and skew.cu pull from levels held in shared memory
+// with lbm_pull_rows().
 //
 // Storage: the state is float32, or int16 fixed-point deviations from rest
 // (ops/quant.py).  lbm_load() dequantizes and lbm_encode() quantizes with
@@ -225,15 +227,71 @@ __device__ __forceinline__ float lbm_collide(const float t[9], bool wall, float 
   return sqrtf(u_sq);
 }
 
-// Fixed-order tree sum of one value per thread over a kThreads block
+// Pull the 9 streamed values of local column c of a row from rows held on
+// chip (the temporal kernels' shared-memory levels): rj is the cell's own
+// row, rs the row below it (source of cy = +1), rn the row above (cy = -1);
+// plane k of a row starts at k * ps.  ws/wj/wn are the wall bytes of those
+// rows and ds/dj/dn whether each is the driven row.  Same values, same
+// injection and same operation order as lbm_pull(): t[k] = level[k] at
+// (row - cy, c - cx), plus the source cell's guarded injection.
+__device__ __forceinline__ float lbm_gate_rows(const float* r, const uint8_t* w, int ps, int c,
+                                               float wt, const StepParams& p) {
+  return lbm_guard(!w[c], r[3 * ps + c], r[6 * ps + c], r[7 * ps + c], p) ? wt : 0.0f;
+}
+
+__device__ __forceinline__ void lbm_pull_rows(const float* rs, const float* rj, const float* rn,
+                                              int ps, const uint8_t* ws, const uint8_t* wj,
+                                              const uint8_t* wn, bool ds, bool dj, bool dn,
+                                              int c, const StepParams& p, float t[9]) {
+  t[0] = rj[0 * ps + c];
+  t[1] = rj[1 * ps + c - 1];
+  t[2] = rs[2 * ps + c];
+  t[3] = rj[3 * ps + c + 1];
+  t[4] = rn[4 * ps + c];
+  t[5] = rs[5 * ps + c - 1];
+  t[6] = rs[6 * ps + c + 1];
+  t[7] = rn[7 * ps + c + 1];
+  t[8] = rn[8 * ps + c - 1];
+  if (dj) {
+    t[1] = t[1] + lbm_gate_rows(rj, wj, ps, c - 1, p.w1, p);
+    t[3] = t[3] - lbm_gate_rows(rj, wj, ps, c + 1, p.w1, p);
+  }
+  if (ds) {
+    t[5] = t[5] + lbm_gate_rows(rs, ws, ps, c - 1, p.w2, p);
+    t[6] = t[6] - lbm_gate_rows(rs, ws, ps, c + 1, p.w2, p);
+  }
+  if (dn) {
+    t[7] = t[7] - lbm_gate_rows(rn, wn, ps, c + 1, p.w2, p);
+    t[8] = t[8] + lbm_gate_rows(rn, wn, ps, c - 1, p.w2, p);
+  }
+}
+
+// x mod n in [0, n), for any int x and n > 0 (periodic wrap of an index
+// that may lie several periods outside the grid).
+__device__ __forceinline__ int lbm_wrap(int x, int n) {
+  const int m = x % n;
+  return m < 0 ? m + n : m;
+}
+
+// Butterfly sum over the 32 lanes of a warp, valid in every lane.  Each
+// lane adds the same two values in the same order (a + b == b + a), so the
+// result is fixed: deterministic, no atomics.
+__device__ __forceinline__ float lbm_warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Fixed-order tree sum of one value per thread over an NT-thread block
 // (run-to-run deterministic; no atomics).  Every thread of the block must
 // call it; the result is valid in thread 0.
+template <int NT = kThreads>
 __device__ __forceinline__ float lbm_block_sum(float v, float* sh) {
   const int tid = threadIdx.x + threadIdx.y * blockDim.x;
   sh[tid] = v;
   __syncthreads();
 #pragma unroll
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
+  for (int s = NT / 2; s > 0; s >>= 1) {
     if (tid < s) sh[tid] = sh[tid] + sh[tid + s];
     __syncthreads();
   }
@@ -253,6 +311,17 @@ __device__ __forceinline__ void lbm_reduce_row(const float* partials, int n, int
   for (int b = threadIdx.x; b < n; b += kThreads) acc = acc + __ldcg(r + b);
   const float total = lbm_block_sum(acc, sh);
   if (threadIdx.x == 0) out[row] = total;
+}
+
+// The second pass as its own launch of one kThreads block per row of
+// partials (rows of n floats): out[row] = the fixed-order sum of the row.
+// A template, so that every source including this header may instantiate
+// it without defining the kernel twice.
+template <int = 0>
+__global__ void __launch_bounds__(kThreads)
+    lbm_reduce_kernel(const float* __restrict__ partials, int n, float* __restrict__ out) {
+  __shared__ float sh[kThreads];
+  lbm_reduce_row(partials, n, blockIdx.x, out, sh);
 }
 
 }  // namespace lbm

@@ -55,13 +55,6 @@ __global__ void __launch_bounds__(lbm::kThreads)
   }
 }
 
-__global__ void __launch_bounds__(lbm::kThreads)
-    lbm_reduce_kernel(const float* __restrict__ partials, int nblocks,
-                      float* __restrict__ tot_out) {
-  __shared__ float sh[lbm::kThreads];
-  lbm::lbm_reduce_row(partials, nblocks, blockIdx.x, tot_out, sh);
-}
-
 dim3 step_grid(int ny, int nx) {
   return dim3((nx + kBlockX - 1) / kBlockX, (ny + kBlockY - 1) / kBlockY);
 }
@@ -80,8 +73,8 @@ int step_run(T* fa, T* fb, const uint8_t* obst, float* partials, float* tot_out,
     lbm_step_kernel<T><<<grid, block, 0, s>>>(
         src, dst, obst, partials + static_cast<size_t>(row) * nblocks, p);
     if (row + 1 == batch || t + 1 == nsteps) {
-      lbm_reduce_kernel<<<row + 1, lbm::kThreads, 0, s>>>(partials, nblocks,
-                                                          tot_out + done);
+      lbm::lbm_reduce_kernel<0><<<row + 1, lbm::kThreads, 0, s>>>(partials, nblocks,
+                                                                  tot_out + done);
       done = t + 1;
     }
     const cudaError_t err = cudaGetLastError();

@@ -3,18 +3,19 @@
 The counterpart of ``lbm_tpu/models/driver.py`` for a single-device run
 with f32 or i16 storage: the init / compute / collate phases of the
 reference's ``main()`` (SerialCode/d2q9-bgk.c:132-205), long runs cut into
-4000-step segments (``_segment_lengths``), the first launch and the kernel
-build billed to init, av = tot_u / fluid cells in float32, and the output
-state taken through the program's ``f_of`` (dequantized for i16,
-lbm_tpu/models/driver.py:759).
+4000-step segments (``_segment_lengths``; on the temporal path a segment is
+whole K-step sweeps, the run's last one with a K1 tail), the first launch
+of each kernel and the kernel build billed to init, av = tot_u / fluid
+cells in float32, and the output state taken through the program's
+``f_of`` (dequantized for i16, lbm_tpu/models/driver.py:759).
 
 Launches are asynchronous, so the compute bracket ends with
 ``torch.cuda.synchronize()``; without it the run would report the rate at
 which launches were queued.  Inside the loop nothing waits for the device
 and nothing is allocated per step: each segment's runner holds its buffers.
 
-Not yet ported: frames, debug, checkpoint/resume, plans, temporal blocking
-(``--temporal-k``) and the sharded variants.
+Not yet ported: frames, debug, checkpoint/resume, plans and the sharded
+variants.
 """
 
 from __future__ import annotations
@@ -48,6 +49,9 @@ class RunConfig:
     # 0 = one call for the whole run, N > 0 = segments of N steps.
     segment_steps: int | None = None
     storage: str = "f32"  # "f32" or "i16" (int16 state; needs the cuda variant)
+    # K timesteps per device-memory sweep on the cuda path (ops/temporal_cuda.py,
+    # ops/skew_cuda.py).  None = auto by grid, 1 = no sweeps, >= 2 = forced.
+    temporal_k: int | None = None
 
 
 @dataclasses.dataclass
@@ -102,11 +106,17 @@ def pick_variant(variant: str, device: torch.device, storage: str = "f32") -> st
     return v
 
 
-def _segment_lengths(num_steps: int, config: RunConfig) -> list[int] | None:
-    """Split num_steps into fixed-size segments, or None to run one call."""
+def _segment_lengths(num_steps: int, config: RunConfig, sweep_k: int = 1) -> list[int] | None:
+    """Split num_steps into fixed-size segments, or None to run one call.
+    On the temporal path a segment is whole sweeps (rounded down to a
+    multiple of ``sweep_k``, at least one sweep), so that only the run's
+    last segment has a K1 tail, as an unsegmented run does: int16 state is
+    then quantized at the same steps either way."""
     seg = config.segment_steps
     if seg is None:
         seg = _SEGMENT_STEPS
+    if seg > 0:
+        seg = max(sweep_k, seg - seg % sweep_k)
     if seg <= 0 or num_steps <= seg:
         return None
     lengths = [seg] * (num_steps // seg)
@@ -148,14 +158,17 @@ def run_simulation(
 
     timer.start("init")
     program: StepProgram = build_single_program(
-        params, scene.obstacles, device, backend=variant, f0=f0, storage=config.storage
+        params, scene.obstacles, device, backend=variant, f0=f0, storage=config.storage,
+        temporal_k=config.temporal_k,
     )
-    seg_lengths = _segment_lengths(num_steps, config) or ([num_steps] if num_steps else [])
+    seg_lengths = (_segment_lengths(num_steps, config, program.sweep_k)
+                   or ([num_steps] if num_steps else []))
     runners = {n: program.make_run_all(n) for n in sorted(set(seg_lengths))}
     if device.type == "cuda":
-        # One discarded step: the first launch of each kernel loads its
-        # module, which belongs to init with the build.
-        program.make_run_all(1)(program.init_state)
+        # A discarded run that launches each kernel once (a step, or a sweep
+        # and a step): a kernel's first launch loads it, which belongs to
+        # init with the build.
+        program.make_run_all(program.sweep_k + (program.sweep_k > 1))(program.init_state)
         _sync(device)
     timer.stop("init")
 

@@ -4,7 +4,8 @@
 |---------|---------------------|-----------------------------------------------------|
 | serial  | serial              | host NumPy oracle (ground truth)                    |
 | torch   | jnp                 | plain PyTorch twin step, any device                 |
-| cuda    | pallas              | CUDA kernels: K2, K3 (in place) or a K1 loop; i16  |
+| cuda    | pallas              | CUDA kernels: K2, K3 (in place), the K-step sweeps |
+|         |                     | K5 (skew) / K4 (trapezoid), or a K1 loop; i16      |
 
 ``auto`` picks ``cuda`` on a CUDA device and ``torch`` on the CPU.  The
 aliases ``jnp`` -> ``torch`` and ``pallas`` -> ``cuda`` let commands written
@@ -42,8 +43,9 @@ VARIANTS: dict[str, VariantSpec] = {
         "cuda",
         "pallas",
         "Hand-written CUDA kernels: the persistent multi-step kernel where two "
-        "state copies fit L2, the in-place one where one copy fits, else a loop "
-        "of the one-step kernel; f32 or i16 storage.",
+        "state copies fit L2, the in-place one where one copy fits, else the "
+        "K-step temporal sweeps (skewed or trapezoid) or a loop of the one-step "
+        "kernel; f32 or i16 storage.",
     ),
 }
 

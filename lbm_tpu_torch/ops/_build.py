@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of this package.
 
-``load()`` compiles ``lbm_tpu_torch/csrc/*.cu`` with nvcc into one shared
-library with a plain C interface and opens it with ctypes (no PyTorch
-headers, so a build takes seconds).  The library lands in
+``load()`` compiles ``lbm_tpu_torch/csrc/*.cu`` with nvcc, one process per
+source, all started together, links the objects into one shared library
+with a plain C interface and opens it with ctypes (no PyTorch headers, so a
+build takes seconds).  The library lands in
 ``build/lbm_tpu_torch/<hash>/liblbm_kernels.so`` at the root of the checkout,
 keyed by a hash of the sources and the flags, so an edit rebuilds and an
 unchanged tree reuses the last build.  A file lock serialises concurrent
@@ -41,9 +42,9 @@ NVCC_FLAGS = (
     "-prec-div=true",
     "-prec-sqrt=true",
     "-Xptxas", "-v",
-    "-shared",
     "-Xcompiler", "-fPIC",
 )
+LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,6 +59,12 @@ _SIGNATURES = {
     "lbm_inplace_chunk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P, _I, _I, _I,
                           _I, _I, _P, _I],
 }
+# The sweep kernels K4 and K5 share one signature per entry point.
+for _kind in ("trapezoid", "skew"):
+    _SIGNATURES[f"lbm_{_kind}_blocks"] = [_I, _I, _I, _I, _I]
+    _SIGNATURES[f"lbm_{_kind}_smem"] = [_I, _I, _I]
+    _SIGNATURES[f"lbm_{_kind}_run"] = ([_P] * 5 + [_I] * 3 + [_F] * 3 + [_I, _P] + [_I] * 5
+                                       + [_P, _I])
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -83,7 +90,7 @@ def build_dir() -> pathlib.Path:
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
@@ -102,17 +109,31 @@ def build() -> pathlib.Path:
             if lib_path.exists():  # another process built it meanwhile
                 return lib_path
             tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-            proc = subprocess.run(cmd, cwd=CSRC, capture_output=True, text=True)
+            nvcc = nvcc_path()
+            cmds, procs = [], []
+            for src in sorted(CSRC.glob("*.cu")):
+                obj = out_dir / f".{src.stem}.{os.getpid()}.o"
+                cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+                procs.append(subprocess.Popen(cmds[-1], cwd=CSRC, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True))
+            outs = [proc.communicate()[0] for proc in procs]  # waits for every one
+            objs = [cmd[-2] for cmd in cmds]
+            cmds.append([nvcc, *LINK_FLAGS, "-o", str(tmp), *objs])
+            failed = [(c, o) for c, p, o in zip(cmds, procs, outs) if p.returncode != 0]
+            if not failed:
+                link = subprocess.run(cmds[-1], cwd=CSRC, capture_output=True, text=True)
+                outs.append(link.stdout + link.stderr)
+                if link.returncode != 0:
+                    failed.append((cmds[-1], outs[-1]))
             (out_dir / "nvcc.log").write_text(
-                " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+                "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
             )
-            if proc.returncode != 0:
+            for obj in objs:
+                pathlib.Path(obj).unlink(missing_ok=True)
+            if failed:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed (rc={proc.returncode}):\n{proc.stdout}{proc.stderr}"
-                )
+                raise RuntimeError("nvcc failed:\n" + "".join(
+                    " ".join(c) + "\n" + o for c, o in failed))
             os.replace(tmp, lib_path)
         finally:
             fcntl.flock(lock_fp, fcntl.LOCK_UN)

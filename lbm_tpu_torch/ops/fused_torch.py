@@ -12,6 +12,10 @@ dequant -> accel -> stream -> collide -> quant
 (``lbm_tpu/ops/fused_pallas.py:304-351``), and the plain version of every
 i16 kernel here.
 
+``sweep`` / ``run_sweeps`` are K steps taken as one temporal sweep, the
+plain version of the sweep kernels (K4, K5): bitwise K twin steps in f32,
+and one quantization per sweep in int16.
+
 The slab form (``stream_slab`` / ``fused_step_slab``) belongs to the
 sharded modes and is not ported yet.
 """
@@ -104,3 +108,46 @@ def run_steps(
     for t in range(num_steps):
         f, tot_us[t] = step(f, obstacles, params)
     return f, tot_us
+
+
+def sweep(
+    f: torch.Tensor,
+    obstacles: torch.Tensor,
+    params: LBMParams,
+    K: int,
+    storage: str = "f32",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One K-step temporal sweep, the plain version of the sweep kernels
+    (K4, K5): decode the state once, take K float32 twin steps, encode once;
+    returns (state, tot_us (K,)), tot_u taken from the float32 levels.
+
+    For int16 storage that is what ``lbm_tpu``'s sweeps compute: the levels
+    stay float32 on chip and the state is quantized once per sweep, with the
+    per-plane codec of ``quant.plane_codec``
+    (``lbm_tpu/ops/temporal_pallas.py:205``, ``skew_pallas.py:249``).  For
+    float32 it is K twin steps."""
+    deq, enq = quant.plane_codec(storage, params.density)
+    x = torch.stack([deq(f[k], k) for k in range(lattice.NSPEEDS)])
+    x, tot_us = run_steps(x, obstacles, params, K)
+    return torch.stack([enq(x[k], k) for k in range(lattice.NSPEEDS)]), tot_us
+
+
+def run_sweeps(
+    f: torch.Tensor,
+    obstacles: torch.Tensor,
+    params: LBMParams,
+    num_steps: int,
+    K: int,
+    storage: str = "f32",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``num_steps`` steps as whole K-step sweeps, then the remainder as
+    single steps (``temporal_pallas.make_run_all`` :673): returns (state,
+    tot_us (num_steps,))."""
+    n_sweeps, rem = divmod(num_steps, K)
+    parts = []
+    for _ in range(n_sweeps):
+        f, tot = sweep(f, obstacles, params, K, storage)
+        parts.append(tot)
+    f, tot = run_steps(f, obstacles, params, rem, storage)
+    parts.append(tot)
+    return f, torch.cat(parts)

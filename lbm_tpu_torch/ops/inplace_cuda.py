@@ -41,14 +41,14 @@ LAUNCHES_I16 = 0
 DEFAULT_CHUNK = 256
 
 # One copy of the state must fit this many bytes for the program to pick K3
-# (where K2 has not been picked): the 1024^2 f32 headline (36 MiB) and the
-# int16 grids up to 1024^2.  On the card K3 was the fastest kernel at 1024^2
-# f32 (29.0 us/step against K2's 30.1 and K1's 31.5).  At 1024^2 int16 it
-# read 0.4-2.3% slower than K1-i16 (26.7-26.9 against 26.1-26.6) and keeps
-# the grid all the same, as the int16 in-place path; int16 has no budget of
-# its own yet.  K1-i16 won at 1536^2 int16 (59.1 against 65.6, 40.5 MiB),
-# which this budget leaves to it (PERF.md).
+# (where K2 has not been picked), per storage.  f32: the 1024^2 headline
+# (36 MiB); on the card K3 was faster there than K2 and K1 (29.0 us/step
+# against 30.1 and 31.5).  int16: to 256^2 (1.1 MiB), where K3-i16 beat
+# K1-i16 in turns (256^2: 3.32 against 3.79; 128^2: 2.63 against 3.45);
+# K1-i16 won in turns at 512^2 (7.15 against 7.83), 768^2 (12.97 against
+# 17.18) and 1024^2 (25.64 against 26.97; PERF.md §5).
 L2_INPLACE_BUDGET = 36 * 2**20
+L2_INPLACE_BUDGET_I16 = 2 * 2**20
 
 
 def state_bytes(ny: int, nx: int, storage: str = "f32") -> int:
@@ -56,8 +56,11 @@ def state_bytes(ny: int, nx: int, storage: str = "f32") -> int:
 
 
 def fits_l2(ny: int, nx: int, storage: str = "f32") -> bool:
-    """Whether one copy of a (9, ny, nx) state fits :data:`L2_INPLACE_BUDGET`."""
-    return state_bytes(ny, nx, storage) <= L2_INPLACE_BUDGET
+    """Whether one copy of a (9, ny, nx) state fits the budget of its
+    storage: :data:`L2_INPLACE_BUDGET` (f32) or
+    :data:`L2_INPLACE_BUDGET_I16` (int16)."""
+    budget = L2_INPLACE_BUDGET_I16 if storage == "i16" else L2_INPLACE_BUDGET
+    return state_bytes(ny, nx, storage) <= budget
 
 
 def run_plain(f: torch.Tensor, obstacles: torch.Tensor, params: LBMParams, num_steps: int,

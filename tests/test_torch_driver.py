@@ -185,7 +185,7 @@ def test_cli_outputs_match_lbm_tpu(tmp_path, scene_files, capsys):
 @pytest.mark.parametrize(
     "extra",
     [["--debug"], ["--frame-interval", "5"], ["--plan"],
-     ["--resume", "x.npz"], ["--checkpoint-every", "5"], ["--temporal-k", "2"],
+     ["--resume", "x.npz"], ["--checkpoint-every", "5"], ["--staleness", "2"],
      ["--devices", "2"], ["--variant", "sync"], ["--variant", "ca"]],
     ids=lambda a: " ".join(a),
 )

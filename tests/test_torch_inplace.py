@@ -91,7 +91,10 @@ def test_k3_budget_and_state_bytes():
     assert inplace_cuda.state_bytes(1024, 1024) == 36 * 2**20
     assert inplace_cuda.state_bytes(1536, 1536, "i16") == 40.5 * 2**20
     assert inplace_cuda.fits_l2(1024, 1024)  # the 1024^2 f32 headline, 36 MiB
-    assert inplace_cuda.fits_l2(1024, 1024, "i16")
+    # int16 has its own budget: K3-i16 won in turns to 256^2, K1-i16 from 512^2.
+    assert inplace_cuda.fits_l2(256, 256, "i16")  # 1.1 MiB
+    assert not inplace_cuda.fits_l2(512, 512, "i16")  # 4.5 MiB
+    assert not inplace_cuda.fits_l2(1024, 1024, "i16")
     assert not inplace_cuda.fits_l2(1536, 1536, "i16")  # 40.5 MiB: K1-i16 measured faster
     assert not inplace_cuda.fits_l2(1536, 1536)  # 81 MiB
     assert not inplace_cuda.fits_l2(2048, 2048, "i16")  # 72 MiB

@@ -347,11 +347,13 @@ def test_kernel_policy_inplace_and_i16(monkeypatch):
     q1_p, tot1_p = fused_torch.fused_step_i16(prog.init_state, obst, params)
     assert torch.equal(q1, q1_p) and torch.equal(tot1, tot1_p)
     assert build(params, mask, cpu, backend="cuda").f_of(prog.init_state) is prog.init_state
-    monkeypatch.setattr(inplace_cuda, "L2_INPLACE_BUDGET", inplace_cuda.state_bytes(16, 24, "i16"))
+    for budget in ("L2_INPLACE_BUDGET", "L2_INPLACE_BUDGET_I16"):
+        monkeypatch.setattr(inplace_cuda, budget, inplace_cuda.state_bytes(16, 24, "i16"))
     assert build(params, mask, cpu, backend="cuda", storage="i16").variant == "cuda-inplace-i16"
     monkeypatch.setattr(resident_cuda, "L2_STATE_BUDGET", 0)
     assert build(params, mask, cpu, backend="cuda").variant == "cuda-step"  # f32 needs 2x
-    monkeypatch.setattr(inplace_cuda, "L2_INPLACE_BUDGET", inplace_cuda.state_bytes(16, 24, "i16") - 1)
+    monkeypatch.setattr(inplace_cuda, "L2_INPLACE_BUDGET_I16",
+                        inplace_cuda.state_bytes(16, 24, "i16") - 1)
     assert build(params, mask, cpu, backend="cuda", storage="i16").variant == "cuda-step-i16"
     with pytest.raises(ValueError, match="requires the cuda backend"):
         build(params, mask, cpu, backend="torch", storage="i16")
@@ -389,8 +391,9 @@ def test_build_flags_and_sources(tmp_path, monkeypatch):
     assert "-prec-div=true" in flags and "-prec-sqrt=true" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert {s.name for s in _build.sources()} == {
-        "step.cu", "resident.cu", "inplace.cu", "lbm_common.cuh"}
-    assert {"lbm_inplace_grid", "lbm_inplace_chunk", "lbm_step_run"} <= set(_build._SIGNATURES)
+        "step.cu", "resident.cu", "inplace.cu", "temporal.cu", "skew.cu", "lbm_common.cuh"}
+    assert {"lbm_inplace_grid", "lbm_inplace_chunk", "lbm_step_run", "lbm_trapezoid_run",
+            "lbm_skew_run"} <= set(_build._SIGNATURES)
     d0 = _build.build_dir()
     assert d0.parent == _build.BUILD_ROOT and len(d0.name) == 16
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
