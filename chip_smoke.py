@@ -43,6 +43,13 @@ power limit as nvidia-smi reports them):
 3e. at 2048x2048 over 8000 steps, K=4: K4 and K5 vs K1 (fields
    torch.equal, tot_u rtol 1e-6), and K4-i16 vs K5-i16 (both quantize
    once per sweep: int16 fields torch.equal);
+3f. the sharded modes' kernels vs their plain versions
+   (:func:`slab_kernel_checks`): K1-slab and K1-slab-i16 on shards of 2,
+   8, 13 and 256 rows, nx 1024 and 100, and on the 1024x4096 shard of
+   4096x4096 over 4 (phases 5f and 6d), the driven row in the body, in
+   either ghost and in none, the whole slab and overlap's three windows,
+   rest and perturbed starts; K6 at chunks 1, 2, 3 and 8; fields
+   torch.equal (int16 too), tot_u within rtol 1e-6;
 4. the cuda main path on a 128x128 scene for 120 steps vs core/oracle:
    fields atol 2e-7, av rtol 1e-4;
 5. ``lbm_tpu_torch run`` on 256x256 (8000 steps: K2, two segments) and
@@ -79,15 +86,38 @@ power limit as nvidia-smi reports them):
    forced K4-i16 and K5-i16 runs (both K=4) are byte-identical;
    ``bench --grid 2048x2048`` runs the default policy's variant; the K4,
    K4-i16, K5 and K5-i16 counters, zeroed just before, must have gone up;
+5e. the sharded CLI on the 1024x1024 golden scene over 4 shards of the
+   card (``--host-devices 4``), 20000 steps: sync's final_state.dat
+   byte-identical to 5b's single-device f32 run (cuda-inplace, whose
+   fields equal K1's) with av_vels within 1e-6 relative, overlap's
+   byte-identical to sync's, async passing ``check`` against golden/ (1%),
+   sync --storage i16 byte-identical to 5b's int16 run (cuda-step-i16);
+   2000 steps of async-k (k = 2) and 2001 of chunked (k = 2: K6 and a
+   one-step sync tail) each passing ``check`` (1%) against an f32 sync run
+   of the same length; the K1-slab, K1-slab-i16 and K6 counters, zeroed
+   just before, must have gone up, each in the runs that use it;
+5f. large shards: a 4096x4096 channel over 4 shards of 1024x4096, 200
+   steps, sync's fields equal to the single-device K1 run's
+   (``--temporal-k 1``), av within rtol 1e-6; chunked (k = 2) on the
+   K1-slab loop (K6's counter unchanged), within 1% of sync's av;
+5g. the dryrun analog (tools/dryrun.py) on 8 shards of the card: every
+   relation holds with ulp 0;
 6. MLUPS of those runs, and K1 / K2 / K3 / K1-i16 / K3-i16 / twin times at
    128^2 .. 1024^2 and K1 / K1-i16 / K3-i16 / twin at 1536^2
-   (tools/kernel_times.py) beside a 1 GiB device copy's bandwidth; and
-   K4 / K5 / K4-i16 / K5-i16 at K in {2, 4, 8} at 1536^2, 2048^2 and
-   4096^2, in turns with K1 / K1-i16, beside the plain sweep's time;
+   (tools/kernel_times.py) beside a 1 GiB device copy's bandwidth and
+   that of a 16 MiB copy (source and destination fit L2); K4 / K5 / K4-i16 /
+   K5-i16 at K in {2, 4, 8} at 1536^2, 2048^2 and 4096^2, in turns with
+   K1 / K1-i16, beside the plain sweep's time; (6d) MLUPS of every
+   sharded discipline at 1024^2/4 (5e) and 4096^2/4 (400 steps, beside
+   the single-device default), and K1-slab / K1-slab-i16 / K6 us/step on
+   the 256x1024 and 1024x4096 shards beside their plain versions and bounds;
 7. one JSON line of kernel findings (one row per kernel, with the
-   launches of the main path's run; K4, K5 and their int16 forms timed at
-   2048x2048, K=4, and at each grid and depth of 6c under
-   "by_grid_and_depth"), then the last line
+   launches of the main path's run, its time per launch beside its plain
+   version's and its bound, the least time of the launch's bytes over
+   3.35 TB/s or its operations over 67 TFLOP/s, and, for a state in
+   device memory, its bytes over the 1 GiB copy's measured rate; K4,
+   K5 and their int16 forms timed at 2048x2048, K=4, and at each grid and
+   depth of 6c under "by_grid_and_depth"), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no final line.  It
@@ -183,6 +213,117 @@ def compare(name: str, f_k, tot_k, f_p, tot_p) -> tuple[float, float]:
     return err, rel
 
 
+def slab_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
+    """Phase 3f: K1-slab and K1-slab-i16 against the plain slab step, and K6
+    against its plain version (chunk frozen-ghost slab steps), every case
+    bitwise on fields (int16 too) and tot_u within rtol 1e-6.
+
+    K1-slab: shards of 2, 8, 13 and 256 rows, nx 1024 and 100 (not a
+    multiple of 32) of a 1024-row grid, and the 1024x4096 shard of
+    4096x4096 over 4 shards (the large-shard runs of phases 5f and 6d), the
+    driven row in the body, in the ghost below, in the
+    ghost above and in none, the whole slab (separate ghost tensors) and
+    overlap's three windows of one shard tensor (interior, bottom, top:
+    the shard's own edge rows as ghosts, written into windows of the new
+    state), from rest and from a seeded perturbation with the injection
+    guard false at every third cell.  K6: shards of 256x1024 (the 1024^2
+    golden grid over 4 shards), 13x100 and 8x1024 x chunks 1, 2, 3, 8, the
+    driven row in the body, each ghost and none, rest and perturbed.
+    Returns the largest |diff| per kernel and the number of cases."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.core import lattice
+    from lbm_tpu_torch.ops import fused_cuda, ghosted_cuda, quant
+    from lbm_tpu_torch.params import LBMParams
+
+    err = {"K1-slab": 0.0, "K1-slab-i16": 0.0, "K6": 0.0}
+    cases = dict.fromkeys(err, 0)
+
+    def field(n, nx, start):
+        """(params, slab, obst slab) of an n-row shard of a grid of 4n rows
+        (at least 1024) cut from a seeded field: rows 1..n of n + 2 are the
+        body, walls on the slab's edge columns and on every seventh cell of
+        a middle column."""
+        p = LBMParams(nx=nx, ny=max(1024, 4 * n), max_iters=1, reynolds_dim=10, density=0.1,
+                      accel=0.01, omega=1.85)
+        f = lattice.equilibrium_rest(p.density, n + 2, nx)
+        if start == "mixed":
+            rng = np.random.default_rng(7 + n + nx)
+            f = f * (np.float32(1.0) + rng.uniform(-0.1, 0.1, size=f.shape).astype(np.float32))
+            w1, _ = lattice.accel_weights(p.density, p.accel)
+            f[3, :, ::3] = w1 * np.float32(0.5)
+        m = np.zeros((n + 2, nx), dtype=bool)
+        m[:, 0] = m[:, -1] = True
+        m[::7, nx // 2] = True
+        ft = torch.from_numpy(f).to(dev)
+        return p, ft, torch.from_numpy(m).to(dev)
+
+    def offset(n, where, p):
+        """The row offset that puts the driven row in the body, a ghost or none."""
+        return {"body": p.accel_row - n // 2, "lo": p.accel_row + 1, "hi": p.accel_row - n,
+                "none": 0}[where]
+
+    def held(name, out, tot, ref, ref_tot):
+        e = float((out.double() - ref.double()).abs().max())
+        if not torch.equal(out, ref):
+            fail(f"{name}: fields differ from the plain version (max |diff| {e:.3e})")
+        if not torch.allclose(tot, ref_tot, rtol=1e-6, atol=0.0):
+            fail(f"{name}: tot_u {tot.tolist()} vs plain {ref_tot.tolist()}")
+        return e
+
+    wheres = ("body", "lo", "hi", "none")
+    shapes = [(n, nx) for n in (2, 8, 13, 256) for nx in (1024, 100)] + [(1024, 4096)]
+    for storage in ("f32", "i16"):
+        kern = "K1-slab" + ("-i16" if storage == "i16" else "")
+        for n, nx in shapes:
+            for start in ("rest", "mixed"):
+                p, f, m = field(n, nx, start)
+                if storage == "i16":
+                    f = quant.quantize(f, p.density)
+                shard, ghost_lo, ghost_hi = f[:, 1:-1], f[:, :1].clone(), f[:, -1:].clone()
+                shard = shard.contiguous()
+                # (form, body, lo, hi, obst rows, out window, rows of the window)
+                forms = [("full", shard, ghost_lo, ghost_hi, m, slice(None), n),
+                         ("bottom", shard[:, :1], ghost_lo, shard[:, 1:2], m[:3],
+                          slice(0, 1), 1),
+                         ("top", shard[:, -1:], shard[:, -2:-1], ghost_hi, m[-3:],
+                          slice(n - 1, n), 1)]
+                if n > 2:
+                    forms.append(("interior", shard[:, 1:-1], shard[:, :1], shard[:, -1:],
+                                  m[1:-1], slice(1, n - 1), n - 2))
+                for form, body, lo, hi, ob, win, rows in forms:
+                    for where in wheres:
+                        off = offset(rows, where, p)
+                        new = torch.zeros_like(shard)
+                        tots = torch.zeros(2, dtype=torch.float32, device=dev)
+                        fused_cuda.bind_slab_step(p, body, lo, hi, ob.contiguous(),
+                                                  new[:, win], tots, off, storage)(1)
+                        ref, ref_tot = fused_cuda.slab_plain(body, lo, hi, ob, p, off,
+                                                             storage)
+                        e = held(f"{kern} n={n} nx={nx} {start} {form} driven={where}",
+                                 new[:, win], tots[1:], ref, ref_tot.reshape(1))
+                        err[kern] = max(err[kern], e)
+                        cases[kern] += 1
+    for n, nx in ((256, 1024), (13, 100), (8, 1024)):
+        for start in ("rest", "mixed"):
+            p, f, m = field(n, nx, start)
+            body, lo, hi = f[:, 1:-1].contiguous(), f[:, :1], f[:, -1:]
+            for chunk in (1, 2, 3, 8):
+                for where in wheres:
+                    off = offset(n, where, p)
+                    out = torch.empty_like(body)
+                    tots = torch.zeros(chunk + 1, dtype=torch.float32, device=dev)
+                    ghosted_cuda.bind_chunk(p, body.clone(), lo, hi, m, out, tots, off,
+                                            chunk)(1)
+                    ref, ref_tot = ghosted_cuda.chunk_plain(body, lo, hi, m, p, off, chunk)
+                    e = held(f"K6 {n}x{nx} {start} chunk={chunk} driven={where}", out,
+                             tots[1:], ref, ref_tot)
+                    err["K6"] = max(err["K6"], e)
+                    cases["K6"] += 1
+    return err, cases
+
+
 def build_native_writer() -> str:
     """Build the C++ writer of final_state.dat (``make native``, into the
     gitignored native/build/), so that the large-grid CLI runs do not format
@@ -226,9 +367,11 @@ def main() -> int:
     from lbm_tpu_torch.core import lattice, oracle
     from lbm_tpu_torch.io.scene import Scene
     from lbm_tpu_torch.models.driver import RunConfig, run_simulation
+    from lbm_tpu_torch.io.writers import read_av_vels
     from lbm_tpu_torch.ops import (
         _build,
         fused_cuda,
+        ghosted_cuda,
         inplace_cuda,
         quant,
         resident_cuda,
@@ -236,7 +379,7 @@ def main() -> int:
         temporal_cuda,
     )
     from lbm_tpu_torch.params import LBMParams
-    from lbm_tpu_torch.tools import bench, kernel_times, scenegen
+    from lbm_tpu_torch.tools import bench, dryrun, kernel_times, scenegen
 
     dev = torch.device("cuda", 0)
     card = bench.card_line()
@@ -419,6 +562,13 @@ def main() -> int:
     print(f"[3e sweeps at full length] card: {card} | 2048x2048 x {long_steps} steps, "
           f"K={long_k}: fields equal; {'; '.join(long_rel)}")
 
+    # Phase 3f: the sharded modes' kernels vs their plain versions.
+    slab_err, slab_cases = slab_kernel_checks(dev)
+    print(f"[3f shard kernels vs plain] card: {card} | "
+          + "; ".join(f"{k} {slab_cases[k]} cases, fields equal, max |diff| {slab_err[k]:.1e}"
+                      for k in slab_err)
+          + f" | {time.perf_counter() - t_start:.1f} s elapsed")
+
     # Phase 4: oracle anchor on the cuda main path.
     p128 = LBMParams(nx=128, ny=128, max_iters=120, reynolds_dim=10,
                      density=0.1, accel=0.005, omega=1.85)
@@ -529,7 +679,7 @@ def main() -> int:
             fp.write("1024\n1024\n20000\n10\n0.1\n0.01\n1.85\n")
         with open(go, "w") as fp:
             fp.writelines(f"{x} {y} 1\n" for x, y, _ in walls)
-        golden_dev = {}
+        golden_dev, golden_dirs = {}, {}
         inplace_cuda.LAUNCHES = 0
         fused_cuda.LAUNCHES_I16 = 0
         temporal_cuda.LAUNCHES_I16 = 0
@@ -540,6 +690,7 @@ def main() -> int:
                 fail(f"golden run --storage {storage} {' '.join(extra)}: variant {got}, "
                      f"expected {want}")
             golden_dev[want] = cli_check(ref_av, ref_fs, out_dir, f"golden {want}")
+            golden_dirs[want] = out_dir
         launches["K3"] = inplace_cuda.LAUNCHES
         golden_k1i, golden_k4i = fused_cuda.LAUNCHES_I16, temporal_cuda.LAUNCHES_I16
         if min(launches["K3"], golden_k1i, golden_k4i) <= 0:
@@ -655,6 +806,106 @@ def main() -> int:
               f"(max deviation av_vels, final_state) | {' | '.join(notes)} | launches "
               + ", ".join(f"{k} {launches[k]}" for k in ("K4", "K4-i16", "K5", "K5-i16")))
 
+        # Phase 5e: the sharded CLI on the golden scene, 4 shards of the card.
+        # The counts of the sharded kernels start from 0 here: the runs of
+        # this phase are the sharded main path.
+        fused_cuda.SLAB_LAUNCHES = 0
+        fused_cuda.SLAB_LAUNCHES_I16 = 0
+        ghosted_cuda.LAUNCHES = 0
+        names = ("K1-slab", "K1-slab-i16", "K6")
+
+        def counts():
+            return fused_cuda.SLAB_LAUNCHES, fused_cuda.SLAB_LAUNCHES_I16, ghosted_cuda.LAUNCHES
+
+        def sharded_run(tag, variant, want, uses, *extra):
+            """``run --host-devices 4`` of the golden scene, which must report
+            ``want`` and launch every kernel of ``uses``."""
+            before = counts()
+            out_dir, got = cli_run(tag, gp, go, variant, "--host-devices", "4", *extra)
+            after = counts()
+            if got != want:
+                fail(f"{tag} --variant {variant}: variant {got}, expected {want}")
+            if any(after[names.index(k)] <= before[names.index(k)] for k in uses):
+                fail(f"{tag} {got} skipped a kernel of {uses}: counts {before} -> {after}")
+            return out_dir
+
+        def av_rel(a, b):
+            x = read_av_vels(os.path.join(a, "av_vels.dat"))
+            y = read_av_vels(os.path.join(b, "av_vels.dat"))
+            return float(np.max(np.abs(x - y) / np.abs(y)))
+
+        notes = []
+        sync_dir = sharded_run("golden1024", "sync", "sync", ("K1-slab",))
+        single = golden_dirs["cuda-inplace"]
+        if not same_final_state(sync_dir, single):
+            fail("golden sync over 4 shards: final_state.dat differs from the single-device run")
+        rel = av_rel(sync_dir, single)
+        if rel > 1e-6:
+            fail(f"golden sync over 4 shards: av_vels {rel:.3e} relative from single-device")
+        notes.append(f"sync final_state.dat byte-identical to cuda-inplace, av_vels max rel "
+                     f"{rel:.2e}")
+        ov_dir = sharded_run("golden1024", "overlap", "overlap", ("K1-slab",))
+        if not same_final_state(ov_dir, sync_dir):
+            fail("golden overlap: final_state.dat differs from sync's")
+        notes.append(f"overlap byte-identical to sync (av_vels max rel "
+                     f"{av_rel(ov_dir, sync_dir):.2e})")
+        as_dir = sharded_run("golden1024", "async", "async", ("K1-slab",))
+        notes.append("async vs golden " + ", ".join(cli_check(ref_av, ref_fs, as_dir,
+                                                              "golden async")))
+        si_dir = sharded_run("golden1024", "sync", "sync-i16", ("K1-slab-i16",), "--storage",
+                             "i16")
+        if not same_final_state(si_dir, golden_dirs["cuda-step-i16"]):
+            fail("golden sync --storage i16: final_state.dat differs from cuda-step-i16's")
+        notes.append("sync-i16 byte-identical to cuda-step-i16")
+        for steps, variant, want, uses in ((2000, "async-k", "async-2", ("K1-slab",)),
+                                           (2001, "chunked", "chunked-2+sync-tail1",
+                                            ("K6", "K1-slab"))):
+            tag = f"golden1024-{steps}"
+            ref_dir = sharded_run(tag, "sync", "sync", ("K1-slab",), "--steps", str(steps))
+            d = sharded_run(tag, variant, want, uses, "--steps", str(steps))
+            notes.append(f"{want} x {steps} vs sync " + ", ".join(cli_check(
+                os.path.join(ref_dir, "av_vels.dat"), os.path.join(ref_dir, "final_state.dat"),
+                d, f"{want} vs sync")))
+        for name, n in zip(names, counts()):
+            launches[name] = n
+        print(f"[5e sharded CLI, golden 1024x1024 over 4 shards of the card] card: {card} | "
+              f"20000 steps (max deviation av_vels, final_state) | {'; '.join(notes)} | "
+              f"launches " + ", ".join(f"{k} {launches[k]}" for k in names)
+              + f" | {time.perf_counter() - t_start:.1f} s elapsed")
+
+    # Phase 5f: large shards, 4096x4096 over 4 shards of 1024x4096.
+    p4k = LBMParams(nx=4096, ny=4096, max_iters=200, reynolds_dim=10, density=0.1, accel=0.01,
+                    omega=1.85)
+    scene4k = Scene(p4k, scenegen.make_mask("channel", 4096, 4096))
+    r_k1 = run_simulation(scene4k, RunConfig(variant="cuda", device="cuda", temporal_k=1))
+    slab_5f = fused_cuda.SLAB_LAUNCHES
+    r_sync = run_simulation(scene4k, RunConfig(variant="sync", device="cuda", host_devices=4))
+    if r_k1.variant != "cuda-step" or not np.array_equal(r_sync.f, r_k1.f):
+        fail(f"4096x4096 sync over 4 shards differs from single-device {r_k1.variant}")
+    sync_rel = float(np.max(np.abs(r_sync.av_vels - r_k1.av_vels) / np.abs(r_k1.av_vels)))
+    if sync_rel > 1e-6:
+        fail(f"4096x4096 sync av {sync_rel:.3e} relative from K1")
+    k6_before = ghosted_cuda.LAUNCHES
+    slab_before = fused_cuda.SLAB_LAUNCHES
+    r_ch = run_simulation(scene4k, RunConfig(variant="chunked", device="cuda", host_devices=4))
+    ch_rel = float(np.max(np.abs(r_ch.av_vels - r_sync.av_vels) / np.abs(r_sync.av_vels)))
+    if (r_ch.variant != "chunked-2" or ghosted_cuda.LAUNCHES != k6_before
+            or fused_cuda.SLAB_LAUNCHES <= slab_before or ch_rel > 0.01):
+        fail(f"4096x4096 chunked: {r_ch.variant}, K6 {k6_before} -> {ghosted_cuda.LAUNCHES}, "
+             f"av {ch_rel:.3e} from sync")
+    slab_5f = fused_cuda.SLAB_LAUNCHES - slab_5f
+    print(f"[5f large shards 4096x4096 over 4 shards of 1024x4096] card: {card} | channel, 200 "
+          f"steps | sync fields equal to cuda-step (K1), av max rel {sync_rel:.2e} | chunked-2 "
+          f"on the K1-slab loop (K6 not launched), av max rel {ch_rel:.2e} from sync | MLUPS "
+          f"cuda-step {r_k1.mlups:.1f}, sync {r_sync.mlups:.1f}, chunked-2 {r_ch.mlups:.1f} | "
+          f"launches K1-slab {slab_5f}")
+    del r_k1, r_sync, r_ch
+
+    # Phase 5g: the dryrun analog on 8 shards of the card.
+    lines = dryrun.dryrun(8, "cuda")
+    print(f"[5g dryrun, 8 shards of the card] card: {card} | {len(lines)} relations hold, ulp 0 "
+          f"| {time.perf_counter() - t_start:.1f} s elapsed")
+
     # Phase 6: rates.
     print(f"[6a run MLUPS] card: {card} | "
           + "; ".join(f"{k} {v:.1f}" for k, v in mlups.items()))
@@ -669,32 +920,75 @@ def main() -> int:
           f"card: {card} | " + " ; ".join(kernel_times.format_grid(n, t)
                                            for n, t in sweeps.items()))
 
+    # Phase 6d: the sharded disciplines' rates and their kernels' times,
+    # and a copy whose source and destination fit L2 together.
+    l2_copy = kernel_times.copy_gbps(dev, repeats=21, nbytes=16 * 2**20)
+    shard_times = {n: kernel_times.time_shard(n, dev, repeats=5) for n in (1024, 4096)}
+    scene_b = bench.make_scene("4096x4096")
+    rates4k = {}
+    for variant in ("cuda", "sync", "overlap", "async", "async-k", "chunked"):
+        res = run_simulation(scene_b, RunConfig(variant=variant, device="cuda", num_steps=400,
+                                                host_devices=None if variant == "cuda" else 4))
+        rates4k[res.variant] = res.mlups
+    golden_rates = {k: v for k, v in mlups.items() if k.startswith("golden1024")}
+    print(f"[6d sharded rates] card: {card} | MLUPS, golden 1024x1024 (4 shards unless "
+          f"cuda-*; 20000 steps, async-2 2000, chunked 2001): "
+          + "; ".join(f"{k} {v:.1f}" for k, v in golden_rates.items())
+          + " | 4096x4096 box x 400 steps: " + "; ".join(f"{k} {v:.1f}"
+                                                        for k, v in rates4k.items())
+          + f" | copy 16 MiB (fits L2) {l2_copy[0]:.1f} GB/s [{l2_copy[1]:.1f}, "
+            f"{l2_copy[2]:.1f}]"
+          + " | shard kernels in turns, then plain: "
+          + " ; ".join(kernel_times.format_shard(n, t) for n, t in shard_times.items()))
+
     # Phase 7: kernel findings, then the last line.  A launch of K1 is one
-    # step; one of K2 or K3 is 256 steps; one of K4 or K5 is K steps.
+    # step; one of K2 or K3 is 256 steps; one of K4 or K5 is K steps; one of
+    # K1-slab one step of one shard; one of K6 k steps of one shard.  Every
+    # row has its bound (bound_ms: the launch's bytes over 3.35 TB/s or its
+    # operations over 67 TFLOP/s, whichever is larger) and the memory tier
+    # its state lives in; for a state in HBM also tier_bound_ms, the bytes
+    # it moves over the 1 GiB copy's rate of phase 6b.  L2 has no measured
+    # rate (the 16 MiB copy of 6d reads no faster than HBM), so an L2 row's
+    # tier_bound_ms is null.  No single PyTorch call computes a D2Q9 step,
+    # so library_ms is null.
     chunk = inplace_cuda.DEFAULT_CHUNK
 
-    def row(name, source, replaces, key, err, n, plain, per_launch):
+    def bounds(rows, nx, fluid, steps, storage, tier, ghosts=False):
+        """bound_ms, bound_by, tier and tier_bound_ms of one launch on a
+        rows x nx state (a shard: plus its two ghost rows)."""
+        cells = rows * nx
+        extra = 2 * 9 * nx * (2 if storage == "i16" else 4) if ghosts else 0
+        b, by = kernel_times.bound_ms(cells, fluid, steps, storage, extra)
+        per_cell = (kernel_times.BYTES_PER_CELL_STEP_I16 if storage == "i16"
+                    else kernel_times.BYTES_PER_CELL_STEP)
+        tier_b = cells * per_cell / (gbps[0] * 1e9) * 1e3 if tier == "HBM" else None
+        return {"bound_ms": b, "bound_by": by, "library_ms": None, "tier": tier,
+                "tier_bound_ms": tier_b}
+
+    def row(name, source, replaces, key, err, n, plain, per_launch, storage, tier):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[key], "max_abs_err": err,
                 "ms": table[n][key][0] / 1e3 * per_launch,
-                "plain_ms": table[n][plain][0] / 1e3 * per_launch}
+                "plain_ms": table[n][plain][0] / 1e3 * per_launch,
+                **bounds(n, n, (n - 2) ** 2, per_launch, storage, tier)}
 
     kernels = [
         row("K1 one-step fused kernel (ms per launch = 1 step, 1536x1536)",
             "lbm_tpu_torch/csrc/step.cu", "lbm_tpu/ops/fused_pallas.py:249",
-            "K1", k1_err, 1536, "twin", 1),
+            "K1", k1_err, 1536, "twin", 1, "f32", "HBM"),
         row("K2 persistent multi-step kernel (ms per launch = 256 steps, 256x256)",
             "lbm_tpu_torch/csrc/resident.cu", "lbm_tpu/ops/resident_pallas.py:213",
-            "K2", k2_err, 256, "twin", resident_cuda.DEFAULT_CHUNK),
+            "K2", k2_err, 256, "twin", resident_cuda.DEFAULT_CHUNK, "f32", "L2"),
         row("K3 in-place persistent kernel (ms per launch = 256 steps, 1024x1024)",
             "lbm_tpu_torch/csrc/inplace.cu", "lbm_tpu/ops/resident_pallas.py:601",
-            "K3", k3_err, 1024, "twin", chunk),
+            "K3", k3_err, 1024, "twin", chunk, "f32", "L2"),
         row("K3-i16 in-place persistent kernel, int16 state (ms per launch = 256 steps, "
             "256x256)", "lbm_tpu_torch/csrc/inplace.cu",
-            "lbm_tpu/ops/resident_pallas.py:601", "K3-i16", k3i_err, 256, "twin-i16", chunk),
+            "lbm_tpu/ops/resident_pallas.py:601", "K3-i16", k3i_err, 256, "twin-i16", chunk,
+            "i16", "L2"),
         row("K1-i16 one-step fused kernel, int16 state (ms per launch = 1 step, 1536x1536)",
             "lbm_tpu_torch/csrc/step.cu", "lbm_tpu/ops/fused_pallas.py:249",
-            "K1-i16", k1i_err, 1536, "twin-i16", 1),
+            "K1-i16", k1i_err, 1536, "twin-i16", 1, "i16", "HBM"),
     ]
     # One row per sweep kernel: the launches of phase 5d, which run K=4, its
     # largest difference from plain over every case of phase 3d, and its
@@ -710,17 +1004,50 @@ def main() -> int:
     for key, what, source, replaces in sweep_rows:
         for sfx, state in (("", ""), ("-i16", ", int16 state")):
             kern, plain = key + sfx, "plain" + sfx
+            storage = "i16" if sfx else "f32"
             kernels.append({
                 "name": f"{kern} {what}{state} (ms per launch = 4 steps, 2048x2048, K=4)",
                 "route": "cuda", "source": f"lbm_tpu_torch/csrc/{source}",
                 "replaces": f"lbm_tpu/ops/{replaces}", "launches": launches[kern],
                 "max_abs_err": max(e for k, e in sweep_err.items() if k[0] == kern),
                 "ms": per_launch_ms(2048, kern, 4), "plain_ms": per_launch_ms(2048, plain, 4),
+                **bounds(2048, 2048, 2046 ** 2, 4, storage, "HBM"),
                 "by_grid_and_depth": [
                     {"grid": f"{n}x{n}", "K": K, "ms": per_launch_ms(n, kern, K),
                      "plain_ms": per_launch_ms(n, plain, K),
-                     "max_abs_err": sweep_err[(kern, n, n, K)]}
+                     "max_abs_err": sweep_err[(kern, n, n, K)],
+                     **bounds(n, n, (n - 2) ** 2, K, storage, "HBM")}
                     for n in SWEEP_GRIDS for K in SWEEP_DEPTHS]})
+
+    # The sharded kernels, timed on the last shard of the n x n box over 4
+    # (rows 3n/4 .. n-1: its top row and edge columns are walls).
+    def shard_row(n, timed, plain, per_launch, storage, tier):
+        rows = n // 4
+        return {"ms": shard_times[n][timed][0] / 1e3 * per_launch,
+                "plain_ms": shard_times[n][plain][0] / 1e3 * per_launch,
+                **bounds(rows, n, (rows - 1) * (n - 2), per_launch, storage, tier, ghosts=True)}
+
+    for key, storage, what in (("K1-slab", "f32", ""), ("K1-slab-i16", "i16", ", int16 state")):
+        sfx = "-i16" if storage == "i16" else ""
+        kernels.append({
+            "name": f"{key} one-step slab kernel of the sharded modes{what} (ms per launch = "
+                    "1 step of one 256x1024 shard of 1024x1024; the shard's copies sit in L2)",
+            "route": "cuda", "source": "lbm_tpu_torch/csrc/step.cu",
+            "replaces": "lbm_tpu/ops/fused_pallas.py:581", "launches": launches[key],
+            "max_abs_err": slab_err[key],
+            **shard_row(1024, key, f"plain-slab{sfx}", 1, storage, "L2"),
+            "by_shard": [{"shard": "1024x4096 of 4096x4096",
+                          "launches_5f": slab_5f if storage == "f32" else 0,
+                          **shard_row(4096, key, f"plain-slab{sfx}", 1, storage, "HBM")}]})
+    kernels.append({
+        "name": "K6 ghosted chunk kernel (ms per launch = 2 steps of one 256x1024 shard of "
+                "1024x1024, k = 2)",
+        "route": "cuda", "source": "lbm_tpu_torch/csrc/ghosted.cu",
+        "replaces": "lbm_tpu/ops/resident_pallas.py:997", "launches": launches["K6"],
+        "max_abs_err": slab_err["K6"],
+        **shard_row(1024, "K6 k=2", "plain K6 k=2", 2, "f32", "L2"),
+        "by_chunk": [{"k": 8, "ms": shard_times[1024]["K6 k=8"][0] / 1e3 * 8,
+                      **bounds(256, 1024, 255 * 1022, 8, "f32", "L2", ghosts=True)}]})
     print(f"[7 elapsed] card: {card} | {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -28,15 +28,31 @@ _UNPORTED_RUN_FLAGS = {
     "checkpoint_dir": "--checkpoint-dir",
     "resume": "--resume",
     "plan": "--plan",
-    "devices": "--devices",
-    "staleness": "--staleness",
-    "backend": "--backend",
     "divergence": "--divergence",
     "profile": "--profile",
     "platform": "--platform",
-    "host_devices": "--host-devices",
 }
 _UNPORTED_COMMANDS = ("viz", "animate", "golden", "sweep", "speedup")
+
+
+def _add_sharding_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--devices", type=int, default=None,
+                   help="shards of the sharded variants (default: every device of the run)")
+    p.add_argument(
+        "--staleness", type=int, default=None,
+        help="halo age of async / chunk length of chunked (default: async 1, "
+        "async-k 2, chunked 2)",
+    )
+    p.add_argument(
+        "--backend", choices=["torch", "cuda", "jnp", "pallas"], default=None,
+        help="per-shard step of the sharded variants, or the single-device "
+        "variant: cuda (kernels) or torch (plain); jnp/pallas are lbm_tpu's names",
+    )
+    p.add_argument(
+        "--host-devices", type=int, default=None,
+        help="make the run's one device (the CPU, or one card) count as N "
+        "devices, one shard each",
+    )
 
 
 def _add_run_args(p: argparse.ArgumentParser) -> None:
@@ -44,8 +60,10 @@ def _add_run_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("obstaclefile")
     p.add_argument(
         "--variant", default="auto",
-        help="solver variant: serial | torch | cuda (aliases: jnp -> torch, "
-        "pallas -> cuda); default auto = cuda on a CUDA device, torch on cpu",
+        help="solver variant: serial | torch | cuda | sync | overlap | async | "
+        "async-k | chunked (aliases: jnp -> torch, pallas -> cuda, mpi, "
+        "waitall, testall, ...); default auto = cuda on a CUDA device, torch "
+        "on cpu, lbm_tpu's sharded rule on more than one device",
     )
     p.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
@@ -56,6 +74,7 @@ def _add_run_args(p: argparse.ArgumentParser) -> None:
         help="state representation: f32, or i16 (int16 fixed-point deviations, "
         "half the bytes; needs the cuda variant, which --variant auto picks)",
     )
+    _add_sharding_args(p)
     p.add_argument("--steps", type=int, default=None, help="override maxIters")
     p.add_argument("--out-dir", default=".", help="output directory")
     p.add_argument("--final-state-file", default="final_state.dat")
@@ -101,6 +120,10 @@ def cmd_run(args: argparse.Namespace) -> int:
         segment_steps=args.segment_steps,
         storage=args.storage,
         temporal_k=args.temporal_k,
+        num_devices=args.devices,
+        staleness=args.staleness,
+        backend=args.backend,
+        host_devices=args.host_devices,
     )
     print(f"lbm_tpu_torch: device={device} ({device_name(device)})")
 
@@ -136,6 +159,10 @@ def cmd_bench(args: argparse.Namespace) -> int:
         repeats=args.repeats,
         device=args.device,
         storage=args.storage,
+        devices=args.devices,
+        staleness=args.staleness,
+        backend=args.backend,
+        host_devices=args.host_devices,
     )
     print(json.dumps(report))
     return 0
@@ -181,6 +208,7 @@ def main(argv: list[str] | None = None) -> int:
     p_bench.add_argument("--repeats", type=int, default=3)
     p_bench.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p_bench.add_argument("--storage", choices=["f32", "i16"], default="f32")
+    _add_sharding_args(p_bench)
 
     sub.add_parser("info", help="print device/runtime info")
 

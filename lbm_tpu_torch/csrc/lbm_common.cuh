@@ -1,13 +1,15 @@
 // Shared per-cell D2Q9-BGK update for the CUDA kernels of lbm_tpu_torch.
 //
-// Every kernel (step.cu, resident.cu, inplace.cu, temporal.cu, skew.cu)
-// loads state through lbm_load(), updates a cell with lbm_collide() and
-// stores with lbm_encode(), so they stay bitwise equal to each other and to
-// the plain torch step (ops/stencil_math.py, which this file follows op for
-// op, in the same association order).  step.cu and resident.cu pull a
-// cell's 9 values with lbm_pull(); inplace.cu reads them from its in-place
-// layout; temporal.cu and skew.cu pull from levels held in shared memory
-// with lbm_pull_rows().
+// Every kernel (step.cu, resident.cu, inplace.cu, temporal.cu, skew.cu,
+// ghosted.cu) loads state through lbm_load(), updates a cell with
+// lbm_collide() and stores with lbm_encode(), so they stay bitwise equal to
+// each other and to the plain torch step (ops/stencil_math.py, which this
+// file follows op for op, in the same association order).  step.cu and
+// resident.cu pull a cell's 9 values with lbm_pull(); the slab kernels of
+// the sharded modes (K1-slab in step.cu, K6 in ghosted.cu) with
+// lbm_pull_slab(); inplace.cu reads them from its in-place layout;
+// temporal.cu and skew.cu pull from levels held in shared memory with
+// lbm_pull_rows().
 //
 // Storage: the state is float32, or int16 fixed-point deviations from rest
 // (ops/quant.py).  lbm_load() dequantizes and lbm_encode() quantizes with
@@ -164,6 +166,83 @@ __device__ __forceinline__ void lbm_pull(const T* f, const uint8_t* obst, int j,
   if (jn == p.accel_row) {
     t[7] = t[7] - lbm_accel_gate<kL2>(f, obst, plane, jn, ie, p.w2, p);
     t[8] = t[8] + lbm_accel_gate<kL2>(f, obst, plane, jn, iw, p.w2, p);
+  }
+}
+
+// A row slab of one shard (the sharded modes): n body rows and one ghost
+// row on each side, each in its own buffer with its own plane stride (in
+// elements), so that a window of a larger tensor serves as any of them.
+// Row r of plane k is body[k * ps + r * nx] for 0 <= r < n, lo[k * ps_lo]
+// for r = -1 and hi[k * ps_hi] for r = n.  The obstacle slab is (n + 2, nx)
+// bytes, row r at (r + 1) * nx.
+template <typename T>
+struct Slab {
+  const T* body;
+  long long ps;
+  const T* lo;
+  long long ps_lo;
+  const T* hi;
+  long long ps_hi;
+};
+
+// The guarded injection of slab row r's cell si, read from that row (plane
+// 0 at `row`, plane stride `ps`): w, or 0.0f where the guard is false.
+template <bool kL2, typename T>
+__device__ __forceinline__ float lbm_slab_gate(const T* row, long long ps, const uint8_t* wall,
+                                               int si, float w, const StepParams& p) {
+  const bool ok = lbm_guard(!wall[si], lbm_load<kL2>(row + 3 * ps + si, 3, p),
+                            lbm_load<kL2>(row + 6 * ps + si, 6, p),
+                            lbm_load<kL2>(row + 7 * ps + si, 7, p), p);
+  return ok ? w : 0.0f;
+}
+
+// lbm_pull() on a slab: the 9 streamed values of body cell (j, i),
+// t[k] = slab[k][j - cy][(i - cx) mod nx], y reads from the ghost rows at
+// the edges.  The driven row is found by global row (row_offset + r for
+// slab row r, ghosts included, never wrapped), as lbm_tpu's
+// fused_step_slab injects every slab row whose global index is accel_row;
+// the guard is recomputed from the source cell.  kInjectGhosts = false
+// skips the ghost rows: their injection was applied once, in place (K6).
+template <bool kL2, bool kInjectGhosts, typename T>
+__device__ __forceinline__ void lbm_pull_slab(const Slab<T>& s, int n, const uint8_t* obst,
+                                              int row_offset, int j, int i,
+                                              const StepParams& p, float t[9]) {
+  const int nx = p.nx;
+  const int iw = (i == 0) ? nx - 1 : i - 1;  // source column of cx = +1
+  const int ie = (i + 1 == nx) ? 0 : i + 1;  // source column of cx = -1
+  const T* rj = s.body + static_cast<size_t>(j) * nx;
+  const long long pj = s.ps;
+  const bool lo_edge = (j == 0);
+  const bool hi_edge = (j + 1 == n);
+  const T* rs = lo_edge ? s.lo : rj - nx;  // source row of cy = +1
+  const long long psr = lo_edge ? s.ps_lo : s.ps;
+  const T* rn = hi_edge ? s.hi : rj + nx;  // source row of cy = -1
+  const long long pnr = hi_edge ? s.ps_hi : s.ps;
+
+  t[0] = lbm_load<kL2>(rj + 0 * pj + i, 0, p);
+  t[1] = lbm_load<kL2>(rj + 1 * pj + iw, 1, p);
+  t[2] = lbm_load<kL2>(rs + 2 * psr + i, 2, p);
+  t[3] = lbm_load<kL2>(rj + 3 * pj + ie, 3, p);
+  t[4] = lbm_load<kL2>(rn + 4 * pnr + i, 4, p);
+  t[5] = lbm_load<kL2>(rs + 5 * psr + iw, 5, p);
+  t[6] = lbm_load<kL2>(rs + 6 * psr + ie, 6, p);
+  t[7] = lbm_load<kL2>(rn + 7 * pnr + ie, 7, p);
+  t[8] = lbm_load<kL2>(rn + 8 * pnr + iw, 8, p);
+
+  // Speeds 1, 3 come from row j; 5, 6 from row j - 1; 7, 8 from row j + 1.
+  const int g = row_offset + j;
+  const uint8_t* wall = obst + static_cast<size_t>(j + 1) * nx;  // obstacle row of body row j
+  if (g == p.accel_row) {
+    t[1] = t[1] + lbm_slab_gate<kL2>(rj, pj, wall, iw, p.w1, p);
+    t[3] = t[3] - lbm_slab_gate<kL2>(rj, pj, wall, ie, p.w1, p);
+  }
+  if (g - 1 == p.accel_row && (kInjectGhosts || !lo_edge)) {
+    t[5] = t[5] + lbm_slab_gate<kL2>(rs, psr, wall - nx, iw, p.w2, p);
+    t[6] = t[6] - lbm_slab_gate<kL2>(rs, psr, wall - nx, ie, p.w2, p);
+  }
+  if (g + 1 == p.accel_row && (kInjectGhosts || !hi_edge)) {
+    t[7] = t[7] - lbm_slab_gate<kL2>(rn, pnr, wall + nx, ie, p.w2, p);
+    t[8] = t[8] + lbm_slab_gate<kL2>(rn, pnr, wall + nx, iw, p.w2, p);
   }
 }
 

@@ -23,6 +23,20 @@
 // |u|: each block reduces its cells in a fixed tree into partials[step][block];
 // a second kernel reduces each step's row of partials in a fixed order into
 // tot_out[step].  No float atomics, so runs are deterministic.
+//
+// K1-slab (and K1-slab-i16): the same step on one shard of the sharded
+// modes, replacing B1's slab form (fused_pallas.py::make_slab_step :581,
+// the same _step_kernel with external halo rows and a runtime row offset).
+// The body, each ghost row and the output are separate pointers with their
+// own plane strides, so a window of a larger tensor serves as any of them:
+// overlap's three sub-slabs read the shard's own edge rows as ghosts and
+// write straight into the new state, with no concatenation.  x wraps by
+// index arithmetic; y reads come from the ghost rows at the slab's edges
+// (lbm_pull_slab).  The driven row is found by global row, ghosts included,
+// as in lbm_tpu's fused_step_slab.  Bound: the same 73 (f32) / 37 (int16)
+// bytes of device memory per cell-step as K1.  One launch leaves a |u|
+// partial per block and a one-block launch sums them, in a fixed order, into
+// the slab's tot_u.
 
 #include "lbm_common.cuh"
 
@@ -55,8 +69,49 @@ __global__ void __launch_bounds__(lbm::kThreads)
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(lbm::kThreads)
+    lbm_slab_kernel(lbm::Slab<T> s, T* __restrict__ out, long long ps_out,
+                    const uint8_t* __restrict__ obst, float* __restrict__ partials,
+                    lbm::StepParams p, int n, int row_offset) {
+  __shared__ float sh[lbm::kThreads];
+  const int i = blockIdx.x * kBlockX + threadIdx.x;
+  const int j = blockIdx.y * kBlockY + threadIdx.y;
+  float speed = 0.0f;
+  if (i < p.nx && j < n) {
+    float t[9], o[9];
+    lbm::lbm_pull_slab<false, true>(s, n, obst, row_offset, j, i, p, t);
+    speed = lbm::lbm_collide(t, obst[static_cast<size_t>(j + 1) * p.nx + i] != 0, p.omega, o);
+    T* c = out + static_cast<size_t>(j) * p.nx + i;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) c[k * ps_out] = lbm::lbm_encode<T>(o[k], k, p);
+  }
+  const float total = lbm::lbm_block_sum(speed, sh);
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    partials[blockIdx.y * gridDim.x + blockIdx.x] = total;
+  }
+}
+
 dim3 step_grid(int ny, int nx) {
   return dim3((nx + kBlockX - 1) / kBlockX, (ny + kBlockY - 1) / kBlockY);
+}
+
+template <typename T>
+int slab_step(const void* body, long long ps, const void* lo, long long ps_lo, const void* hi,
+              long long ps_hi, const uint8_t* obst, void* out, long long ps_out,
+              float* partials, float* tot_out, int n, int row_offset,
+              const lbm::StepParams& p, cudaStream_t s) {
+  const lbm::Slab<T> slab{static_cast<const T*>(body), ps, static_cast<const T*>(lo), ps_lo,
+                          static_cast<const T*>(hi), ps_hi};
+  const dim3 grid = step_grid(n, p.nx);
+  lbm_slab_kernel<T><<<grid, dim3(kBlockX, kBlockY), 0, s>>>(
+      slab, static_cast<T*>(out), ps_out, obst, partials, p, n, row_offset);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lbm::lbm_reduce_kernel<0><<<1, lbm::kThreads, 0, s>>>(partials,
+                                                        static_cast<int>(grid.x * grid.y),
+                                                        tot_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -120,6 +175,32 @@ int lbm_step_run(void* fa, void* fb, const uint8_t* obst, float* partials,
   }
   return step_run(static_cast<float*>(fa), static_cast<float*>(fb), obst, partials, tot_out,
                   p, nsteps, batch, s);
+}
+
+// K1-slab: advance the n body rows of one shard one step into `out`.  body,
+// lo (the ghost row below), hi (the ghost row above) and out each have
+// their own plane stride in elements and a row stride of nx; obst is the
+// (n + 2, nx) obstacle slab with its ghost rows; row_offset is the global
+// row of body row 0.  partials holds lbm_step_blocks(n, nx) floats; the
+// slab's tot_u is written to *tot_out.  float32 state for i16 = 0, int16
+// with the codec at `codec` (host memory) for i16 = 1.  Two launches on
+// `stream`, no synchronisation.  Returns cudaGetLastError().
+int lbm_slab_step(const void* body, long long ps, const void* lo, long long ps_lo,
+                  const void* hi, long long ps_hi, const uint8_t* obst, void* out,
+                  long long ps_out, float* partials, float* tot_out, int n, int nx,
+                  int row_offset, int accel_row, float omega, float w1, float w2, int i16,
+                  const float* codec, void* stream, int device) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lbm::StepParams p{n, nx, accel_row, omega, w1, w2};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (i16) {
+    lbm::lbm_set_codec(p, codec);
+    return slab_step<int16_t>(body, ps, lo, ps_lo, hi, ps_hi, obst, out, ps_out, partials,
+                              tot_out, n, row_offset, p, s);
+  }
+  return slab_step<float>(body, ps, lo, ps_lo, hi, ps_hi, obst, out, ps_out, partials, tot_out,
+                          n, row_offset, p, s);
 }
 
 }  // extern "C"

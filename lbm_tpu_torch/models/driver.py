@@ -1,21 +1,31 @@
 """Simulation driver: initialise, run the step loop, collate.
 
-The counterpart of ``lbm_tpu/models/driver.py`` for a single-device run
-with f32 or i16 storage: the init / compute / collate phases of the
-reference's ``main()`` (SerialCode/d2q9-bgk.c:132-205), long runs cut into
-4000-step segments (``_segment_lengths``; on the temporal path a segment is
-whole K-step sweeps, the run's last one with a K1 tail), the first launch
-of each kernel and the kernel build billed to init, av = tot_u / fluid
-cells in float32, and the output state taken through the program's
-``f_of`` (dequantized for i16, lbm_tpu/models/driver.py:759).
+The counterpart of ``lbm_tpu/models/driver.py`` for single-device and
+row-sharded runs with f32 or i16 storage: the init / compute / collate
+phases of the reference's ``main()`` (SerialCode/d2q9-bgk.c:132-205), long
+runs cut into 4000-step segments (``_segment_lengths``; on the temporal
+path a segment is whole K-step sweeps, the run's last one with a K1 tail;
+on the chunked path whole chunks), the first launch of each kernel and the
+kernel build billed to init, av = tot_u / fluid cells in float32, and the
+output state taken through the program's ``f_of`` (dequantized for i16,
+lbm_tpu/models/driver.py:759).
+
+The sharded variants (sync, overlap, async, async-k, chunked) run on a row
+mesh (parallel/mesh.py, parallel/modes.py): ``num_devices`` shards over the
+run's devices, every card of a CUDA host, or ``host_devices`` copies of
+the run's one device.  A chunked run whose step count is not a multiple of
+k runs the remainder as exchange-then-inner per step, through the
+program's chunk primitives, and its variant reads ``chunked-k+sync-tailN``
+(lbm_tpu/models/driver.py:879-913).
 
 Launches are asynchronous, so the compute bracket ends with
-``torch.cuda.synchronize()``; without it the run would report the rate at
-which launches were queued.  Inside the loop nothing waits for the device
-and nothing is allocated per step: each segment's runner holds its buffers.
+``torch.cuda.synchronize()`` on every device of the run; without it the
+run would report the rate at which launches were queued.  Inside the loop
+nothing waits for the device and nothing is allocated per step: each
+segment's runner holds its buffers.
 
-Not yet ported: frames, debug, checkpoint/resume, plans and the sharded
-variants.
+Not yet ported: frames, debug, checkpoint/resume, plans and the ``ca``
+variant.
 """
 
 from __future__ import annotations
@@ -28,8 +38,10 @@ import torch
 from lbm_tpu_torch.core import oracle
 from lbm_tpu_torch.io.scene import Scene
 from lbm_tpu_torch.models.program import StepProgram, build_single_program
-from lbm_tpu_torch.models.variants import resolve_variant
+from lbm_tpu_torch.models.variants import SHARDED, NotPortedError, resolve_variant
 from lbm_tpu_torch.ops import quant
+from lbm_tpu_torch.parallel import mesh as mesh_lib
+from lbm_tpu_torch.parallel import modes
 from lbm_tpu_torch.utils.invariants import calc_reynolds
 from lbm_tpu_torch.utils.timing import PhaseTimer
 
@@ -52,6 +64,16 @@ class RunConfig:
     # K timesteps per device-memory sweep on the cuda path (ops/temporal_cuda.py,
     # ops/skew_cuda.py).  None = auto by grid, 1 = no sweeps, >= 2 = forced.
     temporal_k: int | None = None
+    # Sharded variants: shards (None = every device of the run).
+    num_devices: int | None = None
+    # Halo age of async, chunk length of chunked; None = the variant's
+    # default (modes.STALENESS_DEFAULTS: async 1, async-k 2, chunked 2).
+    staleness: int | None = None
+    # "cuda" / "torch" (or lbm_tpu's "pallas" / "jnp"): the per-shard step of
+    # the sharded variants, or the single-device variant; None = auto.
+    backend: str | None = None
+    # N: the run's one device counts as N devices (lbm_tpu's --host-devices).
+    host_devices: int | None = None
 
 
 @dataclasses.dataclass
@@ -90,11 +112,14 @@ def device_name(dev: torch.device) -> str:
 
 
 def pick_variant(variant: str, device: torch.device, storage: str = "f32") -> str:
-    """The variant to run; i16 storage needs the cuda variant (whose
-    wrappers run their plain versions on the CPU), as lbm_tpu's needs
-    pallas (lbm_tpu/models/driver.py:208-216, 786-788)."""
+    """The single-device variant to run, or the sharded variant named; i16
+    storage needs the cuda variant (whose wrappers run their plain versions
+    on the CPU), as lbm_tpu's needs pallas (lbm_tpu/models/driver.py:208-216,
+    786-788)."""
     quant.check_storage(storage)
     v = resolve_variant(variant)
+    if v in SHARDED:
+        return v
     if storage == "i16":
         if v == "serial":
             raise ValueError("storage 'i16' is not supported by the serial oracle variant")
@@ -106,12 +131,77 @@ def pick_variant(variant: str, device: torch.device, storage: str = "f32") -> st
     return v
 
 
+def mesh_devices(config: RunConfig, device: torch.device) -> mesh_lib.RowMesh:
+    """The row mesh of a sharded run: ``num_devices`` of the run's devices
+    (raises when more are asked for than exist)."""
+    return mesh_lib.make_row_mesh(config.num_devices,
+                                  mesh_lib.available_devices(device, config.host_devices))
+
+
+def choose_variant(scene: Scene, config: RunConfig, device: torch.device) -> str:
+    """The variant a run takes: the one named, or for ``auto`` on more than
+    one device ``lbm_tpu``'s multi-device rule (driver.py:141-175), else the
+    single-device one; ``--backend`` names the single-device variant, as in
+    lbm_tpu.  Where ``lbm_tpu``'s auto would pick ``ca``, this raises
+    :class:`NotPortedError` naming the variants there are: it never runs
+    another mode in its place.
+
+    The multi-device rule applies only when the run asks for shards
+    (``num_devices`` or ``host_devices``): until ``ca`` is ported, a plain
+    ``auto`` run on a host with several cards stays on one card, where
+    ``lbm_tpu`` would shard it over all of them."""
+    v = resolve_variant(config.variant)
+    if v == "auto" and (config.num_devices is not None or config.host_devices is not None):
+        n_dev = (config.num_devices if config.num_devices is not None
+                 else len(mesh_lib.available_devices(device, config.host_devices)))
+        if n_dev > 1:
+            if modes.ca_would_map(scene.obstacles, n_dev, config.backend):
+                raise NotPortedError(
+                    f"--variant auto on {n_dev} devices picks lbm_tpu's 'ca' for this scene; "
+                    "'ca' is",
+                    "name one of sync, overlap, async, async-k, chunked")
+            # The stale-row model: async where its deviation stays well
+            # inside the 1% contract, else the exact overlap.
+            return "async" if 2.0 * n_dev / scene.params.ny <= 0.03 else "overlap"
+    if v not in SHARDED and v != "serial" and config.backend is not None:
+        backend = {"jnp": "torch", "pallas": "cuda"}.get(config.backend, config.backend)
+        if backend not in ("torch", "cuda"):
+            raise ValueError(f"unknown backend {config.backend!r}; use 'torch' or 'cuda'")
+        v = backend
+    return pick_variant(v, device, config.storage)
+
+
+def build_program(
+    scene: Scene,
+    config: RunConfig,
+    device: torch.device,
+    f0: torch.Tensor | np.ndarray | None = None,
+    variant: str | None = None,
+) -> StepProgram:
+    """The step program of a run (lbm_tpu/models/driver.py:196-247)."""
+    variant = variant or choose_variant(scene, config, device)
+    params, obst = scene.params, scene.obstacles
+    if variant in SHARDED:
+        mode = "async" if variant == "async-k" else variant
+        staleness = (config.staleness if config.staleness is not None
+                     and variant in modes.STALENESS_DEFAULTS
+                     else modes.STALENESS_DEFAULTS.get(variant, 1))
+        f_host = None if f0 is None else np.asarray(torch.as_tensor(f0).cpu(), np.float32)
+        return modes.build_sharded_program(
+            params, obst, mesh_devices(config, device), mode=mode, staleness=staleness,
+            f0=f_host, backend=config.backend, storage=config.storage,
+        )
+    return build_single_program(params, obst, device, backend=variant, f0=f0,
+                                storage=config.storage, temporal_k=config.temporal_k)
+
+
 def _segment_lengths(num_steps: int, config: RunConfig, sweep_k: int = 1) -> list[int] | None:
     """Split num_steps into fixed-size segments, or None to run one call.
     On the temporal path a segment is whole sweeps (rounded down to a
     multiple of ``sweep_k``, at least one sweep), so that only the run's
     last segment has a K1 tail, as an unsegmented run does: int16 state is
-    then quantized at the same steps either way."""
+    then quantized at the same steps either way.  The chunked path passes
+    its chunk length, so that every segment is whole chunks."""
     seg = config.segment_steps
     if seg is None:
         seg = _SEGMENT_STEPS
@@ -123,6 +213,18 @@ def _segment_lengths(num_steps: int, config: RunConfig, sweep_k: int = 1) -> lis
     if num_steps % seg:
         lengths.append(num_steps % seg)
     return lengths
+
+
+def _run_tail(program: StepProgram, state, num_steps: int):
+    """``num_steps`` steps of a chunked program as exchange-then-inner per
+    step (fresh ghosts every step: the sync discipline); returns (state,
+    tot_us (num_steps,))."""
+    tots = []
+    for _ in range(num_steps):
+        state = program.chunk_exchange(state)
+        state, tot_u = program.chunk_inner_step(state)
+        tots.append(tot_u.reshape(1))
+    return state, torch.cat(tots)
 
 
 def _sync(dev: torch.device) -> None:
@@ -141,7 +243,7 @@ def run_simulation(
     from ``lbm_tpu`` by io/state.py) instead of the rest equilibrium."""
     config = config or RunConfig()
     device = resolve_device(config.device)
-    variant = pick_variant(config.variant, device, config.storage)
+    variant = choose_variant(scene, config, device)
     params = scene.params
     num_steps = config.num_steps if config.num_steps is not None else params.max_iters
     timer = PhaseTimer()
@@ -157,19 +259,24 @@ def run_simulation(
         return RunResult(f, av_vels, reynolds, timer, variant, "cpu")
 
     timer.start("init")
-    program: StepProgram = build_single_program(
-        params, scene.obstacles, device, backend=variant, f0=f0, storage=config.storage,
-        temporal_k=config.temporal_k,
-    )
-    seg_lengths = (_segment_lengths(num_steps, config, program.sweep_k)
-                   or ([num_steps] if num_steps else []))
+    program = build_program(scene, config, device, f0, variant)
+    devices = mesh_devices(config, device).distinct if variant in SHARDED else (device,)
+    spc = program.steps_per_call
+    tail = num_steps % spc
+    bulk = num_steps - tail
+    seg_lengths = (_segment_lengths(bulk, config, max(program.sweep_k, spc))
+                   or ([bulk] if bulk else []))
     runners = {n: program.make_run_all(n) for n in sorted(set(seg_lengths))}
     if device.type == "cuda":
         # A discarded run that launches each kernel once (a step, or a sweep
-        # and a step): a kernel's first launch loads it, which belongs to
-        # init with the build.
-        program.make_run_all(program.sweep_k + (program.sweep_k > 1))(program.init_state)
-        _sync(device)
+        # and a step, or a chunk, and the chunked tail's step): a kernel's
+        # first launch loads it, which belongs to init with the build.
+        state, _ = program.make_run_all(max(spc, program.sweep_k + (program.sweep_k > 1)))(
+            program.init_state)
+        if tail:
+            _run_tail(program, state, 1)
+        for d in devices:
+            _sync(d)
     timer.stop("init")
 
     timer.start("compute")
@@ -177,7 +284,11 @@ def run_simulation(
     for n in seg_lengths:
         state, tot_us = runners[n](state)
         parts.append(tot_us)
-    _sync(device)
+    if tail:
+        state, tot_us = _run_tail(program, state, tail)
+        parts.append(tot_us)
+    for d in devices:
+        _sync(d)
     timer.stop("compute")
 
     timer.start("collate")
@@ -190,4 +301,5 @@ def run_simulation(
     timer.stop("collate")
 
     reynolds = calc_reynolds(params, av_vels[-1]) if num_steps else 0.0
-    return RunResult(f, av_vels, reynolds, timer, program.variant, device_name(device))
+    label = program.variant + (f"+sync-tail{tail}" if tail else "")
+    return RunResult(f, av_vels, reynolds, timer, label, device_name(device))

@@ -45,7 +45,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import warnings
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -66,20 +66,30 @@ from lbm_tpu_torch.params import LBMParams
 
 @dataclasses.dataclass
 class StepProgram:
-    """A runnable single-device step program."""
+    """A runnable step program: single-device, or row-sharded
+    (parallel/modes.py, whose state is a ``ShardedState``)."""
 
-    init_state: torch.Tensor  # (9, ny, nx) float32 or int16 on ``device``
-    step: Callable[[torch.Tensor], fused_torch.StepOutput]  # f -> (f, tot_u)
-    # num_steps -> runner ``f0 -> (f, tot_us (num_steps,))``; buffers are
-    # allocated when the runner is built, never per step.
+    init_state: Any  # (9, ny, nx) float32 or int16 on ``device``, or a ShardedState
+    step: Callable[[Any], tuple[Any, torch.Tensor]]  # state -> (state, tot_u)
+    # num_steps -> runner ``state -> (state, tot_us (num_steps,))``; buffers
+    # are allocated when the runner is built, never per step.
     make_run_all: Callable[[int], Callable]
-    f_of: Callable[[torch.Tensor], torch.Tensor]  # state -> float32 distributions
+    f_of: Callable[[Any], torch.Tensor]  # state -> (9, ny, nx) float32 distributions
     tot_cells: int  # fluid cells, the divisor of av_vels
     variant: str
     # Steps per temporal sweep of make_run_all (1: no sweeps).  A run of
     # sweep_k + 1 steps launches each of its kernels (the driver's warm-up),
     # and segments of whole sweeps quantize int16 where an unsegmented run does.
     sweep_k: int = 1
+    # Steps per step() call and the unit of make_run_all: k for the chunked
+    # mode (step then returns a (k,) tot_u vector), else 1.
+    steps_per_call: int = 1
+    # Chunked only: the chunk decomposed into one frozen-ghost step
+    # (state -> (state, tot_u)) and one ghost exchange (state -> state);
+    # step() == k x inner + exchange.  The driver runs a remainder of
+    # steps as exchange-then-inner per step.
+    chunk_inner_step: Callable[[Any], tuple[Any, torch.Tensor]] | None = None
+    chunk_exchange: Callable[[Any], Any] | None = None
 
 
 def temporal_impl_choice(params: LBMParams, K: int, storage: str = "f32") -> str | None:

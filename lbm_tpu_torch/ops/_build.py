@@ -48,11 +48,17 @@ LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # name -> argtypes; every entry point returns int (a cudaError_t, or a count).
 _SIGNATURES = {
     "lbm_step_blocks": [_I, _I],
     "lbm_step_run": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P, _I, _I, _P, _I],
+    "lbm_slab_step": [_P, _L, _P, _L, _P, _L, _P, _P, _L, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                      _I, _P, _P, _I],
+    "lbm_ghosted_grid": [_I, _I, _I],
+    "lbm_ghosted_chunk": [_P, _P, _P, _L, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                          _I, _I, _P, _I],
     "lbm_resident_grid": [_I, _I, _I],
     "lbm_resident_chunk": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P, _I],
     "lbm_inplace_grid": [_I, _I, _I, _I],

@@ -20,6 +20,13 @@ Beside the kernel:
 - ``LAUNCHES`` (f32) and ``LAUNCHES_I16`` (int16): the number of step-kernel
   launches so far, raised only where the kernel is launched.
 
+K1-slab (and K1-slab-i16), the same kernel's slab form, replaces B1's
+``make_slab_step`` (fused_pallas.py:581): one step of a shard's body rows
+with external ghost rows and a runtime row offset, each of body, ghosts and
+output a window with its own plane stride (:func:`bind_slab_step`).  Its
+plain version is ``fused_torch.fused_step_slab[_i16]``; its counts are
+``SLAB_LAUNCHES`` and ``SLAB_LAUNCHES_I16``.
+
 A wrapper takes the plain version only for a tensor on the CPU.  For a CUDA
 tensor it launches the kernel or raises; it never falls back.
 """
@@ -36,6 +43,8 @@ from lbm_tpu_torch.params import LBMParams
 
 LAUNCHES = 0
 LAUNCHES_I16 = 0
+SLAB_LAUNCHES = 0
+SLAB_LAUNCHES_I16 = 0
 
 # Steps whose per-block |u| partials are held before one reduce launch turns
 # them into per-step sums (bounds the partials buffer at 256 x blocks floats).
@@ -159,6 +168,116 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, num_steps: int,
         return (fb if num_steps % 2 else fa), tot
 
     return run_all
+
+
+def slab_plain(body: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+               obst_slab: torch.Tensor, params: LBMParams, row_offset: int,
+               storage: str = "f32") -> fused_torch.StepOutput:
+    """The plain version of one K1-slab launch: the ghosted slab
+    ``[lo, body, hi]`` through ``fused_torch.fused_step_slab[_i16]``."""
+    quant.check_storage(storage)
+    step_fn = fused_torch.fused_step_slab_i16 if storage == "i16" else fused_torch.fused_step_slab
+    return step_fn(torch.cat([lo, body, hi], dim=1), obst_slab, params, row_offset)
+
+
+def bind_slab_plain(params: LBMParams, body: torch.Tensor, lo: torch.Tensor,
+                    hi: torch.Tensor, obst_slab: torch.Tensor, out: torch.Tensor,
+                    tots: torch.Tensor, row_offset: int, storage: str = "f32"):
+    """The plain version of :func:`bind_slab_step`'s ``launch(t)``, on any
+    device: the ``torch`` backend of the sharded modes binds it directly."""
+
+    def launch_plain(t):
+        new, tot = slab_plain(body, lo, hi, obst_slab, params, row_offset, storage)
+        out.copy_(new)
+        tots[t] = tot
+
+    return launch_plain
+
+
+def _check_window(name: str, t: torch.Tensor, rows: int, nx: int, dtype, device) -> None:
+    """A (9, rows, nx) window the slab kernels take: rows nx apart, unit
+    column stride, any plane stride."""
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{name} must be a {dtype} tensor on {device}, got {t.dtype} on "
+                         f"{t.device}")
+    if tuple(t.shape) != (9, rows, nx):
+        raise ValueError(f"{name} shape {tuple(t.shape)} != (9, {rows}, {nx})")
+    if t.stride(2) != 1 or (rows > 1 and t.stride(1) != nx):
+        raise ValueError(f"{name} must have unit column stride and row stride {nx}")
+
+
+def bind_slab_step(params: LBMParams, body: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                   obst_slab: torch.Tensor, out: torch.Tensor, tots: torch.Tensor,
+                   row_offset: int, storage: str = "f32"):
+    """Bind one K1-slab step to fixed buffers: returns ``launch(t)``, which
+    advances ``body`` (9, n, nx) one step, with ghost rows ``lo`` / ``hi``
+    (9, 1, nx) below / above it, into ``out`` (9, n, nx), and writes the
+    slab's tot_u into ``tots[t]``.
+
+    ``body``, ``lo``, ``hi`` and ``out`` may be windows of larger tensors
+    (any plane stride, rows nx apart); ``obst_slab`` is the contiguous
+    (n + 2, nx) bool mask with its ghost rows; ``row_offset`` the global row
+    of body row 0.  Everything is checked here, once, so that the launch
+    itself costs one call.  On CPU tensors ``launch`` runs the plain
+    version; on CUDA tensors it launches the kernel or raises."""
+    quant.check_storage(storage)
+    n, nx = body.shape[1], body.shape[2]
+    dev, dtype = body.device, STATE_DTYPES[storage]
+    for name, t, rows in (("body", body, n), ("lo", lo, 1), ("hi", hi, 1), ("out", out, n)):
+        _check_window(name, t, rows, nx, dtype, dev)
+    if (obst_slab.device != dev or obst_slab.dtype != torch.bool
+            or not obst_slab.is_contiguous() or tuple(obst_slab.shape) != (n + 2, nx)):
+        raise ValueError(f"obstacle slab must be a contiguous ({n + 2}, {nx}) bool tensor on "
+                         f"{dev}")
+    if tots.device != dev or tots.dtype != torch.float32 or tots.dim() != 1:
+        raise ValueError(f"tots must be a 1-D float32 tensor on {dev}")
+
+    if is_plain(body):
+        return bind_slab_plain(params, body, lo, hi, obst_slab, out, tots, row_offset, storage)
+
+    lib = _build.load()
+    partials = torch.empty(lib.lbm_step_blocks(n, nx), dtype=torch.float32, device=dev)
+    omega, w1, w2 = fused_torch.step_constants(params)
+    i16, codec = codec_arg(params, storage)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (body.data_ptr(), body.stride(0), lo.data_ptr(), lo.stride(0), hi.data_ptr(),
+            hi.stride(0), obst_slab.data_ptr(), out.data_ptr(), out.stride(0),
+            partials.data_ptr())
+    tail = (n, nx, row_offset, params.accel_row, omega, w1, w2, i16, codec_ptr(codec),
+            stream, dev.index)
+    tot0, tot_n = tots.data_ptr(), tots.shape[0]
+
+    def launch(t):
+        global SLAB_LAUNCHES, SLAB_LAUNCHES_I16
+        if not 0 <= t < tot_n:
+            raise IndexError(f"step {t} outside tots of {tot_n}")
+        rc = lib.lbm_slab_step(*args, tot0 + 4 * t, *tail)
+        _build.check(rc, "K1-slab step kernel")
+        if i16:
+            SLAB_LAUNCHES_I16 += 1
+        else:
+            SLAB_LAUNCHES += 1
+
+    launch.keep = (partials, codec)  # alive while the launcher is
+    return launch
+
+
+def make_slab_step(params: LBMParams, storage: str = "f32"):
+    """``lbm_tpu``'s ``make_slab_step`` interface:
+    ``(slab (9, n+2, nx), obst_slab (n+2, nx), row_offset) -> (f (9, n, nx),
+    tot_u)``, through K1-slab on a CUDA tensor and its plain version on a
+    CPU one.  Binds anew at every call: the sharded modes bind once
+    (:func:`bind_slab_step`)."""
+
+    def step_slab(slab, obst_slab, row_offset):
+        n = slab.shape[1] - 2
+        out = torch.empty((9, n, slab.shape[2]), dtype=slab.dtype, device=slab.device)
+        tots = torch.empty(1, dtype=torch.float32, device=slab.device)
+        bind_slab_step(params, slab[:, 1:-1], slab[:, :1], slab[:, -1:], obst_slab, out, tots,
+                       row_offset, storage)(0)
+        return fused_torch.StepOutput(out, tots[0])
+
+    return step_slab
 
 
 def step(f: torch.Tensor, obstacles: torch.Tensor, params: LBMParams,

@@ -16,8 +16,10 @@ i16 kernel here.
 plain version of the sweep kernels (K4, K5): bitwise K twin steps in f32,
 and one quantization per sweep in int16.
 
-The slab form (``stream_slab`` / ``fused_step_slab``) belongs to the
-sharded modes and is not ported yet.
+The slab form (``stream_slab`` / ``fused_step_slab``, and
+``fused_step_slab_i16`` on int16 storage) is the per-shard step of the
+sharded modes (parallel/modes.py): one step over a row slab with one ghost
+row on each side, the plain version of K1-slab.
 """
 
 from __future__ import annotations
@@ -62,6 +64,49 @@ def stream_periodic(f: torch.Tensor) -> torch.Tensor:
             for k in range(lattice.NSPEEDS)
         ]
     )
+
+
+def stream_slab(slab: torch.Tensor) -> torch.Tensor:
+    """Pull streaming over a ghosted row slab (``lbm_tpu``'s
+    ``fused_jnp.stream_slab``): ``slab`` is (9, n+2, nx), rows 0 and n+1
+    the ghost rows; x wraps, y reads come from the slab.  Returns (9, n, nx)."""
+    n = slab.shape[1] - 2
+    return torch.stack([
+        torch.roll(slab[k, 1 - lattice.CY[k]: 1 - lattice.CY[k] + n, :], lattice.CX[k], dims=1)
+        for k in range(lattice.NSPEEDS)
+    ])
+
+
+def fused_step_slab(
+    slab: torch.Tensor, obstacles_slab: torch.Tensor, params: LBMParams, row_offset: int
+) -> StepOutput:
+    """One step over a ghosted row slab, the sharded building block
+    (``lbm_tpu``'s ``fused_jnp.fused_step_slab``).
+
+    ``slab`` (9, n+2, nx) float32 pre-injection, ghosts included;
+    ``obstacles_slab`` (n+2, nx) bool; ``row_offset`` the global row of slab
+    row 1.  The driven-row injection applies to every slab row whose global
+    index ``row_offset - 1 + j`` is ``accel_row``, ghosts included, as the
+    shard owning that row computes it.  Returns ((9, n, nx), tot_u)."""
+    omega, w1, w2 = step_constants(params)
+    n = slab.shape[1] - 2
+    rows = row_offset - 1 + torch.arange(n + 2, device=slab.device)
+    driven = (rows == params.accel_row)[:, None]
+    planes = stencil_math.accel_planes(list(slab), ~obstacles_slab, driven, w1, w2)
+    streamed = stream_slab(torch.stack(planes))
+    out_planes, tot_u = stencil_math.collide_and_av(list(streamed), obstacles_slab[1:1 + n],
+                                                     omega)
+    return StepOutput(torch.stack(out_planes), tot_u)
+
+
+def fused_step_slab_i16(
+    slab: torch.Tensor, obstacles_slab: torch.Tensor, params: LBMParams, row_offset: int
+) -> StepOutput:
+    """:func:`fused_step_slab` on int16 storage: decode the slab (ghosts,
+    exchanged as int16, too), step, encode, as :func:`fused_step_i16`."""
+    f_new, tot_u = fused_step_slab(quant.dequantize(slab, params.density), obstacles_slab,
+                                   params, row_offset)
+    return StepOutput(quant.quantize(f_new, params.density), tot_u)
 
 
 def fused_step_single(

@@ -1,0 +1,539 @@
+"""Row-sharded step programs: the sync, overlap, async, async-k and chunked
+disciplines.
+
+The counterpart of ``lbm_tpu/parallel/modes.py::build_sharded_program``
+(:886) without ``ca``.  The reference decomposes the grid into row bands
+with one halo row per side and exchanges the halos under three disciplines
+(blocking Sendrecv, Isend/Irecv + Waitall, stale-halo Testall,
+MPI*/d2q9-bgk.c); ``lbm_tpu`` runs them as a ``shard_map`` whose halos ride
+``ppermute``.  Here each shard is its own ``(9, nloc, nx)`` tensor on its
+own device of a :class:`~lbm_tpu_torch.parallel.mesh.RowMesh`, and the
+exchange is a copy of the neighbours' edge rows into the shard's own ghost
+buffers (device to device where the shards sit on different cards):
+
+- **sync**: exchange, then every shard's slab step;
+- **overlap**: the exchange on a side CUDA stream while the interior rows
+  1..nloc-2 run on the main stream, joined by events, then the two
+  boundary rows; fields equal sync's bitwise;
+- **async** (staleness k >= 1; ``async-k`` is k = 2 by default): the
+  exchange that delivers the ghosts of step t + k is issued at step t on
+  the side stream, while step t computes with the ghosts issued at step
+  t - k (deterministic bounded staleness, ``lbm_tpu``'s step_async /
+  step_async_k);
+- **chunked** (k): k steps with the ghosts frozen, then one exchange.  The
+  chunk runs as one K6 launch per shard (ops/ghosted_cuda.py) where K6 maps
+  (f32, no open seam, two copies of the shard within the L2 budget), else
+  as k K1-slab steps, as ``lbm_tpu`` runs its ghosted chunk kernel or a
+  loop of slab steps.
+
+Every slab step is one K1-slab launch (ops/fused_cuda.py) on the ``cuda``
+backend, or the plain slab step (``fused_torch.fused_step_slab``) on the
+``torch`` backend; the cuda backend's wrappers run their plain versions on
+CPU tensors.  Body, ghosts and output are windows of persistent buffers,
+bound once per runner, so overlap's sub-slabs need no concatenation.
+
+Streams: a buffer written on one stream and read on the other is ordered
+by ``wait_stream`` (an event) in both directions, and every runner call
+ends by joining the side stream into the main one, so no side-stream work
+is pending when its buffers could be freed.
+
+|u|: each slab step leaves its tot_u in a per-shard buffer; a step's total
+is the per-shard sums added in shard order (overlap's per shard as
+``(interior + bottom) + top``, modes.py:1174).  No atomics.
+
+Seam padding (an ny that the shard count does not divide) is ``lbm_tpu``'s:
+walled seams get blocked rows at rest; open seams get live clones of the
+global first rows, refreshed after every step (frozen within a chunk), and
+shard 0's lower ghost comes from the last real row.  Lane padding is not
+ported: the kernels take any nx.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import warnings
+
+import numpy as np
+import torch
+
+from lbm_tpu_torch.core import lattice
+from lbm_tpu_torch.models.program import StepProgram
+from lbm_tpu_torch.models.variants import NotPortedError
+from lbm_tpu_torch.ops import fused_cuda, ghosted_cuda, quant
+from lbm_tpu_torch.params import LBMParams
+from lbm_tpu_torch.parallel import mesh as mesh_lib
+
+# Per-variant staleness defaults (halo age / chunk length / ca exchange
+# depth), lbm_tpu's modes.py:47.
+STALENESS_DEFAULTS = {"async": 1, "async-k": 2, "chunked": 2, "ca": 4}
+
+MODES = ("sync", "overlap", "async", "chunked")
+
+# lbm_tpu's backend names carry over: jnp -> torch, pallas -> cuda.
+_BACKENDS = {"torch": "torch", "cuda": "cuda", "jnp": "torch", "pallas": "cuda"}
+
+
+def open_seam_pad(obstacles: np.ndarray, num_shards: int) -> int:
+    """Rows of open-seam padding a scene needs on this mesh: 0 when the
+    shard count divides ny, or when both seam rows are walls, so that
+    blocked padding rows can be inserted without touching the flow
+    (``lbm_tpu``'s modes.py:135)."""
+    pad = (-obstacles.shape[0]) % num_shards
+    if not pad:
+        return 0
+    walled = bool(obstacles[0].all()) and bool(obstacles[-1].all())
+    return 0 if walled else pad
+
+
+def _extended_obstacle_slabs(obstacles: np.ndarray, num_shards: int) -> np.ndarray:
+    """Per-shard obstacle slabs with one periodically wrapped ghost row on
+    each side, (R, nloc + 2, nx): the slab step injects ghost rows too
+    (``lbm_tpu``'s modes.py:871)."""
+    ny, _ = obstacles.shape
+    nloc = ny // num_shards
+    return np.stack([obstacles[np.arange(r * nloc - 1, r * nloc + nloc + 1) % ny]
+                     for r in range(num_shards)])
+
+
+def sharded_cuda_supported(ny: int, nx: int, num_shards: int) -> bool:
+    """Whether the cuda backend maps this sharded layout (``lbm_tpu``'s
+    ``sharded_pallas_supported``): K1-slab takes any width and any shard
+    height, so only the two rows per shard that every mode needs remain."""
+    return (ny + (-ny) % num_shards) // num_shards >= 2
+
+
+def ca_would_map(obstacles: np.ndarray, num_shards: int, backend: str | None) -> bool:
+    """Where ``lbm_tpu``'s multi-device auto policy would pick ``ca``
+    (models/driver.py:163-173): a kernel backend, no open seam, at least two
+    rows per shard.  ``lbm_tpu`` also asks one of its ca engines to map; the
+    port's ca engines (B9, B10, B5's slab sweep) are not written, and the
+    port's kernels take any layout, so its rule is this layout part."""
+    ny, nx = obstacles.shape
+    return (_BACKENDS.get(backend or "cuda") == "cuda"
+            and not open_seam_pad(obstacles, num_shards)
+            and sharded_cuda_supported(ny, nx, num_shards))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedState:
+    """The state of a sharded program: per shard its (9, nloc, nx) body and,
+    for async and chunked, its ghost queue (Q, 2, 9, 1, nx), entry 0 the
+    next to be consumed, [q, 0] the row below the shard and [q, 1] the row
+    above (Q = the staleness for async, 1 for chunked)."""
+
+    f: tuple[torch.Tensor, ...]
+    ghosts: tuple[torch.Tensor, ...] | None = None
+
+    def clone(self) -> "ShardedState":
+        return ShardedState(tuple(x.clone() for x in self.f),
+                            None if self.ghosts is None else tuple(g.clone() for g in self.ghosts))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """What every runner of one program shares."""
+
+    params: LBMParams
+    mesh: mesh_lib.RowMesh
+    mode: str
+    staleness: int
+    backend: str
+    storage: str
+    nloc: int
+    nx: int
+    open_pad: int
+    obst: tuple[torch.Tensor, ...]  # per shard (nloc + 2, nx) bool
+    k6: bool  # chunked through K6
+
+    @property
+    def queue(self) -> int:
+        """Ghost queue depth of the state (0: the state carries no ghosts)."""
+        return {"async": self.staleness, "chunked": 1}.get(self.mode, 0)
+
+    def lo_send_row(self, r: int) -> int:
+        """The row shard r sends as the ghost below shard r + 1: its last
+        row, or the last real row above the open-seam pads (modes.py:1109)."""
+        last = self.mesh.size - 1
+        return self.nloc - self.open_pad - 1 if self.open_pad and r == last else self.nloc - 1
+
+    def edges(self, f):
+        """The ring exchange of shards ``f``: per shard (row below, row
+        above) as fresh (9, 1, nx) tensors on the shard's device."""
+        fwd, bwd = mesh_lib.ring_perms(self.mesh.size)
+        lo, hi = [None] * self.mesh.size, [None] * self.mesh.size
+        for src, dst in fwd:
+            row = self.lo_send_row(src)
+            lo[dst] = f[src][:, row:row + 1].to(self.mesh.devices[dst], copy=True)
+        for src, dst in bwd:
+            hi[dst] = f[src][:, :1].to(self.mesh.devices[dst], copy=True)
+        return list(zip(lo, hi))
+
+
+class _Runner:
+    """Persistent buffers, bound launches and the schedule of one program
+    for ``num_steps`` steps.  ``kind`` is the program's mode, or ``inner``
+    (one frozen-ghost step) / ``exchange`` (the ghost exchange alone), the
+    chunked mode's two primitives.  A call takes a :class:`ShardedState`
+    (not modified) and returns (state, tot_us (num_steps,)); the returned
+    state lives in the runner's buffers until its next call."""
+
+    def __init__(self, lay: _Layout, num_steps: int, kind: str):
+        self.lay, self.n, self.kind = lay, num_steps, kind
+        R, nloc, nx = lay.mesh.size, lay.nloc, lay.nx
+        dtype = fused_cuda.STATE_DTYPES[lay.storage]
+        devs = lay.mesh.devices
+        self.slots = lay.queue + 1 if lay.mode == "async" else 1
+        self.F = [[torch.empty((9, nloc, nx), dtype=dtype, device=d) for _ in range(2)]
+                  for d in devs]
+        self.G = [torch.empty((self.slots, 2, 9, 1, nx), dtype=dtype, device=d) for d in devs]
+        self.T = [torch.zeros((3, max(num_steps, 1)), dtype=torch.float32, device=d)
+                  for d in devs]
+        cuda_devs = [d for d in lay.mesh.distinct if d.type == "cuda"]
+        self.main = {d: torch.cuda.current_stream(d) for d in cuda_devs}
+        self.side = ({d: torch.cuda.Stream(d) for d in cuda_devs}
+                     if lay.mode in ("overlap", "async") and kind == lay.mode else {})
+        self._bound: dict = {}
+        self.p, self.h = 0, 0
+
+    # --- bound launches and copies, built at first use -------------------
+
+    def _bind(self, key, make):
+        if key not in self._bound:
+            self._bound[key] = make()
+        return self._bound[key]
+
+    def _slab(self, r, body, lo, hi, obst, out, tot_row, row_offset):
+        lay = self.lay
+        bind = fused_cuda.bind_slab_step if lay.backend == "cuda" else fused_cuda.bind_slab_plain
+        return bind(lay.params, body, lo, hi, obst, out, self.T[r][tot_row], row_offset,
+                    lay.storage)
+
+    def _full(self, r, p, s):
+        """Shard r's whole-slab step from buffer p with ghost slot s."""
+        def make():
+            F, G = self.F[r], self.G[r]
+            return self._slab(r, F[p], G[s, 0], G[s, 1], self.lay.obst[r], F[1 - p], 0,
+                              r * self.lay.nloc)
+        return self._bind(("full", r, p, s), make)
+
+    def _overlap_parts(self, r, p):
+        """Shard r's interior (rows 1..nloc-2, None for two-row shards),
+        bottom and top sub-slab steps from buffer p (modes.py:1155-1174)."""
+        def make():
+            F, G, ob = self.F[r], self.G[r], self.lay.obst[r]
+            src, dst, off = F[p], F[1 - p], r * self.lay.nloc
+            interior = (self._slab(r, src[:, 1:-1], src[:, :1], src[:, -1:], ob[1:-1],
+                                   dst[:, 1:-1], 0, off + 1) if self.lay.nloc > 2 else None)
+            bottom = self._slab(r, src[:, :1], G[0, 0], src[:, 1:2], ob[:3], dst[:, :1], 1, off)
+            top = self._slab(r, src[:, -1:], src[:, -2:-1], G[0, 1], ob[-3:], dst[:, -1:], 2,
+                             off + self.lay.nloc - 1)
+            return interior, bottom, top
+        return self._bind(("overlap", r, p), make)
+
+    def _k6(self, r, p):
+        def make():
+            F, G = self.F[r], self.G[r]
+            return ghosted_cuda.bind_chunk(self.lay.params, F[p], G[0, 0], G[0, 1],
+                                           self.lay.obst[r], F[1 - p], self.T[r][0],
+                                           r * self.lay.nloc, self.lay.staleness)
+        return self._bind(("k6", r, p), make)
+
+    def _exchange_pairs(self, p, s):
+        """(ghost buffer, source row) copies of the exchange from buffer p
+        into ghost slot s (modes.py:1101-1120)."""
+        def make():
+            fwd, bwd = mesh_lib.ring_perms(self.lay.mesh.size)
+            pairs = []
+            for src, dst in fwd:
+                row = self.lay.lo_send_row(src)
+                pairs.append((self.G[dst][s, 0], self.F[src][p][:, row:row + 1]))
+            for src, dst in bwd:
+                pairs.append((self.G[dst][s, 1], self.F[src][p][:, :1]))
+            return pairs
+        return self._bind(("exchange", p, s), make)
+
+    def _pad_pairs(self, p, what):
+        """Open-seam pad copies on buffer p: ``refresh`` clones the global
+        first rows into the last shard's pads (modes.py:1122-1137);
+        ``freeze`` copies the pads of buffer p over those of the other
+        buffer, keeping them at their chunk-start values (modes.py:1351)."""
+        def make():
+            pad, last = self.lay.open_pad, self.lay.mesh.size - 1
+            if not pad:
+                return []
+            cut = self.lay.nloc - pad
+            if what == "refresh":
+                return [(self.F[last][p][:, cut:], self.F[0][p][:, :pad])]
+            return [(self.F[last][1 - p][:, cut:], self.F[last][p][:, cut:])]
+        return self._bind((what, p), make)
+
+    # --- streams -----------------------------------------------------------
+
+    def _side_waits_main(self):
+        for d, s in self.side.items():
+            s.wait_stream(self.main[d])
+
+    def _main_waits_side(self):
+        for d, s in self.side.items():
+            self.main[d].wait_stream(s)
+
+    def _on_side(self):
+        stack = contextlib.ExitStack()
+        for s in self.side.values():
+            stack.enter_context(torch.cuda.stream(s))
+        return stack
+
+    @staticmethod
+    def _copy(pairs):
+        for dst, src in pairs:
+            dst.copy_(src)
+
+    # --- the schedules -------------------------------------------------------
+
+    def _step_sync(self, t):
+        p = self.p
+        self._copy(self._exchange_pairs(p, 0))
+        for r in range(self.lay.mesh.size):
+            self._full(r, p, 0)(t)
+        self._copy(self._pad_pairs(1 - p, "refresh"))
+        self.p = 1 - p
+
+    def _step_overlap(self, t):
+        p, R = self.p, self.lay.mesh.size
+        self._side_waits_main()
+        with self._on_side():
+            self._copy(self._exchange_pairs(p, 0))
+        parts = [self._overlap_parts(r, p) for r in range(R)]
+        for interior, _, _ in parts:
+            if interior is not None:
+                interior(t)
+        self._main_waits_side()
+        for _, bottom, top in parts:
+            bottom(t)
+            top(t)
+        self._copy(self._pad_pairs(1 - p, "refresh"))
+        self.p = 1 - p
+
+    def _step_async(self, t):
+        p, h, S = self.p, self.h, self.slots
+        self._main_waits_side()  # the ghosts issued at the previous step
+        self._side_waits_main()  # the state they are cut from, and the slot's last reader
+        with self._on_side():
+            self._copy(self._exchange_pairs(p, (h + S - 1) % S))
+        for r in range(self.lay.mesh.size):
+            self._full(r, p, h)(t)
+        self._copy(self._pad_pairs(1 - p, "refresh"))
+        self.p, self.h = 1 - p, (h + 1) % S
+
+    def _inner(self, t):
+        p = self.p
+        for r in range(self.lay.mesh.size):
+            self._full(r, p, 0)(t)
+        self._copy(self._pad_pairs(p, "freeze"))
+        self.p = 1 - p
+
+    def _exchange(self):
+        self._copy(self._exchange_pairs(self.p, 0))
+        self._copy(self._pad_pairs(self.p, "refresh"))
+
+    def _chunk(self, t0):
+        if self.lay.k6:
+            for r in range(self.lay.mesh.size):
+                self._k6(r, self.p)(t0)
+            self.p = 1 - self.p
+        else:
+            for j in range(self.lay.staleness):
+                self._inner(t0 + j)
+        self._exchange()
+
+    # --- a call ---------------------------------------------------------------
+
+    def _load(self, state: ShardedState):
+        for r, x in enumerate(state.f):
+            self.F[r][0].copy_(x)
+        if self.lay.queue:
+            for r, g in enumerate(state.ghosts):
+                self.G[r][:self.lay.queue].copy_(g)
+        self.p, self.h = 0, 0
+
+    def _export(self) -> ShardedState:
+        f = tuple(F[self.p] for F in self.F)
+        if not self.lay.queue:
+            return ShardedState(f)
+        if self.slots == 1:
+            return ShardedState(f, tuple(G[:1] for G in self.G))
+        order = [(self.h + q) % self.slots for q in range(self.lay.queue)]
+        return ShardedState(f, tuple(torch.cat([G[i:i + 1] for i in order]) for G in self.G))
+
+    def _tots(self) -> torch.Tensor:
+        """Per-step totals: each shard's sum, then the shards in order."""
+        dev0, n = self.lay.mesh.devices[0], self.n
+        total = None
+        for T in self.T:
+            v = (T[0, :n] + T[1, :n]) + T[2, :n] if self.kind == "overlap" else T[0, :n]
+            v = v.to(dev0)
+            total = v.clone() if total is None else total + v
+        return total
+
+    def __call__(self, state: ShardedState):
+        self._load(state)
+        if self.kind == "exchange":
+            self._exchange()
+        elif self.kind == "chunked":
+            if self.n % self.lay.staleness:
+                raise ValueError(f"chunked runs take whole {self.lay.staleness}-step chunks, "
+                                 f"got {self.n} steps")
+            for c in range(self.n // self.lay.staleness):
+                self._chunk(c * self.lay.staleness)
+        else:
+            step = {"sync": self._step_sync, "overlap": self._step_overlap,
+                    "async": self._step_async, "inner": self._inner}[self.kind]
+            for t in range(self.n):
+                step(t)
+        self._main_waits_side()
+        return self._export(), self._tots()
+
+
+def build_sharded_program(
+    params: LBMParams,
+    obstacles: np.ndarray,
+    mesh: mesh_lib.RowMesh,
+    mode: str = "sync",
+    staleness: int = 1,
+    f0: np.ndarray | None = None,
+    backend: str | None = None,
+    storage: str = "f32",
+) -> StepProgram:
+    """Row-sharded step program over ``mesh`` in one discipline
+    (``lbm_tpu``'s ``build_sharded_program``).
+
+    ``mode``: ``sync``, ``overlap``, ``async`` (``staleness`` = the halo
+    age k; k > 1 is async-k) or ``chunked`` (``staleness`` = the chunk
+    length k); ``ca`` raises :class:`NotPortedError`.  ``backend``:
+    ``cuda`` (K1-slab and K6; their plain versions on the CPU) or ``torch``
+    (the plain slab step; f32 only); None picks ``cuda`` on a CUDA device
+    and for int16 storage, else ``torch`` (``jnp`` / ``pallas`` are
+    accepted as lbm_tpu's names).  ``storage``: ``f32`` or ``i16`` (int16
+    state, ghosts exchanged as int16; the cuda backend).  ``f0``: the
+    initial (9, ny, nx) distributions, default the rest state."""
+    ny, nx = obstacles.shape
+    R = mesh.size
+    quant.check_storage(storage)
+    if mode == "ca":
+        raise NotPortedError("sharded mode 'ca' is")
+    if mode not in MODES:
+        raise ValueError(f"unknown sharded mode {mode!r}; use one of {MODES}")
+    if staleness < 1:
+        raise ValueError("staleness must be >= 1")
+    dev0 = mesh.devices[0]
+    if backend is None:
+        backend = ("cuda" if (dev0.type == "cuda" or storage == "i16")
+                   and sharded_cuda_supported(ny, nx, R) else "torch")
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; use 'torch' or 'cuda'")
+    backend = _BACKENDS[backend]
+    if storage == "i16" and backend != "cuda":
+        raise ValueError(f"storage 'i16' requires the cuda backend, got {backend!r}")
+
+    ny_orig = ny
+    pad_rows = (-ny) % R
+    open_pad = open_seam_pad(obstacles, R)
+    if pad_rows:
+        # Walled seam: blocked rows at rest.  Open seam: live clones of the
+        # global first rows (modes.py:967-1005).
+        obstacles = np.concatenate([obstacles, np.ones((pad_rows, nx), dtype=bool)], axis=0)
+        if f0 is not None:
+            f0 = np.asarray(f0, dtype=np.float32)
+            tail = (f0[:, :pad_rows, :] if open_pad
+                    else lattice.equilibrium_rest(params.density, pad_rows, nx))
+            f0 = np.concatenate([f0, tail], axis=1)
+        ny += pad_rows
+    nloc = ny // R
+    if nloc < 2:
+        raise ValueError(f"need at least 2 rows per shard, got {nloc}")
+    if open_pad and open_pad > nloc - 1:
+        raise ValueError(
+            f"ny={ny_orig} over {R} shards needs {open_pad} open-seam padding rows but "
+            f"shards have only {nloc} rows; choose fewer devices")
+    if mode in ("async", "chunked"):
+        # The stale-row model (modes.py:1447-1466): 1.6% stale rows -> ~0.15%
+        # av_vels deviation, ~6% -> ~1%.  Chunked ghosts age 1..k.
+        age = (staleness + 1) / 2 if mode == "chunked" else staleness
+        stale_fraction = 2.0 * R / ny * age
+        if stale_fraction > 0.05:
+            warnings.warn(
+                f"{mode} mode with {R} shards over {ny} rows at halo age {staleness} has an "
+                f"effective stale-row exposure of {stale_fraction:.1%}; deviation from the "
+                "synchronous solution may exceed 1%. Use fewer shards, a larger grid, a "
+                "smaller staleness, or the sync/overlap variants.",
+                stacklevel=2,
+            )
+
+    tot_cells = int(obstacles.size - np.count_nonzero(obstacles))
+    slabs = _extended_obstacle_slabs(obstacles, R)
+    obst = tuple(torch.from_numpy(np.ascontiguousarray(slabs[r])).to(d)
+                 for r, d in enumerate(mesh.devices))
+    k6 = (backend == "cuda" and mode == "chunked" and storage == "f32" and not open_pad
+          and ghosted_cuda.supports_shard(nloc, nx))
+    lay = _Layout(params, mesh, mode, staleness, backend, storage, nloc, nx, open_pad, obst,
+                  k6)
+
+    if f0 is None:  # the rest state is uniform, pad rows included
+        f_init = [lattice.equilibrium_rest_device(params.density, nloc, nx, d)
+                  for d in mesh.devices]
+    else:
+        f_init = [torch.from_numpy(np.ascontiguousarray(f0[:, r * nloc:(r + 1) * nloc]))
+                  .to(d) for r, d in enumerate(mesh.devices)]
+    if storage == "i16":
+        f_init = [quant.quantize(x, params.density) for x in f_init]
+    ghosts = None
+    if lay.queue:
+        ghosts = tuple(torch.stack([torch.stack([lo, hi])] * lay.queue)
+                       for lo, hi in lay.edges(f_init))
+    init_state = ShardedState(tuple(f_init), ghosts)
+
+    def make_run_all(num_steps):
+        return _Runner(lay, num_steps, mode)
+
+    spc = staleness if mode == "chunked" else 1
+    runners: dict[str, _Runner] = {}
+
+    def call_once(kind, n, state):
+        """A functional call of a cached runner: the result is copied out
+        of its buffers."""
+        if kind not in runners:
+            runners[kind] = _Runner(lay, n, kind)
+        new, tots = runners[kind](state)
+        return new.clone(), tots
+
+    def step(state):
+        new, tots = call_once(mode, spc, state)
+        return new, (tots if mode == "chunked" else tots[0])
+
+    chunk_inner_step = chunk_exchange = None
+    if mode == "chunked":
+
+        def chunk_inner_step(state):
+            new, tots = call_once("inner", 1, state)
+            return new, tots[0]
+
+        def chunk_exchange(state):
+            return call_once("exchange", 0, state)[0]
+
+    def f_of(state):
+        f = torch.cat([x.to(dev0) for x in state.f], dim=1)[:, :ny_orig]
+        return quant.dequantize(f, params.density) if storage == "i16" else f
+
+    label = mode + (f"-{staleness}" if mode in ("async", "chunked") and staleness > 1 else "")
+    return StepProgram(
+        init_state=init_state,
+        step=step,
+        make_run_all=make_run_all,
+        f_of=f_of,
+        tot_cells=tot_cells,
+        variant=label + ("-i16" if storage == "i16" else ""),
+        steps_per_call=spc,
+        chunk_inner_step=chunk_inner_step,
+        chunk_exchange=chunk_exchange,
+    )

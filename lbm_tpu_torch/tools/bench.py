@@ -64,12 +64,18 @@ def run_bench(
     repeats: int = 3,
     device: str = "cuda",
     storage: str = "f32",
+    devices: int | None = None,
+    staleness: int | None = None,
+    backend: str | None = None,
+    host_devices: int | None = None,
 ) -> dict:
     from lbm_tpu_torch.models.driver import RunConfig, run_simulation
 
     scene = make_scene(grid)
     num_steps = steps if steps is not None else scene.params.max_iters
-    config = RunConfig(variant=variant, device=device, num_steps=num_steps, storage=storage)
+    config = RunConfig(variant=variant, device=device, num_steps=num_steps, storage=storage,
+                       num_devices=devices, staleness=staleness, backend=backend,
+                       host_devices=host_devices)
 
     best = None
     for _ in range(max(1, repeats)):

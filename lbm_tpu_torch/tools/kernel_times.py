@@ -12,6 +12,11 @@ K5 at each depth of ``--depths``, f32 and int16, timed in turns with K1 /
 K1-i16 as the control (every round runs each kernel once, in the reverse
 order on odd rounds), and the plain sweep at each depth.
 
+For each grid of ``--shards`` (n x n over 4 row shards, the sharded
+modes' layout): K1-slab, K1-slab-i16 and K6 (k = 2, 8, where the shard fits
+its L2 budget) on the shard that holds the driven row, in turns, and their
+plain versions.
+
 ``--policy`` times, in turns, K2 against K3 at 128^2, 256^2 and 512^2 and
 K1-i16 against K3-i16 at 1024^2: the questions behind the program's L2
 budgets.
@@ -22,7 +27,8 @@ in int16), next to the bandwidth of a 1 GiB device copy measured in the same
 process, and the card's name and power limit::
 
     python -m lbm_tpu_torch.tools.kernel_times [--grids 128,256,512,1024,1536] \
-        [--sweeps 1536,2048,4096] [--depths 2,4,8] [--policy] [--repeats 7]
+        [--sweeps 1536,2048,4096] [--depths 2,4,8] [--shards 1024,4096] [--policy] \
+        [--repeats 7]
 
 Needs a CUDA device; without one it exits 1.
 """
@@ -35,6 +41,34 @@ import sys
 
 BYTES_PER_CELL_STEP = 2 * 9 * 4 + 1  # f32 state read + written, obstacle byte
 BYTES_PER_CELL_STEP_I16 = 2 * 9 * 2 + 1
+
+# Operations of one fluid cell-step, counted from lbm_collide()
+# (csrc/lbm_common.cuh): moments 23 (rho 8, u_x and u_y 6 each with the
+# division, u_sq 3), equilibria 40 (1.5 u_sq, three w*rho, base, d0, and
+# 8 + 8 + 9 + 9 for the four pairs), relaxation 27 (3 per speed), |u| 2
+# (sqrt, the sum).  int16 adds its codec: 9 decodes (multiply, add) and 9
+# encodes (subtract, multiply, round).  Walls only move values.
+OPS_PER_CELL_STEP = 92
+OPS_CODEC_I16 = 45
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
+# memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+
+
+def bound_ms(cells: int, fluid: int, steps: int, storage: str = "f32",
+             extra_bytes: int = 0) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") of a launch that reads a state of
+    ``cells`` cells once and writes it once, with its obstacle byte per cell
+    and ``extra_bytes`` more input (ghost rows), and advances its ``fluid``
+    fluid cells ``steps`` steps: the larger of the bytes over the published
+    memory rate and the operations over the published float32 rate."""
+    nbytes = cells * (BYTES_PER_CELL_STEP_I16 if storage == "i16" else BYTES_PER_CELL_STEP)
+    ops = fluid * steps * (OPS_PER_CELL_STEP + (OPS_CODEC_I16 if storage == "i16" else 0))
+    t_bytes = (nbytes + extra_bytes) / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
 
 F32_KERNELS = ("K1", "K2", "K3", "twin")
 LARGE_F32_KERNELS = ("K1", "twin")  # above 1024^2 (the sweeps there: time_sweeps)
@@ -66,7 +100,11 @@ def _quartiles(xs: list[float]) -> tuple[float, float, float]:
 
 
 def copy_gbps(device, repeats: int = 7, nbytes: int = 2**30) -> tuple[float, float, float]:
-    """(median, q1, q3) GB/s of a device-to-device copy, read + write counted."""
+    """(median, q1, q3) GB/s of a device-to-device copy of ``nbytes``, read
+    + write counted.  1 GiB gives the device-memory rate.  A 16 MiB copy,
+    whose source and destination fit the 50 MB L2 together, is what the L2
+    rate would be read from, but torch's copy reads no faster there than
+    from device memory (PERF.md, section 7): it gives no L2 rate."""
     import torch
 
     a = torch.empty(nbytes // 4, dtype=torch.float32, device=device)
@@ -181,6 +219,67 @@ def time_sweeps(n: int, device, depths=(2, 4, 8), repeats: int = 5,
     return out
 
 
+def time_shard(n: int, device, shards: int = 4, chunks=(2, 8), repeats: int = 5,
+               storages=("f32", "i16")) -> dict[str, tuple[float, float, float]]:
+    """us/step (median, q1, q3) of the sharded modes' kernels on the last
+    shard of an n x n closed box over ``shards`` row shards (the one that
+    holds the driven row), from rest: K1-slab (and K1-slab-i16) as a loop of
+    launches, and K6 at each chunk length of ``chunks`` where the shard fits
+    its L2 budget, in turns; then their plain versions, the plain slab step
+    (``plain-slab``, ``plain-slab-i16``) and K6's (``plain K6 k=2``)."""
+    import torch
+
+    from lbm_tpu_torch.core import lattice
+    from lbm_tpu_torch.ops import fused_cuda, ghosted_cuda, quant
+    from lbm_tpu_torch.parallel import modes
+    from lbm_tpu_torch.tools.bench import make_scene
+
+    scene = make_scene(f"{n}x{n}")
+    p = scene.params
+    nloc, r = n // shards, shards - 1
+    ob = torch.from_numpy(modes._extended_obstacle_slabs(scene.obstacles, shards)[r]).to(device)
+    f0 = lattice.equilibrium_rest_device(p.density, nloc + 2, n, device)
+    steps = 16 * max(1, 2**26 // (16 * nloc * n))  # a multiple of 2 x 8; ~2^26 cell-steps
+    runs, plain = {}, {}
+    for storage in storages:
+        sfx = "-i16" if storage == "i16" else ""
+        x = quant.quantize(f0, p.density) if storage == "i16" else f0
+        a, lo, hi = x[:, 1:-1].contiguous(), x[:, :1].clone(), x[:, -1:].clone()
+        b = torch.empty_like(a)
+        tots = torch.empty(steps, dtype=torch.float32, device=device)
+        ab = fused_cuda.bind_slab_step(p, a, lo, hi, ob, b, tots, r * nloc, storage)
+        ba = fused_cuda.bind_slab_step(p, b, lo, hi, ob, a, tots, r * nloc, storage)
+
+        def run_slab(_, ab=ab, ba=ba):
+            for t in range(0, steps, 2):
+                ab(t)
+                ba(t + 1)
+
+        runs[f"K1-slab{sfx}"] = (run_slab, None, steps)
+        plain[f"plain-slab{sfx}"] = (
+            lambda a=a, lo=lo, hi=hi, storage=storage:
+                fused_cuda.slab_plain(a, lo, hi, ob, p, r * nloc, storage), 1)
+        if storage == "f32" and ghosted_cuda.supports_shard(nloc, n):
+            for k in chunks:
+                fwd = ghosted_cuda.bind_chunk(p, a, lo, hi, ob, b, tots, r * nloc, k)
+                bwd = ghosted_cuda.bind_chunk(p, b, lo, hi, ob, a, tots, r * nloc, k)
+
+                def run_k6(_, fwd=fwd, bwd=bwd, k=k):
+                    for t in range(0, steps, 2 * k):
+                        fwd(t)
+                        bwd(t + k)
+
+                runs[f"K6 k={k}"] = (run_k6, None, steps)
+            plain["plain K6 k=2"] = (
+                lambda a=a, lo=lo, hi=hi: ghosted_cuda.chunk_plain(a, lo, hi, ob, p, r * nloc, 2),
+                2)
+    out = time_in_turns(runs, repeats)
+    for name, (fn, k) in plain.items():
+        med, q1, q3 = _quartiles(_timed_ms(fn, min(repeats, 3)))
+        out[name] = (med * 1e3 / k, q1 * 1e3 / k, q3 * 1e3 / k)
+    return out
+
+
 def time_policy(device, repeats: int = 7) -> dict[str, dict[str, tuple[float, float, float]]]:
     """The budget questions, each pair timed in turns in one process:
     K2 vs K3 (f32) at 128^2, 256^2, 512^2 and K1-i16 vs K3-i16 at 1024^2."""
@@ -220,6 +319,13 @@ def format_grid(n: int, times: dict[str, tuple[float, float, float]]) -> str:
     return f"{n}^2: " + " | ".join(parts)
 
 
+def format_shard(n: int, times: dict[str, tuple[float, float, float]], shards: int = 4) -> str:
+    cells = (n // shards) * n
+    return f"{n}^2/{shards} shard {n // shards}x{n}: " + " | ".join(
+        f"{name} {med:.3f} us/step [{q1:.3f}, {q3:.3f}] {cells / med:.0f} MLUPS"
+        for name, (med, q1, q3) in times.items())
+
+
 def main(argv: list[str] | None = None) -> int:
     import torch
 
@@ -229,6 +335,7 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--grids", default="128,256,512,1024,1536")
     parser.add_argument("--sweeps", default="", help="grids to time K4/K5 on, e.g. 2048,4096")
     parser.add_argument("--depths", default="2,4,8")
+    parser.add_argument("--shards", default="", help="grids to time the shard kernels on")
     parser.add_argument("--policy", action="store_true")
     parser.add_argument("--repeats", type=int, default=7)
     args = parser.parse_args(argv)
@@ -244,6 +351,8 @@ def main(argv: list[str] | None = None) -> int:
     depths = tuple(int(k) for k in args.depths.split(","))
     for n in (int(g) for g in args.sweeps.split(",") if g):
         print(format_grid(n, time_sweeps(n, device, depths, args.repeats)) + f" | {card}")
+    for n in (int(g) for g in args.shards.split(",") if g):
+        print(format_shard(n, time_shard(n, device, repeats=args.repeats)) + f" | {card}")
     if args.policy:
         for n, times in time_policy(device, args.repeats).items():
             print("in turns " + format_grid(n, times) + f" | {card}")

@@ -127,8 +127,9 @@ def test_variants_resolve():
     assert resolve_variant("jnp") == "torch"
     assert resolve_variant("PALLAS") == "cuda"
     assert resolve_variant("serial") == "serial"
+    assert resolve_variant("sync") == "sync" and resolve_variant("mpi") == "sync"
     with pytest.raises(NotPortedError, match="not yet ported to lbm_tpu_torch"):
-        resolve_variant("sync")
+        resolve_variant("ca")
     with pytest.raises(ValueError, match="unknown variant"):
         resolve_variant("bogus")
     assert driver.pick_variant("auto", torch.device("cpu")) == "torch"
@@ -185,8 +186,8 @@ def test_cli_outputs_match_lbm_tpu(tmp_path, scene_files, capsys):
 @pytest.mark.parametrize(
     "extra",
     [["--debug"], ["--frame-interval", "5"], ["--plan"],
-     ["--resume", "x.npz"], ["--checkpoint-every", "5"], ["--staleness", "2"],
-     ["--devices", "2"], ["--variant", "sync"], ["--variant", "ca"]],
+     ["--resume", "x.npz"], ["--checkpoint-every", "5"], ["--profile", "trace"],
+     ["--divergence"], ["--variant", "ca", "--host-devices", "2"], ["--variant", "ca"]],
     ids=lambda a: " ".join(a),
 )
 def test_cli_unported_flags_exit_1(tmp_path, scene_files, capsys, extra):
