@@ -50,9 +50,18 @@ power limit as nvidia-smi reports them):
    either ghost and in none, the whole slab and overlap's three windows,
    rest and perturbed starts; K6 at chunks 1, 2, 3 and 8; fields
    torch.equal (int16 too), tot_u within rtol 1e-6;
+3g. the ca engines vs the plain ca sweep (:func:`ca_kernel_checks`):
+   K4-slab, K4-slab-i16 (once-per-sweep codec), K7 (where two copies of
+   the extended slab fit its L2 budget), K8 and K8-i16 (per-step codec) on
+   the 256x1024 and 1024x4096 shards of the 1024^2 and 4096^2 runs over 4,
+   8- and 13-row shards and nx = 100, at K in {2, 3, 4, 8}, the driven row
+   in the body, either ghost region and none, rest and perturbed starts;
+   fields torch.equal (int16 too), tot_u within rtol 1e-6;
+3h. K9 (the HBM-parts sweep) vs its plain version and vs K1 at 2048x2048
+   and 60x100, K in {2, 3, 4, 8} (:func:`hbm_kernel_checks`);
 4. the cuda main path on a 128x128 scene for 120 steps vs core/oracle:
    fields atol 2e-7, av rtol 1e-4;
-5. ``lbm_tpu_torch run`` on 256x256 (8000 steps: K2, two segments) and
+5. ``lbm_tpu_torch run`` on 256x256 (4400 steps: K2, two segments) and
    1024x1024 (2000 steps) as --variant cuda and --variant torch;
    ``check`` of cuda against torch must pass; 256x256 also with
    --storage i16 (K3-i16), passing ``check`` against the f32 run; the K2,
@@ -75,7 +84,9 @@ power limit as nvidia-smi reports them):
 5d. the temporal path through the CLI, ``--variant cuda`` in f32 and
    int16, under the default policy and with ``--temporal-k 4`` under
    LBM_TEMPORAL_IMPL=trapezoid and =skew: 1536x1536 f32 (default policy
-   only) and 2048x2048 channel x 2000 steps, 4096x4096 x 400; each run
+   only) and 2048x2048 channel x 2000 steps, 4096x4096 x 400 (there the
+   f32 default is the forced trapezoid's variant and depth, so that run is
+   not repeated); each run
    reports the variant the policy table gives; the 1536x1536 and
    2048x2048 f32 runs write a final_state.dat byte-identical to 5c's
    --variant torch run (2048x2048 also passing ``check``), the 4096x4096
@@ -96,6 +107,21 @@ power limit as nvidia-smi reports them):
    one-step sync tail) each passing ``check`` (1%) against an f32 sync run
    of the same length; the K1-slab, K1-slab-i16 and K6 counters, zeroed
    just before, must have gone up, each in the runs that use it;
+5h. ca on the golden scene over 4 shards of the card, 20000 steps, at
+   the default depth: on auto (K8, K = 8) and with LBM_CA_ENGINE=slab
+   (K4-slab, K = 4), =resident (K7, K = 4) and =inplace (K8, K = 8), each
+   final_state.dat byte-identical to 5b's single-device f32 run and passing
+   ``check`` against golden/; ca-i16 on the default int16 engine (K8-i16,
+   quantized every step: byte-identical to 5b's cuda-step-i16) and with
+   LBM_CA_ENGINE=slab (K4-slab-i16, once per 4 steps: byte-identical to
+   cuda-trapezoid-i16), each passing ``check`` (1%); ``--variant auto
+   --host-devices 4`` x 2001 steps reads ``ca-8+sync-tail1`` and writes
+   sync's final_state.dat (5e); the counts of the ca engines, zeroed just
+   before, must have gone up, each in the runs that use it;
+5k. ``LBM_TEMPORAL_IMPL=hbm`` through ``run`` on 5c's 2048x2048 channel
+   (2000 steps, K = 4, K9): final_state.dat byte-identical to 5c's
+   ``--temporal-k 1`` (K1) run; K9's count, zeroed just before, must have
+   gone up;
 5f. large shards: a 4096x4096 channel over 4 shards of 1024x4096, 200
    steps, sync's fields equal to the single-device K1 run's
    (``--temporal-k 1``), av within rtol 1e-6; chunked (k = 2) on the
@@ -110,7 +136,10 @@ power limit as nvidia-smi reports them):
    K1 / K1-i16, beside the plain sweep's time; (6d) MLUPS of every
    sharded discipline at 1024^2/4 (5e) and 4096^2/4 (400 steps, beside
    the single-device default), and K1-slab / K1-slab-i16 / K6 us/step on
-   the 256x1024 and 1024x4096 shards beside their plain versions and bounds;
+   the 256x1024 and 1024x4096 shards beside their plain versions and bounds,
+   and ca-4 at 4096^2/4 (K4-slab) with fields equal to sync's; (6e) the ca
+   engines in turns on the 256x1024 (K = 4, 8) and 1024x4096 (K = 4; K8
+   split) shards, and K9 against K4 in turns at 2048^2;
 7. one JSON line of kernel findings (one row per kernel, with the
    launches of the main path's run, its time per launch beside its plain
    version's and its bound, the least time of the launch's bytes over
@@ -324,6 +353,108 @@ def slab_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
     return err, cases
 
 
+CA_SHAPES = ((256, 1024), (1024, 4096), (8, 1024), (13, 1024), (64, 100))
+
+
+def ca_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
+    """Phase 3g: the ca engines against the plain ca sweep
+    (``fused_torch.ca_sweep``): K4-slab and K4-slab-i16 (int16 quantized once
+    per sweep), K7 (f32, where two copies of the extended slab fit its L2
+    budget) and K8 and K8-i16 (quantized every step), on shards of
+    ``CA_SHAPES`` (256x1024 and 1024x4096: the shards of the 1024^2 and
+    4096^2 runs over 4; 8 and 13 rows; nx = 100) at K in {2, 3, 4, 8}, the
+    driven row in the body, the lower or upper ghosts and none, from rest and
+    from a seeded perturbation with the injection guard false at every third
+    cell.  Fields (int16 too) bitwise, tot_u within rtol 1e-6.  Returns the
+    largest |diff| per kernel and the number of cases."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.core import lattice
+    from lbm_tpu_torch.ops import ca_cuda, fused_torch, quant, temporal_cuda
+    from lbm_tpu_torch.params import LBMParams
+
+    kernels = {"K4-slab": (temporal_cuda.bind_slab_sweep, "f32", "sweep"),
+               "K4-slab-i16": (temporal_cuda.bind_slab_sweep, "i16", "sweep"),
+               "K7": (ca_cuda.bind_resident, "f32", "step"),
+               "K8": (ca_cuda.bind_inplace, "f32", "step"),
+               "K8-i16": (ca_cuda.bind_inplace, "i16", "step")}
+    err, cases = dict.fromkeys(kernels, 0.0), dict.fromkeys(kernels, 0)
+    for n, nx in CA_SHAPES:
+        p = LBMParams(nx=nx, ny=max(1024, 4 * n), max_iters=1, reynolds_dim=10, density=0.1,
+                      accel=0.01, omega=1.85)
+        ar = p.accel_row
+        for K in (2, 3, 4, 8):
+            m = np.zeros((n + 2 * K, nx), dtype=bool)
+            m[:, 0] = m[:, -1] = True
+            m[::7, nx // 2] = True
+            ob = torch.from_numpy(m).to(dev)
+            for start in ("rest", "mixed"):
+                f = lattice.equilibrium_rest(p.density, n + 2 * K, nx)
+                if start == "mixed":
+                    rng = np.random.default_rng(13 + n + nx + K)
+                    f = f * (np.float32(1.0)
+                             + rng.uniform(-0.1, 0.1, size=f.shape).astype(np.float32))
+                    w1, _ = lattice.accel_weights(p.density, p.accel)
+                    f[3, :, ::3] = w1 * np.float32(0.5)
+                x32 = torch.from_numpy(f).to(dev)
+                for where, off in (("body", ar - n // 2), ("lo", ar + 1 + (K - 1) // 2),
+                                   ("hi", ar - n - K // 2), ("none", K)):
+                    plain = {}
+                    for name, (bind, storage, quantize) in kernels.items():
+                        if name == "K7" and not ca_cuda.supports_resident(n, nx, K):
+                            continue
+                        x = quant.quantize(x32, p.density) if storage == "i16" else x32
+                        lo, body, hi = (x[:, :K].clone(), x[:, K:K + n].contiguous(),
+                                        x[:, K + n:].clone())
+                        if (storage, quantize) not in plain:
+                            plain[(storage, quantize)] = fused_torch.ca_sweep(
+                                lo, body, hi, ob, p, off % p.ny, p.ny, storage, quantize)
+                        ref, ref_tot = plain[(storage, quantize)]
+                        out = torch.zeros_like(body)
+                        tots = torch.zeros(K + 1, dtype=torch.float32, device=dev)
+                        extra = {} if name == "K7" else {"storage": storage}
+                        bind(p, lo, body, hi, ob, out, tots, off % p.ny, p.ny, **extra)(1)
+                        e = float((out.double() - ref.double()).abs().max())
+                        what = f"{name} {n}x{nx} K={K} {start} driven={where}"
+                        if not torch.equal(out, ref):
+                            fail(f"{what}: fields differ from the plain version (max |diff| {e:.3e})")
+                        if not torch.allclose(tots[1:], ref_tot, rtol=1e-6, atol=0.0):
+                            fail(f"{what}: tot_u {tots[1:].tolist()} vs plain {ref_tot.tolist()}")
+                        err[name] = max(err[name], e)
+                        cases[name] += 1
+    return err, cases
+
+
+def hbm_kernel_checks(dev) -> tuple[float, int]:
+    """Phase 3h: K9 (the HBM-parts sweep) over 2K + 1 steps (two sweeps
+    and a K1 tail) against its plain version (K twin steps per sweep) and
+    against the K1 loop, at 2048x2048 (8 parts of 256 rows) and 60x100, K in
+    {2, 3, 4, 8}, rest and perturbed starts: fields equal, tot_u within rtol
+    1e-6.  Returns the largest |diff| and the number of cases."""
+    import torch
+
+    from lbm_tpu_torch.core import lattice
+    from lbm_tpu_torch.ops import fused_cuda, hbm_cuda
+
+    worst, n_cases = 0.0, 0
+    for ny, nx in ((2048, 2048), (60, 100)):
+        p, m = box_scene(ny, nx, 0.01 if ny >= 1024 else 0.005)
+        obst = torch.from_numpy(m).to(dev)
+        for start in ("rest", "mixed"):
+            f0 = (mixed_state(p, dev) if start == "mixed"
+                  else lattice.equilibrium_rest_device(p.density, p.ny, p.nx, dev))
+            for K in (2, 3, 4, 8):
+                steps = 2 * K + 1
+                f_k, tot_k = (t.clone() for t in hbm_cuda.make_run_all(p, obst, steps, K)(f0))
+                f_p, tot_p = hbm_cuda.run_plain(f0, obst, p, steps, K)
+                e, _ = compare(f"K9 {ny}x{nx} K={K} {start}", f_k, tot_k, f_p, tot_p)
+                f_1, tot_1 = fused_cuda.make_run_all(p, obst, steps)(f0)
+                compare(f"K9 vs K1 {ny}x{nx} K={K} {start}", f_k, tot_k, f_1, tot_1)
+                worst, n_cases = max(worst, e), n_cases + 1
+    return worst, n_cases
+
+
 def build_native_writer() -> str:
     """Build the C++ writer of final_state.dat (``make native``, into the
     gitignored native/build/), so that the large-grid CLI runs do not format
@@ -370,8 +501,10 @@ def main() -> int:
     from lbm_tpu_torch.io.writers import read_av_vels
     from lbm_tpu_torch.ops import (
         _build,
+        ca_cuda,
         fused_cuda,
         ghosted_cuda,
+        hbm_cuda,
         inplace_cuda,
         quant,
         resident_cuda,
@@ -390,6 +523,10 @@ def main() -> int:
     # Phase 1: card, versions, build.
     print(card)
     t_start = t0 = time.perf_counter()
+
+    def elapsed() -> str:
+        return f" | {time.perf_counter() - t_start:.1f} s elapsed"
+
     _build.load()
     build_s = time.perf_counter() - t0
     writer = build_native_writer()
@@ -569,6 +706,19 @@ def main() -> int:
                       for k in slab_err)
           + f" | {time.perf_counter() - t_start:.1f} s elapsed")
 
+    # Phase 3g: the ca engines vs the plain ca sweep; 3h: K9 vs plain and K1.
+    ca_err, ca_cases = ca_kernel_checks(dev)
+    print(f"[3g ca engines vs plain] card: {card} | shards "
+          + ", ".join(f"{n}x{nx}" for n, nx in CA_SHAPES) + " x K in (2, 3, 4, 8), driven row in "
+          "body / lo / hi / none, rest and perturbed | "
+          + "; ".join(f"{k} {ca_cases[k]} cases, fields equal, max |diff| {ca_err[k]:.1e}"
+                      for k in ca_err)
+          + f" | {time.perf_counter() - t_start:.1f} s elapsed")
+    k9_err, k9_cases = hbm_kernel_checks(dev)
+    print(f"[3h K9 vs plain and K1] card: {card} | 2048x2048 and 60x100 x K in (2, 3, 4, 8) x "
+          f"2K + 1 steps, rest and perturbed: {k9_cases} cases, fields equal to plain and to K1, "
+          f"max |diff| {k9_err:.1e}")
+
     # Phase 4: oracle anchor on the cuda main path.
     p128 = LBMParams(nx=128, ny=128, max_iters=120, reynolds_dim=10,
                      density=0.1, accel=0.005, omega=1.85)
@@ -627,7 +777,7 @@ def main() -> int:
                                density=0.1, accel=accel, omega=1.85)
             return scenegen.write_scene(td, preset, params)
 
-        runs = [("256x256", *scene_files(256, 8000, "cylinder", 0.005)),
+        runs = [("256x256", *scene_files(256, 4400, "cylinder", 0.005)),
                 ("1024x1024", *scene_files(1024, 2000, "channel", 0.01))]
         resident_cuda.LAUNCHES = 0
         inplace_cuda.LAUNCHES = 0
@@ -659,11 +809,11 @@ def main() -> int:
             if not same_final_state(a, b):
                 fail(f"{tag}: cuda and torch final_state.dat differ")
             checks.append(f"{tag} ({variants[tag]}) passed, final_state.dat byte-identical")
-        print(f"[5 CLI end to end] card: {card} | 256x256 x 8000 steps, 1024x1024 x 2000 steps "
+        print(f"[5 CLI end to end] card: {card} | 256x256 x 4400 steps, 1024x1024 x 2000 steps "
               f"| check cuda vs torch: {'; '.join(checks)} | 256x256 --storage i16 "
               f"(cuda-inplace-i16) vs f32, max deviation av_vels, final_state: "
               f"{', '.join(i16_256)} | launches K2 {launches['K2']}, K3 {k3_cli}, "
-              f"K3-i16 {launches['K3-i16']}")
+              f"K3-i16 {launches['K3-i16']}{elapsed()}")
 
         # Phase 5b: the 1024x1024 reference scene at full length against golden/.
         golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -700,17 +850,19 @@ def main() -> int:
               f"cells, {gparams.max_iters} steps, accel {gparams.accel}) | check vs golden "
               f"(max deviation av_vels, final_state): "
               + "; ".join(f"{v} {', '.join(d)}" for v, d in golden_dev.items())
-              + f" | launches K3 {launches['K3']}, K1-i16 {golden_k1i}, K4-i16 {golden_k4i}")
+              + f" | launches K3 {launches['K3']}, K1-i16 {golden_k1i}, K4-i16 {golden_k4i}"
+              + elapsed())
 
         # Phase 5c: large grids, f32 cuda against torch and i16 against f32.
         big = [(f"{n}x{n}", *scene_files(n, 2000, "channel", 0.01)) for n in (1536, 2048)]
         fused_cuda.LAUNCHES = 0
         fused_cuda.LAUNCHES_I16 = 0
         f32_dev, i16_dev = [], []
-        torch_big = {}
+        torch_big, k1_dirs = {}, {}
         for tag, pf, of in big:
             ref_dir, ref_variant = cli_run(tag, pf, of, "cuda", "--storage", "f32",
                                            "--temporal-k", "1")
+            k1_dirs[tag] = ref_dir
             out_dir, got = cli_run(tag, pf, of, "cuda", "--storage", "i16")  # the default
             if (ref_variant, got) != ("cuda-step", "cuda-step-i16"):
                 fail(f"{tag}: variants {ref_variant}, {got}; expected cuda-step(-i16)")
@@ -734,7 +886,7 @@ def main() -> int:
               f"final_state.dat byte-identical: {'; '.join(f32_dev)} | --storage i16 "
               f"(default: cuda-step-i16) vs f32: "
               f"{'; '.join(i16_dev)} | launches K1 {launches['K1']}, "
-              f"K1-i16 {launches['K1-i16']}")
+              f"K1-i16 {launches['K1-i16']}{elapsed()}")
 
         # Phase 5d: the temporal path through the CLI, under the default
         # policy and with a forced depth under each LBM_TEMPORAL_IMPL.
@@ -753,6 +905,8 @@ def main() -> int:
                 for label, impl, extra in policies:
                     if tag == "1536x1536" and (storage, label) != ("f32", "default"):
                         continue
+                    if (tag, storage, label) == ("4096x4096", "f32", "trapezoid"):
+                        continue  # the default there: the same variant and depth
                     with temporal_impl(impl):
                         out_dir, got = cli_run(f"{tag}-{label}", pf, of, "cuda", "--storage",
                                                storage, *extra)
@@ -804,7 +958,25 @@ def main() -> int:
         print(f"[5d CLI temporal path] card: {card} | channel, 2000 steps (4096x4096: 400); "
               f"default policy, --temporal-k 4 with LBM_TEMPORAL_IMPL=trapezoid and =skew "
               f"(max deviation av_vels, final_state) | {' | '.join(notes)} | launches "
-              + ", ".join(f"{k} {launches[k]}" for k in ("K4", "K4-i16", "K5", "K5-i16")))
+              + ", ".join(f"{k} {launches[k]}" for k in ("K4", "K4-i16", "K5", "K5-i16"))
+              + elapsed())
+
+        # Phase 5k: the HBM-parts sweep through the CLI, forced (as in
+        # lbm_tpu), at 2048x2048 against 5c's K1 run.  Its count starts from
+        # 0 here: this run is K9's main path.
+        hbm_rows = hbm_cuda.plan(bench.make_scene("2048x2048").params, 4)
+        hbm_cuda.LAUNCHES = 0
+        with temporal_impl("hbm"):
+            hbm_dir, got = cli_run("2048x2048-hbm", *scenes["2048x2048"], "cuda")
+        launches["K9"] = hbm_cuda.LAUNCHES
+        if got != "cuda-hbm" or launches["K9"] <= 0:
+            fail(f"LBM_TEMPORAL_IMPL=hbm at 2048x2048: variant {got}, K9 launches {launches['K9']}")
+        if not same_final_state(hbm_dir, k1_dirs["2048x2048"]):
+            fail("LBM_TEMPORAL_IMPL=hbm at 2048x2048: final_state.dat differs from K1's")
+        print(f"[5k HBM-parts sweep] card: {card} | 2048x2048 channel x 2000 steps, "
+              f"LBM_TEMPORAL_IMPL=hbm: {got} (K=4, {2048 // hbm_rows} parts of {hbm_rows} rows), "
+              f"final_state.dat byte-identical to --temporal-k 1 (cuda-step) | launches K9 "
+              f"{launches['K9']} | {mlups['2048x2048-hbm cuda-hbm']:.1f} MLUPS{elapsed()}")
 
         # Phase 5e: the sharded CLI on the golden scene, 4 shards of the card.
         # The counts of the sharded kernels start from 0 here: the runs of
@@ -857,11 +1029,13 @@ def main() -> int:
         if not same_final_state(si_dir, golden_dirs["cuda-step-i16"]):
             fail("golden sync --storage i16: final_state.dat differs from cuda-step-i16's")
         notes.append("sync-i16 byte-identical to cuda-step-i16")
+        sync_dirs = {}
         for steps, variant, want, uses in ((2000, "async-k", "async-2", ("K1-slab",)),
                                            (2001, "chunked", "chunked-2+sync-tail1",
                                             ("K6", "K1-slab"))):
             tag = f"golden1024-{steps}"
             ref_dir = sharded_run(tag, "sync", "sync", ("K1-slab",), "--steps", str(steps))
+            sync_dirs[steps] = ref_dir
             d = sharded_run(tag, variant, want, uses, "--steps", str(steps))
             notes.append(f"{want} x {steps} vs sync " + ", ".join(cli_check(
                 os.path.join(ref_dir, "av_vels.dat"), os.path.join(ref_dir, "final_state.dat"),
@@ -871,6 +1045,68 @@ def main() -> int:
         print(f"[5e sharded CLI, golden 1024x1024 over 4 shards of the card] card: {card} | "
               f"20000 steps (max deviation av_vels, final_state) | {'; '.join(notes)} | "
               f"launches " + ", ".join(f"{k} {launches[k]}" for k in names)
+              + f" | {time.perf_counter() - t_start:.1f} s elapsed")
+
+        # Phase 5h: ca on the golden scene over 4 shards of the card, at the
+        # default depth, on auto and with each engine forced, f32 and int16;
+        # auto on 4 shards; a step count that ends in a sync tail.  The
+        # counts of the ca engines start from 0 here: these runs are their
+        # main path.
+        temporal_cuda.SLAB_LAUNCHES = temporal_cuda.SLAB_LAUNCHES_I16 = 0
+        ca_cuda.RESIDENT_LAUNCHES = 0
+        ca_cuda.INPLACE_LAUNCHES = ca_cuda.INPLACE_LAUNCHES_I16 = 0
+        ca_names = ("K4-slab", "K4-slab-i16", "K7", "K8", "K8-i16")
+
+        def ca_counts():
+            return (temporal_cuda.SLAB_LAUNCHES, temporal_cuda.SLAB_LAUNCHES_I16,
+                    ca_cuda.RESIDENT_LAUNCHES, ca_cuda.INPLACE_LAUNCHES,
+                    ca_cuda.INPLACE_LAUNCHES_I16)
+
+        def ca_run(tag, variant, want, use, engine, *extra):
+            """``run --host-devices 4`` of the golden scene with
+            LBM_CA_ENGINE=``engine`` (None: auto), which must report ``want``
+            and launch ``use``."""
+            before = ca_counts()
+            with dryrun.env(LBM_CA_ENGINE=engine):
+                out_dir, got = cli_run(tag, gp, go, variant, "--host-devices", "4", *extra)
+            after = ca_counts()
+            if got != want:
+                fail(f"{tag} --variant {variant}: variant {got}, expected {want}")
+            i = ca_names.index(use)
+            if after[i] <= before[i]:
+                fail(f"{tag} {got} skipped {use}: counts {before} -> {after}")
+            return out_dir
+
+        notes = []
+        for engine, want, use in ((None, "ca-8", "K8"), ("slab", "ca-4", "K4-slab"),
+                                  ("resident", "ca-4", "K7"), ("inplace", "ca-8", "K8")):
+            d = ca_run(f"golden1024-ca-{engine or 'auto'}", "ca", want, use, engine)
+            if not same_final_state(d, single):
+                fail(f"golden {want} ({use}): final_state.dat differs from the single-device run")
+            rel = av_rel(d, single)
+            dev_pct = cli_check(ref_av, ref_fs, d, f"golden {want} {use}")
+            notes.append(f"{want} {engine or 'auto'} ({use}) byte-identical, av_vels max rel "
+                         f"{rel:.2e}, vs golden {', '.join(dev_pct)}")
+        for engine, want, use, same_as in ((None, "ca-8-i16", "K8-i16", "cuda-step-i16"),
+                                           ("slab", "ca-4-i16", "K4-slab-i16",
+                                            "cuda-trapezoid-i16")):
+            d = ca_run(f"golden1024-ca-i16-{engine or 'auto'}", "ca", want, use, engine,
+                       "--storage", "i16")
+            dev_pct = cli_check(ref_av, ref_fs, d, f"golden {want} {use}")
+            if not same_final_state(d, golden_dirs[same_as]):
+                fail(f"golden {want} ({use}): final_state.dat differs from {same_as}'s")
+            notes.append(f"{want} {engine or 'auto'} ({use}) vs golden {', '.join(dev_pct)}, "
+                         f"byte-identical to {same_as}")
+        d = ca_run("golden1024-2001-auto", "auto", "ca-8+sync-tail1", "K8", None,
+                   "--steps", "2001")
+        if not same_final_state(d, sync_dirs[2001]):
+            fail("golden auto over 4 shards x 2001 steps: final_state.dat differs from sync's")
+        notes.append("auto on 4 shards x 2001 steps: ca-8+sync-tail1, byte-identical to sync")
+        for name, n in zip(ca_names, ca_counts()):
+            launches[name] = n
+        print(f"[5h ca, golden 1024x1024 over 4 shards of the card] card: {card} | 20000 steps "
+              f"(max deviation av_vels, final_state), default depth | {'; '.join(notes)} | "
+              "launches " + ", ".join(f"{k} {launches[k]}" for k in ca_names)
               + f" | {time.perf_counter() - t_start:.1f} s elapsed")
 
     # Phase 5f: large shards, 4096x4096 over 4 shards of 1024x4096.
@@ -925,21 +1161,40 @@ def main() -> int:
     l2_copy = kernel_times.copy_gbps(dev, repeats=21, nbytes=16 * 2**20)
     shard_times = {n: kernel_times.time_shard(n, dev, repeats=5) for n in (1024, 4096)}
     scene_b = bench.make_scene("4096x4096")
-    rates4k = {}
-    for variant in ("cuda", "sync", "overlap", "async", "async-k", "chunked"):
+    rates4k, fields4k = {}, {}
+    slab_6d = temporal_cuda.SLAB_LAUNCHES
+    for variant in ("cuda", "sync", "overlap", "async", "async-k", "chunked", "ca"):
         res = run_simulation(scene_b, RunConfig(variant=variant, device="cuda", num_steps=400,
                                                 host_devices=None if variant == "cuda" else 4))
         rates4k[res.variant] = res.mlups
+        if variant in ("sync", "ca"):
+            fields4k[res.variant] = res.f
+    slab_6d = temporal_cuda.SLAB_LAUNCHES - slab_6d
+    if set(fields4k) != {"sync", "ca-4"} or not np.array_equal(fields4k["ca-4"],
+                                                               fields4k["sync"]):
+        fail(f"4096x4096 over 4 shards x 400 steps: ca ({sorted(fields4k)}) differs from sync")
+    if slab_6d <= 0:
+        fail("4096x4096 ca over 4 shards did not launch K4-slab")
+    del fields4k
     golden_rates = {k: v for k, v in mlups.items() if k.startswith("golden1024")}
     print(f"[6d sharded rates] card: {card} | MLUPS, golden 1024x1024 (4 shards unless "
           f"cuda-*; 20000 steps, async-2 2000, chunked 2001): "
           + "; ".join(f"{k} {v:.1f}" for k, v in golden_rates.items())
-          + " | 4096x4096 box x 400 steps: " + "; ".join(f"{k} {v:.1f}"
-                                                        for k, v in rates4k.items())
+          + " | 4096x4096 box x 400 steps (ca-4 on K4-slab, fields equal to sync; "
+            f"K4-slab launches {slab_6d}): " + "; ".join(f"{k} {v:.1f}" for k, v in rates4k.items())
           + f" | copy 16 MiB (fits L2) {l2_copy[0]:.1f} GB/s [{l2_copy[1]:.1f}, "
             f"{l2_copy[2]:.1f}]"
           + " | shard kernels in turns, then plain: "
           + " ; ".join(kernel_times.format_shard(n, t) for n, t in shard_times.items()))
+
+    # Phase 6e: the ca engines in turns on the shards of the 1024^2 and
+    # 4096^2 runs over 4, and K9 against K4 in turns at 2048^2.
+    ca_times = {(256, 1024): kernel_times.time_ca(256, 1024, dev, (4, 8), (1,), repeats=5),
+                (1024, 4096): kernel_times.time_ca(1024, 4096, dev, (4,), (4, 8), repeats=5)}
+    hbm_times = kernel_times.time_hbm(2048, dev, (4,), repeats=5)
+    print(f"[6e ca engines and K9 in turns] card: {card} | "
+          + " ; ".join(kernel_times.format_ca(n, nx, t) for (n, nx), t in ca_times.items())
+          + " ; " + kernel_times.format_grid(2048, hbm_times))
 
     # Phase 7: kernel findings, then the last line.  A launch of K1 is one
     # step; one of K2 or K3 is 256 steps; one of K4 or K5 is K steps; one of
@@ -1048,6 +1303,56 @@ def main() -> int:
         **shard_row(1024, "K6 k=2", "plain K6 k=2", 2, "f32", "L2"),
         "by_chunk": [{"k": 8, "ms": shard_times[1024]["K6 k=8"][0] / 1e3 * 8,
                       **bounds(256, 1024, 255 * 1022, 8, "f32", "L2", ghosts=True)}]})
+    # The ca engines (ms per launch = one K-step sweep of one shard, frozen
+    # ghosts): K8, K8-i16 and K7 on the 256x1024 shard of the golden runs
+    # (K = 8; K7 at K = 4, its default depth when forced), K4-slab and
+    # K4-slab-i16 on the 1024x4096 shard of the 4096^2 run (K = 4); the shard
+    # is the last of 4 (its top row and edge columns are walls).  Bytes: the
+    # body read and written once, the 2K ghost rows read once, the extended
+    # slab's mask; operations: the body's fluid cells, K steps.
+    def ca_row(name, source, replaces, key, shard, K, storage, plain_key, **more):
+        n, nx = shard
+        t = ca_times[shard]
+        vb = 2 if storage == "i16" else 4
+        b, by = kernel_times.bound_ms(n * nx, (n - 1) * (nx - 2), K, storage,
+                                      extra_bytes=2 * K * nx * (9 * vb + 1))
+        tier = "L2" if n * nx <= 256 * 1024 else "HBM"
+        per_cell = (kernel_times.BYTES_PER_CELL_STEP_I16 if storage == "i16"
+                    else kernel_times.BYTES_PER_CELL_STEP)
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[key], "max_abs_err": ca_err[key],
+                "ms": t[f"{key} K={K}"][0] / 1e3 * K, "plain_ms": t[plain_key][0] / 1e3 * K,
+                "bound_ms": b, "bound_by": by, "library_ms": None, "tier": tier,
+                "tier_bound_ms": (n * nx * per_cell / (gbps[0] * 1e9) * 1e3 if tier == "HBM"
+                                  else None), **more}
+
+    ca_src = "lbm_tpu_torch/csrc/"
+    kernels += [
+        ca_row("K4-slab ca slab sweep (ms per launch = 4 steps of one 1024x4096 shard of "
+               "4096x4096, K=4)", ca_src + "temporal.cu", "lbm_tpu/ops/temporal_pallas.py:535",
+               "K4-slab", (1024, 4096), 4, "f32", "plain K=4", launches_6d=slab_6d),
+        ca_row("K4-slab-i16 ca slab sweep, int16 state (ms per launch = 4 steps of one "
+               "1024x4096 shard of 4096x4096, K=4)", ca_src + "temporal.cu",
+               "lbm_tpu/ops/temporal_pallas.py:535", "K4-slab-i16", (1024, 4096), 4, "i16",
+               "plain-i16 K=4"),
+        ca_row("K7 ca resident sweep (ms per launch = 4 steps of one 256x1024 shard of "
+               "1024x1024, K=4)", ca_src + "ca_resident.cu",
+               "lbm_tpu/ops/resident_pallas.py:1192", "K7", (256, 1024), 4, "f32", "plain K=4"),
+        ca_row("K8 ca in-place sweep (ms per launch = 8 steps of one 256x1024 shard of "
+               "1024x1024, K=8)", ca_src + "ca_inplace.cu",
+               "lbm_tpu/ops/resident_pallas.py:1643", "K8", (256, 1024), 8, "f32", "plain K=8"),
+        ca_row("K8-i16 ca in-place sweep, int16 state (ms per launch = 8 steps of one 256x1024 "
+               "shard of 1024x1024, K=8)", ca_src + "ca_inplace.cu",
+               "lbm_tpu/ops/resident_pallas.py:1643", "K8-i16", (256, 1024), 8, "i16",
+               "plain-i16 K=8"),
+        {"name": "K9 HBM-parts sweep (ms per launch = 4 steps of 2048x2048 as 8 parts of "
+                 "256 rows, K=4)",
+         "route": "cuda", "source": ca_src + "ca_inplace.cu",
+         "replaces": "lbm_tpu/ops/hbm_pallas.py:157", "launches": launches["K9"],
+         "max_abs_err": k9_err, "ms": hbm_times["K9 K=4"][0] / 1e3 * 4,
+         "plain_ms": sweeps[2048]["plain K=4"][0] / 1e3 * 4,
+         **bounds(2048, 2048, 2046 ** 2, 4, "f32", "HBM")},
+    ]
     print(f"[7 elapsed] card: {card} | {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

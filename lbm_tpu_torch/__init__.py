@@ -11,12 +11,15 @@ Layout, mirroring ``lbm_tpu`` where that helps find the counterpart:
 - ``core``    lattice constants, rest equilibrium, the numpy serial oracle.
 - ``io``      scene parsing, output writers, reference state hand-over.
 - ``ops``     the cell math on tensors (``stencil_math``), the plain torch
-              step (``fused_torch``), and the two CUDA kernels with their
-              wrappers: the one-step kernel (``fused_cuda``) and the
-              persistent multi-step kernel (``resident_cuda``).
+              step and sweeps (``fused_torch``), the int16 codec
+              (``quant``), and one wrapper module per CUDA kernel family
+              (``*_cuda``: K1-K9), each beside its kernel's plain version.
 - ``csrc``    the CUDA C++ sources, built with nvcc at first use.
-- ``models``  variants, the single-device program, the run driver.
-- ``tools``   checker, bench, scene generator.
+- ``models``  variants, the single-device program and its policy, the run
+              driver.
+- ``parallel`` the row mesh and the sharded disciplines (sync, overlap,
+              async, chunked, ca).
+- ``tools``   checker, bench, scene generator, dry run, kernel timing.
 - ``utils``   phase timer and invariants.
 """
 

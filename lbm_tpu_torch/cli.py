@@ -40,8 +40,8 @@ def _add_sharding_args(p: argparse.ArgumentParser) -> None:
                    help="shards of the sharded variants (default: every device of the run)")
     p.add_argument(
         "--staleness", type=int, default=None,
-        help="halo age of async / chunk length of chunked (default: async 1, "
-        "async-k 2, chunked 2)",
+        help="halo age of async / chunk length of chunked / exchange depth K of ca "
+        "(default: async 1, async-k 2, chunked 2, ca 4)",
     )
     p.add_argument(
         "--backend", choices=["torch", "cuda", "jnp", "pallas"], default=None,
@@ -61,9 +61,9 @@ def _add_run_args(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--variant", default="auto",
         help="solver variant: serial | torch | cuda | sync | overlap | async | "
-        "async-k | chunked (aliases: jnp -> torch, pallas -> cuda, mpi, "
+        "async-k | chunked | ca (aliases: jnp -> torch, pallas -> cuda, mpi, "
         "waitall, testall, ...); default auto = cuda on a CUDA device, torch "
-        "on cpu, lbm_tpu's sharded rule on more than one device",
+        "on cpu, lbm_tpu's sharded rule (ca where it maps) on more than one device",
     )
     p.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",

@@ -1,15 +1,16 @@
 // Shared per-cell D2Q9-BGK update for the CUDA kernels of lbm_tpu_torch.
 //
 // Every kernel (step.cu, resident.cu, inplace.cu, temporal.cu, skew.cu,
-// ghosted.cu) loads state through lbm_load(), updates a cell with
-// lbm_collide() and stores with lbm_encode(), so they stay bitwise equal to
-// each other and to the plain torch step (ops/stencil_math.py, which this
-// file follows op for op, in the same association order).  step.cu and
-// resident.cu pull a cell's 9 values with lbm_pull(); the slab kernels of
-// the sharded modes (K1-slab in step.cu, K6 in ghosted.cu) with
-// lbm_pull_slab(); inplace.cu reads them from its in-place layout;
-// temporal.cu and skew.cu pull from levels held in shared memory with
-// lbm_pull_rows().
+// ghosted.cu, ca_resident.cu, ca_inplace.cu) loads state through
+// lbm_load(), updates a cell with lbm_collide() and stores with
+// lbm_encode(), so they stay bitwise equal to each other and to the plain
+// torch step (ops/stencil_math.py, which this file follows op for op, in the
+// same association order).  step.cu and resident.cu pull a cell's 9 values
+// with lbm_pull(); the slab kernels of the sharded modes (K1-slab in
+// step.cu, K6 in ghosted.cu) with lbm_pull_slab(); the ca engines K7 and K8
+// from a ghost-extended slab (Ext) with lbm_pull_3rows(); inplace.cu and
+// ca_inplace.cu read them from their in-place layout; temporal.cu and
+// skew.cu pull from levels held in shared memory with lbm_pull_rows().
 //
 // Storage: the state is float32, or int16 fixed-point deviations from rest
 // (ops/quant.py).  lbm_load() dequantizes and lbm_encode() quantizes with
@@ -243,6 +244,76 @@ __device__ __forceinline__ void lbm_pull_slab(const Slab<T>& s, int n, const uin
   if (g + 1 == p.accel_row && (kInjectGhosts || !hi_edge)) {
     t[7] = t[7] - lbm_slab_gate<kL2>(rn, pnr, wall + nx, ie, p.w2, p);
     t[8] = t[8] + lbm_slab_gate<kL2>(rn, pnr, wall + nx, iw, p.w2, p);
+  }
+}
+
+// The ghost-extended slab of one shard (the ca engines and the HBM-parts
+// sweep): K rows below the body (lo), the n body rows and K rows above it
+// (hi), each a window with its own plane stride (elements), rows nx apart.
+// Extended row e < K is lo row e, K <= e < K + n body row e - K, and
+// e >= K + n hi row e - K - n.  A buffer that holds all the rows (a
+// kernel's scratch) is the window lo with K = its row count.
+template <typename T>
+struct Ext {
+  const T* lo;
+  long long ps_lo;
+  const T* body;
+  long long ps;
+  const T* hi;
+  long long ps_hi;
+  int K;
+  int n;
+};
+
+// Plane 0 of extended row e, and its plane stride in *ps.
+template <typename T>
+__device__ __forceinline__ const T* lbm_ext_row(const Ext<T>& w, int e, int nx, long long* ps) {
+  if (e < w.K) {
+    *ps = w.ps_lo;
+    return w.lo + static_cast<size_t>(e) * nx;
+  }
+  e -= w.K;
+  if (e < w.n) {
+    *ps = w.ps;
+    return w.body + static_cast<size_t>(e) * nx;
+  }
+  *ps = w.ps_hi;
+  return w.hi + static_cast<size_t>(e - w.n) * nx;
+}
+
+// lbm_pull() from three rows that each have their own plane stride: rj the
+// cell's own row, rs the row below (source of cy = +1), rn the row above
+// (cy = -1); ws / wj / wn their wall rows; ds / dj / dn whether each is the
+// driven row.  x wraps; the guard is recomputed from the source cell.  The
+// same loads, injections and operation order as lbm_pull().
+template <bool kL2, typename T>
+__device__ __forceinline__ void lbm_pull_3rows(const T* rs, long long pss, const T* rj,
+                                               long long psj, const T* rn, long long psn,
+                                               const uint8_t* ws, const uint8_t* wj,
+                                               const uint8_t* wn, bool ds, bool dj, bool dn,
+                                               int i, const StepParams& p, float t[9]) {
+  const int iw = (i == 0) ? p.nx - 1 : i - 1;  // source column of cx = +1
+  const int ie = (i + 1 == p.nx) ? 0 : i + 1;  // source column of cx = -1
+  t[0] = lbm_load<kL2>(rj + 0 * psj + i, 0, p);
+  t[1] = lbm_load<kL2>(rj + 1 * psj + iw, 1, p);
+  t[2] = lbm_load<kL2>(rs + 2 * pss + i, 2, p);
+  t[3] = lbm_load<kL2>(rj + 3 * psj + ie, 3, p);
+  t[4] = lbm_load<kL2>(rn + 4 * psn + i, 4, p);
+  t[5] = lbm_load<kL2>(rs + 5 * pss + iw, 5, p);
+  t[6] = lbm_load<kL2>(rs + 6 * pss + ie, 6, p);
+  t[7] = lbm_load<kL2>(rn + 7 * psn + ie, 7, p);
+  t[8] = lbm_load<kL2>(rn + 8 * psn + iw, 8, p);
+  if (dj) {
+    t[1] = t[1] + lbm_slab_gate<kL2>(rj, psj, wj, iw, p.w1, p);
+    t[3] = t[3] - lbm_slab_gate<kL2>(rj, psj, wj, ie, p.w1, p);
+  }
+  if (ds) {
+    t[5] = t[5] + lbm_slab_gate<kL2>(rs, pss, ws, iw, p.w2, p);
+    t[6] = t[6] - lbm_slab_gate<kL2>(rs, pss, ws, ie, p.w2, p);
+  }
+  if (dn) {
+    t[7] = t[7] - lbm_slab_gate<kL2>(rn, psn, wn, ie, p.w2, p);
+    t[8] = t[8] + lbm_slab_gate<kL2>(rn, psn, wn, iw, p.w2, p);
   }
 }
 

@@ -41,6 +41,19 @@
 // fixed order: no float atomics, so runs repeat bitwise.  A
 // tile too large for shared memory makes the launch fail with an error,
 // which the entry point returns.
+//
+// K4-slab (and K4-slab-i16): the same kernel on one shard of the exact
+// communication-avoiding mode (ca), replacing B5's slab form
+// (temporal_pallas.py::make_slab_sweep :535).  The shard's K ghost rows on
+// each side arrive once per sweep; the tiles cover the body rows and read
+// their halos from three windows (lo | body | hi, each with its own plane
+// stride, as K1-slab reads its ghosts), so no tile row wraps in y and the K
+// levels recompute the ghosts' evolution locally: the body after the sweep
+// is K synchronous steps, bitwise.  Where B5 carried per-level rows from
+// block to block and rebuilt the lower ghosts in a seam chain, a K4 tile
+// needs neither.  The driven row is found by global row, the lower ghosts of
+// shard 0 wrapping to the top of the grid; |u| counts body cells only.
+// Bound: the shard's bytes once per K steps, as K4.
 
 #include "lbm_common.cuh"
 
@@ -147,6 +160,110 @@ __global__ void __launch_bounds__(kT)
   }
 }
 
+// Offset of row r of a window whose rows are nx apart.
+__device__ __forceinline__ size_t k_row(int r, int nx) { return static_cast<size_t>(r) * nx; }
+
+// K4-slab: the same kernel on one shard of p.ny = n body rows.  Level 0
+// comes from the shard's ghost-extended slab (lo: K rows | body | hi: K
+// rows, three windows with their own plane strides), level K goes to the
+// body's output window.  A region row's extended row is y + K; tiles cover
+// the body only, so a tile's halo reaches at most K rows into the ghosts and
+// nothing wraps in y (the rows a ragged last tile's region asks for past the
+// slab wrap inside it: finite values that reach no output row).  The driven
+// row is found by global row (row_offset - K + e) mod ny_global, ghosts
+// included.  Everything else is K4's, line for line: a separate kernel,
+// because K4 templated on its loads and stores ran 36% slower at 2048^2
+// (124 against 91 us/step in turns, NVIDIA H100 80GB HBM3 at 700 W; PERF.md,
+// Findings).
+template <typename T>
+__global__ void __launch_bounds__(kT)
+    lbm_trapezoid_slab_kernel(const T* __restrict__ lo, long long ps_lo,
+                              const T* __restrict__ body, long long ps,
+                              const T* __restrict__ hi, long long ps_hi, T* __restrict__ fout,
+                              long long ps_out, const uint8_t* __restrict__ obst,
+                              float* __restrict__ partials, lbm::StepParams p, Tile g,
+                              int row_offset, int ny_global) {
+  extern __shared__ float smem[];
+  const int area = g.rh * g.rw;
+  float* lev[2] = {smem, smem + 9 * area};
+  float* wsum = smem + 18 * area;  // [level-1][warp]
+  int* grow = reinterpret_cast<int*>(wsum + g.K * kWarps);
+  int* gcol = grow + g.rh;
+  uint8_t* wall = reinterpret_cast<uint8_t*>(gcol + g.rw);
+  uint8_t* drv = wall + area;
+
+  const int tid = threadIdx.x;
+  const int y0 = blockIdx.y * g.th, x0 = blockIdx.x * g.tw;
+  const int nblocks = gridDim.x * gridDim.y;
+  const int block = blockIdx.y * gridDim.x + blockIdx.x;
+  const int ext = p.ny + 2 * g.K;
+
+  for (int r = tid; r < g.rh; r += kT) {
+    grow[r] = lbm::lbm_wrap(y0 + r, ext);  // extended row of region row r
+    drv[r] = lbm::lbm_wrap(row_offset - g.K + grow[r], ny_global) == p.accel_row;
+  }
+  for (int c = tid; c < g.rw; c += kT) gcol[c] = lbm::lbm_wrap(x0 - g.K + c, p.nx);
+  __syncthreads();
+
+  // Level 0: the region, decoded to float32.
+  for (int i = tid; i < area; i += kT) {
+    const int r = i / g.rw;
+    const int e = grow[r];
+    const int c = gcol[i - r * g.rw];
+    wall[i] = obst[static_cast<size_t>(e) * p.nx + c] != 0;
+    const T* src = e < g.K ? lo + k_row(e, p.nx) + c
+                           : (e < g.K + p.ny ? body + k_row(e - g.K, p.nx) + c
+                                             : hi + k_row(e - g.K - p.ny, p.nx) + c);
+    const long long pss = e < g.K ? ps_lo : (e < g.K + p.ny ? ps : ps_hi);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) lev[0][k * area + i] = lbm::lbm_load<false>(src + k * pss, k, p);
+  }
+  __syncthreads();
+
+  // Tile bounds inside the region, clipped to the grid (ragged edges).
+  const int r_end = g.K + min(g.th, p.ny - y0);
+  const int c_end = g.K + min(g.tw, p.nx - x0);
+  for (int l = 1; l <= g.K; ++l) {
+    const float* src = lev[(l - 1) & 1];
+    float* dst = lev[l & 1];
+    const int w = g.rw - 2 * l, h = g.rh - 2 * l;
+    // i -> (i / w, i % w) by a float reciprocal: exact here, as i < 2^16
+    // and (i + 0.5) / w lies at least 0.5 / w from an integer.
+    const float inv_w = 1.0f / static_cast<float>(w);
+    float acc = 0.0f;
+    for (int i = tid; i < w * h; i += kT) {
+      const int di = static_cast<int>((static_cast<float>(i) + 0.5f) * inv_w);
+      const int r = l + di, c = l + (i - di * w);
+      const float* rj = src + r * g.rw;
+      const uint8_t* wj = wall + r * g.rw;
+      float t[9], out[9];
+      lbm::lbm_pull_rows(rj - g.rw, rj, rj + g.rw, area, wj - g.rw, wj, wj + g.rw, drv[r - 1],
+                         drv[r], drv[r + 1], c, p, t);
+      const float speed = lbm::lbm_collide(t, wj[c] != 0, p.omega, out);
+      const bool own = r >= g.K && r < r_end && c >= g.K && c < c_end;
+      if (own) acc = acc + speed;
+      if (l < g.K) {
+#pragma unroll
+        for (int k = 0; k < 9; ++k) dst[k * area + r * g.rw + c] = out[k];
+      } else if (own) {
+        const size_t o = static_cast<size_t>(y0 + r - g.K) * p.nx + (x0 + c - g.K);
+#pragma unroll
+        for (int k = 0; k < 9; ++k) fout[k * ps_out + o] = lbm::lbm_encode<T>(out[k], k, p);
+      }
+    }
+    acc = lbm::lbm_warp_sum(acc);
+    if ((tid & 31) == 0) wsum[(l - 1) * kWarps + (tid >> 5)] = acc;
+    // Orders this level's writes before the next level's reads, and its
+    // reads before the next level's writes.
+    __syncthreads();
+  }
+  if (tid < g.K) {
+    float total = 0.0f;
+    for (int w = 0; w < kWarps; ++w) total = total + wsum[tid * kWarps + w];
+    partials[static_cast<size_t>(tid) * nblocks + block] = total;
+  }
+}
+
 dim3 tile_grid(int ny, int nx, const Tile& g) {
   return dim3((nx + g.tw - 1) / g.tw, (ny + g.th - 1) / g.th);
 }
@@ -177,6 +294,30 @@ int trapezoid_run(T* fa, T* fb, const uint8_t* obst, float* partials, float* tot
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One K4-slab sweep of a shard and its |u| reduction: two launches.
+template <typename T>
+int trapezoid_slab(const void* lo, long long ps_lo, const void* body, long long ps,
+                   const void* hi, long long ps_hi, void* out, long long ps_out,
+                   const uint8_t* obst, float* partials, float* tot_out,
+                   const lbm::StepParams& p, const Tile& g, int row_offset, int ny_global,
+                   cudaStream_t s) {
+  const size_t smem = tile_smem(g);
+  cudaError_t err = cudaFuncSetAttribute(lbm_trapezoid_slab_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid = tile_grid(p.ny, p.nx, g);
+  lbm_trapezoid_slab_kernel<T><<<grid, kT, smem, s>>>(
+      static_cast<const T*>(lo), ps_lo, static_cast<const T*>(body), ps,
+      static_cast<const T*>(hi), ps_hi, static_cast<T*>(out), ps_out, obst, partials, p, g,
+      row_offset, ny_global);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lbm::lbm_reduce_kernel<0><<<g.K, lbm::kThreads, 0, s>>>(
+      partials, static_cast<int>(grid.x * grid.y), tot_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -220,6 +361,37 @@ int lbm_trapezoid_run(void* fa, void* fb, const uint8_t* obst, float* partials,
   }
   return trapezoid_run(static_cast<float*>(fa), static_cast<float*>(fb), obst, partials,
                        tot_out, p, g, nsweeps, batch, s);
+}
+
+// K4-slab: advance the n body rows of one shard K steps into `out`, from
+// its ghost-extended slab: lo (the K rows below), body and hi (the K rows
+// above), each with its own plane stride in elements and a row stride of nx;
+// obst is the (n + 2K, nx) extended obstacle slab; row_offset the global row
+// of body row 0; ny_global the grid's row count (the driven row and shard
+// 0's lower ghosts are found modulo it).  partials holds K rows of
+// lbm_trapezoid_blocks(n, nx, K, tile_h, tile_w) floats; tot_out receives
+// the K per-level sums over the body's fluid cells.  float32 or int16 state
+// (i16, codec) as lbm_trapezoid_run.  Two launches on `stream`, no
+// synchronisation.  Returns the first CUDA error, or 0.
+int lbm_trapezoid_slab(const void* lo, long long ps_lo, const void* body, long long ps,
+                       const void* hi, long long ps_hi, const uint8_t* obst, void* out,
+                       long long ps_out, float* partials, float* tot_out, int n, int nx,
+                       int row_offset, int ny_global, int accel_row, float omega, float w1,
+                       float w2, int i16, const float* codec, int K, int tile_h, int tile_w,
+                       void* stream, int device) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (K < 1 || n < K || tile_h < 1 || tile_w < 1) return static_cast<int>(cudaErrorInvalidValue);
+  lbm::StepParams p{n, nx, accel_row, omega, w1, w2};
+  const Tile g = make_tile(K, tile_h, tile_w);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (i16) {
+    lbm::lbm_set_codec(p, codec);
+    return trapezoid_slab<int16_t>(lo, ps_lo, body, ps, hi, ps_hi, out, ps_out, obst, partials,
+                                   tot_out, p, g, row_offset, ny_global, s);
+  }
+  return trapezoid_slab<float>(lo, ps_lo, body, ps, hi, ps_hi, out, ps_out, obst, partials,
+                               tot_out, p, g, row_offset, ny_global, s);
 }
 
 }  // extern "C"

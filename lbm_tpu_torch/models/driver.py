@@ -10,13 +10,15 @@ kernel build billed to init, av = tot_u / fluid cells in float32, and the
 output state taken through the program's ``f_of`` (dequantized for i16,
 lbm_tpu/models/driver.py:759).
 
-The sharded variants (sync, overlap, async, async-k, chunked) run on a row
-mesh (parallel/mesh.py, parallel/modes.py): ``num_devices`` shards over the
-run's devices, every card of a CUDA host, or ``host_devices`` copies of
+The sharded variants (sync, overlap, async, async-k, chunked, ca) run on a
+row mesh (parallel/mesh.py, parallel/modes.py): ``num_devices`` shards over
+the run's devices, every card of a CUDA host, or ``host_devices`` copies of
 the run's one device.  A chunked run whose step count is not a multiple of
 k runs the remainder as exchange-then-inner per step, through the
-program's chunk primitives, and its variant reads ``chunked-k+sync-tailN``
-(lbm_tpu/models/driver.py:879-913).
+program's chunk primitives; a ca run (whose state is the bare f) runs it
+through a sync program on the same mesh, continuing from the bulk's final
+state (lbm_tpu/models/driver.py:879-935).  Either variant then reads
+``...+sync-tailN``.
 
 Launches are asynchronous, so the compute bracket ends with
 ``torch.cuda.synchronize()`` on every device of the run; without it the
@@ -24,8 +26,7 @@ run would report the rate at which launches were queued.  Inside the loop
 nothing waits for the device and nothing is allocated per step: each
 segment's runner holds its buffers.
 
-Not yet ported: frames, debug, checkpoint/resume, plans and the ``ca``
-variant.
+Not yet ported: frames, debug, checkpoint/resume and plans.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ import torch
 from lbm_tpu_torch.core import oracle
 from lbm_tpu_torch.io.scene import Scene
 from lbm_tpu_torch.models.program import StepProgram, build_single_program
-from lbm_tpu_torch.models.variants import SHARDED, NotPortedError, resolve_variant
+from lbm_tpu_torch.models.variants import SHARDED, resolve_variant
 from lbm_tpu_torch.ops import quant
 from lbm_tpu_torch.parallel import mesh as mesh_lib
 from lbm_tpu_torch.parallel import modes
@@ -66,8 +67,9 @@ class RunConfig:
     temporal_k: int | None = None
     # Sharded variants: shards (None = every device of the run).
     num_devices: int | None = None
-    # Halo age of async, chunk length of chunked; None = the variant's
-    # default (modes.STALENESS_DEFAULTS: async 1, async-k 2, chunked 2).
+    # Halo age of async, chunk length of chunked, exchange depth of ca; None
+    # = the variant's default (modes.STALENESS_DEFAULTS: async 1, async-k 2,
+    # chunked 2; ca: modes.ca_default_staleness).
     staleness: int | None = None
     # "cuda" / "torch" (or lbm_tpu's "pallas" / "jnp"): the per-shard step of
     # the sharded variants, or the single-device variant; None = auto.
@@ -138,30 +140,36 @@ def mesh_devices(config: RunConfig, device: torch.device) -> mesh_lib.RowMesh:
                                   mesh_lib.available_devices(device, config.host_devices))
 
 
+def ca_staleness(scene: Scene, config: RunConfig, n_dev: int) -> int:
+    """The ca depth knob of a run: ``--staleness``, else
+    ``modes.ca_default_staleness`` (lbm_tpu/models/driver.py:227-231)."""
+    if config.staleness is not None:
+        return config.staleness
+    return modes.ca_default_staleness(scene.params, scene.obstacles, n_dev, config.storage)
+
+
 def choose_variant(scene: Scene, config: RunConfig, device: torch.device) -> str:
     """The variant a run takes: the one named, or for ``auto`` on more than
     one device ``lbm_tpu``'s multi-device rule (driver.py:141-175), else the
     single-device one; ``--backend`` names the single-device variant, as in
-    lbm_tpu.  Where ``lbm_tpu``'s auto would pick ``ca``, this raises
-    :class:`NotPortedError` naming the variants there are: it never runs
-    another mode in its place.
+    lbm_tpu.
 
-    The multi-device rule applies only when the run asks for shards
-    (``num_devices`` or ``host_devices``): until ``ca`` is ported, a plain
-    ``auto`` run on a host with several cards stays on one card, where
-    ``lbm_tpu`` would shard it over all of them."""
+    The devices are ``num_devices`` of the run's devices: every card of a
+    CUDA host, or ``host_devices`` copies of the run's one device.  On more
+    than one: ``ca`` wherever it maps at the depth the run will use
+    (``modes.ca_supported``; not on the torch backend), else the stale-row
+    model's async where its deviation stays well inside the 1% contract,
+    else the exact overlap."""
     v = resolve_variant(config.variant)
-    if v == "auto" and (config.num_devices is not None or config.host_devices is not None):
+    if v == "auto":
         n_dev = (config.num_devices if config.num_devices is not None
                  else len(mesh_lib.available_devices(device, config.host_devices)))
         if n_dev > 1:
-            if modes.ca_would_map(scene.obstacles, n_dev, config.backend):
-                raise NotPortedError(
-                    f"--variant auto on {n_dev} devices picks lbm_tpu's 'ca' for this scene; "
-                    "'ca' is",
-                    "name one of sync, overlap, async, async-k, chunked")
-            # The stale-row model: async where its deviation stays well
-            # inside the 1% contract, else the exact overlap.
+            backend = {"jnp": "torch", "pallas": "cuda"}.get(config.backend, config.backend)
+            if backend != "torch" and modes.ca_supported(
+                    scene.params, scene.obstacles, n_dev, ca_staleness(scene, config, n_dev),
+                    config.storage):
+                return "ca"
             return "async" if 2.0 * n_dev / scene.params.ny <= 0.03 else "overlap"
     if v not in SHARDED and v != "serial" and config.backend is not None:
         backend = {"jnp": "torch", "pallas": "cuda"}.get(config.backend, config.backend)
@@ -183,12 +191,16 @@ def build_program(
     params, obst = scene.params, scene.obstacles
     if variant in SHARDED:
         mode = "async" if variant == "async-k" else variant
-        staleness = (config.staleness if config.staleness is not None
-                     and variant in modes.STALENESS_DEFAULTS
-                     else modes.STALENESS_DEFAULTS.get(variant, 1))
+        mesh = mesh_devices(config, device)
+        if variant == "ca":
+            staleness = ca_staleness(scene, config, mesh.size)
+        elif config.staleness is not None and variant in modes.STALENESS_DEFAULTS:
+            staleness = config.staleness
+        else:
+            staleness = modes.STALENESS_DEFAULTS.get(variant, 1)
         f_host = None if f0 is None else np.asarray(torch.as_tensor(f0).cpu(), np.float32)
         return modes.build_sharded_program(
-            params, obst, mesh_devices(config, device), mode=mode, staleness=staleness,
+            params, obst, mesh, mode=mode, staleness=staleness,
             f0=f_host, backend=config.backend, storage=config.storage,
         )
     return build_single_program(params, obst, device, backend=variant, f0=f0,
@@ -213,6 +225,20 @@ def _segment_lengths(num_steps: int, config: RunConfig, sweep_k: int = 1) -> lis
     if num_steps % seg:
         lengths.append(num_steps % seg)
     return lengths
+
+
+def _tail_runner(scene: Scene, config: RunConfig, device: torch.device,
+                 program: StepProgram, num_steps: int):
+    """The runner of a multi-step program's last ``num_steps`` (fewer than
+    one sweep or chunk), ``state -> (state, tot_us (num_steps,))``: a
+    chunked program's own primitives (:func:`_run_tail`), or, for ca, whose
+    state is the bare f, a sync program on the same mesh, storage and
+    backend, which continues the bulk's final state bitwise
+    (lbm_tpu/models/driver.py:914-941)."""
+    if program.chunk_inner_step is not None:
+        return lambda state: _run_tail(program, state, num_steps)
+    sync_cfg = dataclasses.replace(config, variant="sync", staleness=None, temporal_k=None)
+    return build_program(scene, sync_cfg, device, variant="sync").make_run_all(num_steps)
 
 
 def _run_tail(program: StepProgram, state, num_steps: int):
@@ -267,14 +293,15 @@ def run_simulation(
     seg_lengths = (_segment_lengths(bulk, config, max(program.sweep_k, spc))
                    or ([bulk] if bulk else []))
     runners = {n: program.make_run_all(n) for n in sorted(set(seg_lengths))}
+    tail_run = _tail_runner(scene, config, device, program, tail) if tail else None
     if device.type == "cuda":
         # A discarded run that launches each kernel once (a step, or a sweep
-        # and a step, or a chunk, and the chunked tail's step): a kernel's
+        # and a step, or a chunk or ca sweep, and the tail): a kernel's
         # first launch loads it, which belongs to init with the build.
         state, _ = program.make_run_all(max(spc, program.sweep_k + (program.sweep_k > 1)))(
             program.init_state)
         if tail:
-            _run_tail(program, state, 1)
+            tail_run(state)
         for d in devices:
             _sync(d)
     timer.stop("init")
@@ -285,7 +312,7 @@ def run_simulation(
         state, tot_us = runners[n](state)
         parts.append(tot_us)
     if tail:
-        state, tot_us = _run_tail(program, state, tail)
+        state, tot_us = tail_run(state)
         parts.append(tot_us)
     for d in devices:
         _sync(d)

@@ -22,8 +22,9 @@ variant names in brackets, ``-i16`` appended for int16 storage):
 3. the temporal sweeps, K steps per pass over device memory, where the
    depth (``temporal_k``, else ``temporal_cuda.pick_k``: 4 from 1024^2
    cells in f32, 1 in int16) is at least 2 and :func:`temporal_impl_choice`
-   maps one: K4 (``cuda-trapezoid``; the default) or K5 (``cuda-skew``;
-   forced only), the remainder steps on K1;
+   maps one: K4 (``cuda-trapezoid``; the default), K5 (``cuda-skew``;
+   forced only) or K9 (``cuda-hbm``, the HBM-parts sweep; forced only, f32),
+   the remainder steps on K1;
 4. else a loop of K1 launches (``cuda-step``; int16 from 512^2 up).  A
    forced depth that cannot map warns and lands here.
 
@@ -51,10 +52,10 @@ import numpy as np
 import torch
 
 from lbm_tpu_torch.core import lattice
-from lbm_tpu_torch.models.variants import NotPortedError
 from lbm_tpu_torch.ops import (
     fused_cuda,
     fused_torch,
+    hbm_cuda,
     inplace_cuda,
     quant,
     resident_cuda,
@@ -90,27 +91,36 @@ class StepProgram:
     # steps as exchange-then-inner per step.
     chunk_inner_step: Callable[[Any], tuple[Any, torch.Tensor]] | None = None
     chunk_exchange: Callable[[Any], Any] | None = None
+    # ca only: the K-sweep engine that runs it (``slab``, ``resident`` or
+    # ``inplace``; parallel/modes.py ca_engine_choice).
+    engine: str | None = None
 
 
 def temporal_impl_choice(params: LBMParams, K: int, storage: str = "f32") -> str | None:
     """Which sweep kernel runs a K-deep sweep of this grid: ``'skew'`` (K5,
-    ops/skew_cuda.py), ``'trapezoid'`` (K4, ops/temporal_cuda.py), or None
-    when neither maps (``lbm_tpu.parallel.modes.temporal_impl_choice``; the
-    lane-padding argument has no counterpart, the kernels take any nx).
+    ops/skew_cuda.py), ``'trapezoid'`` (K4, ops/temporal_cuda.py),
+    ``'hbm'`` (K9, ops/hbm_cuda.py), or None when none maps
+    (``lbm_tpu.parallel.modes.temporal_impl_choice``; the lane-padding
+    argument has no counterpart, the kernels take any nx).
 
     ``LBM_TEMPORAL_IMPL`` forces one (``skew`` / ``trapezoid``; None where
-    it cannot map).  ``hbm`` (B7) is not ported and raises
-    :class:`NotPortedError`: it never falls through to another kernel.
-    Auto: K4 where it maps, else None (the K1 loop), from the H100 table
+    it cannot map).  ``hbm`` (``modes.py`` :229-230) runs K9 and never
+    falls through to another kernel: where K9 cannot map (int16 state, or
+    no part size, ``hbm_cuda.plan``) it raises ``ValueError``.  Auto never
+    picks it, as in ``lbm_tpu``.  Auto: K4 where it maps, else None (the K1
+    loop), from the H100 table
     (PERF.md §5, ``tools/kernel_times.py --sweeps``): K5 was slower than K1
     at every grid (512^2-4096^2) and depth (2, 4, 8) timed, f32 and int16,
     so it runs only when forced.  ``lbm_tpu`` prefers the skewed pair, which
     won on the TPU."""
     impl = os.environ.get("LBM_TEMPORAL_IMPL", "auto").strip().lower()
+    if impl not in ("auto", "skew", "trapezoid", "hbm"):
+        raise ValueError(f"LBM_TEMPORAL_IMPL={impl!r}; use skew, trapezoid, hbm or auto")
     if impl == "hbm":
-        raise NotPortedError("LBM_TEMPORAL_IMPL=hbm (the HBM-pipelined sweep) is")
-    if impl not in ("auto", "skew", "trapezoid"):
-        raise ValueError(f"LBM_TEMPORAL_IMPL={impl!r}; use skew, trapezoid or auto")
+        if not hbm_cuda.supports(params, K, storage):
+            raise ValueError(f"LBM_TEMPORAL_IMPL=hbm: the HBM-parts sweep (K={K}, {storage}) "
+                             f"cannot map the {params.nx}x{params.ny} grid")
+        return "hbm"
     if impl == "skew":
         return "skew" if skew_cuda.supports(params, K, storage) else None
     return "trapezoid" if temporal_cuda.supports(params, K, storage) else None
@@ -186,6 +196,7 @@ def build_single_program(
             "cuda-inplace": lambda n: inplace_cuda.make_run_all(params, obst, n, storage=storage),
             "cuda-trapezoid": lambda n: temporal_cuda.make_run_all(params, obst, n, K, storage),
             "cuda-skew": lambda n: skew_cuda.make_run_all(params, obst, n, K, storage),
+            "cuda-hbm": lambda n: hbm_cuda.make_run_all(params, obst, n, K, storage),
             "cuda-step": lambda n: fused_cuda.make_run_all(params, obst, n, storage),
         }[variant.removesuffix("-i16")]
 

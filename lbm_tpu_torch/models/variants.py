@@ -11,6 +11,7 @@
 | async   | async               | row shards, ghosts one step old (k with staleness)  |
 | async-k | async-k             | row shards, ghosts k steps old (default k = 2)      |
 | chunked | chunked             | row shards, k steps per exchange (K6 where it maps) |
+| ca      | ca                  | row shards, K ghost rows per K steps, exact sweeps  |
 
 ``auto`` picks ``cuda`` on a CUDA device and ``torch`` on the CPU, and on
 more than one device the sharded rule of ``lbm_tpu``'s driver
@@ -19,8 +20,7 @@ more than one device the sharded rule of ``lbm_tpu``'s driver
 -> overlap, ``testall`` / ``stale`` -> async and ``testall-complex`` ->
 async-k, let commands written for ``lbm_tpu`` carry over.  The sharded
 variants run on a row mesh of devices (parallel/mesh.py; ``--host-devices
-N`` makes one device count as N).  ``ca`` is the one sharded variant not
-ported yet, and says so.
+N`` makes one device count as N).
 """
 
 from __future__ import annotations
@@ -81,6 +81,12 @@ VARIANTS: dict[str, VariantSpec] = {
         "Row-sharded; halos exchanged every k steps, k local steps between exchanges "
         "(the ghosted chunk kernel where the shard fits L2).", True,
     ),
+    "ca": VariantSpec(
+        "ca", "ca",
+        "Row-sharded, exact and communication-avoiding: K ghost rows exchanged every K "
+        "steps, then one K-step sweep per shard (K4-slab, K7 or K8); fields equal sync's.",
+        True,
+    ),
 }
 
 SHARDED = tuple(name for name, spec in VARIANTS.items() if spec.sharded)
@@ -99,13 +105,8 @@ _ALIASES = {
     "auto": "auto",
 }
 
-_NOT_PORTED = {"ca"}
-
-
 def resolve_variant(name: str) -> str:
     name = name.lower()
-    if name in _NOT_PORTED:
-        raise NotPortedError(f"sharded variant {name!r} is")
     name = _ALIASES.get(name, name)
     if name != "auto" and name not in VARIANTS:
         raise ValueError(

@@ -62,6 +62,15 @@ _SIGNATURES = {
     "lbm_resident_grid": [_I, _I, _I],
     "lbm_resident_chunk": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P, _I],
     "lbm_inplace_grid": [_I, _I, _I, _I],
+    "lbm_trapezoid_slab": [_P, _L, _P, _L, _P, _L, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _F,
+                           _F, _F, _I, _P, _I, _I, _I, _P, _I],
+    "lbm_ca_resident_grid": [_I, _I, _I],
+    "lbm_ca_resident": [_P, _L, _P, _L, _P, _L, _P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _F, _F, _F, _I, _P, _I],
+    "lbm_ca_inplace_grid": [_I, _I, _I, _I],
+    "lbm_ca_inplace": [_P, _L, _P, _L, _P, _L, _P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _F, _F, _F, _I, _P, _I, _P, _I],
+    "lbm_hbm_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _I],
     "lbm_inplace_chunk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P, _I, _I, _I,
                           _I, _I, _P, _I],
 }

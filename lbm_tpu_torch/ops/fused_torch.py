@@ -20,6 +20,11 @@ The slab form (``stream_slab`` / ``fused_step_slab``, and
 ``fused_step_slab_i16`` on int16 storage) is the per-shard step of the
 sharded modes (parallel/modes.py): one step over a row slab with one ghost
 row on each side, the plain version of K1-slab.
+
+``ca_sweep`` is the plain version of the ca engines (K4-slab, K7, K8): K
+periodic steps of a shard's ghost-extended slab (``fused_step_ext``),
+returning the body rows and the per-level |u| of the body; int16 is
+quantized once per sweep (K4-slab-i16) or once per step (K8-i16).
 """
 
 from __future__ import annotations
@@ -196,3 +201,61 @@ def run_sweeps(
     f, tot = run_steps(f, obstacles, params, rem, storage)
     parts.append(tot)
     return f, torch.cat(parts)
+
+
+def fused_step_ext(f_ext: torch.Tensor, obst_ext: torch.Tensor, params: LBMParams,
+                   base_row: int, ny_global: int, body: tuple[int, int]) -> StepOutput:
+    """One periodic step of a ghost-extended slab (``lbm_tpu``'s
+    ``_ca_ext_kernel`` step): ``f_ext`` (9, ext, nx) float32, ``obst_ext``
+    (ext, nx) bool, extended row e at global row ``(base_row + e) mod
+    ny_global`` (the driven row is injected wherever it falls), streaming
+    wrapped inside the slab on both axes, so the rows next to the slab's
+    edges turn to garbage one row per step while the rows K steps from them
+    stay exact.  tot_u sums the fluid cells of rows ``body`` = [a, b) only."""
+    omega, w1, w2 = step_constants(params)
+    rows = torch.remainder(base_row + torch.arange(f_ext.shape[1], device=f_ext.device),
+                           ny_global)
+    driven = (rows == params.accel_row)[:, None]
+    planes = stencil_math.accel_planes(list(f_ext), ~obst_ext, driven, w1, w2)
+    streamed = list(stream_periodic(torch.stack(planes)))
+    rho, u_x, u_y = stencil_math.moments(streamed)
+    u_sq = u_x * u_x + u_y * u_y
+    out = stencil_math.collide(streamed, obst_ext, omega, rho, u_x, u_y, u_sq)
+    a, b = body
+    tot_u = torch.sum(stencil_math.speeds(u_sq[a:b], ~obst_ext[a:b]), dtype=torch.float32)
+    return StepOutput(torch.stack(out), tot_u)
+
+
+def ca_sweep(lo: torch.Tensor, body: torch.Tensor, hi: torch.Tensor, obst_ext: torch.Tensor,
+             params: LBMParams, row_offset: int, ny_global: int, storage: str = "f32",
+             quantize: str = "sweep") -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain ca sweep: K = ``lo.shape[1]`` steps of the n body rows of
+    one shard from its ghost-extended slab ``[lo | body | hi]`` (K rows
+    each side; ``obst_ext`` (n + 2K, nx) bool; ``row_offset`` the global row
+    of body row 0): K :func:`fused_step_ext` steps, returning (body',
+    tot_us (K,)), the body K synchronous steps later and its per-level
+    |u| sums (``lbm_tpu``'s ``make_slab_sweep`` / ``make_ca_chunk_runner``
+    / ``make_ca_inplace_runner``).
+
+    int16 state: ``quantize="sweep"`` decodes once and encodes once (B5's
+    slab sweep, K4-slab-i16), ``"step"`` encodes and decodes every step
+    (B10, K8-i16)."""
+    quant.check_storage(storage)
+    if quantize not in ("sweep", "step"):
+        raise ValueError(f"quantize must be 'sweep' or 'step', got {quantize!r}")
+    deq, enq = quant.plane_codec(storage, params.density)
+
+    def decode(x):
+        return torch.stack([deq(x[k], k) for k in range(lattice.NSPEEDS)])
+
+    def encode(x):
+        return torch.stack([enq(x[k], k) for k in range(lattice.NSPEEDS)])
+
+    K, n = lo.shape[1], body.shape[1]
+    x = decode(torch.cat([lo, body, hi], dim=1))
+    tot_us = torch.empty(K, dtype=torch.float32, device=body.device)
+    for t in range(K):
+        x, tot_us[t] = fused_step_ext(x, obst_ext, params, row_offset - K, ny_global, (K, K + n))
+        if quantize == "step" and t + 1 < K:
+            x = decode(encode(x))
+    return encode(x[:, K:K + n]), tot_us

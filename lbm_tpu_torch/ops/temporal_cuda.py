@@ -8,8 +8,15 @@ memory, takes K float32 levels there and writes the tile, so the state
 crosses device memory once per K steps (the note at the top of
 csrc/temporal.cu).  ``make_run_all`` runs whole sweeps, then the remainder
 as K1 (or K1-i16) steps, as ``temporal_pallas.make_run_all`` does
-(:690-696).  The slab form (``make_slab_sweep`` :535, the ca engine) waits
-for the sharded modes.
+(:690-696).
+
+K4-slab (and K4-slab-i16), the same kernel's slab form, replaces
+``temporal_pallas.make_slab_sweep`` (:535), the slab engine of the ca mode:
+K steps of one shard's body rows from its ghost-extended slab, the K ghost
+rows on each side and the body each a window with its own plane stride
+(:func:`bind_slab_sweep`).  Its plain version is ``fused_torch.ca_sweep``
+(int16 quantized once per sweep); its counts are ``SLAB_LAUNCHES`` and
+``SLAB_LAUNCHES_I16``.
 
 Beside the kernel:
 
@@ -37,6 +44,8 @@ from lbm_tpu_torch.params import LBMParams
 
 LAUNCHES = 0
 LAUNCHES_I16 = 0
+SLAB_LAUNCHES = 0
+SLAB_LAUNCHES_I16 = 0
 
 THREADS = 512  # threads per K4 block (kT in csrc/temporal.cu)
 # Shared memory one block may use on the H100 (227 KB).
@@ -204,3 +213,115 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, num_steps: int, K: 
 def make_sweep(params: LBMParams, obstacles: torch.Tensor, K: int, storage: str = "f32"):
     """Build ``f -> (f_after_K_steps, tot_u (K,))``: one K4 launch."""
     return make_run_all(params, obstacles, K, K, storage)
+
+
+def supports_shard(nloc: int, nx: int, K: int) -> bool:
+    """Whether K4-slab maps a K-deep sweep of an nloc x nx shard: K >= 2,
+    at least K body rows (the ghosts come from one neighbour each side) and
+    a tile that fits shared memory.  Any width and any row offset: no
+    128-lane rule and no ``accel_row >= K`` rule (``temporal_pallas.py``
+    :520-532), as for K4."""
+    if K < 2 or nloc < K or nx < 1:
+        return False
+    th, tw = tile(K)
+    return th >= 1 and tw >= 1 and smem_bytes(K, th, tw) <= SMEM_LIMIT
+
+
+def slab_plain(lo: torch.Tensor, body: torch.Tensor, hi: torch.Tensor, obst_ext: torch.Tensor,
+               params: LBMParams, row_offset: int, ny_global: int, storage: str = "f32"):
+    """The plain version of one K4-slab launch: ``fused_torch.ca_sweep``,
+    int16 quantized once per sweep."""
+    return fused_torch.ca_sweep(lo, body, hi, obst_ext, params, row_offset, ny_global, storage,
+                                quantize="sweep")
+
+
+def check_ext_args(lo, body, hi, obst_ext, out, tots, dtype) -> tuple[int, int, int]:
+    """Validate the windows of one ca engine launch: ``body`` and ``out``
+    (9, n, nx), ``lo`` / ``hi`` (9, K, nx), any plane stride, rows nx apart;
+    ``obst_ext`` a contiguous (n + 2K, nx) bool slab; ``tots`` 1-D float32;
+    all on one device.  Returns (n, nx, K)."""
+    n, nx, K = body.shape[1], body.shape[2], lo.shape[1]
+    dev = body.device
+    for name, t, rows in (("lo", lo, K), ("body", body, n), ("hi", hi, K), ("out", out, n)):
+        fused_cuda._check_window(name, t, rows, nx, dtype, dev)
+    if (obst_ext.device != dev or obst_ext.dtype != torch.bool or not obst_ext.is_contiguous()
+            or tuple(obst_ext.shape) != (n + 2 * K, nx)):
+        raise ValueError(f"extended obstacle slab must be a contiguous ({n + 2 * K}, {nx}) "
+                         f"bool tensor on {dev}")
+    if tots.device != dev or tots.dtype != torch.float32 or tots.dim() != 1:
+        raise ValueError(f"tots must be a 1-D float32 tensor on {dev}")
+    return n, nx, K
+
+
+def bind_plain(sweep_fn, lo, body, hi, obst_ext, out, tots, accumulate: bool = False):
+    """``launch(t0)`` of a ca engine's plain version ``sweep_fn(lo, body,
+    hi, obst_ext) -> (body', tot_us (K,))``: writes ``out`` and
+    ``tots[t0 : t0 + K]`` (adds to them for ``accumulate``)."""
+    K = lo.shape[1]
+
+    def launch_plain(t0):
+        new, tot = sweep_fn(lo, body, hi, obst_ext)
+        out.copy_(new)
+        if accumulate:
+            tots[t0:t0 + K] += tot
+        else:
+            tots[t0:t0 + K] = tot
+
+    return launch_plain
+
+
+def bind_slab_sweep(params: LBMParams, lo: torch.Tensor, body: torch.Tensor, hi: torch.Tensor,
+                    obst_ext: torch.Tensor, out: torch.Tensor, tots: torch.Tensor,
+                    row_offset: int, ny_global: int, storage: str = "f32"):
+    """Bind one K4-slab sweep to fixed buffers: returns ``launch(t0)``,
+    which advances ``body`` (9, n, nx) K = ``lo.shape[1]`` steps, with the
+    ghost rows ``lo`` / ``hi`` (9, K, nx) below / above it, into ``out``
+    (9, n, nx), and writes the K per-level sums into ``tots[t0 : t0 + K]``.
+
+    ``lo``, ``body``, ``hi`` and ``out`` may be windows of larger tensors
+    (any plane stride, rows nx apart); ``out`` must not overlap the
+    others.  ``obst_ext`` is the contiguous (n + 2K, nx) bool slab;
+    ``row_offset`` the global row of body row 0 and ``ny_global`` the
+    grid's rows (the driven row, and the wrap of shard 0's lower ghosts).
+    Everything is checked here, once, so that a launch costs one call.  On
+    CPU tensors ``launch`` runs the plain version; on CUDA tensors it
+    launches the kernel or raises."""
+    quant.check_storage(storage)
+    n, nx, K = check_ext_args(lo, body, hi, obst_ext, out, tots,
+                              fused_cuda.STATE_DTYPES[storage])
+    if not supports_shard(n, nx, K):
+        raise ValueError(f"K4-slab (K={K}) cannot map a {n}x{nx} shard")
+    if fused_cuda.is_plain(body):
+        return bind_plain(
+            lambda lo_, b, hi_, ob: slab_plain(lo_, b, hi_, ob, params, row_offset, ny_global,
+                                               storage),
+            lo, body, hi, obst_ext, out, tots)
+
+    lib = _build.load()
+    dev = body.device
+    th, tw = tile(K)
+    partials = torch.empty((K, lib.lbm_trapezoid_blocks(n, nx, K, th, tw)), dtype=torch.float32,
+                           device=dev)
+    omega, w1, w2 = fused_torch.step_constants(params)
+    i16, codec = fused_cuda.codec_arg(params, storage)
+    head = (lo.data_ptr(), lo.stride(0), body.data_ptr(), body.stride(0), hi.data_ptr(),
+            hi.stride(0), obst_ext.data_ptr(), out.data_ptr(), out.stride(0),
+            partials.data_ptr())
+    tail = (n, nx, row_offset, ny_global, params.accel_row, omega, w1, w2, i16,
+            fused_cuda.codec_ptr(codec), K, th, tw, torch.cuda.current_stream(dev).cuda_stream,
+            dev.index)
+    tot0, tot_n = tots.data_ptr(), tots.shape[0]
+
+    def launch(t0):
+        global SLAB_LAUNCHES, SLAB_LAUNCHES_I16
+        if not 0 <= t0 <= tot_n - K:
+            raise IndexError(f"steps {t0}..{t0 + K} outside tots of {tot_n}")
+        rc = lib.lbm_trapezoid_slab(*head, tot0 + 4 * t0, *tail)
+        _build.check(rc, "K4-slab sweep kernel")
+        if i16:
+            SLAB_LAUNCHES_I16 += 1
+        else:
+            SLAB_LAUNCHES += 1
+
+    launch.keep = (partials, codec)  # alive while the launcher is
+    return launch

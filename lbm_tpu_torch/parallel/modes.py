@@ -1,8 +1,8 @@
-"""Row-sharded step programs: the sync, overlap, async, async-k and chunked
-disciplines.
+"""Row-sharded step programs: the sync, overlap, async, async-k, chunked
+and ca disciplines.
 
 The counterpart of ``lbm_tpu/parallel/modes.py::build_sharded_program``
-(:886) without ``ca``.  The reference decomposes the grid into row bands
+(:886).  The reference decomposes the grid into row bands
 with one halo row per side and exchanges the halos under three disciplines
 (blocking Sendrecv, Isend/Irecv + Waitall, stale-halo Testall,
 MPI*/d2q9-bgk.c); ``lbm_tpu`` runs them as a ``shard_map`` whose halos ride
@@ -24,7 +24,16 @@ buffers (device to device where the shards sit on different cards):
   chunk runs as one K6 launch per shard (ops/ghosted_cuda.py) where K6 maps
   (f32, no open seam, two copies of the shard within the L2 budget), else
   as k K1-slab steps, as ``lbm_tpu`` runs its ghosted chunk kernel or a
-  loop of slab steps.
+  loop of slab steps;
+- **ca** (exact communication-avoiding, K = ``ca_depth(staleness)``): every
+  K steps each shard receives the K edge rows of each neighbour into its
+  own ghost buffers, then advances K steps in one sweep of its
+  ghost-extended slab that recomputes the ghosts' evolution locally; the
+  fields equal sync's bitwise.  One engine sweeps all shards
+  (:func:`ca_engine_choice`): K4-slab (ops/temporal_cuda.py), K7 or K8
+  (ops/ca_cuda.py; K8 split into sub-slabs where a shard is too tall for
+  L2).  A run whose step count is not a multiple of K ends in a sync tail
+  (models/driver.py).
 
 Every slab step is one K1-slab launch (ops/fused_cuda.py) on the ``cuda``
 backend, or the plain slab step (``fused_torch.fused_step_slab``) on the
@@ -52,6 +61,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import warnings
 
 import numpy as np
@@ -59,8 +69,7 @@ import torch
 
 from lbm_tpu_torch.core import lattice
 from lbm_tpu_torch.models.program import StepProgram
-from lbm_tpu_torch.models.variants import NotPortedError
-from lbm_tpu_torch.ops import fused_cuda, ghosted_cuda, quant
+from lbm_tpu_torch.ops import ca_cuda, fused_cuda, ghosted_cuda, quant, temporal_cuda
 from lbm_tpu_torch.params import LBMParams
 from lbm_tpu_torch.parallel import mesh as mesh_lib
 
@@ -68,7 +77,8 @@ from lbm_tpu_torch.parallel import mesh as mesh_lib
 # depth), lbm_tpu's modes.py:47.
 STALENESS_DEFAULTS = {"async": 1, "async-k": 2, "chunked": 2, "ca": 4}
 
-MODES = ("sync", "overlap", "async", "chunked")
+MODES = ("sync", "overlap", "async", "chunked", "ca")
+CA_ENGINES = ("slab", "resident", "inplace")
 
 # lbm_tpu's backend names carry over: jnp -> torch, pallas -> cuda.
 _BACKENDS = {"torch": "torch", "cuda": "cuda", "jnp": "torch", "pallas": "cuda"}
@@ -86,13 +96,15 @@ def open_seam_pad(obstacles: np.ndarray, num_shards: int) -> int:
     return 0 if walled else pad
 
 
-def _extended_obstacle_slabs(obstacles: np.ndarray, num_shards: int) -> np.ndarray:
-    """Per-shard obstacle slabs with one periodically wrapped ghost row on
-    each side, (R, nloc + 2, nx): the slab step injects ghost rows too
-    (``lbm_tpu``'s modes.py:871)."""
+def _extended_obstacle_slabs(obstacles: np.ndarray, num_shards: int,
+                             depth: int = 1) -> np.ndarray:
+    """Per-shard obstacle slabs with ``depth`` periodically wrapped ghost
+    rows on each side, (R, nloc + 2 depth, nx): one for the slab step, which
+    injects ghost rows too (``lbm_tpu``'s modes.py:871), K for ca's sweeps
+    (:1262-1269)."""
     ny, _ = obstacles.shape
     nloc = ny // num_shards
-    return np.stack([obstacles[np.arange(r * nloc - 1, r * nloc + nloc + 1) % ny]
+    return np.stack([obstacles[np.arange(r * nloc - depth, r * nloc + nloc + depth) % ny]
                      for r in range(num_shards)])
 
 
@@ -103,16 +115,118 @@ def sharded_cuda_supported(ny: int, nx: int, num_shards: int) -> bool:
     return (ny + (-ny) % num_shards) // num_shards >= 2
 
 
-def ca_would_map(obstacles: np.ndarray, num_shards: int, backend: str | None) -> bool:
-    """Where ``lbm_tpu``'s multi-device auto policy would pick ``ca``
-    (models/driver.py:163-173): a kernel backend, no open seam, at least two
-    rows per shard.  ``lbm_tpu`` also asks one of its ca engines to map; the
-    port's ca engines (B9, B10, B5's slab sweep) are not written, and the
-    port's kernels take any layout, so its rule is this layout part."""
+def ca_depth(staleness: int) -> int:
+    """Exchange depth K of the ca mode for a ``--staleness`` value (at least
+    2: a 1-deep exchange is sync), ``lbm_tpu``'s modes.py:50."""
+    return max(2, staleness)
+
+
+# The deeper ca depth of shards that K8 sweeps unsplit.
+CA_DEEP_K = 8
+
+
+def ca_default_staleness(params: LBMParams, obstacles: np.ndarray, num_shards: int,
+                         storage: str = "f32") -> int:
+    """The ca depth a run takes without ``--staleness`` (``lbm_tpu``'s
+    :56): :data:`CA_DEEP_K` = 8 where the engine ca takes at K = 8 is K8
+    unsplit (the shard's extended slab fits L2), else
+    ``STALENESS_DEFAULTS["ca"]`` = 4.
+
+    From the ca engines timed in turns on an NVIDIA H100 80GB HBM3 at 700 W
+    (PERF.md, Findings; ``tools/kernel_times.py --ca``): K8 at K = 8 against K = 4, 4.145
+    against 4.322 us/step on a 64x1024 shard and 7.900 against 8.017 on
+    256x1024 (int16 8.462 against 8.410), and a deeper sweep halves the
+    exchanges, the host's share of a step; K4-slab, which takes the shards
+    K8 cannot hold, ran K = 4 faster (1024x4096: 92.4 against 120.2).
+    ``lbm_tpu``'s K = 8 from 96 rows is a TPU measurement."""
+    ny = obstacles.shape[0]
+    ny_pad = ny + (-ny) % num_shards
+    nloc = ny_pad // num_shards
+    if (ca_supported(params, obstacles, num_shards, CA_DEEP_K, storage)
+            and ca_engine_choice(params, nloc, obstacles.shape[1], CA_DEEP_K, storage=storage,
+                                 ny_global=ny_pad) == "inplace"
+            and ca_cuda.inplace_parts(nloc, obstacles.shape[1], CA_DEEP_K, ny_pad, storage) == 1):
+        return CA_DEEP_K
+    return STALENESS_DEFAULTS["ca"]
+
+
+def ca_engine_choice(params: LBMParams, nloc: int, nx: int, K: int, *, storage: str = "f32",
+                     backend: str = "cuda", ny_global: int | None = None) -> str | None:
+    """Which K-sweep engine backs the ca mode for nloc x nx shards at depth
+    K (``lbm_tpu``'s :243): ``'slab'`` (K4-slab), ``'resident'`` (K7, f32),
+    ``'inplace'`` (K8, split into sub-slabs where the shard is too tall),
+    or None when none maps (ca unsupported); only the ``cuda`` backend has
+    engines.  ``ny_global`` is the grid's row count after seam padding
+    (K8's one-image rule), by default ``params.ny``.
+
+    ``LBM_CA_ENGINE`` forces one (``slab`` / ``resident`` / ``inplace``;
+    None where it cannot map, so the build raises: never another engine).
+
+    Auto, from the engines timed in turns on an NVIDIA H100 80GB HBM3 at
+    700 W (PERF.md, Findings; ``lbm_tpu``'s table, :269-281, is a TPU
+    measurement):
+
+    - f32: K8 where the whole shard's extended slab fits L2 (64x1024 K=8:
+      4.145 us/step against K4-slab 5.175 and K7 4.536; 256x1024 K=8: 7.900
+      against 9.475 and 8.664), else K4-slab (1024x4096 K=4: 92.4 against
+      K8 split into 8 sub-slabs 128.7), else K8 split, else K7;
+    - int16: K8-i16 wherever it maps, split or not, else K4-slab-i16.  It
+      quantizes every step, as the single-device default does (int16 is not
+      swept by default, ``temporal_cuda.pick_k``), so ca-i16 equals sync-i16
+      bitwise; it was also the faster where it fits (256x1024 K=4: 8.410
+      against 8.881), not on 1024x4096 (116.5 split in 4 against 96.2).
+    K7 won no shard timed: it runs only when forced."""
+    if _BACKENDS.get(backend) != "cuda":
+        return None
+    ny_global = params.ny if ny_global is None else ny_global
+    ok = {"slab": temporal_cuda.supports_shard(nloc, nx, K),
+          "resident": storage == "f32" and ca_cuda.supports_resident(nloc, nx, K),
+          "inplace": ca_cuda.inplace_parts(nloc, nx, K, ny_global, storage) is not None}
+    forced = os.environ.get("LBM_CA_ENGINE", "auto").strip().lower()
+    if forced != "auto":
+        if forced not in CA_ENGINES:
+            raise ValueError(f"LBM_CA_ENGINE={forced!r}; use one of {CA_ENGINES} or auto")
+        return forced if ok[forced] else None
+    if storage == "i16":
+        order = ("inplace", "slab")
+    elif ca_cuda.inplace_parts(nloc, nx, K, ny_global, storage) == 1:
+        order = ("inplace",)
+    else:
+        order = ("slab", "inplace", "resident")
+    return next((e for e in order if ok[e]), None)
+
+
+def ca_parts(nloc: int, nx: int, K: int, ny_global: int, storage: str = "f32") -> int:
+    """Sub-slabs of the in-place engine: ``LBM_CA_PARTS`` when set (any
+    count whose sub-slabs K8 can run, ``ca_cuda.parts_valid``; else it
+    raises), else the smallest count whose sub-slabs fit L2
+    (``ca_cuda.inplace_parts``: 1 wherever the whole shard fits)."""
+    forced = os.environ.get("LBM_CA_PARTS", "").strip()
+    if forced:
+        parts = int(forced)
+        if not ca_cuda.parts_valid(nloc, nx, K, ny_global, parts):
+            raise ValueError(f"LBM_CA_PARTS={parts} cannot split {nloc}-row shards at depth "
+                             f"K={K} (sub-slabs of at least K rows, ext <= {ny_global})")
+        return parts
+    parts = ca_cuda.inplace_parts(nloc, nx, K, ny_global, storage)
+    if parts is None:
+        raise ValueError(f"the in-place ca engine cannot map {nloc}x{nx} shards at K={K}")
+    return parts
+
+
+def ca_supported(params: LBMParams, obstacles: np.ndarray, num_shards: int,
+                 staleness: int = STALENESS_DEFAULTS["ca"], storage: str = "f32") -> bool:
+    """Whether the ca mode maps this scene over ``num_shards`` shards
+    (``lbm_tpu``'s :610), exactly the build's gate: no open seam, at least
+    two rows per shard, and an engine that maps at ``ca_depth(staleness)``
+    (:func:`ca_engine_choice`, ``LBM_CA_ENGINE`` included)."""
     ny, nx = obstacles.shape
-    return (_BACKENDS.get(backend or "cuda") == "cuda"
-            and not open_seam_pad(obstacles, num_shards)
-            and sharded_cuda_supported(ny, nx, num_shards))
+    if open_seam_pad(obstacles, num_shards):
+        return False
+    ny_pad = ny + (-ny) % num_shards
+    nloc = ny_pad // num_shards
+    return nloc >= 2 and ca_engine_choice(params, nloc, nx, ca_depth(staleness), storage=storage,
+                                          ny_global=ny_pad) is not None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,11 +254,18 @@ class _Layout:
     staleness: int
     backend: str
     storage: str
+    ny: int  # rows of the grid, seam padding included
     nloc: int
     nx: int
     open_pad: int
     obst: tuple[torch.Tensor, ...]  # per shard (nloc + 2, nx) bool
     k6: bool  # chunked through K6
+    # ca only: depth, engine, sub-slabs of the in-place engine, and per
+    # shard the (nloc + 2K, nx) extended obstacle slab.
+    K: int = 0
+    engine: str | None = None
+    parts: int = 1
+    ca_obst: tuple[torch.Tensor, ...] = ()
 
     @property
     def queue(self) -> int:
@@ -174,7 +295,8 @@ class _Runner:
     """Persistent buffers, bound launches and the schedule of one program
     for ``num_steps`` steps.  ``kind`` is the program's mode, or ``inner``
     (one frozen-ghost step) / ``exchange`` (the ghost exchange alone), the
-    chunked mode's two primitives.  A call takes a :class:`ShardedState`
+    chunked mode's two primitives.  ca's ghost buffers hold K rows per side
+    (``C[r][0]`` below the shard, ``C[r][1]`` above).  A call takes a :class:`ShardedState`
     (not modified) and returns (state, tot_us (num_steps,)); the returned
     state lives in the runner's buffers until its next call."""
 
@@ -187,6 +309,8 @@ class _Runner:
         self.F = [[torch.empty((9, nloc, nx), dtype=dtype, device=d) for _ in range(2)]
                   for d in devs]
         self.G = [torch.empty((self.slots, 2, 9, 1, nx), dtype=dtype, device=d) for d in devs]
+        self.C = ([torch.empty((2, 9, lay.K, nx), dtype=dtype, device=d) for d in devs]
+                  if lay.mode == "ca" else [])
         self.T = [torch.zeros((3, max(num_steps, 1)), dtype=torch.float32, device=d)
                   for d in devs]
         cuda_devs = [d for d in lay.mesh.distinct if d.type == "cuda"]
@@ -238,6 +362,28 @@ class _Runner:
                                            self.lay.obst[r], F[1 - p], self.T[r][0],
                                            r * self.lay.nloc, self.lay.staleness)
         return self._bind(("k6", r, p), make)
+
+    def _ca_sweep(self, r, p):
+        """Shard r's engine launches of one ca sweep from buffer p: one, or
+        one per sub-slab of the in-place engine (modes.py:1296-1331)."""
+        def make():
+            lay = self.lay
+            lo, hi = self.C[r]
+            return ca_cuda.bind_sweep(lay.engine, lay.params, lo, self.F[r][p], hi,
+                                      lay.ca_obst[r], self.F[r][1 - p], self.T[r][0],
+                                      r * lay.nloc, lay.ny, lay.storage, lay.parts)
+        return self._bind(("ca", r, p), make)
+
+    def _ca_exchange_pairs(self, p):
+        """(ghost buffer, source rows) copies of ca's exchange from buffer
+        p: each shard's last K rows to the shard above, its first K rows to
+        the shard below (modes.py:1284-1287), one copy each."""
+        def make():
+            fwd, bwd = mesh_lib.ring_perms(self.lay.mesh.size)
+            K, nloc = self.lay.K, self.lay.nloc
+            return ([(self.C[dst][0], self.F[src][p][:, nloc - K:]) for src, dst in fwd]
+                    + [(self.C[dst][1], self.F[src][p][:, :K]) for src, dst in bwd])
+        return self._bind(("ca-exchange", p), make)
 
     def _exchange_pairs(self, p, s):
         """(ghost buffer, source row) copies of the exchange from buffer p
@@ -326,6 +472,14 @@ class _Runner:
         self._copy(self._pad_pairs(1 - p, "refresh"))
         self.p, self.h = 1 - p, (h + 1) % S
 
+    def _step_ca(self, t0):
+        p = self.p
+        self._copy(self._ca_exchange_pairs(p))
+        for r in range(self.lay.mesh.size):
+            for launch in self._ca_sweep(r, p):
+                launch(t0)
+        self.p = 1 - p
+
     def _inner(self, t):
         p = self.p
         for r in range(self.lay.mesh.size):
@@ -380,12 +534,13 @@ class _Runner:
         self._load(state)
         if self.kind == "exchange":
             self._exchange()
-        elif self.kind == "chunked":
-            if self.n % self.lay.staleness:
-                raise ValueError(f"chunked runs take whole {self.lay.staleness}-step chunks, "
-                                 f"got {self.n} steps")
-            for c in range(self.n // self.lay.staleness):
-                self._chunk(c * self.lay.staleness)
+        elif self.kind in ("chunked", "ca"):
+            k, run = ((self.lay.staleness, self._chunk) if self.kind == "chunked"
+                      else (self.lay.K, self._step_ca))
+            if self.n % k:
+                raise ValueError(f"{self.kind} runs take whole {k}-step sweeps, got {self.n} steps")
+            for c in range(self.n // k):
+                run(c * k)
         else:
             step = {"sync": self._step_sync, "overlap": self._step_overlap,
                     "async": self._step_async, "inner": self._inner}[self.kind]
@@ -409,26 +564,27 @@ def build_sharded_program(
     (``lbm_tpu``'s ``build_sharded_program``).
 
     ``mode``: ``sync``, ``overlap``, ``async`` (``staleness`` = the halo
-    age k; k > 1 is async-k) or ``chunked`` (``staleness`` = the chunk
-    length k); ``ca`` raises :class:`NotPortedError`.  ``backend``:
-    ``cuda`` (K1-slab and K6; their plain versions on the CPU) or ``torch``
-    (the plain slab step; f32 only); None picks ``cuda`` on a CUDA device
-    and for int16 storage, else ``torch`` (``jnp`` / ``pallas`` are
-    accepted as lbm_tpu's names).  ``storage``: ``f32`` or ``i16`` (int16
+    age k; k > 1 is async-k), ``chunked`` (``staleness`` = the chunk
+    length k) or ``ca`` (depth K = ``ca_depth(staleness)``; its engine from
+    :func:`ca_engine_choice`, the in-place engine's sub-slabs from
+    :func:`ca_parts`; open seams are refused, as ``lbm_tpu`` does).
+    ``backend``: ``cuda`` (K1-slab, K6 and the ca engines; their plain
+    versions on the CPU) or ``torch`` (the plain slab step; f32 only, no
+    ca); None picks ``cuda`` on a CUDA device, for int16 storage and for
+    ca, else ``torch`` (``jnp`` / ``pallas`` are accepted as lbm_tpu's
+    names).  ``storage``: ``f32`` or ``i16`` (int16
     state, ghosts exchanged as int16; the cuda backend).  ``f0``: the
     initial (9, ny, nx) distributions, default the rest state."""
     ny, nx = obstacles.shape
     R = mesh.size
     quant.check_storage(storage)
-    if mode == "ca":
-        raise NotPortedError("sharded mode 'ca' is")
     if mode not in MODES:
         raise ValueError(f"unknown sharded mode {mode!r}; use one of {MODES}")
     if staleness < 1:
         raise ValueError("staleness must be >= 1")
     dev0 = mesh.devices[0]
     if backend is None:
-        backend = ("cuda" if (dev0.type == "cuda" or storage == "i16")
+        backend = ("cuda" if (dev0.type == "cuda" or storage == "i16" or mode == "ca")
                    and sharded_cuda_supported(ny, nx, R) else "torch")
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; use 'torch' or 'cuda'")
@@ -456,6 +612,25 @@ def build_sharded_program(
         raise ValueError(
             f"ny={ny_orig} over {R} shards needs {open_pad} open-seam padding rows but "
             f"shards have only {nloc} rows; choose fewer devices")
+    K, engine, parts = 0, None, 1
+    if mode == "ca":
+        # modes.py:1010-1034: walled seam padding stays, open seams go.
+        K = ca_depth(staleness)
+        if open_pad:
+            raise ValueError("ca mode does not support open-seam row padding; use a shard count "
+                             "that divides ny, or the sync/overlap variants")
+        if backend != "cuda":
+            raise ValueError(f"ca mode runs on the cuda backend's K-sweep engines, got {backend!r}")
+        engine = ca_engine_choice(params, nloc, nx, K, storage=storage, backend=backend,
+                                  ny_global=ny)
+        if engine is None:
+            raise ValueError(f"ca mode needs a K-sweep engine (K4-slab, K7 or K8) that maps "
+                             f"{nloc}x{nx} shards at depth K={K}"
+                             + (f" with LBM_CA_ENGINE={os.environ['LBM_CA_ENGINE']}"
+                                if os.environ.get("LBM_CA_ENGINE") else "")
+                             + "; use sync/overlap, fewer devices or a smaller staleness")
+        if engine == "inplace":
+            parts = ca_parts(nloc, nx, K, ny, storage)
     if mode in ("async", "chunked"):
         # The stale-row model (modes.py:1447-1466): 1.6% stale rows -> ~0.15%
         # av_vels deviation, ~6% -> ~1%.  Chunked ghosts age 1..k.
@@ -476,8 +651,12 @@ def build_sharded_program(
                  for r, d in enumerate(mesh.devices))
     k6 = (backend == "cuda" and mode == "chunked" and storage == "f32" and not open_pad
           and ghosted_cuda.supports_shard(nloc, nx))
-    lay = _Layout(params, mesh, mode, staleness, backend, storage, nloc, nx, open_pad, obst,
-                  k6)
+    ca_obst = ()
+    if mode == "ca":
+        ca_obst = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(d) for x, d in
+                        zip(_extended_obstacle_slabs(obstacles, R, K), mesh.devices))
+    lay = _Layout(params, mesh, mode, staleness, backend, storage, ny, nloc, nx, open_pad, obst,
+                  k6, K, engine, parts, ca_obst)
 
     if f0 is None:  # the rest state is uniform, pad rows included
         f_init = [lattice.equilibrium_rest_device(params.density, nloc, nx, d)
@@ -496,7 +675,7 @@ def build_sharded_program(
     def make_run_all(num_steps):
         return _Runner(lay, num_steps, mode)
 
-    spc = staleness if mode == "chunked" else 1
+    spc = {"chunked": staleness, "ca": K}.get(mode, 1)
     runners: dict[str, _Runner] = {}
 
     def call_once(kind, n, state):
@@ -509,7 +688,7 @@ def build_sharded_program(
 
     def step(state):
         new, tots = call_once(mode, spc, state)
-        return new, (tots if mode == "chunked" else tots[0])
+        return new, (tots if spc > 1 else tots[0])
 
     chunk_inner_step = chunk_exchange = None
     if mode == "chunked":
@@ -525,7 +704,9 @@ def build_sharded_program(
         f = torch.cat([x.to(dev0) for x in state.f], dim=1)[:, :ny_orig]
         return quant.dequantize(f, params.density) if storage == "i16" else f
 
-    label = mode + (f"-{staleness}" if mode in ("async", "chunked") and staleness > 1 else "")
+    # ca reports its effective depth (modes.py:1566-1577).
+    label = mode + (f"-{K}" if mode == "ca" else
+                    f"-{staleness}" if mode in ("async", "chunked") and staleness > 1 else "")
     return StepProgram(
         init_state=init_state,
         step=step,
@@ -536,4 +717,5 @@ def build_sharded_program(
         steps_per_call=spc,
         chunk_inner_step=chunk_inner_step,
         chunk_exchange=chunk_exchange,
+        engine=engine,
     )

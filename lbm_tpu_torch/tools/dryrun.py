@@ -1,9 +1,9 @@
 """Dry run of the sharded disciplines on P shards of one device.
 
 The counterpart of ``lbm_tpu``'s ``__graft_entry__.dryrun_multichip`` /
-``_dryrun_impl`` / ``_stale_reference`` (:44, :164, :110), without ``ca``:
-12 steps of a closed box of 8*P x 128 cells over P shards of the chosen
-device (``--host-devices`` semantics: every shard its own tensor), and the
+``_dryrun_impl`` / ``_stale_reference`` (:44, :164, :110): 12 steps of a
+closed box of 8*P x 128 cells over P shards of the chosen device
+(``--host-devices`` semantics: every shard its own tensor), and the
 relations ``lbm_tpu`` asserts:
 
 - sync and overlap on the torch backend equal the single-device twin
@@ -11,6 +11,13 @@ relations ``lbm_tpu`` asserts:
   (K1-slab; its plain version on the CPU) within ``ulp`` (0 by default);
 - int16: sync-i16 within 1e-4 of the f32 run, overlap-i16 equal to
   sync-i16 within ``ulp``;
+- ca (:242-351): each engine forced (``LBM_CA_ENGINE`` slab, resident,
+  inplace) at K = 2 and 4 equals sync on the cuda backend within ``ulp``
+  (tot_u rtol 1e-4), and auto takes the in-place engine on these 8-row
+  shards; on a box of 16*P rows the in-place engine split in two
+  (``LBM_CA_PARTS=2``) equals sync within ``ulp``, and its runner (lbm_tpu's
+  parts-carried hook) equals its per-step split bitwise; ca-i16 through the
+  slab and the in-place engines stays within 1e-4 of the f32 run;
 - async (k = 1, 3) and chunked (k = 2) stay inside the stale-fraction
   envelope (rel deviation < 5 x 4.5e-4 x 2P/ny x age, lbm_tpu's calibration);
 - async's and async-k's ghost age is exact: the run equals, bitwise, the
@@ -26,6 +33,8 @@ Prints one line per relation and exits 0 when all hold; raises otherwise.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 import warnings
 
@@ -94,6 +103,27 @@ def stale_reference(params, obstacles, n_shards: int, staleness: int, steps: int
     return f.cpu().numpy(), np.asarray(tot_us, np.float32)
 
 
+def _setenv(name: str, value: str | None) -> None:
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+
+
+@contextlib.contextmanager
+def env(**values):
+    """The environment variables ``values`` set (None: unset) inside the
+    block, restored after it."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            _setenv(k, v)
+        yield
+    finally:
+        for k, v in old.items():
+            _setenv(k, v)
+
+
 def dryrun(n_devices: int, device: str = "cuda", ulp: float = 0.0) -> list[str]:
     """Assert every relation on ``n_devices`` shards of ``device``; returns
     the report lines."""
@@ -114,11 +144,11 @@ def dryrun(n_devices: int, device: str = "cuda", ulp: float = 0.0) -> list[str]:
                      f"devices={n_devices} ({dev.type})  {relation} (max|df|={d:.2e})")
         print(lines[-1], flush=True)
 
-    def build(mode, staleness, storage="f32", backend=None):
+    def build(mode, staleness, storage="f32", backend=None, scene=scene):
         with warnings.catch_warnings():
             # The toy shapes trip the stale-fraction warning by design.
             warnings.simplefilter("ignore", UserWarning)
-            return modes.build_sharded_program(params, obst, mesh, mode=mode,
+            return modes.build_sharded_program(scene.params, scene.obstacles, mesh, mode=mode,
                                                staleness=staleness, storage=storage,
                                                backend=backend)
 
@@ -146,6 +176,42 @@ def dryrun(n_devices: int, device: str = "cuda", ulp: float = 0.0) -> list[str]:
     f_ovi, _ = run_steps(build("overlap", 1, "i16"), STEPS)
     np.testing.assert_allclose(f_ovi, f_si, atol=ulp, rtol=0)
     report("overlap", 1, "i16", "== sync-i16", float(np.abs(f_ovi - f_si).max()))
+
+    for K in (2, 4):
+        for engine in modes.CA_ENGINES:
+            with env(LBM_CA_ENGINE=engine):
+                prog = build("ca", K)
+            assert prog.engine == engine, f"ca K={K} ran {prog.engine}, forced {engine}"
+            f_ca, tot_ca = run_steps(prog, STEPS)
+            np.testing.assert_allclose(f_ca, f_syc, atol=ulp, rtol=0)
+            np.testing.assert_allclose(tot_ca, tot_syc, rtol=1e-4)
+            report("ca", K, "f32", f"== sync (exact comm-avoiding, {engine} engine)",
+                   float(np.abs(f_ca - f_syc).max()))
+    auto = build("ca", 4).engine
+    assert auto == "inplace", f"auto ca engine on 8x128 shards: {auto}"
+    report("ca", 4, "f32", "auto takes the in-place engine on 8-row shards", 0.0)
+
+    # The in-place engine split into sub-slabs, on 16-row shards.
+    scene_p = toy_scene(16 * n_devices, 128, STEPS)
+    f_sp, tot_sp = run_steps(build("sync", 1, backend="cuda", scene=scene_p), STEPS)
+    with env(LBM_CA_ENGINE="inplace", LBM_CA_PARTS="2"):
+        prog = build("ca", 4, scene=scene_p)
+    f_parts, tot_parts = run_steps(prog, STEPS)
+    np.testing.assert_allclose(f_parts, f_sp, atol=ulp, rtol=0)
+    np.testing.assert_allclose(tot_parts, tot_sp, rtol=1e-4)
+    report("ca", 4, "f32", "== sync (inplace engine, parts=2 split sub-slabs)",
+           float(np.abs(f_parts - f_sp).max()))
+    st, tots = prog.make_run_all(STEPS)(prog.init_state)
+    np.testing.assert_array_equal(prog.f_of(st).cpu().numpy(), f_parts)
+    np.testing.assert_allclose(tots.cpu().numpy(), tot_parts, rtol=1e-6)
+    report("ca", 4, "f32", "runner (parts-carried hook) == per-step split (bitwise)", 0.0)
+
+    for engine, K in (("slab", 2), ("inplace", 4)):
+        with env(LBM_CA_ENGINE=engine):
+            f_cai, _ = run_steps(build("ca", K, "i16"), STEPS)
+        assert np.abs(f_cai - f_ref).max() < 1e-4, f"ca-i16 ({engine}) outside quant envelope"
+        report("ca", K, "i16", f"quant envelope vs f32 single-device ({engine} engine)",
+               float(np.abs(f_cai - f_ref).max()))
 
     f_max = float(np.abs(f_ref).max())
     for mode, staleness in (("async", 1), ("async", 3), ("chunked", 2)):

@@ -17,6 +17,15 @@ modes' layout): K1-slab, K1-slab-i16 and K6 (k = 2, 8, where the shard fits
 its L2 budget) on the shard that holds the driven row, in turns, and their
 plain versions.
 
+For each shard of ``--ca`` (rows x columns, the last of 4 row shards of a
+closed box of 4 x rows x columns, the one that holds the driven row): the
+ca engines K4-slab, K7 and K8 at each depth of ``--ca-depths``, f32 and
+int16 (K7 f32 only), each where it maps, K8 also split into sub-slabs
+(``--ca-parts``), in turns, with frozen ghosts; then the plain ca sweep.
+
+For each grid of ``--hbm``: K9 (the HBM-parts sweep) against K4 at each
+depth of ``--ca-depths``, in turns with K1.
+
 ``--policy`` times, in turns, K2 against K3 at 128^2, 256^2 and 512^2 and
 K1-i16 against K3-i16 at 1024^2: the questions behind the program's L2
 budgets.
@@ -27,8 +36,9 @@ in int16), next to the bandwidth of a 1 GiB device copy measured in the same
 process, and the card's name and power limit::
 
     python -m lbm_tpu_torch.tools.kernel_times [--grids 128,256,512,1024,1536] \
-        [--sweeps 1536,2048,4096] [--depths 2,4,8] [--shards 1024,4096] [--policy] \
-        [--repeats 7]
+        [--sweeps 1536,2048,4096] [--depths 2,4,8] [--shards 1024,4096] \
+        [--ca 64x1024,256x1024,1024x4096] [--ca-depths 4,8] [--ca-parts 1,2,4,8,16] \
+        [--hbm 2048,4096] [--policy] [--repeats 7]
 
 Needs a CUDA device; without one it exits 1.
 """
@@ -280,6 +290,109 @@ def time_shard(n: int, device, shards: int = 4, chunks=(2, 8), repeats: int = 5,
     return out
 
 
+def ca_shard(nloc: int, nx: int, K: int, device, shards: int = 4, storage: str = "f32"):
+    """(params, lo, body, hi, obst_ext, row_offset, ny) of the last of
+    ``shards`` row shards of a closed box of shards x nloc rows and nx
+    columns, from rest: the ca engines' inputs at depth K."""
+    from lbm_tpu_torch.core import lattice
+    from lbm_tpu_torch.ops import quant
+    from lbm_tpu_torch.parallel import modes
+    from lbm_tpu_torch.tools.bench import make_scene
+
+    ny = shards * nloc
+    scene = make_scene(f"{nx}x{ny}")
+    p = scene.params
+    r = shards - 1
+    ob = torch_from(modes._extended_obstacle_slabs(scene.obstacles, shards, K)[r], device)
+    x = lattice.equilibrium_rest_device(p.density, nloc + 2 * K, nx, device)
+    if storage == "i16":
+        x = quant.quantize(x, p.density)
+    return (p, x[:, :K].clone(), x[:, K:K + nloc].contiguous(), x[:, K + nloc:].clone(), ob,
+            r * nloc, ny)
+
+
+def torch_from(a, device):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def time_ca(nloc: int, nx: int, device, depths=(4, 8), parts=(1, 2, 4, 8, 16), repeats: int = 5,
+            storages=("f32", "i16")) -> dict[str, tuple[float, float, float]]:
+    """us/step (median, q1, q3) of the ca engines on the last of 4 row
+    shards of nloc x nx (see :func:`ca_shard`): ``K4-slab K=4``,
+    ``K7 K=4``, ``K8 K=4`` (``K8 K=4 parts=2`` split), ``-i16`` appended for
+    int16, each where it maps (K8 unsplit only where the whole shard fits L2,
+    split counts that ``ca_cuda.parts_valid`` allows and that leave at least
+    as many sub-slabs as the planner's), in turns per storage and depth,
+    ghosts frozen; then the plain ca sweep (``plain K=4``)."""
+    import torch
+
+    from lbm_tpu_torch.ops import ca_cuda, fused_torch, temporal_cuda
+
+    out = {}
+    for storage in storages:
+        sfx = "-i16" if storage == "i16" else ""
+        for K in depths:
+            p, lo, a, hi, ob, off, ny = ca_shard(nloc, nx, K, device, storage=storage)
+            b = torch.empty_like(a)
+            sweeps = 2 * max(1, 2**27 // (2 * K * nloc * nx))  # ~2^27 cell-steps, even
+            steps = sweeps * K
+            tots = torch.empty(steps, dtype=torch.float32, device=device)
+            engines = []
+            if temporal_cuda.supports_shard(nloc, nx, K):
+                engines.append(("K4-slab", "slab", 1))
+            if storage == "f32" and ca_cuda.supports_resident(nloc, nx, K):
+                engines.append(("K7", "resident", 1))
+            least = ca_cuda.inplace_parts(nloc, nx, K, ny, storage)
+            for n in parts:
+                if least is not None and n >= least and ca_cuda.parts_valid(nloc, nx, K, ny, n):
+                    engines.append(("K8", "inplace", n))
+            runs = {}
+            for name, engine, n in engines:
+                fwd = ca_cuda.bind_sweep(engine, p, lo, a, hi, ob, b, tots, off, ny, storage, n)
+                bwd = ca_cuda.bind_sweep(engine, p, lo, b, hi, ob, a, tots, off, ny, storage, n)
+
+                def run(_, fwd=fwd, bwd=bwd, K=K):
+                    for t in range(0, steps, 2 * K):
+                        for launch in fwd:
+                            launch(t)
+                        for launch in bwd:
+                            launch(t + K)
+
+                runs[f"{name}{sfx} K={K}" + (f" parts={n}" if n > 1 else "")] = (run, None, steps)
+            out.update(time_in_turns(runs, repeats))
+            med, q1, q3 = _quartiles(_timed_ms(
+                lambda: fused_torch.ca_sweep(lo, a, hi, ob, p, off, ny, storage,
+                                             "sweep" if storage == "f32" else "step"),
+                min(repeats, 3)))
+            out[f"plain{sfx} K={K}"] = (med * 1e3 / K, q1 * 1e3 / K, q3 * 1e3 / K)
+    return out
+
+
+def time_hbm(n: int, device, depths=(4, 8), repeats: int = 5) -> dict[str, tuple[float, float, float]]:
+    """us/step (median, q1, q3) of K1, and of K4 and K9 at each depth, in
+    turns, on an n x n closed box from rest."""
+    import torch
+
+    from lbm_tpu_torch.core import lattice
+    from lbm_tpu_torch.ops import fused_cuda, hbm_cuda, temporal_cuda
+    from lbm_tpu_torch.tools.bench import make_scene
+
+    scene = make_scene(f"{n}x{n}")
+    p = scene.params
+    obst = torch.from_numpy(scene.obstacles).to(device)
+    f0 = lattice.equilibrium_rest_device(p.density, n, n, device)
+    steps = 8 * max(1, 2**27 // (n * n))
+    runs = {"K1": (fused_cuda.make_run_all(p, obst, steps), f0, steps)}
+    for K in depths:
+        runs[f"K4 K={K}"] = (temporal_cuda.make_run_all(p, obst, steps, K), f0, steps)
+        if hbm_cuda.supports(p, K):
+            runs[f"K9 K={K}"] = (hbm_cuda.make_run_all(p, obst, steps, K), f0, steps)
+    return time_in_turns(runs, repeats)
+
+
 def time_policy(device, repeats: int = 7) -> dict[str, dict[str, tuple[float, float, float]]]:
     """The budget questions, each pair timed in turns in one process:
     K2 vs K3 (f32) at 128^2, 256^2, 512^2 and K1-i16 vs K3-i16 at 1024^2."""
@@ -319,6 +432,13 @@ def format_grid(n: int, times: dict[str, tuple[float, float, float]]) -> str:
     return f"{n}^2: " + " | ".join(parts)
 
 
+def format_ca(nloc: int, nx: int, times: dict[str, tuple[float, float, float]]) -> str:
+    cells = nloc * nx
+    return f"ca shard {nloc}x{nx}: " + " | ".join(
+        f"{name} {med:.3f} us/step [{q1:.3f}, {q3:.3f}] {cells / med:.0f} MLUPS"
+        for name, (med, q1, q3) in times.items())
+
+
 def format_shard(n: int, times: dict[str, tuple[float, float, float]], shards: int = 4) -> str:
     cells = (n // shards) * n
     return f"{n}^2/{shards} shard {n // shards}x{n}: " + " | ".join(
@@ -336,6 +456,11 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--sweeps", default="", help="grids to time K4/K5 on, e.g. 2048,4096")
     parser.add_argument("--depths", default="2,4,8")
     parser.add_argument("--shards", default="", help="grids to time the shard kernels on")
+    parser.add_argument("--ca", default="", help="shards to time the ca engines on, e.g. "
+                        "64x1024,256x1024,1024x4096 (rows x columns)")
+    parser.add_argument("--ca-depths", default="4,8")
+    parser.add_argument("--ca-parts", default="1,2,4,8,16")
+    parser.add_argument("--hbm", default="", help="grids to time K9 against K4 on")
     parser.add_argument("--policy", action="store_true")
     parser.add_argument("--repeats", type=int, default=7)
     args = parser.parse_args(argv)
@@ -353,6 +478,14 @@ def main(argv: list[str] | None = None) -> int:
         print(format_grid(n, time_sweeps(n, device, depths, args.repeats)) + f" | {card}")
     for n in (int(g) for g in args.shards.split(",") if g):
         print(format_shard(n, time_shard(n, device, repeats=args.repeats)) + f" | {card}")
+    ca_depths = tuple(int(k) for k in args.ca_depths.split(","))
+    ca_parts = tuple(int(k) for k in args.ca_parts.split(","))
+    for shard in (s for s in args.ca.split(",") if s):
+        nloc, nx = (int(v) for v in shard.split("x"))
+        print(format_ca(nloc, nx, time_ca(nloc, nx, device, ca_depths, ca_parts, args.repeats))
+              + f" | {card}")
+    for n in (int(g) for g in args.hbm.split(",") if g):
+        print(format_grid(n, time_hbm(n, device, ca_depths, args.repeats)) + f" | {card}")
     if args.policy:
         for n, times in time_policy(device, args.repeats).items():
             print("in turns " + format_grid(n, times) + f" | {card}")

@@ -21,7 +21,7 @@ from lbm_tpu_torch.io import state as tstate
 from lbm_tpu_torch.io.scene import Scene
 from lbm_tpu_torch.io.writers import read_av_vels
 from lbm_tpu_torch.models import driver
-from lbm_tpu_torch.models.variants import NotPortedError, resolve_variant
+from lbm_tpu_torch.models.variants import resolve_variant
 from lbm_tpu_torch.params import LBMParams
 from lbm_tpu_torch.tools import bench, scenegen
 
@@ -128,8 +128,7 @@ def test_variants_resolve():
     assert resolve_variant("PALLAS") == "cuda"
     assert resolve_variant("serial") == "serial"
     assert resolve_variant("sync") == "sync" and resolve_variant("mpi") == "sync"
-    with pytest.raises(NotPortedError, match="not yet ported to lbm_tpu_torch"):
-        resolve_variant("ca")
+    assert resolve_variant("ca") == "ca"
     with pytest.raises(ValueError, match="unknown variant"):
         resolve_variant("bogus")
     assert driver.pick_variant("auto", torch.device("cpu")) == "torch"
@@ -187,7 +186,7 @@ def test_cli_outputs_match_lbm_tpu(tmp_path, scene_files, capsys):
     "extra",
     [["--debug"], ["--frame-interval", "5"], ["--plan"],
      ["--resume", "x.npz"], ["--checkpoint-every", "5"], ["--profile", "trace"],
-     ["--divergence"], ["--variant", "ca", "--host-devices", "2"], ["--variant", "ca"]],
+     ["--divergence"], ["--checkpoint-dir", "ckpt"], ["--platform", "cpu"]],
     ids=lambda a: " ".join(a),
 )
 def test_cli_unported_flags_exit_1(tmp_path, scene_files, capsys, extra):

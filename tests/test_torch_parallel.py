@@ -27,7 +27,7 @@ from lbm_tpu_torch import cli
 from lbm_tpu_torch.core import lattice
 from lbm_tpu_torch.io.scene import Scene
 from lbm_tpu_torch.models import driver, program
-from lbm_tpu_torch.models.variants import NotPortedError, resolve_variant
+from lbm_tpu_torch.models.variants import resolve_variant
 from lbm_tpu_torch.ops import fused_cuda, fused_torch, ghosted_cuda, quant
 from lbm_tpu_torch.params import LBMParams
 from lbm_tpu_torch.parallel import mesh, modes
@@ -333,7 +333,7 @@ def test_segmented_run_equals_unsegmented(variant):
 
 def test_dryrun_relations_hold_on_cpu_shards():
     lines = dryrun.dryrun(4, "cpu")
-    assert len(lines) == 10 and all(ln.startswith("dryrun ok:") for ln in lines)
+    assert len(lines) == 21 and all(ln.startswith("dryrun ok:") for ln in lines)
 
 
 # --- policy, errors and the CLI ------------------------------------------------
@@ -344,37 +344,34 @@ def test_variants_and_ca():
     assert resolve_variant("testall") == "async" and resolve_variant("stale") == "async"
     assert resolve_variant("testall-complex") == "async-k"
     assert resolve_variant("semi-async") == "overlap" and resolve_variant("chunked") == "chunked"
-    with pytest.raises(NotPortedError, match="not yet ported"):
-        resolve_variant("ca")
+    assert resolve_variant("ca") == "ca"
     p, m = _params(16, 16), _box(16, 16)
-    with pytest.raises(NotPortedError, match="not yet ported"):
-        modes.build_sharded_program(p, m, _mesh(2), "ca", 4)
+    prog = modes.build_sharded_program(p, m, _mesh(2), "ca", 4)
+    assert (prog.variant, prog.steps_per_call, prog.engine) == ("ca-4", 4, "inplace")
 
 
 def test_auto_picks_lbm_tpu_rule_or_refuses_ca():
-    """On more than one device auto follows lbm_tpu: where it would run ca
-    (here a closed box), the port raises and names its variants; where ca
-    cannot map (an open seam, the torch backend) the stale-row rule picks
-    async or overlap."""
+    """On more than one device auto follows lbm_tpu: ca where it maps (here
+    a closed box); where ca cannot map (an open seam, the torch backend)
+    the stale-row rule picks async or overlap."""
     dev = torch.device("cpu")
     box = Scene(params=_params(16, 16), obstacles=_box(16, 16))
-    with pytest.raises(NotPortedError, match="sync, overlap, async, async-k, chunked"):
-        driver.choose_variant(box, driver.RunConfig(device="cpu", host_devices=4), dev)
+    assert driver.choose_variant(box, driver.RunConfig(device="cpu", host_devices=4),
+                                 dev) == "ca"
     assert driver.choose_variant(box, driver.RunConfig(device="cpu", host_devices=4,
                                                        backend="torch"), dev) == "overlap"
     tall = Scene(params=_params(401, 16), obstacles=_open(401))  # open seam, padded
     assert driver.choose_variant(tall, driver.RunConfig(device="cpu", num_devices=4,
                                                         host_devices=4), dev) == "async"
     assert driver.choose_variant(box, driver.RunConfig(device="cpu"), dev) == "torch"
-    # A host with four cards and no shards asked for: one card, as before
-    # the sharded modes (ca, lbm_tpu's pick there, is not ported).
+    # A host with four cards and no shards asked for: auto shards over all
+    # of them, as lbm_tpu does; --devices 1 keeps one card.
     four_cards = [torch.device("cuda", i) for i in range(4)]
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(mesh, "available_devices", lambda *a, **k: four_cards)
         cuda0 = torch.device("cuda", 0)
-        assert driver.choose_variant(box, driver.RunConfig(), cuda0) == "cuda"
-        with pytest.raises(NotPortedError, match="on 4 devices"):
-            driver.choose_variant(box, driver.RunConfig(num_devices=4), cuda0)
+        assert driver.choose_variant(box, driver.RunConfig(), cuda0) == "ca"
+        assert driver.choose_variant(box, driver.RunConfig(num_devices=1), cuda0) == "cuda"
     with pytest.raises(ValueError, match="requested 3 devices but only 2 available"):
         driver.run_simulation(box, driver.RunConfig(variant="sync", device="cpu",
                                                     num_devices=3, host_devices=2))
@@ -463,7 +460,8 @@ def test_sharded_kernels_match_plain_on_card(cuda_device, mode, k, storage):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,k,storage", [("sync", 1, "f32"), ("overlap", 1, "f32"),
                                             ("async", 2, "f32"), ("chunked", 2, "f32"),
-                                            ("sync", 1, "i16")])
+                                            ("sync", 1, "i16"), ("ca", 4, "f32"),
+                                            ("ca", 8, "i16")])
 def test_shards_on_separate_cards_match_one_card(cuda_device, mode, k, storage):
     """On a host with four cards, shard r on card r (ghosts copied card to
     card) gives the fields and sums of the same program on four shards of
@@ -483,3 +481,18 @@ def test_shards_on_separate_cards_match_one_card(cuda_device, mode, k, storage):
         runs.append((prog.f_of(st).cpu(), tots.cpu()))
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.cuda
+def test_auto_shards_over_the_cards(cuda_device):
+    """On a host with four cards a plain ``auto`` run shards over all of
+    them, as lbm_tpu does: ca here, whose fields equal the one-card run's
+    bitwise."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    scene = Scene(params=_params(64, 100), obstacles=_box(64, 100))
+    res = driver.run_simulation(scene, driver.RunConfig(num_steps=24))
+    one = driver.run_simulation(scene, driver.RunConfig(num_steps=24, num_devices=1))
+    assert res.variant == "ca-8" and one.variant.startswith("cuda-")
+    assert np.array_equal(res.f, one.f)
+    np.testing.assert_allclose(res.av_vels, one.av_vels, rtol=1e-6)

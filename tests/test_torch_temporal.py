@@ -26,7 +26,6 @@ from lbm_tpu_torch import cli
 from lbm_tpu_torch.core import lattice
 from lbm_tpu_torch.io.scene import Scene
 from lbm_tpu_torch.models import driver, program
-from lbm_tpu_torch.models.variants import NotPortedError
 from lbm_tpu_torch.ops import (
     fused_cuda,
     fused_torch,
@@ -148,8 +147,8 @@ def test_supports():
 
 def test_pick_k_and_impl_choice(monkeypatch):
     """The depth and kernel the policy picks (PERF.md §5), and the
-    overrides: LBM_TEMPORAL_K, LBM_TEMPORAL_IMPL=trapezoid|skew; hbm is not
-    ported and raises rather than run another kernel."""
+    overrides: LBM_TEMPORAL_K, LBM_TEMPORAL_IMPL=trapezoid|skew|hbm; a
+    forced hbm that cannot map raises rather than run another kernel."""
     monkeypatch.delenv("LBM_TEMPORAL_K", raising=False)
     monkeypatch.delenv("LBM_TEMPORAL_IMPL", raising=False)
     for n in (1024, 1536, 2048, 4096):
@@ -170,8 +169,9 @@ def test_pick_k_and_impl_choice(monkeypatch):
     monkeypatch.setenv("LBM_TEMPORAL_IMPL", "trapezoid")
     assert program.temporal_impl_choice(_p(2048), 4, "i16") == "trapezoid"
     monkeypatch.setenv("LBM_TEMPORAL_IMPL", "hbm")
-    with pytest.raises(NotPortedError, match="not yet ported"):
-        program.temporal_impl_choice(_p(2048), 4)
+    assert program.temporal_impl_choice(_p(2048), 4) == "hbm"
+    with pytest.raises(ValueError, match="cannot map"):
+        program.temporal_impl_choice(_p(2048), 4, "i16")
     monkeypatch.setenv("LBM_TEMPORAL_IMPL", "bogus")
     with pytest.raises(ValueError, match="LBM_TEMPORAL_IMPL"):
         program.temporal_impl_choice(_p(2048), 4)
@@ -245,8 +245,12 @@ def test_dispatch_order(monkeypatch):
     assert _build(mask, params).variant == "cuda-step"
     monkeypatch.setenv("LBM_TEMPORAL_IMPL", "hbm")
     monkeypatch.delenv("LBM_TEMPORAL_K")
-    with pytest.raises(NotPortedError):
+    with pytest.raises(ValueError, match="cannot map"):  # K9's parts share K3's budget, 0 here
         _build(mask, params)
+    monkeypatch.setattr(inplace_cuda, "L2_INPLACE_BUDGET", 2**20)
+    assert _build(mask, params, temporal_k=4).variant == "cuda-hbm"
+    with pytest.raises(ValueError, match="cannot map"):
+        _build(mask, params, temporal_k=8)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert program.build_single_program(params, mask, "cpu", temporal_k=4).variant == "torch"
@@ -304,6 +308,9 @@ def test_cli_temporal_k_passes_check_against_lbm_tpu(tmp_path, capsys, monkeypat
 
 
 def test_cli_temporal_impl_hbm_exits_1(tmp_path, capsys, monkeypatch):
+    """A forced hbm sweep that cannot map (K = 8 on 16 rows: no part of at
+    least K rows leaves its slab within the grid) exits 1; it never runs
+    another kernel in its place."""
     monkeypatch.setattr(resident_cuda, "L2_STATE_BUDGET", 0)
     monkeypatch.setenv("LBM_TEMPORAL_IMPL", "hbm")
     params = LBMParams(nx=24, ny=16, max_iters=8, reynolds_dim=10, density=DENSITY,
@@ -311,9 +318,9 @@ def test_cli_temporal_impl_hbm_exits_1(tmp_path, capsys, monkeypatch):
     pfile, ofile = scenegen.write_scene(str(tmp_path / "scene"), "cylinder", params)
     out = tmp_path / "out"
     rc = cli.main(["run", pfile, ofile, "--device", "cpu", "--variant", "cuda",
-                   "--temporal-k", "2", "--out-dir", str(out)])
+                   "--temporal-k", "8", "--out-dir", str(out)])
     err = capsys.readouterr().err
-    assert rc == 1 and err.startswith("Error:") and "not yet ported to lbm_tpu_torch" in err
+    assert rc == 1 and err.startswith("Error:") and "cannot map" in err
     assert not out.exists()
 
 
