@@ -59,6 +59,12 @@ power limit as nvidia-smi reports them):
    fields torch.equal (int16 too), tot_u within rtol 1e-6;
 3h. K9 (the HBM-parts sweep) vs its plain version and vs K1 at 2048x2048
    and 60x100, K in {2, 3, 4, 8} (:func:`hbm_kernel_checks`);
+3i. K10 (the two-copy row-block kernel) vs its plain version at 128^2,
+   256^2, 512^2, 1024^2 and 72x100, the driven row in the first, a middle
+   and the last row block and on a block edge (512^2 and 1024^2: the last
+   only), odd and even chunks, rest and perturbed starts, and 256 steps in
+   one chunk at 128^2, fields and tot_u torch.equal; and vs K2 at 512^2
+   over 256 steps (:func:`blocked_kernel_checks`);
 4. the cuda main path on a 128x128 scene for 120 steps vs core/oracle:
    fields atol 2e-7, av rtol 1e-4;
 5. ``lbm_tpu_torch run`` on 256x256 (4400 steps: K2, two segments) and
@@ -74,6 +80,13 @@ power limit as nvidia-smi reports them):
    and --storage i16 --temporal-k 4 (cuda-trapezoid-i16: one per 4 steps),
    each passing ``check`` against golden/ (1%); the K3, K1-i16 and K4-i16
    counters, zeroed just before, must have gone up;
+5l. K10's main path: ``LBM_RESIDENT_KIND=blocked run`` on 5b's golden scene,
+   20000 steps (cuda-blocked), final_state.dat byte-identical to 5b's
+   cuda-inplace run, av_vels within rtol 1e-6 of it (the same fields, |u|
+   summed in another order) and passing ``check`` against golden/; K10's count,
+   zeroed just before, must have gone up; the forced ``mono`` and
+   ``inplace`` kinds on phase 5's 256x256 scene byte-identical to its
+   default run, and ``mono`` at 1024x1024 (it cannot map) exiting 1;
 5c. 1536x1536 and 2048x2048 channel scenes (2000 steps) run as
    ``--variant cuda --temporal-k 1`` in f32 (K1), as ``--variant cuda
    --storage i16`` (the default policy: K1-i16) and as ``--variant
@@ -86,15 +99,17 @@ power limit as nvidia-smi reports them):
    LBM_TEMPORAL_IMPL=trapezoid and =skew: 1536x1536 f32 (default policy
    only) and 2048x2048 channel x 2000 steps, 4096x4096 x 400 (there the
    f32 default is the forced trapezoid's variant and depth, so that run is
-   not repeated); each run
-   reports the variant the policy table gives; the 1536x1536 and
+   not repeated, and the forced runs go through ``run_simulation``, their
+   fields held in memory: each final_state.dat there is 1.5 GB of text);
+   each run reports the variant the policy table gives; the 1536x1536 and
    2048x2048 f32 runs write a final_state.dat byte-identical to 5c's
    --variant torch run (2048x2048 also passing ``check``), the 4096x4096
-   f32 runs byte-identical to each other; the default int16 runs (K1-i16)
-   pass ``check`` against their grid's default f32 run (1%), the forced
-   int16 sweeps at 2048x2048 within I16_SWEEP_TOLERANCE (2.5%, the
-   envelope measured for int16 quantized once per sweep there), and the
-   forced K4-i16 and K5-i16 runs (both K=4) are byte-identical;
+   forced f32 skew run's fields equal the default run's; the default int16
+   runs (K1-i16) pass ``check`` against their grid's default f32 run (1%),
+   the forced int16 sweeps at 2048x2048 within I16_SWEEP_TOLERANCE (2.5%,
+   the envelope measured for int16 quantized once per sweep there), and
+   the forced K4-i16 and K5-i16 runs (both K=4) are byte-identical (4096^2:
+   equal fields), so only K4-i16's is ``check``ed;
    ``bench --grid 2048x2048`` runs the default policy's variant; the K4,
    K4-i16, K5 and K5-i16 counters, zeroed just before, must have gone up;
 5e. the sharded CLI on the 1024x1024 golden scene over 4 shards of the
@@ -118,6 +133,21 @@ power limit as nvidia-smi reports them):
    --host-devices 4`` x 2001 steps reads ``ca-8+sync-tail1`` and writes
    sync's final_state.dat (5e); the counts of the ca engines, zeroed just
    before, must have gone up, each in the runs that use it;
+5m. frames, debug and checkpoint/resume on the card: the golden scene
+   through ``run_simulation`` with frames every 100 steps (200 frames of
+   1024x1024 on the card) on cuda-inplace (K3) and cuda-blocked (K10), f
+   and av_vels equal to the plain runs (cuda-blocked: 5l's), the frames
+   equal to each other and frames 0, 1, 100 and 199 to the twin's u_mag of
+   a K1 run stopped at those steps; the same over 4 shards x 2000 steps in
+   sync and ca-8 (frames equal to the single-device ones, fields to the
+   plain runs, ca's to sync's); ``--debug`` on ca over 4 shards x 2000
+   steps reads ``ca-8+debug-as-sync`` and equals sync;
+   the CLI on phase 5's 256x256 scene with ``--frame-interval 400`` (11
+   frame files, outputs byte-identical to the plain run) and ``--debug`` x
+   400 on cuda-resident (byte-identical); ``--checkpoint-every 4000`` on the
+   golden scene's first 8000 steps (its av_vels.dat the unbroken run's
+   first 8000 lines), then ``--resume`` from step 8000, byte-identical to
+   the unbroken run;
 5k. ``LBM_TEMPORAL_IMPL=hbm`` through ``run`` on 5c's 2048x2048 channel
    (2000 steps, K = 4, K9): final_state.dat byte-identical to 5c's
    ``--temporal-k 1`` (K1) run; K9's count, zeroed just before, must have
@@ -139,7 +169,8 @@ power limit as nvidia-smi reports them):
    the 256x1024 and 1024x4096 shards beside their plain versions and bounds,
    and ca-4 at 4096^2/4 (K4-slab) with fields equal to sync's; (6e) the ca
    engines in turns on the 256x1024 (K = 4, 8) and 1024x4096 (K = 4; K8
-   split) shards, and K9 against K4 in turns at 2048^2;
+   split) shards, and K9 against K4 in turns at 2048^2; (6f) K10 in turns
+   with K3 and K4 (K = 4) at 1024^2;
 7. one JSON line of kernel findings (one row per kernel, with the
    launches of the main path's run, its time per launch beside its plain
    version's and its bound, the least time of the launch's bytes over
@@ -455,6 +486,72 @@ def hbm_kernel_checks(dev) -> tuple[float, int]:
     return worst, n_cases
 
 
+# Phase 3i's grids.  512^2 and 1024^2 keep the scene's driven row; 1024^2 is
+# K10's main path (5l): 64 row blocks, its copies in HBM, each block of the
+# cooperative grid striding over about 8 tiles.
+BLOCKED_GRIDS = ((128, 128), (256, 256), (512, 512), (1024, 1024), (72, 100))
+
+
+def blocked_kernel_checks(dev) -> tuple[float, int]:
+    """Phase 3i: K10 (csrc/blocked.cu) against its plain version
+    (``fused_torch.blocked_chunk``) on ``BLOCKED_GRIDS`` (72x100: any nx,
+    row blocks of 16 with a partial last one), with the driven row in the
+    first row block, a middle one, on a block edge (the last row of one
+    block, the first of the next) and in the last (its place in the scene,
+    ny - 2; the only place at 512x512 and 1024x1024), (steps, chunk) in
+    {(7, 4), (8, 8), (5, 5)} (odd and even chunks; 1024x1024: (7, 4) and
+    (5, 5)), from rest and from the perturbed state (1024x1024: perturbed);
+    256 steps in one 256-step chunk at 128x128 (the main path's chunk: its
+    256-row column-sum pass); then K10 against K2 at 512x512 over 256
+    steps.  Fields and tot_u torch.equal: the plain version takes K10's
+    grouping of the |u| sums.  Returns the largest |diff| and the number of
+    cases."""
+    import torch
+
+    from lbm_tpu_torch.core import lattice
+    from lbm_tpu_torch.ops import blocked_cuda, resident_cuda
+    from lbm_tpu_torch.params import with_driven_row
+
+    def check(name, p, obst, f0, steps, chunk):
+        f_k, tot_k = (t.clone() for t in blocked_cuda.make_run_all(
+            p, obst, steps, chunk=chunk)(f0))
+        f_p, tot_p = blocked_cuda.run_plain(f0, obst, p, steps)
+        e, r = compare(f"K10 {name} steps={steps} chunk={chunk}", f_k, tot_k, f_p, tot_p)
+        if not torch.equal(tot_k, tot_p):
+            fail(f"K10 {name} steps={steps} chunk={chunk}: tot_u off the plain version's "
+                 f"grouping by {r:.3e} relative")
+        return e
+
+    B = blocked_cuda.DEFAULT_BLOCK_ROWS
+    worst, n_cases = 0.0, 0
+    for ny, nx in BLOCKED_GRIDS:
+        p0, m = box_scene(ny, nx)
+        obst = torch.from_numpy(m).to(dev)
+        mid = (ny // B // 2) * B + 3
+        big = ny >= 512  # the slowest plain versions
+        for row in (ny - 2,) if big else (1, mid, 2 * B - 1, 2 * B, ny - 2):
+            p = with_driven_row(p0, row)
+            starts = ("mixed",) if ny == 1024 or row != ny - 2 else ("rest", "mixed")
+            for start in starts:
+                f0 = (mixed_state(p, dev) if start == "mixed"
+                      else lattice.equilibrium_rest_device(p.density, ny, nx, dev))
+                for steps, chunk in ((7, 4), (5, 5)) if ny == 1024 else ((7, 4), (8, 8), (5, 5)):
+                    e = check(f"{ny}x{nx} driven row {row} {start}", p, obst, f0, steps, chunk)
+                    worst, n_cases = max(worst, e), n_cases + 1
+    p, m = box_scene(128, 128)
+    e = check("128x128 mixed", p, torch.from_numpy(m).to(dev), mixed_state(p, dev), 256, 256)
+    worst, n_cases = max(worst, e), n_cases + 1
+    p, m = box_scene(512, 512)
+    obst = torch.from_numpy(m).to(dev)
+    f0 = mixed_state(p, dev)
+    f_k, tot_k = (t.clone() for t in blocked_cuda.make_run_all(p, obst, 256)(f0))
+    f_2, _ = resident_cuda.make_run_all(p, obst, 256)(f0)
+    if not torch.equal(f_k, f_2):
+        fail(f"K10 vs K2 512x512 256 steps: fields differ (max |diff| "
+             f"{float((f_k - f_2).abs().max()):.3e})")
+    return worst, n_cases
+
+
 def build_native_writer() -> str:
     """Build the C++ writer of final_state.dat (``make native``, into the
     gitignored native/build/), so that the large-grid CLI runs do not format
@@ -496,11 +593,13 @@ def main() -> int:
 
     from lbm_tpu_torch import cli
     from lbm_tpu_torch.core import lattice, oracle
+    from lbm_tpu_torch.io import load_scene
     from lbm_tpu_torch.io.scene import Scene
     from lbm_tpu_torch.models.driver import RunConfig, run_simulation
     from lbm_tpu_torch.io.writers import read_av_vels
     from lbm_tpu_torch.ops import (
         _build,
+        blocked_cuda,
         ca_cuda,
         fused_cuda,
         ghosted_cuda,
@@ -518,7 +617,7 @@ def main() -> int:
     card = bench.card_line()
     if card is None:
         fail("nvidia-smi is missing: cannot name the card")
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
 
     # Phase 1: card, versions, build.
     print(card)
@@ -718,6 +817,14 @@ def main() -> int:
     print(f"[3h K9 vs plain and K1] card: {card} | 2048x2048 and 60x100 x K in (2, 3, 4, 8) x "
           f"2K + 1 steps, rest and perturbed: {k9_cases} cases, fields equal to plain and to K1, "
           f"max |diff| {k9_err:.1e}")
+    k10_err, k10_cases = blocked_kernel_checks(dev)
+    print(f"[3i K10 vs plain and K2] card: {card} | "
+          + ", ".join(f"{ny}x{nx}" for ny, nx in BLOCKED_GRIDS)
+          + f" x B={blocked_cuda.DEFAULT_BLOCK_ROWS}, driven row in the first / a middle / "
+          "the last row block and on a block edge (512x512, 1024x1024: the last), (steps, "
+          "chunk) (7,4) (8,8) (5,5) (1024x1024: (7,4) (5,5)), rest and perturbed, and 128x128 "
+          f"x 256 steps in one chunk: {k10_cases} cases, fields and tot_u equal, max |diff| "
+          f"{k10_err:.1e} | K10 vs K2 512x512 x 256 steps: fields equal{elapsed()}")
 
     # Phase 4: oracle anchor on the cuda main path.
     p128 = LBMParams(nx=128, ny=128, max_iters=120, reynolds_dim=10,
@@ -853,6 +960,47 @@ def main() -> int:
               + f" | launches K3 {launches['K3']}, K1-i16 {golden_k1i}, K4-i16 {golden_k4i}"
               + elapsed())
 
+        # Phase 5l: K10 at full length on the golden scene (its main path:
+        # its count starts from 0 here), and the other forced kinds.
+        blocked_cuda.LAUNCHES = 0
+        with dryrun.env(LBM_RESIDENT_KIND="blocked"):
+            blocked_dir, got = cli_run("golden1024-blocked", gp, go, "cuda")
+        launches["K10"] = blocked_cuda.LAUNCHES
+        if got != "cuda-blocked" or launches["K10"] <= 0:
+            fail(f"LBM_RESIDENT_KIND=blocked golden run: variant {got}, K10 launches "
+                 f"{launches['K10']}")
+        if not same_final_state(blocked_dir, golden_dirs["cuda-inplace"]):
+            fail("golden cuda-blocked: final_state.dat differs from cuda-inplace's")
+        av_k10, av_k3 = (read_av_vels(os.path.join(d, "av_vels.dat"))
+                         for d in (blocked_dir, golden_dirs["cuda-inplace"]))
+        k10_av_rel = float(np.max(np.abs(av_k10 - av_k3) / np.abs(av_k3)))
+        if av_k10.shape != (gparams.max_iters,) or k10_av_rel > 1e-6:
+            fail(f"golden cuda-blocked: av_vels {av_k10.shape} off cuda-inplace's by "
+                 f"{k10_av_rel:.3e} relative")
+        blocked_dev = cli_check(ref_av, ref_fs, blocked_dir, "golden cuda-blocked")
+        forced = []
+        for forced_kind, want, (tag, pf, of), ref_dir in (
+                ("mono", "cuda-resident", runs[0], cuda_runs["256x256"][0]),
+                ("inplace", "cuda-inplace", runs[0], cuda_runs["256x256"][0])):
+            with dryrun.env(LBM_RESIDENT_KIND=forced_kind):
+                d, got = cli_run(f"{tag}-{forced_kind}", pf, of, "cuda")
+            if got != want or not same_final_state(d, ref_dir):
+                fail(f"LBM_RESIDENT_KIND={forced_kind} at {tag}: variant {got}, or "
+                     "final_state.dat differs from the default run's")
+            forced.append(f"{forced_kind} at {tag}: {got}, byte-identical to the default run")
+        buf = io.StringIO()
+        with dryrun.env(LBM_RESIDENT_KIND="mono"), contextlib.redirect_stderr(buf):
+            rc = cli.main(["run", gp, go, "--variant", "cuda", "--no-output"])
+        if rc != 1 or "LBM_RESIDENT_KIND=mono" not in buf.getvalue():
+            fail(f"LBM_RESIDENT_KIND=mono at 1024x1024 exited {rc}: {buf.getvalue()}")
+        forced.append("mono at 1024x1024: exit 1 (" + buf.getvalue().strip() + ")")
+        print(f"[5l K10 on the golden scene] card: {card} | LBM_RESIDENT_KIND=blocked, "
+              f"{gparams.max_iters} steps: cuda-blocked, final_state.dat "
+              f"byte-identical to cuda-inplace, av_vels max rel {k10_av_rel:.2e} from it, "
+              f"vs golden (av_vels, final_state) "
+              f"{', '.join(blocked_dev)}, {mlups['golden1024-blocked cuda-blocked']:.1f} MLUPS "
+              f"| {'; '.join(forced)} | launches K10 {launches['K10']}{elapsed()}")
+
         # Phase 5c: large grids, f32 cuda against torch and i16 against f32.
         big = [(f"{n}x{n}", *scene_files(n, 2000, "channel", 0.01)) for n in (1536, 2048)]
         fused_cuda.LAUNCHES = 0
@@ -899,7 +1047,10 @@ def main() -> int:
         scenes["4096x4096"] = scene_files(4096, 400, "channel", 0.01)
         notes = []
         for tag, (pf, of) in scenes.items():
-            dirs = {}
+            dirs, fields = {}, {}
+            # At 4096x4096 the forced runs go through run_simulation and are
+            # compared as fields: each final_state.dat there is 1.5 GB of text.
+            in_memory = tag == "4096x4096"
             for storage in ("f32", "i16"):
                 sfx = "-i16" if storage == "i16" else ""
                 for label, impl, extra in policies:
@@ -908,16 +1059,20 @@ def main() -> int:
                     if (tag, storage, label) == ("4096x4096", "f32", "trapezoid"):
                         continue  # the default there: the same variant and depth
                     with temporal_impl(impl):
-                        out_dir, got = cli_run(f"{tag}-{label}", pf, of, "cuda", "--storage",
-                                               storage, *extra)
+                        if in_memory and impl is not None:
+                            res = run_simulation(load_scene(pf, of), RunConfig(
+                                variant="cuda", device="cuda", storage=storage, temporal_k=4))
+                            fields[(storage, label)], got = res.f, res.variant
+                        else:
+                            dirs[(storage, label)], got = cli_run(
+                                f"{tag}-{label}", pf, of, "cuda", "--storage", storage, *extra)
                     want = (DEFAULT_VARIANTS[(tag, storage)] if impl is None
                             else f"cuda-{impl}{sfx}")
                     if got != want:
                         fail(f"{tag} {storage} {label}: variant {got}, expected {want}")
-                    dirs[(storage, label)] = out_dir
             ref = torch_big.get(tag, dirs[("f32", "default")])
             for (storage, label), d in dirs.items():
-                if storage == "f32" and not same_final_state(d, ref):
+                if storage == "f32" and d != ref and not same_final_state(d, ref):
                     fail(f"{tag} f32 {label}: final_state.dat differs from {ref}")
             note = [f"{tag}: default " + ", ".join(
                 DEFAULT_VARIANTS[(tag, s)] for s in ("f32", "i16") if (tag, s) in DEFAULT_VARIANTS)]
@@ -926,20 +1081,30 @@ def main() -> int:
                                     os.path.join(ref, "final_state.dat"),
                                     dirs[("f32", "default")], f"{tag} temporal f32 vs torch")
                 note.append(f"f32 default vs torch {', '.join(dev_pct)}")
-            note.append("f32 final_state.dat byte-identical to "
-                        + ("--variant torch" if tag in torch_big else "each other"))
+            if tag in torch_big:
+                note.append("f32 final_state.dat byte-identical to --variant torch")
+            if in_memory:
+                f32_default = run_simulation(load_scene(pf, of),
+                                             RunConfig(variant="cuda", device="cuda")).f
+                if not np.array_equal(fields[("f32", "skew")], f32_default):
+                    fail(f"{tag}: forced f32 skew fields differ from the default run's")
+                if not np.array_equal(fields[("i16", "trapezoid")], fields[("i16", "skew")]):
+                    fail(f"{tag}: K4-i16 and K5-i16 fields differ")
+                note.append("forced runs through run_simulation: f32 skew fields equal to the "
+                            "default's, K4-i16 and K5-i16 fields equal")
+                del f32_default, fields
+            elif ("i16", "skew") in dirs:
+                if not same_final_state(dirs[("i16", "trapezoid")], dirs[("i16", "skew")]):
+                    fail(f"{tag}: K4-i16 and K5-i16 final_state.dat differ")
+                note.append("K4-i16 and K5-i16 final_state.dat byte-identical")
             f32_ref = dirs[("f32", "default")]
             for (storage, label), d in dirs.items():
-                if storage == "i16" and (label == "default" or tag != "4096x4096"):
+                if storage == "i16" and label != "skew":  # skew: trapezoid's bytes
                     tol = 1.0 if label == "default" else I16_SWEEP_TOLERANCE
                     dev_pct = cli_check(os.path.join(f32_ref, "av_vels.dat"),
                                         os.path.join(f32_ref, "final_state.dat"), d,
                                         f"{tag} i16 {label} vs f32", tol)
                     note.append(f"i16 {label} vs f32 ({tol}%) {', '.join(dev_pct)}")
-            if ("i16", "skew") in dirs:
-                if not same_final_state(dirs[("i16", "trapezoid")], dirs[("i16", "skew")]):
-                    fail(f"{tag}: K4-i16 and K5-i16 final_state.dat differ")
-                note.append("K4-i16 and K5-i16 final_state.dat byte-identical")
             notes.append("; ".join(note))
             if tag == "4096x4096":  # 1.5 GB per final_state.dat
                 for d in dirs.values():
@@ -1109,6 +1274,149 @@ def main() -> int:
               "launches " + ", ".join(f"{k} {launches[k]}" for k in ca_names)
               + f" | {time.perf_counter() - t_start:.1f} s elapsed")
 
+        # Phase 5m: frames, debug and checkpoint/resume on the card.
+        from lbm_tpu_torch.models.program import u_mag_fn
+
+        scene_g = load_scene(gp, go)
+        notes = []
+
+        def framed(num_steps=20000, resident_kind=None, **kw):
+            """The golden scene through run_simulation with frames every
+            100 steps, LBM_RESIDENT_KIND=``resident_kind``."""
+            with dryrun.env(LBM_RESIDENT_KIND=resident_kind):
+                res = run_simulation(scene_g, RunConfig(device="cuda", num_steps=num_steps,
+                                                        frame_interval=100, **kw))
+            n = num_steps // 100
+            if res.frames.shape != (n, 1024, 1024) or not np.array_equal(
+                    res.frame_steps, np.arange(n) * 100):
+                fail(f"golden {res.variant} frames {res.frames.shape}")
+            return res
+
+        def same_run(res, f_ref, av_ref, av_rtol=0.0) -> float:
+            """Fields equal, av_vels equal (ca: within ``av_rtol``, its frame
+            segments sum |u| per sweep level from other steps than the plain
+            run's sweeps); returns av_vels' largest relative difference."""
+            av_rel = float(np.max(np.abs(res.av_vels - av_ref) / np.abs(av_ref)))
+            av_ok = av_rel <= av_rtol if av_rtol else np.array_equal(res.av_vels, av_ref)
+            if not (np.array_equal(res.f, f_ref) and av_ok):
+                fail(f"golden {res.variant} with frames: fields or av_vels differ from the "
+                     f"plain run (max |df| {np.abs(res.f - f_ref).max():.3e}, av max rel "
+                     f"{av_rel:.3e})")
+            return av_rel
+
+        # K3 and K10: the plain K3 run here, K10's the CLI run of 5l (its
+        # av_vels.dat holds float32 values exactly).
+        k3_plain = run_simulation(scene_g, RunConfig(variant="cuda", device="cuda"))
+        k3_frames = framed(variant="cuda")
+        same_run(k3_frames, k3_plain.f, k3_plain.av_vels)
+        k10_frames = framed(resident_kind="blocked", variant="cuda")
+        same_run(k10_frames, k3_plain.f, av_k10.astype(np.float32))
+        if (k3_plain.variant, k3_frames.variant, k10_frames.variant) != (
+                "cuda-inplace", "cuda-inplace", "cuda-blocked"):
+            fail(f"5m variants {k3_plain.variant}, {k3_frames.variant}, {k10_frames.variant}")
+        if not np.array_equal(k3_frames.frames, k10_frames.frames):
+            fail("golden frames: cuda-blocked's differ from cuda-inplace's")
+        # Frames 0, 1, 100 and 199 against the twin's u_mag of a K1 run
+        # stopped after k * 100 + 1 steps.
+        obst_g = torch.from_numpy(scene_g.obstacles).to(dev)
+        mag = u_mag_fn(obst_g)
+        state = lattice.equilibrium_rest_device(gparams.density, 1024, 1024, dev)
+        done = 0
+        for k in (0, 1, 100, 199):
+            state, _ = fused_cuda.make_run_all(gparams, obst_g, k * 100 + 1 - done)(state)
+            done = k * 100 + 1
+            if not np.array_equal(k3_frames.frames[k], mag(state).cpu().numpy()):
+                fail(f"golden frame {k} differs from u_mag of a K1 run of {done} steps")
+        notes.append("frames every 100 steps (200 x 1024x1024 on the card) on cuda-inplace and "
+                     "cuda-blocked: f and av_vels equal to the plain runs (cuda-blocked: 5l's), "
+                     "frames equal to each other and frames 0, 1, 100, 199 to u_mag of K1 runs "
+                     "stopped at 1, 101, 10001, 19901 steps | MLUPS plain / frames: "
+                     f"cuda-inplace {k3_plain.mlups:.1f} / {k3_frames.mlups:.1f}, cuda-blocked "
+                     f"{mlups['golden1024-blocked cuda-blocked']:.1f} / {k10_frames.mlups:.1f}")
+        mlups["golden1024 frames-100 cuda-inplace"] = k3_frames.mlups
+        mlups["golden1024 frames-100 cuda-blocked"] = k10_frames.mlups
+        first = k3_frames.frames[:20]
+        del k3_plain, k3_frames, k10_frames
+        # The sharded programs over 2000 steps: sync and ca-8 with frames
+        # equal their plain runs (ca's fields sync's), and their frames the
+        # single-device ones; --debug on ca-8 reads ca-8+debug-as-sync and
+        # equals sync.
+        sync2k = run_simulation(scene_g, RunConfig(variant="sync", device="cuda",
+                                                   host_devices=4, num_steps=2000))
+        ca2k = run_simulation(scene_g, RunConfig(variant="ca", device="cuda", host_devices=4,
+                                                 num_steps=2000))
+        if not np.array_equal(ca2k.f, sync2k.f):
+            fail("golden ca-8 over 4 shards x 2000: fields differ from sync's")
+        for plain, want, rtol in ((sync2k, "sync", 0.0), (ca2k, "ca-8", 1e-6)):
+            res = framed(2000, variant=plain.variant.split("-")[0], host_devices=4)
+            av_rel = same_run(res, plain.f, plain.av_vels, rtol)
+            if res.variant != want or not np.array_equal(res.frames, first):
+                fail(f"golden {res.variant} over 4 shards: frames differ from cuda-inplace's")
+            notes.append(f"{want} over 4 shards x 2000 with frames: f equal to the plain run, "
+                         f"av_vels max rel {av_rel:.2e}, frames equal to cuda-inplace's, MLUPS "
+                         f"plain / frames {plain.mlups:.1f} / {res.mlups:.1f}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            dbg = run_simulation(scene_g, RunConfig(variant="ca", device="cuda", host_devices=4,
+                                                    num_steps=2000, debug=True))
+        if (dbg.variant != "ca-8+debug-as-sync" or buf.getvalue().count("==timestep:") != 2000
+                or not np.array_equal(dbg.f, sync2k.f)
+                or not np.array_equal(dbg.av_vels, sync2k.av_vels)):
+            fail(f"--debug on ca over 4 shards: {dbg.variant}, not equal to sync")
+        notes.append("--debug on ca over 4 shards x 2000: ca-8+debug-as-sync, f and av_vels "
+                     "equal to sync")
+        del first, sync2k, ca2k, res, dbg
+        # The CLI at 256x256 (phase 5's scene): animation_data every 400
+        # steps, --debug for 400 steps on cuda-resident.
+        tag, pf, of = runs[0]
+        fr_dir, got = cli_run(f"{tag}-frames", pf, of, "cuda", "--frame-interval", "400")
+        names = sorted(os.listdir(os.path.join(fr_dir, "animation_data")))
+        if (got != "cuda-resident" or names != [f"velocity_magnitude_{t:06d}.dat"
+                                                  for t in range(0, 4400, 400)]
+                or not same_final_state(fr_dir, cuda_runs[tag][0])
+                or not filecmp.cmp(os.path.join(fr_dir, "av_vels.dat"),
+                                   os.path.join(cuda_runs[tag][0], "av_vels.dat"),
+                                   shallow=False)):
+            fail(f"{tag} --frame-interval 400: {got}, {len(names)} frame files, or its files "
+                 "differ from the plain run's")
+        dirs = {}
+        for extra in ((), ("--debug",)):
+            dirs[extra] = cli_run(f"{tag}-400", pf, of, "cuda", "--steps", "400", *extra)[0]
+        if not (filecmp.cmp(os.path.join(dirs[()], "av_vels.dat"),
+                            os.path.join(dirs[("--debug",)], "av_vels.dat"), shallow=False)
+                and same_final_state(dirs[()], dirs[("--debug",)])):
+            fail(f"{tag} --debug x 400 on cuda-resident: files differ from the plain run's")
+        notes.append(f"CLI {tag}: --frame-interval 400 wrote {len(names)} frame files, "
+                     "av_vels.dat and final_state.dat byte-identical to the plain run; --debug x "
+                     "400 on cuda-resident: av_vels.dat and final_state.dat byte-identical")
+        # --checkpoint-every 4000 on the golden scene's first 8000 steps, then
+        # --resume from step 8000 to the end.
+        ck_dir = os.path.join(td, "golden-ckpt")
+        d_ck, _ = cli_run("golden1024-ckpt", gp, go, "cuda", "--steps", "8000",
+                          "--checkpoint-every", "4000", "--checkpoint-dir", ck_dir)
+        d_res, _ = cli_run("golden1024-resume", gp, go, "cuda", "--resume",
+                           os.path.join(ck_dir, "ckpt_00008000.npz"))
+        unbroken = golden_dirs["cuda-inplace"]
+        with open(os.path.join(unbroken, "av_vels.dat")) as fp:
+            prefix = fp.readlines()[:8000]
+        with open(os.path.join(d_ck, "av_vels.dat")) as fp:
+            ck_lines = fp.readlines()
+        if ck_lines != prefix or sorted(os.listdir(ck_dir)) != ["ckpt_00004000.npz",
+                                                                 "ckpt_00008000.npz"]:
+            fail("golden checkpointed run: av_vels.dat is not the unbroken run's first 8000 "
+                 f"lines, or checkpoints {sorted(os.listdir(ck_dir))}")
+        if not (same_final_state(d_res, unbroken) and filecmp.cmp(
+                os.path.join(d_res, "av_vels.dat"), os.path.join(unbroken, "av_vels.dat"),
+                shallow=False)):
+            fail("golden resumed run: files differ from the unbroken run's")
+        notes.append(f"--steps 8000 --checkpoint-every 4000 (2 checkpoints, "
+                     f"{mlups['golden1024-ckpt cuda-inplace']:.1f} MLUPS with the I/O; av_vels.dat "
+                     "the unbroken run's first 8000 lines), then --resume from step 8000 "
+                     f"({mlups['golden1024-resume cuda-inplace']:.1f} MLUPS): final_state.dat and "
+                     "av_vels.dat byte-identical to the unbroken run")
+        print(f"[5m frames, debug, checkpoint/resume] card: {card} | golden 1024x1024, "
+              f"20000 steps | {' | '.join(notes)}{elapsed()}")
+
     # Phase 5f: large shards, 4096x4096 over 4 shards of 1024x4096.
     p4k = LBMParams(nx=4096, ny=4096, max_iters=200, reynolds_dim=10, density=0.1, accel=0.01,
                     omega=1.85)
@@ -1195,6 +1503,13 @@ def main() -> int:
     print(f"[6e ca engines and K9 in turns] card: {card} | "
           + " ; ".join(kernel_times.format_ca(n, nx, t) for (n, nx), t in ca_times.items())
           + " ; " + kernel_times.format_grid(2048, hbm_times))
+
+    # Phase 6f: K10 in turns with K3 and K4 (K = 4) at 1024^2, the grid of
+    # its main path (5l).
+    blocked_times = kernel_times.time_blocked(1024, dev, repeats=5,
+                                              block_rows=(blocked_cuda.DEFAULT_BLOCK_ROWS,))
+    print(f"[6f K10 in turns] card: {card} | in turns "
+          + kernel_times.format_grid(1024, blocked_times) + elapsed())
 
     # Phase 7: kernel findings, then the last line.  A launch of K1 is one
     # step; one of K2 or K3 is 256 steps; one of K4 or K5 is K steps; one of
@@ -1352,10 +1667,21 @@ def main() -> int:
          "max_abs_err": k9_err, "ms": hbm_times["K9 K=4"][0] / 1e3 * 4,
          "plain_ms": sweeps[2048]["plain K=4"][0] / 1e3 * 4,
          **bounds(2048, 2048, 2046 ** 2, 4, "f32", "HBM")},
+        {"name": f"K10 two-copy row-block kernel (ms per launch = {chunk} steps, 1024x1024, "
+                 f"B={blocked_cuda.DEFAULT_BLOCK_ROWS}; its two copies, 72 MiB, stream from HBM)",
+         "route": "cuda", "source": "lbm_tpu_torch/csrc/blocked.cu",
+         "replaces": "lbm_tpu/ops/resident_pallas.py:480", "launches": launches["K10"],
+         "max_abs_err": k10_err,
+         "ms": blocked_times[f"K10 B={blocked_cuda.DEFAULT_BLOCK_ROWS}"][0] / 1e3 * chunk,
+         "plain_ms": blocked_times["plain K10"][0] / 1e3 * chunk,
+         **bounds(1024, 1024, 1022 ** 2, chunk, "f32", "HBM"),
+         # Its copies do not fit L2, so every step reads and writes HBM.
+         "tier_bound_ms": chunk * 1024 * 1024 * kernel_times.BYTES_PER_CELL_STEP
+         / (gbps[0] * 1e9) * 1e3},
     ]
     print(f"[7 elapsed] card: {card} | {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "card": card}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
 

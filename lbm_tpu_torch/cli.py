@@ -3,7 +3,9 @@
 ``python -m lbm_tpu_torch run <paramfile> <obstaclefile>`` mirrors the
 reference binary's invocation (SerialCode/d2q9-bgk.c:45-52) and its stdout
 report (==done==, Reynolds number, phase timings), then writes
-``final_state.dat`` and ``av_vels.dat``, as ``python -m lbm_tpu run`` does.
+``final_state.dat`` and ``av_vels.dat`` (and, with ``--frame-interval``,
+``animation_data/``), as ``python -m lbm_tpu run`` does; ``--debug``,
+``--checkpoint-every``/``--checkpoint-dir`` and ``--resume`` as there.
 ``check``, ``bench``, ``info`` and ``scene`` are the other subcommands.
 
 The device is named, never guessed: ``--device cuda`` (the default) needs a
@@ -22,11 +24,6 @@ import sys
 
 # lbm_tpu `run` flags this package does not have yet: dest -> flag.
 _UNPORTED_RUN_FLAGS = {
-    "frame_interval": "--frame-interval",
-    "debug": "--debug",
-    "checkpoint_every": "--checkpoint-every",
-    "checkpoint_dir": "--checkpoint-dir",
-    "resume": "--resume",
     "plan": "--plan",
     "divergence": "--divergence",
     "profile": "--profile",
@@ -41,7 +38,8 @@ def _add_sharding_args(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--staleness", type=int, default=None,
         help="halo age of async / chunk length of chunked / exchange depth K of ca "
-        "(default: async 1, async-k 2, chunked 2, ca 4)",
+        "(default: async 1, async-k 2, chunked 2; ca 8 where the in-place engine K8 "
+        "holds the shard unsplit, else 4)",
     )
     p.add_argument(
         "--backend", choices=["torch", "cuda", "jnp", "pallas"], default=None,
@@ -91,8 +89,16 @@ def _add_run_args(p: argparse.ArgumentParser) -> None:
         "kernel path (default: auto by grid size; 1 = disable temporal "
         "blocking)",
     )
+    p.add_argument("--frame-interval", type=int, default=None,
+                   help="capture |u| every k steps (written to OUT_DIR/animation_data)")
+    p.add_argument("--debug", action="store_true",
+                   help="print av velocity and total density after every step")
+    p.add_argument("--checkpoint-every", type=int, default=None,
+                   help="save a resumable state checkpoint every N steps")
+    p.add_argument("--checkpoint-dir", default="checkpoints")
+    p.add_argument("--resume", default=None, help="checkpoint .npz to resume from")
     for dest, flag in _UNPORTED_RUN_FLAGS.items():
-        if dest in ("debug", "plan", "divergence"):
+        if dest in ("plan", "divergence"):
             p.add_argument(flag, dest=dest, action="store_true", help=argparse.SUPPRESS)
         else:
             p.add_argument(flag, dest=dest, default=None, help=argparse.SUPPRESS)
@@ -124,6 +130,11 @@ def cmd_run(args: argparse.Namespace) -> int:
         staleness=args.staleness,
         backend=args.backend,
         host_devices=args.host_devices,
+        frame_interval=args.frame_interval,
+        debug=args.debug,
+        checkpoint_every=args.checkpoint_every,
+        checkpoint_dir=args.checkpoint_dir,
+        resume_from=args.resume,
     )
     print(f"lbm_tpu_torch: device={device} ({device_name(device)})")
 
@@ -144,6 +155,11 @@ def cmd_run(args: argparse.Namespace) -> int:
             scene.params,
         )
         write_av_vels(os.path.join(args.out_dir, args.av_vels_file), result.av_vels)
+        if result.frames is not None:
+            from lbm_tpu_torch.tools.animation import write_frame_files
+
+            write_frame_files(os.path.join(args.out_dir, "animation_data"), result.frames,
+                              result.frame_steps, scene.params)
     return 0
 
 

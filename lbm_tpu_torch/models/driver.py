@@ -20,24 +20,59 @@ through a sync program on the same mesh, continuing from the bulk's final
 state (lbm_tpu/models/driver.py:879-935).  Either variant then reads
 ``...+sync-tailN``.
 
+Every run is one loop over segments (:func:`_segments`), each advanced
+through the program's own runners (:class:`_Advance`), with a hook after
+each segment (:func:`_observers`; ``lbm_tpu``'s ``_make_scan`` :322-654
+and ``_run_with_checkpoints`` :689-769):
+
+- **plain**: whole sweeps or chunks in 4000-step segments, then the tail;
+- **frames** (``frame_interval``): frame k is |u| (``program.u_mag``) of
+  the state after k * interval + 1 steps, ``frame_steps = start + k *
+  interval``.  The run advances between captures through the program's
+  ``make_run_all`` (K2, K3, K10, K4, K1 on one device; the sharded
+  programs' runners), a chunked program through whole chunks and its chunk
+  primitives at mid-chunk phases, exchanging before every step from
+  ``bulk_start`` on (the plain run's sync tail), and ca through whole ca
+  sweeps, its odd steps through a sync program.  The frames buffer is
+  allocated once on the device, before the compute bracket;
+- **debug**: one step per call of the program's own ``make_run_all(1)``
+  (a chunked program: its primitives), tot_u and the total density after
+  every step, printed after the timed loop in ``lbm_tpu``'s format; an
+  f32 ca run (int16 where its engine is K8-i16,
+  ``modes.ca_decomposes_per_step``) is observed through its bitwise-equal
+  sync schedule and reads ``ca-K+debug-as-sync``;
+- **checkpoints**: segments of ``checkpoint_every`` steps, after each
+  ``ckpt_%08d.npz`` (``f`` through ``f_of``, ``step``, ``av_vels``), inside
+  the compute bracket; ``resume_from`` continues one (io/state.py),
+  ``av_vels`` prefixed.
+
+So plain, frames and debug runs are bitwise equal on fields at any step
+count on every variant with a per-step decomposition; av_vels too wherever
+the kernel's per-step |u| grouping does not depend on where a launch
+starts (every single-device kernel but the sweeps' K1 tails).
+
 Launches are asynchronous, so the compute bracket ends with
 ``torch.cuda.synchronize()`` on every device of the run; without it the
 run would report the rate at which launches were queued.  Inside the loop
 nothing waits for the device and nothing is allocated per step: each
 segment's runner holds its buffers.
-
-Not yet ported: frames, debug, checkpoint/resume and plans.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
+import math
+import os
+import warnings
 
 import numpy as np
 import torch
 
 from lbm_tpu_torch.core import oracle
 from lbm_tpu_torch.io.scene import Scene
+from lbm_tpu_torch.io.state import load_reference_checkpoint
 from lbm_tpu_torch.models.program import StepProgram, build_single_program
 from lbm_tpu_torch.models.variants import SHARDED, resolve_variant
 from lbm_tpu_torch.ops import quant
@@ -76,6 +111,11 @@ class RunConfig:
     backend: str | None = None
     # N: the run's one device counts as N devices (lbm_tpu's --host-devices).
     host_devices: int | None = None
+    frame_interval: int | None = None  # capture |u| every k steps (None = off)
+    debug: bool = False  # per-step tot_u and total density (SerialCode/d2q9-bgk.c:175-179)
+    checkpoint_every: int | None = None  # save the state every N steps
+    checkpoint_dir: str = "checkpoints"
+    resume_from: str | None = None  # a checkpoint .npz to continue
 
 
 @dataclasses.dataclass
@@ -86,13 +126,19 @@ class RunResult:
     timer: PhaseTimer
     variant: str
     device: str
+    frames: np.ndarray | None = None  # (n_frames, ny, nx) |u| snapshots
+    frame_steps: np.ndarray | None = None
+    # Steps this run's compute phase advanced (fewer than len(av_vels) when
+    # it resumed a checkpoint: the prefix was computed earlier).
+    steps_computed: int | None = None
 
     @property
     def mlups(self) -> float:
         """Million lattice-cell updates per second of the compute phase."""
         cells = self.f.shape[1] * self.f.shape[2]
+        steps = self.steps_computed if self.steps_computed is not None else len(self.av_vels)
         secs = self.timer.elapsed.get("compute", 0.0)
-        return cells * len(self.av_vels) / secs / 1e6 if secs > 0 else float("nan")
+        return cells * steps / secs / 1e6 if secs > 0 else float("nan")
 
 
 def resolve_device(name: str | torch.device) -> torch.device:
@@ -148,6 +194,15 @@ def ca_staleness(scene: Scene, config: RunConfig, n_dev: int) -> int:
     return modes.ca_default_staleness(scene.params, scene.obstacles, n_dev, config.storage)
 
 
+def _n_devices(config: RunConfig, device: torch.device) -> int:
+    return (config.num_devices if config.num_devices is not None
+            else len(mesh_lib.available_devices(device, config.host_devices)))
+
+
+def _backend(config: RunConfig) -> str | None:
+    return {"jnp": "torch", "pallas": "cuda"}.get(config.backend, config.backend)
+
+
 def choose_variant(scene: Scene, config: RunConfig, device: torch.device) -> str:
     """The variant a run takes: the one named, or for ``auto`` on more than
     one device ``lbm_tpu``'s multi-device rule (driver.py:141-175), else the
@@ -157,22 +212,25 @@ def choose_variant(scene: Scene, config: RunConfig, device: torch.device) -> str
     The devices are ``num_devices`` of the run's devices: every card of a
     CUDA host, or ``host_devices`` copies of the run's one device.  On more
     than one: ``ca`` wherever it maps at the depth the run will use
-    (``modes.ca_supported``; not on the torch backend), else the stale-row
-    model's async where its deviation stays well inside the 1% contract,
-    else the exact overlap."""
+    (``modes.ca_supported``; not on the torch backend) and, for a run with
+    ``--debug`` or frames, can be observed per step
+    (``modes.ca_decomposes_per_step``: int16 only on K8-i16), else the
+    stale-row model's async where its deviation stays well inside the 1%
+    contract, else the exact overlap."""
     v = resolve_variant(config.variant)
     if v == "auto":
-        n_dev = (config.num_devices if config.num_devices is not None
-                 else len(mesh_lib.available_devices(device, config.host_devices)))
+        n_dev = _n_devices(config, device)
         if n_dev > 1:
-            backend = {"jnp": "torch", "pallas": "cuda"}.get(config.backend, config.backend)
-            if backend != "torch" and modes.ca_supported(
-                    scene.params, scene.obstacles, n_dev, ca_staleness(scene, config, n_dev),
-                    config.storage):
+            observed = config.debug or config.frame_interval is not None
+            engine = (modes.ca_engine_of(scene.params, scene.obstacles, n_dev,
+                                         ca_staleness(scene, config, n_dev), config.storage)
+                      if _backend(config) != "torch" else None)
+            if engine is not None and (not observed
+                                       or modes.ca_decomposes_per_step(engine, config.storage)):
                 return "ca"
             return "async" if 2.0 * n_dev / scene.params.ny <= 0.03 else "overlap"
     if v not in SHARDED and v != "serial" and config.backend is not None:
-        backend = {"jnp": "torch", "pallas": "cuda"}.get(config.backend, config.backend)
+        backend = _backend(config)
         if backend not in ("torch", "cuda"):
             raise ValueError(f"unknown backend {config.backend!r}; use 'torch' or 'cuda'")
         v = backend
@@ -227,35 +285,238 @@ def _segment_lengths(num_steps: int, config: RunConfig, sweep_k: int = 1) -> lis
     return lengths
 
 
-def _tail_runner(scene: Scene, config: RunConfig, device: torch.device,
-                 program: StepProgram, num_steps: int):
-    """The runner of a multi-step program's last ``num_steps`` (fewer than
-    one sweep or chunk), ``state -> (state, tot_us (num_steps,))``: a
-    chunked program's own primitives (:func:`_run_tail`), or, for ca, whose
-    state is the bare f, a sync program on the same mesh, storage and
-    backend, which continues the bulk's final state bitwise
-    (lbm_tpu/models/driver.py:914-941)."""
-    if program.chunk_inner_step is not None:
-        return lambda state: _run_tail(program, state, num_steps)
+def _sync_program(scene: Scene, config: RunConfig, device: torch.device) -> StepProgram:
+    """A sync program on the run's mesh, storage and backend: it continues a
+    ca state (the bare f) bitwise (lbm_tpu/models/driver.py:914-941)."""
     sync_cfg = dataclasses.replace(config, variant="sync", staleness=None, temporal_k=None)
-    return build_program(scene, sync_cfg, device, variant="sync").make_run_all(num_steps)
-
-
-def _run_tail(program: StepProgram, state, num_steps: int):
-    """``num_steps`` steps of a chunked program as exchange-then-inner per
-    step (fresh ghosts every step: the sync discipline); returns (state,
-    tot_us (num_steps,))."""
-    tots = []
-    for _ in range(num_steps):
-        state = program.chunk_exchange(state)
-        state, tot_u = program.chunk_inner_step(state)
-        tots.append(tot_u.reshape(1))
-    return state, torch.cat(tots)
+    return build_program(scene, sync_cfg, device, variant="sync")
 
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _segments(config: RunConfig, program: StepProgram, num_steps: int) -> list[tuple[int, int]]:
+    """The segments ``(start, n)`` that a run's ``num_steps`` steps advance
+    in, one advance each: with ``--debug`` one per step; with frames one
+    step, then ``frame_interval`` steps per further frame (frame k is the
+    state after k * interval + 1 steps), then the rest (``lbm_tpu``'s
+    ``_make_scan``, driver.py:459-652); with checkpoints
+    ``checkpoint_every`` steps (:722-725); else whole sweeps or chunks
+    (:func:`_segment_lengths`), then the tail of a multi-step program,
+    fewer steps than one chunk or ca sweep.  Raises with ``lbm_tpu``'s
+    refusals (:345-346, :410-416, :713-720)."""
+    spc = program.steps_per_call
+    chunked = spc > 1 and program.chunk_inner_step is not None
+    interval = config.frame_interval
+    if config.debug:
+        if chunked and interval is not None:
+            raise ValueError("frames and --debug cannot be combined")
+        lengths = [1] * num_steps
+    elif interval is not None:
+        if chunked and interval % spc:
+            raise ValueError(
+                f"frame capture with {program.variant} requires --frame-interval to be a "
+                f"multiple of the {spc}-step chunk (capture segments must all start at the "
+                "same in-chunk phase)")
+        lengths = [1] + [interval] * (math.ceil(num_steps / interval) - 1) if num_steps else []
+    elif config.checkpoint_every is not None:
+        seg = config.checkpoint_every
+        if spc > 1 and seg % spc:
+            raise ValueError("checkpoint_every must be a multiple of the chunk size")
+        if spc > 1 and num_steps % spc:
+            raise ValueError(
+                f"checkpointed {program.variant} runs require the step count to be a multiple "
+                f"of the {spc}-step chunk (drop --checkpoint-every to run the remainder as a "
+                "sync tail)")
+        lengths = [seg] * (num_steps // seg)
+    else:
+        bulk = num_steps - num_steps % spc
+        lengths = (_segment_lengths(bulk, config, max(program.sweep_k, spc))
+                   or ([bulk] if bulk else []))
+    if sum(lengths) < num_steps:
+        lengths.append(num_steps - sum(lengths))
+    starts = [0, *itertools.accumulate(lengths)][:len(lengths)]
+    return list(zip(starts, lengths))
+
+
+class _Advance:
+    """The advances of a run's segments, ``state -> (state, (n,) tot_us)``
+    for its steps [start, start + n), through the program's own runners,
+    built in init once per distinct length (their buffers allocated there).
+    A multi-step program runs whole chunks or ca sweeps where a segment
+    holds them, and the rest:
+
+    - chunked: through its primitives, inner steps with an exchange at
+      every chunk boundary and, from ``bulk_start`` (the end of the run's
+      last whole chunk) on, one before every inner step, the plain run's
+      sync tail (``lbm_tpu``'s driver.py:547-579);
+    - ca, whose state is the bare f: a sync program on the same mesh,
+      storage and backend, which continues it bitwise (:580-602, :914-941).
+    """
+
+    def __init__(self, scene: Scene, config: RunConfig, device: torch.device,
+                 program: StepProgram, num_steps: int):
+        self.program, self.spc = program, program.steps_per_call
+        self.chunked = self.spc > 1 and program.chunk_inner_step is not None
+        self.bulk_start = num_steps - num_steps % self.spc
+        self._new_sync = lambda: _sync_program(scene, config, device)
+        self._sync_prog = None
+        self._runners: dict = {}
+        self.primitives = False
+
+    def _runner(self, program: StepProgram, n: int):
+        key = (id(program), n)
+        if key not in self._runners:
+            self._runners[key] = program.make_run_all(n)
+        return self._runners[key]
+
+    def __call__(self, start: int, n: int):
+        p, spc = self.program, self.spc
+        if spc == 1:
+            return self._runner(p, n)
+        pieces, pos, end = [], start, start + n
+        if self.chunked:
+            while pos < end:
+                whole_end = min(end, self.bulk_start)
+                whole = (whole_end - pos) // spc * spc if pos % spc == 0 else 0
+                if whole > 0:
+                    pieces.append(self._runner(p, whole))
+                    pos += whole
+                    continue
+                first = pos
+                pos += 1
+                while pos < end and (pos % spc or pos + spc > whole_end):
+                    pos += 1
+                pieces.append(functools.partial(self._primitive_steps, first, pos))
+                self.primitives = True
+        else:
+            calls, odd = divmod(n, spc)  # ca: whole sweeps, then sync steps
+            if calls:
+                pieces.append(self._runner(p, calls * spc))
+            if odd:
+                self._sync_prog = self._sync_prog or self._new_sync()
+                pieces.append(self._runner(self._sync_prog, odd))
+        if len(pieces) == 1:
+            return pieces[0]
+
+        def advance(state):
+            parts = []
+            for run in pieces:
+                state, t = run(state)
+                parts.append(t)
+            return state, torch.cat(parts)
+
+        return advance
+
+    def _primitive_steps(self, first: int, stop: int, state):
+        p, spc = self.program, self.spc
+        tots = []
+        for pos in range(first, stop):
+            if pos >= self.bulk_start:
+                state = p.chunk_exchange(state)
+            state, tot_u = p.chunk_inner_step(state)
+            tots.append(tot_u.reshape(1))
+            if pos + 1 <= self.bulk_start and (pos + 1) % spc == 0:
+                state = p.chunk_exchange(state)  # the chunk's own exchange
+        return state, torch.cat(tots)
+
+    def warm(self) -> None:
+        """A discarded run that launches each kernel once (a step, or a
+        sweep and a step, or a chunk or ca sweep; the primitives and the
+        sync program where segments take them): a kernel's first launch
+        loads it, which belongs to init with the build.  Every runner of a
+        program shares its kernels."""
+        p = self.program
+        state, _ = p.make_run_all(max(self.spc, p.sweep_k + (p.sweep_k > 1)))(p.init_state)
+        if self.primitives:
+            p.chunk_exchange(p.chunk_inner_step(state)[0])
+        if self._sync_prog is not None:
+            self._sync_prog.make_run_all(1)(state)
+
+
+def _observers(config: RunConfig, program: StepProgram, num_steps: int, dev: torch.device,
+               tots: torch.Tensor, start_step: int, av_prefix: np.ndarray):
+    """The hook a run calls after each segment, ``(end, state)`` with
+    ``end`` the run's steps so far, or None; and the buffers of frames and
+    of per-step densities it fills (or None), allocated here on the device,
+    before the compute bracket.
+
+    - frames: |u| (``program.u_mag``) of the state after k * interval + 1
+      steps into frame k;
+    - debug: the total density after every step (its tot_u is the
+      segment's own);
+    - checkpoints: the distributions (through ``f_of``), the step count and
+      the av_vels so far into ``checkpoint_dir/ckpt_%08d.npz``, inside the
+      compute bracket: it is a cost of checkpointing (driver.py:739-754)."""
+    interval, every = config.frame_interval, config.checkpoint_every
+    frames = dens = None
+    if interval is not None:
+        frames = torch.zeros((math.ceil(num_steps / interval), *program.global_shape),
+                             dtype=torch.float32, device=dev)
+    if config.debug:
+        dens = torch.zeros(num_steps, dtype=torch.float32, device=dev)
+    if every is not None:
+        os.makedirs(config.checkpoint_dir, exist_ok=True)
+    elif frames is None and dens is None:
+        return None, None, None
+
+    def hook(end: int, state) -> None:
+        if dens is not None:
+            dens[end - 1] = torch.sum(program.f_of(state), dtype=torch.float32)
+        if frames is not None and (end - 1) % interval == 0:
+            frame = program.u_mag(state)
+            frames[(end - 1) // interval, :frame.shape[0], :frame.shape[1]] = frame
+        if every is not None:
+            step = start_step + end
+            av = (tots[:end].cpu().numpy().astype(np.float32, copy=False)
+                  / np.float32(program.tot_cells))
+            np.savez_compressed(
+                os.path.join(config.checkpoint_dir, f"ckpt_{step:08d}.npz"),
+                f=program.f_of(state).cpu().numpy().astype(np.float32, copy=False),
+                step=step, av_vels=np.concatenate([av_prefix, av]))
+
+    return hook, frames, dens
+
+
+def _load_resume(path: str, params, num_steps: int):
+    """(f, step, av_vels) of a checkpoint to continue (lbm_tpu/models/driver.py:799-817)."""
+    ck = load_reference_checkpoint(path)
+    if ck.f.shape != (9, params.ny, params.nx):
+        raise ValueError(f"checkpoint grid {ck.f.shape} does not match scene "
+                         f"(9, {params.ny}, {params.nx})")
+    if ck.step >= num_steps:
+        raise ValueError(f"checkpoint is at step {ck.step}, beyond num_steps={num_steps}")
+    return ck.f, ck.step, ck.av_vels
+
+
+def _check_observable(scene, config, device, variant) -> str | None:
+    """Refusals of observed runs that depend on the variant, before any
+    program is built; returns the ca label (``ca-K`` or ``ca-K-i16``) when
+    the run is to be observed through ca's sync schedule, else None."""
+    if variant != "ca" or not (config.debug or config.frame_interval is not None):
+        return None
+    n_dev = _n_devices(config, device)
+    staleness = ca_staleness(scene, config, n_dev)
+    engine = modes.ca_engine_of(scene.params, scene.obstacles, n_dev, staleness,
+                                config.storage, _backend(config))
+    if engine is not None and not modes.ca_decomposes_per_step(engine, config.storage):
+        if config.frame_interval is not None:
+            raise ValueError(
+                "--frame-interval with i16 ca is not supported: capture segments advance "
+                "through per-step sync steps whose per-step quantization grouping differs "
+                "from ca's once-per-sweep one, so the captured run would trace a different "
+                "trajectory than the plain run; use f32 storage (or the chunked variant, "
+                "whose primitives decompose exactly)")
+        raise ValueError(
+            f"debug tracing is not supported with ca-{modes.ca_depth(staleness)}-i16 "
+            f"({modes.ca_depth(staleness)} steps per call and no per-step decomposition; "
+            "i16 ca quantizes once per sweep, so the sync decomposition would trace a "
+            "different trajectory); use the sync/overlap/async variants instead")
+    if not config.debug:
+        return None
+    return f"ca-{modes.ca_depth(staleness)}" + ("-i16" if config.storage == "i16" else "")
 
 
 def run_simulation(
@@ -266,15 +527,32 @@ def run_simulation(
     """Run a simulation: init -> compute -> collate.
 
     ``f0`` (9, ny, nx) continues from a given state (e.g. one handed over
-    from ``lbm_tpu`` by io/state.py) instead of the rest equilibrium."""
+    from ``lbm_tpu`` by io/state.py) instead of the rest equilibrium;
+    ``config.resume_from`` continues a checkpoint of either package."""
     config = config or RunConfig()
     device = resolve_device(config.device)
     variant = choose_variant(scene, config, device)
     params = scene.params
     num_steps = config.num_steps if config.num_steps is not None else params.max_iters
     timer = PhaseTimer()
+    frames_on = config.frame_interval is not None
+    observed = frames_on or config.debug
+    if frames_on and config.frame_interval < 1:
+        raise ValueError(f"--frame-interval must be at least 1, got {config.frame_interval}")
+    if config.checkpoint_every is not None:
+        if config.checkpoint_every < 1:
+            raise ValueError(f"--checkpoint-every must be at least 1, got "
+                             f"{config.checkpoint_every}")
+        if observed:
+            raise ValueError("frames/debug are not supported with checkpointing")
 
     if variant == "serial":
+        if config.resume_from or config.checkpoint_every:
+            raise ValueError("checkpoint/resume is not supported with the serial oracle "
+                             "variant; use the torch or cuda variant")
+        if observed:
+            raise ValueError("frames and --debug are not supported with the serial oracle "
+                             "variant; use the torch or cuda variant")
         with timer.section("init"):
             f_init = None if f0 is None else torch.as_tensor(f0).cpu().numpy()
         with timer.section("compute"):
@@ -282,51 +560,74 @@ def run_simulation(
         with timer.section("collate"):
             pass
         reynolds = calc_reynolds(params, av_vels[-1]) if num_steps else 0.0
-        return RunResult(f, av_vels, reynolds, timer, variant, "cpu")
+        return RunResult(f, av_vels, reynolds, timer, variant, "cpu", steps_computed=num_steps)
+
+    start_step, av_prefix = 0, np.zeros(0, dtype=np.float32)
+    if config.resume_from:
+        if f0 is not None:
+            raise ValueError("give either an initial state or a checkpoint to resume, not both")
+        f0, start_step, av_prefix = _load_resume(config.resume_from, params, num_steps)
+    remaining = num_steps - start_step
 
     timer.start("init")
-    program = build_program(scene, config, device, f0, variant)
+    ca_label = _check_observable(scene, config, device, variant)
+    if ca_label is not None:
+        warnings.warn(f"--debug decomposes {ca_label} into its bitwise-identical sync schedule "
+                      "(one exchange per step) for per-step observables", stacklevel=2)
+        program = build_program(scene, dataclasses.replace(
+            config, variant="sync", staleness=None, temporal_k=None), device, f0, "sync")
+        program.variant = f"{ca_label}+debug-as-sync"
+    else:
+        program = build_program(scene, config, device, f0, variant)
     devices = mesh_devices(config, device).distinct if variant in SHARDED else (device,)
-    spc = program.steps_per_call
-    tail = num_steps % spc
-    bulk = num_steps - tail
-    seg_lengths = (_segment_lengths(bulk, config, max(program.sweep_k, spc))
-                   or ([bulk] if bulk else []))
-    runners = {n: program.make_run_all(n) for n in sorted(set(seg_lengths))}
-    tail_run = _tail_runner(scene, config, device, program, tail) if tail else None
+    segments = _segments(config, program, remaining)
+    advance = _Advance(scene, config, device, program, remaining)
+    advances = [advance(start, n) for start, n in segments]
+    state = program.init_state  # sums and frames live with the first shard
+    dev = state.f[0].device if isinstance(state, modes.ShardedState) else device
+    tots = torch.zeros(remaining, dtype=torch.float32, device=dev)
+    hook, frames, densities = _observers(config, program, remaining, dev, tots, start_step,
+                                         av_prefix)
     if device.type == "cuda":
-        # A discarded run that launches each kernel once (a step, or a sweep
-        # and a step, or a chunk or ca sweep, and the tail): a kernel's
-        # first launch loads it, which belongs to init with the build.
-        state, _ = program.make_run_all(max(spc, program.sweep_k + (program.sweep_k > 1)))(
-            program.init_state)
-        if tail:
-            tail_run(state)
+        advance.warm()
         for d in devices:
             _sync(d)
     timer.stop("init")
 
     timer.start("compute")
-    state, parts = program.init_state, []
-    for n in seg_lengths:
-        state, tot_us = runners[n](state)
-        parts.append(tot_us)
-    if tail:
-        state, tot_us = tail_run(state)
-        parts.append(tot_us)
+    for (start, n), run in zip(segments, advances):
+        state, tot_us = run(state)
+        tots[start:start + n] = tot_us
+        if hook is not None:
+            hook(start + n, state)
     for d in devices:
         _sync(d)
     timer.stop("compute")
 
     timer.start("collate")
-    if parts:
-        tot_us = torch.cat(parts).cpu().numpy().astype(np.float32, copy=False)
-    else:
-        tot_us = np.zeros(0, dtype=np.float32)
     f = program.f_of(state).cpu().numpy().astype(np.float32, copy=False)
-    av_vels = tot_us / np.float32(program.tot_cells)
+    av_vels = tots.cpu().numpy() / np.float32(program.tot_cells)
+    if start_step:
+        av_vels = np.concatenate([av_prefix, av_vels])
+    if frames is not None:
+        frames = frames.cpu().numpy()[:, :params.ny, :params.nx]
+    if densities is not None:
+        densities = densities.cpu().numpy()
     timer.stop("collate")
 
-    reynolds = calc_reynolds(params, av_vels[-1]) if num_steps else 0.0
+    frame_steps = (start_step + np.arange(frames.shape[0]) * config.frame_interval
+                   if frames is not None else None)
+    if densities is not None:
+        # The reference's DEBUG output, deferred out of the timed loop
+        # (SerialCode/d2q9-bgk.c:175-179, lbm_tpu/models/driver.py:1046-1052).
+        for tt in range(start_step, num_steps):
+            print(f"==timestep: {tt}==")
+            print("av velocity: %.12E" % av_vels[tt])
+            print("tot density: %.12E" % densities[tt - start_step])
+
+    reynolds = calc_reynolds(params, av_vels[-1]) if len(av_vels) else 0.0
+    # A plain run's last segment is its tail (checkpointed runs have none).
+    tail = 0 if observed else remaining % program.steps_per_call
     label = program.variant + (f"+sync-tail{tail}" if tail else "")
-    return RunResult(f, av_vels, reynolds, timer, label, device_name(device))
+    return RunResult(f, av_vels, reynolds, timer, label, device_name(device), frames=frames,
+                     frame_steps=frame_steps, steps_computed=remaining)

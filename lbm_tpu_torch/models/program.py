@@ -35,10 +35,17 @@ in-place kernel.  int16 runs K3-i16 to 256^2 and K1-i16 above; K4-i16,
 though faster, strays further from f32 (``temporal_cuda.pick_k``) and runs
 only with ``--temporal-k``.
 
+``LBM_RESIDENT_KIND`` forces the resident kernel (:func:`resident_kind_choice`):
+``mono`` K2, ``inplace`` K3, ``blocked`` K10 (``cuda-blocked``, the port of
+B4), ``auto`` the policy above, which never picks K10.
+
 ``step`` is K1 (K1-i16).  ``storage="i16"`` needs the cuda backend.  The
 ``torch`` backend runs the plain twin on either device, f32 only, and takes
 no ``temporal_k``, as ``lbm_tpu``'s jnp backend does not.  On the CPU the
 ``cuda`` backend's wrappers run their plain versions.
+
+``u_mag`` is the frame of a state, |u| per cell and 0 on obstacles,
+``lbm_tpu``'s ``_u_mag_fn`` (modes.py:177-185) op for op.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ import torch
 
 from lbm_tpu_torch.core import lattice
 from lbm_tpu_torch.ops import (
+    blocked_cuda,
     fused_cuda,
     fused_torch,
     hbm_cuda,
@@ -94,6 +102,69 @@ class StepProgram:
     # ca only: the K-sweep engine that runs it (``slab``, ``resident`` or
     # ``inplace``; parallel/modes.py ca_engine_choice).
     engine: str | None = None
+    # state -> (ny, nx) float32 |u|, 0 on obstacles: the frame of a state,
+    # on the device of f_of's result.
+    u_mag: Callable[[Any], torch.Tensor] | None = None
+    # (rows, columns) of the state inside the program, seam padding
+    # included; a buffer of frames has this shape per frame, and frames are
+    # cropped to the grid at collate (lbm_tpu's modes.py:110-114).
+    global_shape: tuple[int, int] | None = None
+
+
+def u_mag_fn(obstacles: torch.Tensor) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``f (9, ny, nx) -> (ny, nx)`` |u| of each cell from its moments, 0 on
+    obstacles (``lbm_tpu``'s ``_u_mag_fn``, modes.py:177-185, op for op)."""
+
+    def u_mag(f: torch.Tensor) -> torch.Tensor:
+        rho = torch.sum(f, dim=0)
+        u_x = ((f[1] + f[5] + f[8]) - (f[3] + f[6] + f[7])) / rho
+        u_y = ((f[2] + f[5] + f[6]) - (f[4] + f[7] + f[8])) / rho
+        speed = torch.sqrt(u_x * u_x + u_y * u_y)
+        return torch.where(obstacles, torch.zeros_like(speed), speed)
+
+    return u_mag
+
+
+RESIDENT_KINDS = ("mono", "inplace", "blocked")
+
+
+def resident_kind_choice(params: LBMParams, storage: str = "f32") -> str | None:
+    """The variant ``LBM_RESIDENT_KIND`` forces on the cuda backend, or None
+    for ``auto`` (unset): ``mono`` -> K2 (``cuda-resident``), ``inplace`` ->
+    K3 (``cuda-inplace[-i16]``), ``blocked`` -> K10 (``cuda-blocked``), whatever
+    ``temporal_k`` is, as ``lbm_tpu``'s resident branch (modes.py:493-505).
+
+    ``lbm_tpu``'s knob (resident_pallas.auto_raised_plan :141-154) picks the
+    kernel of its raised scoped-VMEM band, and its only route to B4 is a
+    raised ``LBM_VMEM_LIMIT_MB`` beyond the monolithic budget; the VMEM
+    ladder is not ported, so ``blocked`` is the port's route to B4.  Auto
+    never picks K10, as ``lbm_tpu``'s auto never reaches B4 where the
+    in-place band fits (:82-84).
+
+    A forced kind that cannot map raises ``ValueError``: K2 beyond
+    ``resident_cuda.L2_STATE_BUDGET`` or with int16, K3 beyond its budget of
+    the storage, K10 with int16 (K10 takes any f32 grid: its copies stream
+    from HBM where they do not fit L2)."""
+    kind = os.environ.get("LBM_RESIDENT_KIND", "auto").strip().lower()
+    if kind == "auto":
+        return None
+    if kind not in RESIDENT_KINDS:
+        raise ValueError(f"LBM_RESIDENT_KIND={kind!r}; use one of {RESIDENT_KINDS} or auto")
+    grid = f"the {params.nx}x{params.ny} grid"
+    if kind == "inplace":
+        if not inplace_cuda.fits_l2(params.ny, params.nx, storage):
+            raise ValueError(f"LBM_RESIDENT_KIND=inplace: K3 (one {storage} copy within its L2 "
+                             f"budget) cannot map {grid}")
+        return "cuda-inplace" + ("-i16" if storage == "i16" else "")
+    if storage != "f32":
+        raise ValueError(f"LBM_RESIDENT_KIND={kind}: storage {storage!r} maps only the "
+                         "in-place resident kernel (LBM_RESIDENT_KIND=inplace)")
+    if kind == "mono":
+        if not resident_cuda.fits_l2(params.ny, params.nx):
+            raise ValueError(f"LBM_RESIDENT_KIND=mono: K2 (two f32 copies within "
+                             f"{resident_cuda.L2_STATE_BUDGET >> 20} MiB) cannot map {grid}")
+        return "cuda-resident"
+    return "cuda-blocked"
 
 
 def temporal_impl_choice(params: LBMParams, K: int, storage: str = "f32") -> str | None:
@@ -134,8 +205,16 @@ def cuda_choice(params: LBMParams, storage: str = "f32",
 
     ``temporal_k``: None picks the depth (``temporal_cuda.pick_k``), 1
     disables the sweeps, >= 2 forces a depth; a forced depth that cannot
-    map warns with ``lbm_tpu``'s text and gives the K1 loop."""
+    map warns with ``lbm_tpu``'s text and gives the K1 loop.
+
+    Variants: ``cuda-resident`` (K2), ``cuda-inplace[-i16]`` (K3),
+    ``cuda-blocked`` (K10, forced only: :func:`resident_kind_choice`),
+    ``cuda-trapezoid[-i16]`` (K4), ``cuda-skew[-i16]`` (K5), ``cuda-hbm``
+    (K9), ``cuda-step[-i16]`` (K1)."""
     suffix = "-i16" if storage == "i16" else ""
+    forced = resident_kind_choice(params, storage)
+    if forced is not None:
+        return forced, 1
     if storage == "f32" and resident_cuda.fits_l2(params.ny, params.nx):
         return "cuda-resident", 1
     if temporal_k is None and inplace_cuda.fits_l2(params.ny, params.nx, storage):
@@ -193,6 +272,7 @@ def build_single_program(
         variant, K = cuda_choice(params, storage, temporal_k)
         make_run_all = {
             "cuda-resident": lambda n: resident_cuda.make_run_all(params, obst, n),
+            "cuda-blocked": lambda n: blocked_cuda.make_run_all(params, obst, n),
             "cuda-inplace": lambda n: inplace_cuda.make_run_all(params, obst, n, storage=storage),
             "cuda-trapezoid": lambda n: temporal_cuda.make_run_all(params, obst, n, K, storage),
             "cuda-skew": lambda n: skew_cuda.make_run_all(params, obst, n, K, storage),
@@ -221,6 +301,7 @@ def build_single_program(
         def f_of(f):
             return f
 
+    mag = u_mag_fn(obst)
     return StepProgram(
         init_state=init_state,
         step=step,
@@ -229,4 +310,6 @@ def build_single_program(
         tot_cells=tot_cells,
         variant=variant,
         sweep_k=K,
+        u_mag=lambda state: mag(f_of(state)),
+        global_shape=(ny, nx),
     )

@@ -61,6 +61,9 @@ _SIGNATURES = {
                           _I, _I, _P, _I],
     "lbm_resident_grid": [_I, _I, _I],
     "lbm_resident_chunk": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P, _I],
+    "lbm_blocked_grid": [_I, _I, _I, _I],
+    "lbm_blocked_chunk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P,
+                          _I],
     "lbm_inplace_grid": [_I, _I, _I, _I],
     "lbm_trapezoid_slab": [_P, _L, _P, _L, _P, _L, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _F,
                            _F, _F, _I, _P, _I, _I, _I, _P, _I],

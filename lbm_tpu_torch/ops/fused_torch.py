@@ -21,6 +21,10 @@ The slab form (``stream_slab`` / ``fused_step_slab``, and
 sharded modes (parallel/modes.py): one step over a row slab with one ghost
 row on each side, the plain version of K1-slab.
 
+``blocked_chunk`` is the plain version of K10: a chunk of steps walked as
+row blocks over two copies, with its per-step |u| grouping
+(``column_sum``).
+
 ``ca_sweep`` is the plain version of the ca engines (K4-slab, K7, K8): K
 periodic steps of a shard's ghost-extended slab (``fused_step_ext``),
 returning the body rows and the per-level |u| of the body; int16 is
@@ -201,6 +205,69 @@ def run_sweeps(
     f, tot = run_steps(f, obstacles, params, rem, storage)
     parts.append(tot)
     return f, torch.cat(parts)
+
+
+REDUCE_THREADS = 256  # threads of csrc/lbm_common.cuh lbm_reduce_row
+
+
+def column_sum(vec: torch.Tensor) -> torch.Tensor:
+    """The sum of an (nx,) or (1, nx) float32 vector in the fixed order of
+    ``lbm_reduce_row`` (csrc/lbm_common.cuh), so that the plain version of a
+    kernel that ends in it gives the kernel's bits: thread t of 256 adds
+    entries t, t + 256, ... in turn, then a tree halves the 256 sums."""
+    v = vec.reshape(-1)
+    n = REDUCE_THREADS
+    v = torch.cat([v, v.new_zeros((-v.numel()) % n)])
+    acc = v[:n]
+    for r in range(1, v.numel() // n):
+        acc = acc + v[r * n:(r + 1) * n]
+    while n > 1:
+        n //= 2
+        acc = acc[:n] + acc[n:2 * n]
+    return acc[0]
+
+
+def blocked_chunk(f: torch.Tensor, obstacles: torch.Tensor, params: LBMParams, chunk: int,
+                  block_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of K10 (csrc/blocked.cu), which computes what
+    ``lbm_tpu``'s ``_blocked_chunk_kernel`` (resident_pallas.py:480)
+    computes: ``chunk`` steps ping-ponging between two copies of the
+    (9, ny, nx) float32 state; each step takes the driven row's
+    accel-adjusted row once from the pre-stream source (:499-505), then walks
+    row blocks of ``block_rows`` rows (the last one partial where they do not
+    divide ny), each block reading the periodic shifted windows
+    ``[r0 - cy, r0 + B - cy)`` of the adjusted source (:507-537) and
+    colliding through ``stencil_math.collide_and_av_rows``; the block
+    partials are summed in block order, then once over the columns
+    (:539-555, :func:`column_sum`).  An odd chunk ends in the second copy,
+    an even one in the first (:557-570).
+
+    Fields equal the twin step's bitwise; tot_u (chunk,) is K10's grouping.
+    ``f`` is not modified."""
+    omega, w1, w2 = step_constants(params)
+    ny, nx, ar = params.ny, params.nx, params.accel_row
+    B = block_rows
+    copies = [f.clone(), torch.empty_like(f)]
+    tot_us = torch.empty(chunk, dtype=torch.float32, device=f.device)
+    for t in range(chunk):
+        src, dst = copies[t % 2], copies[(t + 1) % 2]
+        adj = apply_accel_row(src[:, ar, :], ~obstacles[ar, :], w1, w2)
+        src = src.clone()
+        src[:, ar, :] = adj
+        tot = None
+        for r0 in range(0, ny, B):
+            r1 = min(r0 + B, ny)
+            streamed = [
+                torch.roll(src[k, torch.remainder(torch.arange(r0, r1, device=f.device)
+                                                  - lattice.CY[k], ny)],
+                           lattice.CX[k], dims=1)
+                for k in range(lattice.NSPEEDS)
+            ]
+            out, partial = stencil_math.collide_and_av_rows(streamed, obstacles[r0:r1], omega)
+            dst[:, r0:r1] = torch.stack(out)
+            tot = partial if tot is None else tot + partial
+        tot_us[t] = column_sum(tot)
+    return copies[chunk % 2], tot_us
 
 
 def fused_step_ext(f_ext: torch.Tensor, obst_ext: torch.Tensor, params: LBMParams,

@@ -115,3 +115,30 @@ def collide_and_av(streamed, obst, omega: float):
     u_sq = u_x * u_x + u_y * u_y
     out = collide(streamed, obst, omega, rho, u_x, u_y, u_sq)
     return out, torch.sum(speeds(u_sq, ~obst), dtype=torch.float32)
+
+
+def collide_and_av_rows(streamed, obst, omega: float, row_mask=None):
+    """:func:`collide_and_av` with the |u| partial reduced over rows only
+    (``lbm_tpu``'s ``collide_and_av_rows``): returns (9 planes, (1, nx)
+    per-column partial).  ``row_mask`` (rows, 1) bool, optional, leaves rows
+    out of the partial; fields are unaffected.
+
+    The rows are added one after another in row order, so a caller that
+    walks a step as row blocks gets a fixed grouping of the step's |u| sum,
+    the one K10 (csrc/blocked.cu) takes: the rows of a block in row order,
+    then the blocks' partials in block order, then one sum over the columns
+    in the fixed order of ``fused_torch.column_sum``.  It is ``lbm_tpu``'s
+    av-partial contract (``av_mode`` there; its layouts are not ported, K2
+    has one): the same values as :func:`collide_and_av` up to the order of
+    the float32 additions."""
+    rho, u_x, u_y = moments(streamed)
+    u_sq = u_x * u_x + u_y * u_y
+    out = collide(streamed, obst, omega, rho, u_x, u_y, u_sq)
+    fluid = ~obst
+    if row_mask is not None:
+        fluid = fluid & row_mask
+    s = speeds(u_sq, fluid)
+    vec = s[0:1]
+    for r in range(1, s.shape[0]):
+        vec = vec + s[r:r + 1]
+    return out, vec

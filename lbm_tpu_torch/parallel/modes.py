@@ -68,7 +68,7 @@ import numpy as np
 import torch
 
 from lbm_tpu_torch.core import lattice
-from lbm_tpu_torch.models.program import StepProgram
+from lbm_tpu_torch.models.program import StepProgram, u_mag_fn
 from lbm_tpu_torch.ops import ca_cuda, fused_cuda, ghosted_cuda, quant, temporal_cuda
 from lbm_tpu_torch.params import LBMParams
 from lbm_tpu_torch.parallel import mesh as mesh_lib
@@ -141,11 +141,9 @@ def ca_default_staleness(params: LBMParams, obstacles: np.ndarray, num_shards: i
     ``lbm_tpu``'s K = 8 from 96 rows is a TPU measurement."""
     ny = obstacles.shape[0]
     ny_pad = ny + (-ny) % num_shards
-    nloc = ny_pad // num_shards
-    if (ca_supported(params, obstacles, num_shards, CA_DEEP_K, storage)
-            and ca_engine_choice(params, nloc, obstacles.shape[1], CA_DEEP_K, storage=storage,
-                                 ny_global=ny_pad) == "inplace"
-            and ca_cuda.inplace_parts(nloc, obstacles.shape[1], CA_DEEP_K, ny_pad, storage) == 1):
+    if (ca_engine_of(params, obstacles, num_shards, CA_DEEP_K, storage) == "inplace"
+            and ca_cuda.inplace_parts(ny_pad // num_shards, obstacles.shape[1], CA_DEEP_K,
+                                      ny_pad, storage) == 1):
         return CA_DEEP_K
     return STALENESS_DEFAULTS["ca"]
 
@@ -214,19 +212,43 @@ def ca_parts(nloc: int, nx: int, K: int, ny_global: int, storage: str = "f32") -
     return parts
 
 
-def ca_supported(params: LBMParams, obstacles: np.ndarray, num_shards: int,
-                 staleness: int = STALENESS_DEFAULTS["ca"], storage: str = "f32") -> bool:
-    """Whether the ca mode maps this scene over ``num_shards`` shards
-    (``lbm_tpu``'s :610), exactly the build's gate: no open seam, at least
-    two rows per shard, and an engine that maps at ``ca_depth(staleness)``
+def ca_engine_of(params: LBMParams, obstacles: np.ndarray, num_shards: int,
+                 staleness: int = STALENESS_DEFAULTS["ca"], storage: str = "f32",
+                 backend: str | None = None) -> str | None:
+    """The engine a ca build over ``num_shards`` shards at ``staleness``
+    would take, or None where ca does not map (``lbm_tpu``'s :610), exactly
+    the build's gate: no open seam, at least two rows per shard, and an
+    engine that maps at ``ca_depth(staleness)`` on the padded shard
     (:func:`ca_engine_choice`, ``LBM_CA_ENGINE`` included)."""
     ny, nx = obstacles.shape
     if open_seam_pad(obstacles, num_shards):
-        return False
+        return None
     ny_pad = ny + (-ny) % num_shards
     nloc = ny_pad // num_shards
-    return nloc >= 2 and ca_engine_choice(params, nloc, nx, ca_depth(staleness), storage=storage,
-                                          ny_global=ny_pad) is not None
+    if nloc < 2:
+        return None
+    return ca_engine_choice(params, nloc, nx, ca_depth(staleness), storage=storage,
+                            backend=backend or "cuda", ny_global=ny_pad)
+
+
+def ca_supported(params: LBMParams, obstacles: np.ndarray, num_shards: int,
+                 staleness: int = STALENESS_DEFAULTS["ca"], storage: str = "f32") -> bool:
+    """Whether the ca mode maps this scene over ``num_shards`` shards
+    (:func:`ca_engine_of`)."""
+    return ca_engine_of(params, obstacles, num_shards, staleness, storage) is not None
+
+
+def ca_decomposes_per_step(engine: str | None, storage: str) -> bool:
+    """Whether a ca run may be observed per step (``--debug``, and frames
+    whose segments end off a sweep boundary) through its sync schedule.
+
+    f32: always; ca's fields equal sync's bitwise.  int16: only where the
+    engine is K8-i16 (``inplace``), which quantizes every step, as sync-i16
+    does, so the two are bitwise equal (PERF.md, Findings on ca).  K4-slab-i16
+    (``slab``) quantizes once per sweep, so its sync decomposition would
+    trace a different trajectory: refused, as ``lbm_tpu`` refuses every
+    int16 ca there (driver.py:163-168, 394-402, 856-868)."""
+    return storage == "f32" or engine == "inplace"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -704,6 +726,10 @@ def build_sharded_program(
         f = torch.cat([x.to(dev0) for x in state.f], dim=1)[:, :ny_orig]
         return quant.dequantize(f, params.density) if storage == "i16" else f
 
+    # The frame: the shards gathered in row order on the first device,
+    # dequantized for int16, seam padding dropped (modes.py:1550-1562).
+    mag = u_mag_fn(torch.from_numpy(np.ascontiguousarray(obstacles[:ny_orig])).to(dev0))
+
     # ca reports its effective depth (modes.py:1566-1577).
     label = mode + (f"-{K}" if mode == "ca" else
                     f"-{staleness}" if mode in ("async", "chunked") and staleness > 1 else "")
@@ -718,4 +744,6 @@ def build_sharded_program(
         chunk_inner_step=chunk_inner_step,
         chunk_exchange=chunk_exchange,
         engine=engine,
+        u_mag=lambda state: mag(f_of(state)),
+        global_shape=(ny, nx),
     )

@@ -59,3 +59,13 @@ class LBMParams:
 
     def replace(self, **kw) -> "LBMParams":
         return dataclasses.replace(self, **kw)
+
+
+def with_driven_row(params, row: int):
+    """A copy of ``params`` (this package's LBMParams or any dataclass of
+    the same fields with an ``accel_row`` property) whose driven row is
+    ``row`` instead of ny - 2.  The kernels take the row as an argument, so
+    kernel checks put it in any row block, ghost or shard."""
+    cls = type(type(params).__name__, (type(params),),
+               {"accel_row": property(lambda self: row)})
+    return cls(**{f.name: getattr(params, f.name) for f in dataclasses.fields(params)})

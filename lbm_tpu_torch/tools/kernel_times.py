@@ -26,6 +26,10 @@ int16 (K7 f32 only), each where it maps, K8 also split into sub-slabs
 For each grid of ``--hbm``: K9 (the HBM-parts sweep) against K4 at each
 depth of ``--ca-depths``, in turns with K1.
 
+For each grid of ``--blocked``: K10 (the two-copy row-block kernel) at each
+row-block height of ``--blocked-rows``, in turns with K2 where it maps (to
+768^2), else with K3 and K4 at K = 4, and K10's plain version.
+
 ``--policy`` times, in turns, K2 against K3 at 128^2, 256^2 and 512^2 and
 K1-i16 against K3-i16 at 1024^2: the questions behind the program's L2
 budgets.
@@ -38,7 +42,8 @@ process, and the card's name and power limit::
     python -m lbm_tpu_torch.tools.kernel_times [--grids 128,256,512,1024,1536] \
         [--sweeps 1536,2048,4096] [--depths 2,4,8] [--shards 1024,4096] \
         [--ca 64x1024,256x1024,1024x4096] [--ca-depths 4,8] [--ca-parts 1,2,4,8,16] \
-        [--hbm 2048,4096] [--policy] [--repeats 7]
+        [--hbm 2048,4096] [--blocked 256,512,768,1024] [--blocked-rows 8] [--policy] \
+        [--repeats 7]
 
 Needs a CUDA device; without one it exits 1.
 """
@@ -393,6 +398,41 @@ def time_hbm(n: int, device, depths=(4, 8), repeats: int = 5) -> dict[str, tuple
     return time_in_turns(runs, repeats)
 
 
+def time_blocked(n: int, device, repeats: int = 7, block_rows=(8,),
+                 steps: int = 2048) -> dict[str, tuple[float, float, float]]:
+    """us/step (median, q1, q3) of K10 (256-step launches, each row-block
+    height of ``block_rows``: ``K10 B=8``, ...) in turns with the kernel
+    the policy would otherwise give the grid: K2 where two copies fit its
+    L2 budget (to 768^2), else K3 and K4 at K = 4 (1024^2); then K10's plain
+    version (``plain K10``, 8 steps) on an n x n closed box from rest."""
+    import torch
+
+    from lbm_tpu_torch.core import lattice
+    from lbm_tpu_torch.ops import blocked_cuda, inplace_cuda, resident_cuda, temporal_cuda
+    from lbm_tpu_torch.tools.bench import make_scene
+
+    scene = make_scene(f"{n}x{n}")
+    p = scene.params
+    obst = torch.from_numpy(scene.obstacles).to(device)
+    f0 = lattice.equilibrium_rest_device(p.density, n, n, device)
+    runs = {f"K10 B={b}": (blocked_cuda.make_run_all(p, obst, steps, block_rows=b), f0, steps)
+            for b in block_rows}
+    if resident_cuda.fits_l2(n, n):
+        runs["K2"] = (resident_cuda.make_run_all(p, obst, steps), f0, steps)
+    else:
+        if inplace_cuda.fits_l2(n, n):
+            runs["K3"] = (inplace_cuda.make_run_all(p, obst, steps), f0, steps)
+        if temporal_cuda.supports(p, 4):
+            runs["K4 K=4"] = (temporal_cuda.make_run_all(p, obst, steps, 4), f0, steps)
+    out = time_in_turns(runs, repeats)
+    del runs
+    plain_steps = 8
+    med, q1, q3 = _quartiles(_timed_ms(
+        lambda: blocked_cuda.run_plain(f0, obst, p, plain_steps), min(repeats, 3)))
+    out["plain K10"] = (med * 1e3 / plain_steps, q1 * 1e3 / plain_steps, q3 * 1e3 / plain_steps)
+    return out
+
+
 def time_policy(device, repeats: int = 7) -> dict[str, dict[str, tuple[float, float, float]]]:
     """The budget questions, each pair timed in turns in one process:
     K2 vs K3 (f32) at 128^2, 256^2, 512^2 and K1-i16 vs K3-i16 at 1024^2."""
@@ -461,6 +501,10 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--ca-depths", default="4,8")
     parser.add_argument("--ca-parts", default="1,2,4,8,16")
     parser.add_argument("--hbm", default="", help="grids to time K9 against K4 on")
+    parser.add_argument("--blocked", default="", help="grids to time K10 against the policy's "
+                        "kernel on, e.g. 256,512,768,1024")
+    parser.add_argument("--blocked-rows", default="8",
+                        help="K10 row-block heights to time, e.g. 4,8,16")
     parser.add_argument("--policy", action="store_true")
     parser.add_argument("--repeats", type=int, default=7)
     args = parser.parse_args(argv)
@@ -486,6 +530,10 @@ def main(argv: list[str] | None = None) -> int:
               + f" | {card}")
     for n in (int(g) for g in args.hbm.split(",") if g):
         print(format_grid(n, time_hbm(n, device, ca_depths, args.repeats)) + f" | {card}")
+    rows = tuple(int(b) for b in args.blocked_rows.split(","))
+    for n in (int(g) for g in args.blocked.split(",") if g):
+        print("in turns " + format_grid(n, time_blocked(n, device, args.repeats, rows))
+              + f" | {card}")
     if args.policy:
         for n, times in time_policy(device, args.repeats).items():
             print("in turns " + format_grid(n, times) + f" | {card}")

@@ -392,10 +392,11 @@ def test_build_flags_and_sources(tmp_path, monkeypatch):
     assert "fast_math" not in flags and "fast-math" not in flags
     assert {s.name for s in _build.sources()} == {
         "step.cu", "resident.cu", "inplace.cu", "temporal.cu", "skew.cu", "ghosted.cu",
-        "ca_resident.cu", "ca_inplace.cu", "lbm_common.cuh"}
+        "ca_resident.cu", "ca_inplace.cu", "blocked.cu", "lbm_common.cuh"}
     assert {"lbm_inplace_grid", "lbm_inplace_chunk", "lbm_step_run", "lbm_trapezoid_run",
             "lbm_skew_run", "lbm_slab_step", "lbm_ghosted_chunk", "lbm_trapezoid_slab",
-            "lbm_ca_resident", "lbm_ca_inplace", "lbm_hbm_sweep"} <= set(_build._SIGNATURES)
+            "lbm_ca_resident", "lbm_ca_inplace", "lbm_hbm_sweep", "lbm_blocked_grid",
+            "lbm_blocked_chunk"} <= set(_build._SIGNATURES)
     d0 = _build.build_dir()
     assert d0.parent == _build.BUILD_ROOT and len(d0.name) == 16
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
