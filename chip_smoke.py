@@ -36,10 +36,17 @@ power limit as nvidia-smi reports them):
    with (steps, chunk) = (600, 256), and K3-i16 vs K1-i16 at 1024x1024
    over 20000 steps;
 3d. the sweep kernels K4 (trapezoid) and K5 (skewed) vs their plain
-   version, f32 and int16: 1024x1024, 1536x1536, 2048x2048 and a ragged
-   1000x1500 at K in {2, 4, 8}, 50 steps (51 at K=2, so that every run
-   ends in a K1 tail), and 4096x4096 over 2K steps, from rest and from the
-   perturbed state; fields (int16 too) torch.equal, tot_u within rtol 1e-6;
+   version, f32 and int16: 1024x1024, 1536x1536, 2048x2048, a ragged
+   1000x1500, 1061x1499 (odd nx: rows that take K4's 4-byte copies and
+   int16 rows from odd elements; the driven row in the last row of a tile's region at K=4) and
+   60x100 (fewer tiles than the persistent grid) at K in {2, 4, 8}, 50
+   steps (51 at K=2, so that every run ends in a K1 tail), and 4096x4096
+   over 2K steps, from rest and from the perturbed state; fields (int16
+   too) torch.equal, tot_u within rtol 1e-6; the script fails unless K4's
+   cases reach the driven row in the first and last region row, tile counts
+   below and not a multiple of the persistent grid, every float32 copy path
+   (tiles that wrap in x, rows in 16-byte and in 4-byte copies) and int16
+   region rows that start at an odd element;
 3e. at 2048x2048 over 8000 steps, K=4: K4 and K5 vs K1 (fields
    torch.equal, tot_u rtol 1e-6), and K4-i16 vs K5-i16 (both quantize
    once per sweep: int16 fields torch.equal);
@@ -54,8 +61,10 @@ power limit as nvidia-smi reports them):
    K4-slab, K4-slab-i16 (once-per-sweep codec), K7 (where two copies of
    the extended slab fit its L2 budget), K8 and K8-i16 (per-step codec) on
    the 256x1024 and 1024x4096 shards of the 1024^2 and 4096^2 runs over 4,
-   8- and 13-row shards and nx = 100, at K in {2, 3, 4, 8}, the driven row
-   in the body, either ghost region and none, rest and perturbed starts;
+   8-, 13- and 24-row shards and nx = 100 and 99, at K in {2, 3, 4, 8}, the
+   driven row in the body, either ghost region and none (K4-slab also in
+   the first and last row of its first tile's region), rest and perturbed
+   starts;
    fields torch.equal (int16 too), tot_u within rtol 1e-6;
 3h. K9 (the HBM-parts sweep) vs its plain version and vs K1 at 2048x2048
    and 60x100, K in {2, 3, 4, 8} (:func:`hbm_kernel_checks`);
@@ -217,6 +226,38 @@ DEFAULT_VARIANTS = {("1536x1536", "f32"): "cuda-trapezoid",
                     ("2048x2048", "i16"): "cuda-step-i16",
                     ("4096x4096", "f32"): "cuda-trapezoid",
                     ("4096x4096", "i16"): "cuda-step-i16"}
+
+
+def last_row_ny(temporal_cuda) -> int:
+    """A grid whose driven row (ny - 2) is the last row of a tile's region
+    at K = 4: tile row y0 = ny - th - 5 (a multiple of th) holds region rows
+    y0 - 4 .. y0 + th + 3 = ny - 2.  (At K = 2 every grid's driven row is
+    region row 0 of tile row 0.)"""
+    th = temporal_cuda.tile(4)[0]
+    return th * (1024 // th + 1) + 4 + 1
+
+
+def k4_cover(paths: dict, temporal_cuda, ny: int, nx: int, K: int, accel_row: int) -> None:
+    """Add to ``paths`` what a K4 launch on an ny x nx grid at depth K
+    reaches: the region rows holding the driven row ("driven"), whether its
+    tiles are fewer than the persistent grid or not a multiple of it
+    ("tiles"), and the copy paths of its float32 region rows ("copies",
+    with "int16 odd element" where an int16 region row starts at an odd
+    element)."""
+    th, tw = temporal_cuda.tile(K)
+    rh = th + 2 * K
+    order = temporal_cuda.tile_order(ny, nx, K)
+    ntiles = len(order)
+    grid = temporal_cuda.persistent_grid(K, 1 << 30)  # the blocks the card holds at once
+    paths["tiles"].add("fewer" if ntiles < grid else ("ragged" if ntiles % grid else "whole"))
+    for (_, y0, x0), in order:
+        for r in range(rh):
+            if (y0 - K + r) % ny == accel_row:
+                paths["driven"].add(r)
+        for row in (0, 1):
+            paths["copies"].add(temporal_cuda.copy_path("f32", nx, K, x0, tw, 4 * row * nx))
+            if (row * nx + x0 - K) % 2:
+                paths["copies"].add("int16 odd element")
 
 
 def fail(msg: str) -> None:
@@ -384,7 +425,7 @@ def slab_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
     return err, cases
 
 
-CA_SHAPES = ((256, 1024), (1024, 4096), (8, 1024), (13, 1024), (64, 100))
+CA_SHAPES = ((256, 1024), (1024, 4096), (8, 1024), (13, 1024), (64, 100), (24, 99))
 
 
 def ca_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
@@ -393,8 +434,10 @@ def ca_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
     per sweep), K7 (f32, where two copies of the extended slab fit its L2
     budget) and K8 and K8-i16 (quantized every step), on shards of
     ``CA_SHAPES`` (256x1024 and 1024x4096: the shards of the 1024^2 and
-    4096^2 runs over 4; 8 and 13 rows; nx = 100) at K in {2, 3, 4, 8}, the
-    driven row in the body, the lower or upper ghosts and none, from rest and
+    4096^2 runs over 4; 8 and 13 rows; nx = 100 and 99) at K in {2, 3, 4, 8},
+    the driven row in the body, the lower or upper ghosts and none (K4-slab
+    also in the first and the last row of its first tile's region), from
+    rest and
     from a seeded perturbation with the injection guard false at every third
     cell.  Fields (int16 too) bitwise, tot_u within rtol 1e-6.  Returns the
     largest |diff| per kernel and the number of cases."""
@@ -429,11 +472,17 @@ def ca_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
                     w1, _ = lattice.accel_weights(p.density, p.accel)
                     f[3, :, ::3] = w1 * np.float32(0.5)
                 x32 = torch.from_numpy(f).to(dev)
+                # K4-slab also takes the driven row at the first and the last
+                # row of its first tile's region (extended rows 0 and RH - 1).
+                rh = temporal_cuda.region(K)[0]
                 for where, off in (("body", ar - n // 2), ("lo", ar + 1 + (K - 1) // 2),
-                                   ("hi", ar - n - K // 2), ("none", K)):
+                                   ("hi", ar - n - K // 2), ("none", K), ("first", ar + K),
+                                   ("last", ar + K - (rh - 1) % (n + 2 * K))):
                     plain = {}
                     for name, (bind, storage, quantize) in kernels.items():
                         if name == "K7" and not ca_cuda.supports_resident(n, nx, K):
+                            continue
+                        if where in ("first", "last") and not name.startswith("K4-slab"):
                             continue
                         x = quant.quantize(x32, p.density) if storage == "i16" else x32
                         lo, body, hi = (x[:, :K].clone(), x[:, K:K + n].contiguous(),
@@ -756,8 +805,16 @@ def main() -> int:
     # reports each timed configuration's own case.
     sweep_err: dict[tuple[str, int, int, int], float] = {}
     sweep_rel, n_cases = 0.0, 0
-    for ny, nx in ((1024, 1024), (1536, 1536), (2048, 2048), (1000, 1500), (4096, 4096)):
+    # K4's paths (csrc/temporal.cu): the rows a tile's region takes
+    # the driven row at, the tile counts against the persistent grid, and
+    # the copies its region rows take, over every K4 case.
+    k4_paths: dict[str, set] = {"driven": set(), "tiles": set(), "copies": set()}
+    ny_last = last_row_ny(temporal_cuda)
+    for ny, nx in ((1024, 1024), (1536, 1536), (2048, 2048), (1000, 1500), (4096, 4096),
+                   (ny_last, 1499), (60, 100)):
         p, _, obst, f0 = field(ny, nx, 0.01)
+        for K in SWEEP_DEPTHS:
+            k4_cover(k4_paths, temporal_cuda, ny, nx, K, p.accel_row)
         for start in ("rest", "mixed"):
             s32 = f0 if start == "rest" else mixed_state(p, dev)
             for storage in ("f32", "i16"):
@@ -774,10 +831,20 @@ def main() -> int:
                         sweep_err[key] = max(sweep_err.get(key, 0.0), e)
                         sweep_rel = max(sweep_rel, r)
                         n_cases += 1
+    rh = temporal_cuda.region(4)[0]
+    if not {0, rh - 1} <= k4_paths["driven"]:
+        fail(f"3d: the driven row sat only at region rows {sorted(k4_paths['driven'])}")
+    if not {"fewer", "ragged"} <= k4_paths["tiles"]:
+        fail(f"3d: tile counts against the persistent grid: {sorted(k4_paths['tiles'])}")
+    if not {"elements", "quads", "floats", "int16 odd element"} <= k4_paths["copies"]:
+        fail(f"3d: K4's copy paths reached: {sorted(k4_paths['copies'])}")
     print(f"[3d sweep kernels vs plain] card: {card} | K4, K5, K4-i16, K5-i16 at 1024x1024, "
-          f"1536x1536, 2048x2048, 1000x1500 x K in {SWEEP_DEPTHS} x 50 steps (51 at K=2) and "
-          f"4096x4096 x 2K steps, rest and perturbed: {n_cases} cases, fields equal (int16 "
-          f"too), tot_u max rel {sweep_rel:.2e}")
+          f"1536x1536, 2048x2048, 1000x1500, {ny_last}x1499, 60x100 x K in {SWEEP_DEPTHS} x "
+          f"50 steps (51 at K=2) and 4096x4096 x 2K steps, rest and perturbed: {n_cases} "
+          f"cases, fields equal (int16 too), tot_u max rel {sweep_rel:.2e} | K4's paths: the "
+          f"driven row at region rows {sorted(k4_paths['driven'])} of {rh}, tile counts "
+          f"{sorted(k4_paths['tiles'])} of the persistent grid, copies "
+          f"{sorted(k4_paths['copies'])}")
 
     # Phase 3e: the sweeps against K1 at full length, and the two int16
     # sweeps against each other (each quantizes once per sweep).
@@ -809,7 +876,8 @@ def main() -> int:
     ca_err, ca_cases = ca_kernel_checks(dev)
     print(f"[3g ca engines vs plain] card: {card} | shards "
           + ", ".join(f"{n}x{nx}" for n, nx in CA_SHAPES) + " x K in (2, 3, 4, 8), driven row in "
-          "body / lo / hi / none, rest and perturbed | "
+          "body / lo / hi / none (K4-slab: also the first and last region row), rest and "
+          "perturbed | "
           + "; ".join(f"{k} {ca_cases[k]} cases, fields equal, max |diff| {ca_err[k]:.1e}"
                       for k in ca_err)
           + f" | {time.perf_counter() - t_start:.1f} s elapsed")
@@ -1641,15 +1709,31 @@ def main() -> int:
                 "tier_bound_ms": (n * nx * per_cell / (gbps[0] * 1e9) * 1e3 if tier == "HBM"
                                   else None), **more}
 
+    # K4-slab's launches by the shape they ran at: 256x1024 in 5h (the
+    # forced slab engine on the golden scene over 4), 1024x4096 in 6d
+    # (ca-4 at 4096^2 over 4, f32 only); each with its own time and bound.
+    def slab_shapes(key, storage, plain_key):
+        fields = ("ms", "plain_ms", "bound_ms", "bound_by", "tier", "tier_bound_ms")
+        return [{"shard": shard, "launches": n,
+                 **{f: r[f] for f in fields}}
+                for shard, n, r in (
+                    ("256x1024 of 1024x1024 (5h)", launches[key],
+                     ca_row("", "", "", key, (256, 1024), 4, storage, plain_key)),
+                    ("1024x4096 of 4096x4096 (6d)", slab_6d if storage == "f32" else 0,
+                     ca_row("", "", "", key, (1024, 4096), 4, storage, plain_key)))]
+
     ca_src = "lbm_tpu_torch/csrc/"
     kernels += [
         ca_row("K4-slab ca slab sweep (ms per launch = 4 steps of one 1024x4096 shard of "
-               "4096x4096, K=4)", ca_src + "temporal.cu", "lbm_tpu/ops/temporal_pallas.py:535",
-               "K4-slab", (1024, 4096), 4, "f32", "plain K=4", launches_6d=slab_6d),
+               "4096x4096, K=4; launches and times by shape under by_shard)",
+               ca_src + "temporal.cu", "lbm_tpu/ops/temporal_pallas.py:535",
+               "K4-slab", (1024, 4096), 4, "f32", "plain K=4", launches_6d=slab_6d,
+               by_shard=slab_shapes("K4-slab", "f32", "plain K=4")),
         ca_row("K4-slab-i16 ca slab sweep, int16 state (ms per launch = 4 steps of one "
-               "1024x4096 shard of 4096x4096, K=4)", ca_src + "temporal.cu",
+               "1024x4096 shard of 4096x4096, K=4; launches and times by shape under "
+               "by_shard)", ca_src + "temporal.cu",
                "lbm_tpu/ops/temporal_pallas.py:535", "K4-slab-i16", (1024, 4096), 4, "i16",
-               "plain-i16 K=4"),
+               "plain-i16 K=4", by_shard=slab_shapes("K4-slab-i16", "i16", "plain-i16 K=4")),
         ca_row("K7 ca resident sweep (ms per launch = 4 steps of one 256x1024 shard of "
                "1024x1024, K=4)", ca_src + "ca_resident.cu",
                "lbm_tpu/ops/resident_pallas.py:1192", "K7", (256, 1024), 4, "f32", "plain K=4"),

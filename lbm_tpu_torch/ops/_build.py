@@ -67,6 +67,7 @@ _SIGNATURES = {
     "lbm_inplace_grid": [_I, _I, _I, _I],
     "lbm_trapezoid_slab": [_P, _L, _P, _L, _P, _L, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _F,
                            _F, _F, _I, _P, _I, _I, _I, _P, _I],
+    "lbm_trapezoid_grid": [_I, _I, _I, _I],
     "lbm_ca_resident_grid": [_I, _I, _I],
     "lbm_ca_resident": [_P, _L, _P, _L, _P, _L, _P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I,
                         _I, _F, _F, _F, _I, _P, _I],
@@ -88,8 +89,8 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
-def sources() -> list[pathlib.Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def sources(src: pathlib.Path = CSRC) -> list[pathlib.Path]:
+    return sorted(src.glob("*.cu")) + sorted(src.glob("*.cuh"))
 
 
 def nvcc_path() -> str:
@@ -103,20 +104,21 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): cannot build the CUDA kernels")
 
 
-def build_dir() -> pathlib.Path:
+def build_dir(src: pathlib.Path = CSRC) -> pathlib.Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources(src):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build() -> pathlib.Path:
-    """Compile the library if this tree has not been built yet; returns its
-    path.  The compiler's report (registers, spills) is kept beside it in
+def build(src: pathlib.Path = CSRC) -> pathlib.Path:
+    """Compile the library of the sources in ``src`` (the package's own by
+    default) if they have not been built yet; returns its path.  The
+    compiler's report (registers, spills) is kept beside it in
     ``nvcc.log``."""
-    out_dir = build_dir()
+    out_dir = build_dir(src)
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
         return lib_path
@@ -129,17 +131,17 @@ def build() -> pathlib.Path:
             tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
             nvcc = nvcc_path()
             cmds, procs = [], []
-            for src in sorted(CSRC.glob("*.cu")):
-                obj = out_dir / f".{src.stem}.{os.getpid()}.o"
-                cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
-                procs.append(subprocess.Popen(cmds[-1], cwd=CSRC, stdout=subprocess.PIPE,
+            for cu in sorted(src.glob("*.cu")):
+                obj = out_dir / f".{cu.stem}.{os.getpid()}.o"
+                cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(cu)])
+                procs.append(subprocess.Popen(cmds[-1], cwd=src, stdout=subprocess.PIPE,
                                               stderr=subprocess.STDOUT, text=True))
             outs = [proc.communicate()[0] for proc in procs]  # waits for every one
             objs = [cmd[-2] for cmd in cmds]
             cmds.append([nvcc, *LINK_FLAGS, "-o", str(tmp), *objs])
             failed = [(c, o) for c, p, o in zip(cmds, procs, outs) if p.returncode != 0]
             if not failed:
-                link = subprocess.run(cmds[-1], cwd=CSRC, capture_output=True, text=True)
+                link = subprocess.run(cmds[-1], cwd=src, capture_output=True, text=True)
                 outs.append(link.stdout + link.stderr)
                 if link.returncode != 0:
                     failed.append((cmds[-1], outs[-1]))
@@ -158,20 +160,49 @@ def build() -> pathlib.Path:
     return lib_path
 
 
+def _open(path: pathlib.Path, strict: bool = True) -> ctypes.CDLL:
+    """Open a built library and declare its entry points; ``strict=False``
+    skips those it lacks (an earlier version of a kernel)."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        if not strict and not hasattr(lib, name):
+            continue
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.lbm_error_string.argtypes = [ctypes.c_int]
+    lib.lbm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """Build (first use) and open the kernel library."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.lbm_error_string.argtypes = [ctypes.c_int]
-            lib.lbm_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = _open(build())
         return _lib
+
+
+def load_variant(replace: dict[str, pathlib.Path]) -> ctypes.CDLL:
+    """Build and open a second library: the package's sources with the files
+    named in ``replace`` (e.g. ``{"temporal.cu": path}``) taken from
+    elsewhere, such as an earlier commit's kernel, so that two versions of a
+    kernel can be timed in one process.  The sources are copied to
+    ``BUILD_ROOT/src-<hash>/`` and built beside the package's own build."""
+    h = hashlib.sha256()
+    for name, path in sorted(replace.items()):
+        h.update(name.encode())
+        h.update(pathlib.Path(path).read_bytes())
+    src = BUILD_ROOT / f"src-{h.hexdigest()[:16]}"
+    if not src.exists():
+        tmp = BUILD_ROOT / f".{src.name}.{os.getpid()}.tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir(parents=True)
+        for f in sources():
+            shutil.copy(replace.get(f.name, f), tmp / f.name)
+        os.replace(tmp, src)
+    return _open(build(src), strict=False)
 
 
 def check(rc: int, what: str) -> None:

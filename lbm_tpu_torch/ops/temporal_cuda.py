@@ -3,10 +3,12 @@
 Replaces ``lbm_tpu/ops/temporal_pallas.py::_sweep_kernel`` (:169, entries
 ``make_sweep`` :388 and ``make_run_all`` :673), float32 state (K4) and
 int16 state (K4-i16, ``storage="i16"``).  One launch advances the grid K
-steps: each block loads an output tile plus a K-cell halo into shared
-memory, takes K float32 levels there and writes the tile, so the state
-crosses device memory once per K steps (the note at the top of
-csrc/temporal.cu).  ``make_run_all`` runs whole sweeps, then the remainder
+steps: persistent blocks walk the output tiles in a fixed order, each tile
+loaded with a K-cell halo into shared memory (a float32 tile's copy in
+flight while the previous tile's last level runs), advanced K float32
+levels there and written back, so the state crosses device memory once
+per K steps (the note at the top of csrc/temporal.cu; :func:`tile_order`,
+:func:`persistent_grid`, :func:`copy_path`).  ``make_run_all`` runs whole sweeps, then the remainder
 as K1 (or K1-i16) steps, as ``temporal_pallas.make_run_all`` does
 (:690-696).
 
@@ -47,28 +49,84 @@ LAUNCHES_I16 = 0
 SLAB_LAUNCHES = 0
 SLAB_LAUNCHES_I16 = 0
 
-THREADS = 512  # threads per K4 block (kT in csrc/temporal.cu)
+# The regions compiled into csrc/temporal.cu (LBM_TRAPEZOID_REGIONS):
+# (rows, columns) -> threads per block.  Each block holds two float32
+# copies of its region in shared memory: 32 x 48 (110.6 KB) leaves room
+# for two blocks per SM, 48 x 64 (221 KB) for one.
+REGIONS = {(32, 48): 512, (48, 64): 512}
 # Shared memory one block may use on the H100 (227 KB).
 SMEM_LIMIT = 232448
-# The region a block holds (output tile + 2K halo), from the H100 table
-# (PERF.md, Findings): 32 x 48 cells up to K = 4 (two float32 levels
-# take 110 KB: two blocks per SM; the fastest of nine shapes at K = 2 and 4
-# at 1536^2-4096^2), 48 x 64 above (one block per SM; at K = 8 the small
-# tile's recompute costs more than the second block gains).
+# The region a block holds (output tile + 2K halo) at depth K, from the
+# H100 table (PERF.md §5 and Findings): 32 x 48 up to K = 4 (two
+# blocks per SM; the other regions timed were slower: 40 x 48 on
+# one block of 1024 threads, and 32 x 32 and 36 x 56 in an earlier form of
+# the kernel), 48 x 64 above (at K = 8 the small tile's recompute costs
+# more than the second block gains).
 SMALL_REGION = (32, 48)
 LARGE_REGION = (48, 64)
 
 
+def region(K: int) -> tuple[int, int]:
+    """The region (rows, columns) of a K4 block at depth K."""
+    return SMALL_REGION if K <= 4 else LARGE_REGION
+
+
 def tile(K: int) -> tuple[int, int]:
     """Output tile (rows, columns) of a K4 block at depth K."""
-    rh, rw = SMALL_REGION if K <= 4 else LARGE_REGION
+    rh, rw = region(K)
     return rh - 2 * K, rw - 2 * K
 
 
 def smem_bytes(K: int, th: int, tw: int) -> int:
-    """Dynamic shared memory of one K4 block (tile_smem in csrc/temporal.cu)."""
+    """Dynamic shared memory of one K4 block (region_smem in
+    csrc/temporal.cu): two float32 region buffers, the per-level per-warp
+    |u| sums and the wall bytes; threads as compiled for the region (1024
+    for one that is not)."""
     rh, rw = th + 2 * K, tw + 2 * K
-    return 2 * 9 * rh * rw * 4 + K * (THREADS // 32) * 4 + (rh + rw) * 4 + rh * rw + rh
+    threads = REGIONS.get((rh, rw), 1024)
+    return 2 * 9 * rh * rw * 4 + K * (threads // 32) * 4 + rh * rw
+
+
+def tile_order(nrows: int, nx: int, K: int, tile_hw: tuple[int, int] | None = None,
+               grid: int | None = None):
+    """The tiles of one launch as the kernel walks them: a list per block of
+    ``grid`` persistent blocks (one per tile when None) of ``(tile, y0,
+    x0)``, where ``tile`` is the index of the tile's |u| partial (row-major
+    over the tiles) and (y0, x0) its first output cell.  Block b takes tiles
+    b, b + grid, b + 2 grid, ..."""
+    th, tw = tile_hw or tile(K)
+    ntx = -(-nx // tw)
+    ntiles = ntx * -(-nrows // th)
+    grid = min(ntiles, grid or ntiles)
+    return [[(t, (t // ntx) * th, (t % ntx) * tw) for t in range(b, ntiles, grid)]
+            for b in range(grid)]
+
+
+def persistent_grid(K: int, ntiles: int, tile_hw: tuple[int, int] | None = None) -> int:
+    """Blocks of the persistent grid of a K4 (or K4-slab) launch of
+    ``ntiles`` tiles on the current CUDA device, as the library sizes it:
+    as many as the card holds at once, at most one per tile."""
+    blocks = _build.load().lbm_trapezoid_grid(K, *(tile_hw or tile(K)), ntiles)
+    if blocks < 1:
+        raise ValueError(f"no K4 kernel for the region of tile {tile_hw or tile(K)} at K={K}")
+    return blocks
+
+
+def copy_path(storage: str, nx: int, K: int, x0: int, tile_w: int, address: int = 0) -> str:
+    """How a tile at column x0 brings in a region row of ``tile_w + 2K``
+    cells (issue_tile and load_i16 in csrc/temporal.cu): int16 ``"loads"``
+    (plain loads, decoded at the tile's start); float32 ``"elements"`` where
+    the region wraps in x (4-byte copies element by element), else
+    ``"quads"`` where the row's first element is 16-byte aligned (16-byte
+    copies) and ``"floats"`` where it is not (4-byte copies).  ``address``
+    is the byte address of the row's column 0."""
+    quant.check_storage(storage)
+    if storage == "i16":
+        return "loads"
+    xs = x0 - K
+    if xs < 0 or xs + tile_w + 2 * K > nx:
+        return "elements"
+    return "quads" if (address + 4 * xs) % 16 == 0 else "floats"
 
 
 def supports(params: LBMParams, K: int, storage: str = "f32") -> bool:
@@ -79,8 +137,13 @@ def supports(params: LBMParams, K: int, storage: str = "f32") -> bool:
     quant.check_storage(storage)
     if K < 2 or params.ny < 2 * K or params.nx < 2 * K:
         return False
+    return _tile_fits(K)
+
+
+def _tile_fits(K: int) -> bool:
     th, tw = tile(K)
-    return th >= 1 and tw >= 1 and smem_bytes(K, th, tw) <= SMEM_LIMIT
+    return (th >= 1 and tw >= 1 and region(K) in REGIONS
+            and smem_bytes(K, th, tw) <= SMEM_LIMIT)
 
 
 # pick_k's table: grids of at least this many cells sweep at PICK_K.
@@ -131,6 +194,7 @@ def sweep_runner(
     num_steps: int,
     K: int,
     storage: str,
+    lib=None,
 ):
     """Build ``f0 -> (f_final, tot_us (num_steps,))`` on a sweep kernel:
     ``num_steps // K`` sweeps in one call of the library's
@@ -139,7 +203,8 @@ def sweep_runner(
 
     The two state buffers, the K1 tail's runner and the partials are
     allocated here, once; ``count(i16, launches)`` raises the kernel's
-    counter.  ``f0`` is not modified.  On the card the returned state is one
+    counter.  ``lib`` is the kernel library (``_build.load()`` by default;
+    ``_build.load_variant`` gives another version of the kernel to time).  ``f0`` is not modified.  On the card the returned state is one
     of the runner's buffers and stays valid until its next call."""
     quant.check_storage(storage)
     n_sweeps, rem = divmod(num_steps, K)
@@ -153,7 +218,7 @@ def sweep_runner(
         return run_all_plain
 
     fused_cuda.check_mask(obstacles, params)
-    lib = _build.load()
+    lib = lib or _build.load()
     dev = obstacles.device
     shape = (9, params.ny, params.nx)
     fa = torch.empty(shape, dtype=fused_cuda.STATE_DTYPES[storage], device=dev)
@@ -199,15 +264,16 @@ def _count(i16: bool, n: int) -> None:
 
 
 def make_run_all(params: LBMParams, obstacles: torch.Tensor, num_steps: int, K: int,
-                 storage: str = "f32", tile_hw: tuple[int, int] | None = None):
+                 storage: str = "f32", tile_hw: tuple[int, int] | None = None, lib=None):
     """Build ``f0 -> (f_final, tot_us (num_steps,))``: K4 sweeps, then K1
     steps for ``num_steps mod K`` (the signature of
     ``temporal_pallas.make_run_all``).  ``tile_hw`` overrides the output
-    tile (a test makes one too large for shared memory)."""
+    tile (a test makes one too large for shared memory) and ``lib`` the
+    kernel library (:func:`sweep_runner`)."""
     if not supports(params, K, storage):
         raise ValueError(f"trapezoid sweep (K={K}) cannot map a {params.ny}x{params.nx} grid")
     return sweep_runner("K4 trapezoid sweep kernel", "trapezoid", tile_hw or tile(K),
-                        _count, params, obstacles, num_steps, K, storage)
+                        _count, params, obstacles, num_steps, K, storage, lib)
 
 
 def make_sweep(params: LBMParams, obstacles: torch.Tensor, K: int, storage: str = "f32"):
@@ -223,8 +289,7 @@ def supports_shard(nloc: int, nx: int, K: int) -> bool:
     :520-532), as for K4."""
     if K < 2 or nloc < K or nx < 1:
         return False
-    th, tw = tile(K)
-    return th >= 1 and tw >= 1 and smem_bytes(K, th, tw) <= SMEM_LIMIT
+    return _tile_fits(K)
 
 
 def slab_plain(lo: torch.Tensor, body: torch.Tensor, hi: torch.Tensor, obst_ext: torch.Tensor,
@@ -272,7 +337,8 @@ def bind_plain(sweep_fn, lo, body, hi, obst_ext, out, tots, accumulate: bool = F
 
 def bind_slab_sweep(params: LBMParams, lo: torch.Tensor, body: torch.Tensor, hi: torch.Tensor,
                     obst_ext: torch.Tensor, out: torch.Tensor, tots: torch.Tensor,
-                    row_offset: int, ny_global: int, storage: str = "f32"):
+                    row_offset: int, ny_global: int, storage: str = "f32",
+                    tile_hw: tuple[int, int] | None = None, lib=None):
     """Bind one K4-slab sweep to fixed buffers: returns ``launch(t0)``,
     which advances ``body`` (9, n, nx) K = ``lo.shape[1]`` steps, with the
     ghost rows ``lo`` / ``hi`` (9, K, nx) below / above it, into ``out``
@@ -285,7 +351,8 @@ def bind_slab_sweep(params: LBMParams, lo: torch.Tensor, body: torch.Tensor, hi:
     grid's rows (the driven row, and the wrap of shard 0's lower ghosts).
     Everything is checked here, once, so that a launch costs one call.  On
     CPU tensors ``launch`` runs the plain version; on CUDA tensors it
-    launches the kernel or raises."""
+    launches the kernel or raises.  ``tile_hw`` and ``lib`` as for
+    :func:`make_run_all`."""
     quant.check_storage(storage)
     n, nx, K = check_ext_args(lo, body, hi, obst_ext, out, tots,
                               fused_cuda.STATE_DTYPES[storage])
@@ -297,9 +364,9 @@ def bind_slab_sweep(params: LBMParams, lo: torch.Tensor, body: torch.Tensor, hi:
                                                storage),
             lo, body, hi, obst_ext, out, tots)
 
-    lib = _build.load()
+    lib = lib or _build.load()
     dev = body.device
-    th, tw = tile(K)
+    th, tw = tile_hw or tile(K)
     partials = torch.empty((K, lib.lbm_trapezoid_blocks(n, nx, K, th, tw)), dtype=torch.float32,
                            device=dev)
     omega, w1, w2 = fused_torch.step_constants(params)

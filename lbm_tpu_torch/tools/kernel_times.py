@@ -30,6 +30,16 @@ For each grid of ``--blocked``: K10 (the two-copy row-block kernel) at each
 row-block height of ``--blocked-rows``, in turns with K2 where it maps (to
 768^2), else with K3 and K4 at K = 4, and K10's plain version.
 
+``--variant NAME=PATH[@RHxRW]`` (repeatable) builds a second kernel library
+whose ``temporal.cu`` is PATH (for example the parent commit's, from ``git
+show HEAD~1:lbm_tpu_torch/csrc/temporal.cu``, under the ignored ``build/``),
+on the package's regions (``temporal_cuda.tile``) or on the region RHxRW at
+every depth, and times its K4 (``K4@NAME K=4``) in turns with the package's
+own in ``--sweeps`` (K5 left out there), and its K4-slab (``K4-slab@NAME
+K=4``) beside the package's in ``--ca``.
+``--k4-regions 48x64,...`` times K4 and K4-slab on compiled regions other
+than the table's at each depth (``K4[48x64] K=4``), the same way.
+
 ``--policy`` times, in turns, K2 against K3 at 128^2, 256^2 and 512^2 and
 K1-i16 against K3-i16 at 1024^2: the questions behind the program's L2
 budgets.
@@ -43,7 +53,7 @@ process, and the card's name and power limit::
         [--sweeps 1536,2048,4096] [--depths 2,4,8] [--shards 1024,4096] \
         [--ca 64x1024,256x1024,1024x4096] [--ca-depths 4,8] [--ca-parts 1,2,4,8,16] \
         [--hbm 2048,4096] [--blocked 256,512,768,1024] [--blocked-rows 8] [--policy] \
-        [--repeats 7]
+        [--variant parent=build/parent/temporal.cu] [--k4-regions 48x64] [--repeats 7]
 
 Needs a CUDA device; without one it exits 1.
 """
@@ -88,6 +98,27 @@ def bound_ms(cells: int, fluid: int, steps: int, storage: str = "f32",
 F32_KERNELS = ("K1", "K2", "K3", "twin")
 LARGE_F32_KERNELS = ("K1", "twin")  # above 1024^2 (the sweeps there: time_sweeps)
 I16_KERNELS = ("K1-i16", "K3-i16", "twin-i16")
+
+
+def load_variants(specs) -> dict:
+    """``NAME=PATH[@RHxRW]`` -> {NAME: (library, tile of depth K)}: the
+    package's sources with ``temporal.cu`` taken from PATH
+    (``_build.load_variant``), on the package's regions or on the region
+    RHxRW at every depth."""
+    import pathlib
+
+    from lbm_tpu_torch.ops import _build, temporal_cuda
+
+    out = {}
+    for spec in specs or ():
+        name, path = spec.split("=", 1)
+        tile = temporal_cuda.tile
+        if "@" in path:
+            path, shape = path.rsplit("@", 1)
+            rh, rw = (int(v) for v in shape.split("x"))
+            tile = lambda K, rh=rh, rw=rw: (rh - 2 * K, rw - 2 * K)  # noqa: E731
+        out[name] = (_build.load_variant({"temporal.cu": pathlib.Path(path)}), tile)
+    return out
 
 
 def _timed_ms(fn, repeats: int) -> list[float]:
@@ -187,11 +218,15 @@ def time_in_turns(runs: dict, rounds: int) -> dict[str, tuple[float, float, floa
 
 
 def time_sweeps(n: int, device, depths=(2, 4, 8), repeats: int = 5,
-                storages=("f32", "i16")) -> dict[str, tuple[float, float, float]]:
+                storages=("f32", "i16"), variants=None,
+                regions=()) -> dict[str, tuple[float, float, float]]:
     """us/step of K1, K4 and K5 at each depth (``K4 K=4``, ...) and of K2
     and K3 where the state fits their L2 budgets, in turns per storage, and
     of the plain sweep at each depth (``plain K=4``; the int16 names end in
-    ``-i16``), on an n x n grid."""
+    ``-i16``), on an n x n grid.  With ``variants`` (:func:`load_variants`)
+    each variant's K4 (``K4@NAME K=4``) runs in the same turns, and K5 is
+    left out; with ``regions`` ((rows, columns) of compiled regions) so does
+    K4 on each of them (``K4[48x64] K=4``)."""
     import torch
 
     from lbm_tpu_torch.core import lattice
@@ -222,9 +257,17 @@ def time_sweeps(n: int, device, depths=(2, 4, 8), repeats: int = 5,
             runs[f"K3{sfx}"] = (inplace_cuda.make_run_all(p, obst, steps, storage=storage),
                                 start, steps)
         for K in depths:
-            for name, mod in (("K4", temporal_cuda), ("K5", skew_cuda)):
+            for name, mod in (("K4", temporal_cuda), ("K5", skew_cuda))[:1 if variants else 2]:
                 runs[f"{name}{sfx} K={K}"] = (mod.make_run_all(p, obst, steps, K, storage),
                                               start, steps)
+            for vname, (lib, tile) in (variants or {}).items():
+                runs[f"K4{sfx}@{vname} K={K}"] = (temporal_cuda.make_run_all(
+                    p, obst, steps, K, storage, tile_hw=tile(K), lib=lib), start, steps)
+            for rh, rw in regions:
+                if min(rh, rw) > 2 * K:
+                    runs[f"K4{sfx}[{rh}x{rw}] K={K}"] = (temporal_cuda.make_run_all(
+                        p, obst, steps, K, storage, tile_hw=(rh - 2 * K, rw - 2 * K)), start,
+                        steps)
         out.update(time_in_turns(runs, repeats))
         del runs
         for K in depths:
@@ -324,14 +367,18 @@ def torch_from(a, device):
 
 
 def time_ca(nloc: int, nx: int, device, depths=(4, 8), parts=(1, 2, 4, 8, 16), repeats: int = 5,
-            storages=("f32", "i16")) -> dict[str, tuple[float, float, float]]:
+            storages=("f32", "i16"), variants=None,
+            regions=()) -> dict[str, tuple[float, float, float]]:
     """us/step (median, q1, q3) of the ca engines on the last of 4 row
     shards of nloc x nx (see :func:`ca_shard`): ``K4-slab K=4``,
     ``K7 K=4``, ``K8 K=4`` (``K8 K=4 parts=2`` split), ``-i16`` appended for
     int16, each where it maps (K8 unsplit only where the whole shard fits L2,
     split counts that ``ca_cuda.parts_valid`` allows and that leave at least
     as many sub-slabs as the planner's), in turns per storage and depth,
-    ghosts frozen; then the plain ca sweep (``plain K=4``)."""
+    ghosts frozen; then the plain ca sweep (``plain K=4``).  With
+    ``variants`` (:func:`load_variants`) each variant's K4-slab
+    (``K4-slab@NAME K=4``) runs in the same turns, and with ``regions``
+    K4-slab on each of them (``K4-slab[48x64] K=4``)."""
     import torch
 
     from lbm_tpu_torch.ops import ca_cuda, fused_torch, temporal_cuda
@@ -354,10 +401,23 @@ def time_ca(nloc: int, nx: int, device, depths=(4, 8), parts=(1, 2, 4, 8, 16), r
             for n in parts:
                 if least is not None and n >= least and ca_cuda.parts_valid(nloc, nx, K, ny, n):
                     engines.append(("K8", "inplace", n))
+            if temporal_cuda.supports_shard(nloc, nx, K):
+                engines += [(f"K4-slab@{v}", v, 1) for v in variants or {}]
+                engines += [(f"K4-slab[{rh}x{rw}]", (rh, rw), 1) for rh, rw in regions
+                            if min(rh, rw) > 2 * K]
             runs = {}
             for name, engine, n in engines:
-                fwd = ca_cuda.bind_sweep(engine, p, lo, a, hi, ob, b, tots, off, ny, storage, n)
-                bwd = ca_cuda.bind_sweep(engine, p, lo, b, hi, ob, a, tots, off, ny, storage, n)
+                if engine in (variants or {}) or isinstance(engine, tuple):
+                    lib, tile = (variants[engine] if engine in (variants or {}) else
+                                 (None, lambda K, e=engine: (e[0] - 2 * K, e[1] - 2 * K)))
+                    fwd, bwd = ([temporal_cuda.bind_slab_sweep(
+                        p, lo, x, hi, ob, y, tots, off, ny, storage, tile(K), lib)]
+                        for x, y in ((a, b), (b, a)))
+                else:
+                    fwd = ca_cuda.bind_sweep(engine, p, lo, a, hi, ob, b, tots, off, ny,
+                                             storage, n)
+                    bwd = ca_cuda.bind_sweep(engine, p, lo, b, hi, ob, a, tots, off, ny,
+                                             storage, n)
 
                 def run(_, fwd=fwd, bwd=bwd, K=K):
                     for t in range(0, steps, 2 * K):
@@ -506,6 +566,12 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--blocked-rows", default="8",
                         help="K10 row-block heights to time, e.g. 4,8,16")
     parser.add_argument("--policy", action="store_true")
+    parser.add_argument("--variant", action="append", default=[],
+                        help="NAME=PATH: time K4 and K4-slab built from another temporal.cu "
+                        "in turns with the package's own")
+    parser.add_argument("--k4-regions", default="",
+                        help="compiled regions of K4 and K4-slab to time beside the table's, "
+                        "e.g. 48x64")
     parser.add_argument("--repeats", type=int, default=7)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -513,21 +579,25 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     device = torch.device("cuda", 0)
     card = card_line()
+    variants = load_variants(args.variant)
+    regions = tuple(tuple(int(v) for v in r.split("x")) for r in args.k4_regions.split(",") if r)
     med, q1, q3 = copy_gbps(device, args.repeats)
     print(f"copy 1 GiB: {med:.1f} GB/s [{q1:.1f}, {q3:.1f}] | {card}")
     for n in (int(g) for g in args.grids.split(",") if g):
         print(format_grid(n, time_grid(n, device, args.repeats)) + f" | {card}")
     depths = tuple(int(k) for k in args.depths.split(","))
     for n in (int(g) for g in args.sweeps.split(",") if g):
-        print(format_grid(n, time_sweeps(n, device, depths, args.repeats)) + f" | {card}")
+        print(format_grid(n, time_sweeps(n, device, depths, args.repeats, variants=variants,
+                                                 regions=regions))
+              + f" | {card}")
     for n in (int(g) for g in args.shards.split(",") if g):
         print(format_shard(n, time_shard(n, device, repeats=args.repeats)) + f" | {card}")
     ca_depths = tuple(int(k) for k in args.ca_depths.split(","))
     ca_parts = tuple(int(k) for k in args.ca_parts.split(","))
     for shard in (s for s in args.ca.split(",") if s):
         nloc, nx = (int(v) for v in shard.split("x"))
-        print(format_ca(nloc, nx, time_ca(nloc, nx, device, ca_depths, ca_parts, args.repeats))
-              + f" | {card}")
+        print(format_ca(nloc, nx, time_ca(nloc, nx, device, ca_depths, ca_parts, args.repeats,
+                                          variants=variants, regions=regions)) + f" | {card}")
     for n in (int(g) for g in args.hbm.split(",") if g):
         print(format_grid(n, time_hbm(n, device, ca_depths, args.repeats)) + f" | {card}")
     rows = tuple(int(b) for b in args.blocked_rows.split(","))

@@ -145,6 +145,104 @@ def test_supports():
         temporal_cuda.make_run_all(_p(15, 40), torch.zeros((15, 40), dtype=torch.bool), 8, 8)
 
 
+@pytest.mark.parametrize("nrows,nx,K,grid", [
+    (2048, 2048, 4, 132), (1000, 1499, 2, 132), (17, 40, 8, 132), (60, 100, 3, 4),
+    (8, 100, 4, None)])
+def test_tile_order_and_partials_index(nrows, nx, K, grid):
+    """The persistent blocks walk the tiles in a fixed order: block b takes
+    tiles b, b + grid, ...; every tile once, its |u| partial at its row-major
+    index, whatever the grid (a tile count that is not a multiple of it, or
+    fewer tiles than blocks)."""
+    th, tw = temporal_cuda.tile(K)
+    order = temporal_cuda.tile_order(nrows, nx, K, grid=grid)
+    ntx, nty = -(-nx // tw), -(-nrows // th)
+    assert len(order) == min(grid or ntx * nty, ntx * nty)
+    flat = sorted(t for blk in order for t in blk)
+    assert [t for t, _, _ in flat] == list(range(ntx * nty))
+    assert all((y0, x0) == ((t // ntx) * th, (t % ntx) * tw) for t, y0, x0 in flat)
+    for b, blk in enumerate(order):
+        assert [t for t, _, _ in blk] == list(range(b, ntx * nty, len(order)))
+    assert all(0 <= y0 < nrows and 0 <= x0 < nx for t, y0, x0 in flat)
+
+
+def test_region_table_and_shared_memory():
+    """Every compiled region: two float32 copies of the region (the level
+    buffers, one of which takes the next tile's copy during the last level)
+    plus the |u| sums and walls stay within one block's 227 KB
+    at every depth it maps, and two blocks of 512 threads of the small
+    region fit one SM (228 KB, 1 KB reserved per block); the table's regions
+    are compiled ones."""
+    for (rh, rw), threads in temporal_cuda.REGIONS.items():
+        assert rh <= 64 and rw % 4 == 0 and threads % 32 == 0
+        for K in range(2, (min(rh, rw) - 1) // 2 + 1):
+            th, tw = rh - 2 * K, rw - 2 * K
+            need = temporal_cuda.smem_bytes(K, th, tw)
+            assert need >= 2 * 9 * rh * rw * 4
+            assert need <= temporal_cuda.SMEM_LIMIT, (rh, rw, K, need)
+    rh, rw = temporal_cuda.region(4)
+    assert temporal_cuda.REGIONS[(rh, rw)] == 512
+    assert 2 * (temporal_cuda.smem_bytes(4, rh - 8, rw - 8) + 1024) <= 233472
+    for K in range(2, 9):
+        assert temporal_cuda.region(K) in temporal_cuda.REGIONS
+        th, tw = temporal_cuda.tile(K)
+        assert (th + 2 * K, tw + 2 * K) == temporal_cuda.region(K)
+
+
+@pytest.mark.parametrize("storage,nx,K,x0,address,want", [
+    ("f32", 2048, 4, 0, 0, "elements"),          # wraps at the left edge
+    ("f32", 2048, 4, 2016, 0, "elements"),       # wraps at the right edge
+    ("f32", 100, 4, 60, 0, "elements"),          # the last tile column wraps
+    ("f32", 2048, 4, 32, 4 * 2048, "quads"),     # x0 - K = 28: 112 bytes
+    ("f32", 2048, 2, 44, 0, "floats"),           # x0 - K = 42: 168 bytes
+    ("f32", 1499, 4, 32, 1499 * 4, "floats"),    # odd nx: row 1 off the 16-byte grid
+    ("f32", 1499, 4, 32, 4 * 1499 * 4, "quads"),  # ... row 4 on it
+    ("i16", 2048, 4, 32, 0, "loads"),
+    ("i16", 1499, 4, 0, 1499 * 2, "loads"),      # int16 takes plain loads, even wrapping
+])
+def test_copy_path(storage, nx, K, x0, address, want):
+    """How a region row comes in (issue_tile, load_i16 in csrc/temporal.cu)."""
+    tw = temporal_cuda.tile(K)[1]
+    assert temporal_cuda.copy_path(storage, nx, K, x0, tw, address) == want
+
+
+def test_supports_edges():
+    """K4 maps K >= 2 with a tile of at least one cell; ny and nx at least
+    2K; K4-slab at least K body rows and any width."""
+    rh, rw = temporal_cuda.region(8)
+    kmax = (min(rh, rw) - 1) // 2
+    assert temporal_cuda.supports(_p(256), kmax) and not temporal_cuda.supports(_p(256), kmax + 1)
+    assert temporal_cuda.supports(_p(8, 8), 4) and not temporal_cuda.supports(_p(7, 8), 4)
+    assert not temporal_cuda.supports(_p(8, 7), 4)
+    assert temporal_cuda.supports_shard(4, 1, 4) and not temporal_cuda.supports_shard(3, 100, 4)
+    assert not temporal_cuda.supports_shard(100, 100, 1)
+    assert temporal_cuda.supports_shard(100, 100, kmax)
+    assert not temporal_cuda.supports_shard(100, 100, kmax + 1)
+
+
+def test_load_variant_builds_from_replaced_sources(tmp_path, monkeypatch):
+    """``_build.load_variant`` (kernel_times --variant) builds the package's
+    sources with one file replaced, in a directory of its own keyed by the
+    replacement; without nvcc it raises rather than load the package's own
+    library."""
+    import shutil
+
+    from lbm_tpu_torch.ops import _build
+
+    other = tmp_path / "temporal.cu"
+    other.write_text("// another version of the sweep kernel\n")
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(shutil, "which", lambda _name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load_variant({"temporal.cu": other})
+    (src,) = (tmp_path / "build").glob("src-*")
+    assert {f.name for f in _build.sources(src)} == {f.name for f in _build.sources()}
+    assert (src / "temporal.cu").read_text() == other.read_text()
+    assert (src / "step.cu").read_bytes() == (_build.CSRC / "step.cu").read_bytes()
+    assert _build.build_dir(src) != _build.build_dir()
+
+
 def test_pick_k_and_impl_choice(monkeypatch):
     """The depth and kernel the policy picks (PERF.md §5), and the
     overrides: LBM_TEMPORAL_K, LBM_TEMPORAL_IMPL=trapezoid|skew|hbm; a
@@ -385,8 +483,9 @@ def test_k4_matches_plain_on_card(cuda_device, shape, K, kind, storage):
 
 @pytest.mark.cuda
 def test_k4_geometry_and_refusal_on_card(cuda_device):
-    """The host's shared-memory arithmetic is the library's; a tile too
-    large for shared memory raises at launch; a sweep repeats bitwise."""
+    """The host's shared-memory arithmetic is the library's; a tile whose
+    region has no compiled kernel raises at launch; a sweep repeats bitwise;
+    the persistent grid is at most one block per tile."""
     from lbm_tpu_torch.ops import _build
 
     lib = _build.load()
@@ -400,6 +499,9 @@ def test_k4_geometry_and_refusal_on_card(cuda_device):
     f0 = _start(params, "mixed", cuda_device, "f32")
     with pytest.raises(RuntimeError, match="K4 trapezoid sweep kernel failed"):
         temporal_cuda.make_run_all(params, obst, 8, 8, tile_hw=(100, 100))(f0)
+    assert temporal_cuda.persistent_grid(4, 3) == 3
+    assert temporal_cuda.persistent_grid(4, 1 << 20) >= torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
     run = temporal_cuda.make_run_all(params, obst, 12, 4)
     f_a, tot_a = (t.clone() for t in run(f0))
     f_b, tot_b = run(f0)
