@@ -22,16 +22,19 @@ power limit as nvidia-smi reports them):
 3. K2 (persistent multi-step kernel) vs its plain version: 128x128, 256x128,
    256x256 with (steps, chunk) in {(7,4), (8,4), (5,8), (600,256)}, and
    256x256 from the perturbed state for 600 steps; same bounds;
-3b. K3 (in-place persistent kernel) vs its plain version: 1024x1024 from
-   rest and from the perturbed state, 200 steps; 60x100 and 7x33 (a wall
-   on the driven row) with (steps, chunk) in
-   {(7,4), (8,4), (5,8), (600,256)}; same bounds; and K3 vs K1, both
-   kernels, at 1024x1024 over 20000 steps: fields torch.equal, tot_u
-   within rtol 1e-6;
+3b. K3 (in-place persistent kernel) vs its plain version: 1024x1024 and
+   1021x1023 from rest and from the perturbed state, 200 steps; 60x100,
+   7x33 (a wall on the driven row) and 45x99 with (steps, chunk) in
+   {(7,4), (8,4), (5,8), (600,256)} (odd counts end in the second buffer);
+   same bounds; and K3 vs K1, both kernels, at 1024x1024 over 20000
+   steps: fields torch.equal, tot_u within rtol 1e-6; over 3b and 3c the
+   script fails unless the blocks' bands (the band plan on the card's
+   grid) put the driven row on a band's first row and on its last, and
+   split rows between blocks;
 3c. the int16 kernels vs their plain version (int16 fields torch.equal,
    tot_u rtol 1e-6): K1-i16 at 1024x1024, 1536x1536 and 2048x2048 x 50
-   steps from rest and perturbed starts, K3-i16 at 256x256 (the largest
-   grid the policy gives it), 1024x1024 and 1536x1536 from rest and
+   steps from rest and perturbed starts, K3-i16 at 256x256, 1024x1024 (the
+   largest grid the policy gives it) and 1536x1536 from rest and
    perturbed starts (200 steps), on the small grids above and at 256x256
    with (steps, chunk) = (600, 256), and K3-i16 vs K1-i16 at 1024x1024
    over 20000 steps;
@@ -65,7 +68,9 @@ power limit as nvidia-smi reports them):
    driven row in the body, either ghost region and none (K4-slab also in
    the first and last row of its first tile's region), rest and perturbed
    starts;
-   fields torch.equal (int16 too), tot_u within rtol 1e-6;
+   fields torch.equal (int16 too), tot_u within rtol 1e-6; the script fails
+   unless K8's cases put the driven row on the first and the last row of a
+   block's cells in some step, and rows split between blocks;
 3h. K9 (the HBM-parts sweep) vs its plain version and vs K1 at 2048x2048
    and 60x100, K in {2, 3, 4, 8} (:func:`hbm_kernel_checks`);
 3i. K10 (the two-copy row-block kernel) vs its plain version at 128^2,
@@ -85,10 +90,10 @@ power limit as nvidia-smi reports them):
 5b. the golden run: the 1024x1024 reference scene rebuilt from golden/
    (obstacles from column 7 of the final state), ``run --variant cuda``
    for the full 20000 steps with --storage f32 (variant cuda-inplace),
-   --storage i16 (the default, cuda-step-i16: one quantization per step)
+   --storage i16 (the default, cuda-inplace-i16: one quantization per step)
    and --storage i16 --temporal-k 4 (cuda-trapezoid-i16: one per 4 steps),
-   each passing ``check`` against golden/ (1%); the K3, K1-i16 and K4-i16
-   counters, zeroed just before, must have gone up;
+   each passing ``check`` against golden/ (1%); the K3, K3-i16 and K4-i16
+   counters must have gone up in these runs;
 5l. K10's main path: ``LBM_RESIDENT_KIND=blocked run`` on 5b's golden scene,
    20000 steps (cuda-blocked), final_state.dat byte-identical to 5b's
    cuda-inplace run, av_vels within rtol 1e-6 of it (the same fields, |u|
@@ -126,7 +131,7 @@ power limit as nvidia-smi reports them):
    byte-identical to 5b's single-device f32 run (cuda-inplace, whose
    fields equal K1's) with av_vels within 1e-6 relative, overlap's
    byte-identical to sync's, async passing ``check`` against golden/ (1%),
-   sync --storage i16 byte-identical to 5b's int16 run (cuda-step-i16);
+   sync --storage i16 byte-identical to 5b's int16 run (cuda-inplace-i16);
    2000 steps of async-k (k = 2) and 2001 of chunked (k = 2: K6 and a
    one-step sync tail) each passing ``check`` (1%) against an f32 sync run
    of the same length; the K1-slab, K1-slab-i16 and K6 counters, zeroed
@@ -136,7 +141,7 @@ power limit as nvidia-smi reports them):
    (K4-slab, K = 4), =resident (K7, K = 4) and =inplace (K8, K = 8), each
    final_state.dat byte-identical to 5b's single-device f32 run and passing
    ``check`` against golden/; ca-i16 on the default int16 engine (K8-i16,
-   quantized every step: byte-identical to 5b's cuda-step-i16) and with
+   quantized every step: byte-identical to 5b's cuda-inplace-i16) and with
    LBM_CA_ENGINE=slab (K4-slab-i16, once per 4 steps: byte-identical to
    cuda-trapezoid-i16), each passing ``check`` (1%); ``--variant auto
    --host-devices 4`` x 2001 steps reads ``ca-8+sync-tail1`` and writes
@@ -167,10 +172,11 @@ power limit as nvidia-smi reports them):
    K1-slab loop (K6's counter unchanged), within 1% of sync's av;
 5g. the dryrun analog (tools/dryrun.py) on 8 shards of the card: every
    relation holds with ulp 0;
-6. MLUPS of those runs, and K1 / K2 / K3 / K1-i16 / K3-i16 / twin times at
-   128^2 .. 1024^2 and K1 / K1-i16 / K3-i16 / twin at 1536^2
-   (tools/kernel_times.py) beside a 1 GiB device copy's bandwidth and
-   that of a 16 MiB copy (source and destination fit L2); K4 / K5 / K4-i16 /
+6. MLUPS of those runs, and K1 / K2 / K3 / K1-i16 / K3-i16 (in turns) /
+   twin times at 128^2 .. 1024^2 and K1 / K1-i16 / K3-i16 / twin at 1536^2
+   (tools/kernel_times.py) beside a 1 GiB device copy's bandwidth, the L2
+   copy's (csrc/l2_copy.cu: one buffer of 9.6, 18 and 36 MiB read and
+   written in place, with and without a grid barrier per pass); K4 / K5 / K4-i16 /
    K5-i16 at K in {2, 4, 8} at 1536^2, 2048^2 and 4096^2, in turns with
    K1 / K1-i16, beside the plain sweep's time; (6d) MLUPS of every
    sharded discipline at 1024^2/4 (5e) and 4096^2/4 (400 steps, beside
@@ -183,8 +189,9 @@ power limit as nvidia-smi reports them):
 7. one JSON line of kernel findings (one row per kernel, with the
    launches of the main path's run, its time per launch beside its plain
    version's and its bound, the least time of the launch's bytes over
-   3.35 TB/s or its operations over 67 TFLOP/s, and, for a state in
-   device memory, its bytes over the 1 GiB copy's measured rate; K4,
+   3.35 TB/s or its operations over 67 TFLOP/s, and its tier bound: for a
+   state in device memory its bytes over the 1 GiB copy's measured rate,
+   for a state in L2 its cell-steps' bytes over the L2 copy's; K4,
    K5 and their int16 forms timed at 2048x2048, K=4, and at each grid and
    depth of 6c under "by_grid_and_depth"), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -258,6 +265,22 @@ def k4_cover(paths: dict, temporal_cuda, ny: int, nx: int, K: int, accel_row: in
             paths["copies"].add(temporal_cuda.copy_path("f32", nx, K, x0, tw, 4 * row * nx))
             if (row * nx + x0 - K) % 2:
                 paths["copies"].add("int16 odd element")
+
+
+def band_cover(paths: set, plan, nx: int, drow: int) -> None:
+    """Add to ``paths`` what a K3 or K8 launch with the band plan ``plan``
+    (ops/inplace_cuda.py band_plan) reaches: "first" / "last" where the
+    driven row (row ``drow`` of the plan's grid) is the first / last row of
+    a block's cells in some step, and "split rows" where a block's cells
+    start inside a row (the rows do not divide among the blocks)."""
+    for step in plan:
+        for s, e, _, _ in step:
+            if s % nx:
+                paths.add("split rows")
+            if s // nx == drow:
+                paths.add("first")
+            if (e - 1) // nx == drow:
+                paths.add("last")
 
 
 def fail(msg: str) -> None:
@@ -428,7 +451,7 @@ def slab_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
 CA_SHAPES = ((256, 1024), (1024, 4096), (8, 1024), (13, 1024), (64, 100), (24, 99))
 
 
-def ca_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
+def ca_kernel_checks(dev, k8_paths: set) -> tuple[dict[str, float], dict[str, int]]:
     """Phase 3g: the ca engines against the plain ca sweep
     (``fused_torch.ca_sweep``): K4-slab and K4-slab-i16 (int16 quantized once
     per sweep), K7 (f32, where two copies of the extended slab fit its L2
@@ -440,12 +463,14 @@ def ca_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
     rest and
     from a seeded perturbation with the injection guard false at every third
     cell.  Fields (int16 too) bitwise, tot_u within rtol 1e-6.  Returns the
-    largest |diff| per kernel and the number of cases."""
+    largest |diff| per kernel and the number of cases, and adds to
+    ``k8_paths`` where K8's cases put the driven row in the blocks' bands
+    (:func:`band_cover`)."""
     import numpy as np
     import torch
 
     from lbm_tpu_torch.core import lattice
-    from lbm_tpu_torch.ops import ca_cuda, fused_torch, quant, temporal_cuda
+    from lbm_tpu_torch.ops import _build, ca_cuda, fused_torch, quant, temporal_cuda
     from lbm_tpu_torch.params import LBMParams
 
     kernels = {"K4-slab": (temporal_cuda.bind_slab_sweep, "f32", "sweep"),
@@ -503,6 +528,12 @@ def ca_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
                             fail(f"{what}: tot_u {tots[1:].tolist()} vs plain {ref_tot.tolist()}")
                         err[name] = max(err[name], e)
                         cases[name] += 1
+                        if name.startswith("K8"):
+                            ext = n + 2 * K
+                            grid = _build.load().lbm_ca_inplace_grid(
+                                ext, nx, int(storage == "i16"), dev.index)
+                            band_cover(k8_paths, ca_cuda.sweep_plan(ext, nx, K, grid), nx,
+                                       ca_cuda.driven_ext_row(ar, off % p.ny, K, n, p.ny))
     return err, cases
 
 
@@ -723,18 +754,30 @@ def main() -> int:
           f"x (7,4) (8,4) (5,8) (600,256)) + 256x256 mixed start 600 steps: "
           f"fields equal, tot_u max rel {k2_rel:.2e}")
 
-    # Phase 3b: K3 vs plain, and K3 vs K1 at full length.
+    # Phase 3b: K3 vs plain, and K3 vs K1 at full length.  k3_paths: where
+    # the driven row sits in the blocks' bands, over every K3 and K3-i16
+    # case of 3b and 3c (csrc/aa_inplace.cuh).
     k3_err, k3_rel, n_cases = 0.0, 0.0, 0
-    for start in ("rest", "mixed"):
-        p, _, obst, f0 = field(1024, 1024, 0.01)
-        if start == "mixed":
-            f0 = mixed_state(p, dev)
-        f_k, tot_k = inplace_cuda.make_run_all(p, obst, 200)(f0)
-        f_p, tot_p = inplace_cuda.run_plain(f0, obst, p, 200)
-        e, r = compare(f"K3 1024x1024 {start}", f_k, tot_k, f_p, tot_p)
-        k3_err, k3_rel = max(k3_err, e), max(k3_rel, r)
-    for ny, nx in ((60, 100), (7, 33)):
+    k3_paths: set = set()
+
+    def k3_cover(p, storage="f32"):
+        grid = _build.load().lbm_inplace_grid(p.ny, p.nx, int(storage == "i16"), dev.index)
+        band_cover(k3_paths, inplace_cuda.band_plan([(0, p.ny)], p.nx, grid, p.ny), p.nx,
+                   p.accel_row)
+
+    for ny, nx in ((1024, 1024), (1021, 1023)):
+        for start in ("rest", "mixed"):
+            p, _, obst, f0 = field(ny, nx, 0.01)
+            k3_cover(p)
+            if start == "mixed":
+                f0 = mixed_state(p, dev)
+            f_k, tot_k = inplace_cuda.make_run_all(p, obst, 200)(f0)
+            f_p, tot_p = inplace_cuda.run_plain(f0, obst, p, 200)
+            e, r = compare(f"K3 {ny}x{nx} {start}", f_k, tot_k, f_p, tot_p)
+            k3_err, k3_rel = max(k3_err, e), max(k3_rel, r)
+    for ny, nx in ((60, 100), (7, 33), (45, 99)):
         p, _, obst, _ = field(ny, nx)
+        k3_cover(p)
         f0 = mixed_state(p, dev)
         for steps, chunk in ((7, 4), (8, 4), (5, 8), (600, 256)):
             f_k, tot_k = inplace_cuda.make_run_all(p, obst, steps, chunk=chunk)(f0)
@@ -747,9 +790,9 @@ def main() -> int:
     f_k, tot_k = f_k.clone(), tot_k.clone()
     f_1, tot_1 = fused_cuda.make_run_all(p, obst, 20000)(f0)
     _, k3_k1_rel = compare("K3 vs K1 1024x1024 20000 steps", f_k, tot_k, f_1, tot_1)
-    print(f"[3b K3 vs plain] card: {card} | 1024x1024 rest and perturbed, 200 steps; "
-          f"{n_cases} cases (60x100, 7x33 x (7,4) (8,4) (5,8) (600,256), perturbed start): "
-          f"fields equal, tot_u max rel {k3_rel:.2e} | "
+    print(f"[3b K3 vs plain] card: {card} | 1024x1024 and 1021x1023 rest and perturbed, 200 "
+          f"steps; {n_cases} cases (60x100, 7x33, 45x99 x (7,4) (8,4) (5,8) (600,256), "
+          f"perturbed start): fields equal, tot_u max rel {k3_rel:.2e} | "
           f"K3 vs K1 1024x1024 x 20000 steps: fields equal, tot_u max rel {k3_k1_rel:.2e}")
 
     # Phase 3c: the int16 kernels vs plain, and K3-i16 vs K1-i16 at full length.
@@ -769,13 +812,15 @@ def main() -> int:
     for n in (256, 1024, 1536):
         for start in ("rest", "mixed"):
             p, _, obst, f0 = field(n, n, 0.01)
+            k3_cover(p, "i16")
             q0 = i16_start(p, f0 if start == "rest" else mixed_state(p, dev))
             q_k, tot_k = inplace_cuda.make_run_all(p, obst, 200, storage="i16")(q0)
             q_p, tot_p = inplace_cuda.run_plain(q0, obst, p, 200, "i16")
             e, r = compare(f"K3-i16 {n}x{n} {start}", q_k, tot_k, q_p, tot_p)
             k3i_err, k3i_rel = max(k3i_err, e), max(k3i_rel, r)
-    for ny, nx in ((60, 100), (7, 33), (256, 256)):
+    for ny, nx in ((60, 100), (7, 33), (45, 99), (256, 256)):
         p, _, obst, _ = field(ny, nx)
+        k3_cover(p, "i16")
         q0 = i16_start(p, mixed_state(p, dev))
         for steps, chunk in ((7, 4), (8, 4), (5, 8), (600, 256))[3 if ny == 256 else 0:]:
             q_k, tot_k = inplace_cuda.make_run_all(p, obst, steps, chunk=chunk,
@@ -791,12 +836,15 @@ def main() -> int:
     q_k, tot_k = q_k.clone(), tot_k.clone()
     q_1, tot_1 = fused_cuda.make_run_all(p, obst, 20000, "i16")(q0)
     _, k3i_k1i_rel = compare("K3-i16 vs K1-i16 1024x1024 20000 steps", q_k, tot_k, q_1, tot_1)
+    if not {"first", "last", "split rows"} <= k3_paths:
+        fail(f"3b/3c: the driven row and the K3 bands reached only {sorted(k3_paths)}")
     print(f"[3c i16 kernels vs plain] card: {card} | K1-i16 1024x1024, 1536x1536 and "
           f"2048x2048 x 50 steps, rest and perturbed: int16 fields equal, tot_u max rel "
           f"{k1i_rel:.2e} | K3-i16 256x256, 1024x1024 and 1536x1536 x 200 steps, rest and "
-          f"perturbed, + {n_cases} chunked cases: int16 fields "
+          f"perturbed, + {n_cases} chunked cases (60x100, 7x33, 45x99, 256x256): int16 fields "
           f"equal, tot_u max rel {k3i_rel:.2e} | K3-i16 vs K1-i16 1024x1024 x 20000 steps: "
-          f"int16 fields equal, tot_u max rel {k3i_k1i_rel:.2e}")
+          f"int16 fields equal, tot_u max rel {k3i_k1i_rel:.2e} | K3's bands: the driven row "
+          f"as {sorted(k3_paths)}")
 
     # Phase 3d: the sweep kernels vs their plain version (one plain run per
     # case serves both kernels: K4 and K5 compute the same K-step sweeps).
@@ -873,13 +921,17 @@ def main() -> int:
           + f" | {time.perf_counter() - t_start:.1f} s elapsed")
 
     # Phase 3g: the ca engines vs the plain ca sweep; 3h: K9 vs plain and K1.
-    ca_err, ca_cases = ca_kernel_checks(dev)
+    k8_paths: set = set()
+    ca_err, ca_cases = ca_kernel_checks(dev, k8_paths)
+    if not {"first", "last", "split rows"} <= k8_paths:
+        fail(f"3g: the driven row and the K8 bands reached only {sorted(k8_paths)}")
     print(f"[3g ca engines vs plain] card: {card} | shards "
           + ", ".join(f"{n}x{nx}" for n, nx in CA_SHAPES) + " x K in (2, 3, 4, 8), driven row in "
           "body / lo / hi / none (K4-slab: also the first and last region row), rest and "
           "perturbed | "
           + "; ".join(f"{k} {ca_cases[k]} cases, fields equal, max |diff| {ca_err[k]:.1e}"
                       for k in ca_err)
+          + f" | K8's bands: the driven row as {sorted(k8_paths)}"
           + f" | {time.perf_counter() - t_start:.1f} s elapsed")
     k9_err, k9_cases = hbm_kernel_checks(dev)
     print(f"[3h K9 vs plain and K1] card: {card} | 2048x2048 and 60x100 x K in (2, 3, 4, 8) x "
@@ -1006,9 +1058,9 @@ def main() -> int:
             fp.writelines(f"{x} {y} 1\n" for x, y, _ in walls)
         golden_dev, golden_dirs = {}, {}
         inplace_cuda.LAUNCHES = 0
-        fused_cuda.LAUNCHES_I16 = 0
+        k3i_before = inplace_cuda.LAUNCHES_I16
         temporal_cuda.LAUNCHES_I16 = 0
-        for storage, extra, want in (("f32", (), "cuda-inplace"), ("i16", (), "cuda-step-i16"),
+        for storage, extra, want in (("f32", (), "cuda-inplace"), ("i16", (), "cuda-inplace-i16"),
                                      ("i16", ("--temporal-k", "4"), "cuda-trapezoid-i16")):
             out_dir, got = cli_run("golden1024", gp, go, "cuda", "--storage", storage, *extra)
             if got != want:
@@ -1017,15 +1069,17 @@ def main() -> int:
             golden_dev[want] = cli_check(ref_av, ref_fs, out_dir, f"golden {want}")
             golden_dirs[want] = out_dir
         launches["K3"] = inplace_cuda.LAUNCHES
-        golden_k1i, golden_k4i = fused_cuda.LAUNCHES_I16, temporal_cuda.LAUNCHES_I16
-        if min(launches["K3"], golden_k1i, golden_k4i) <= 0:
-            fail(f"golden runs skipped a kernel: K3 {launches['K3']}, K1-i16 {golden_k1i}, "
+        golden_k3i = inplace_cuda.LAUNCHES_I16 - k3i_before
+        golden_k4i = temporal_cuda.LAUNCHES_I16
+        launches["K3-i16"] += golden_k3i
+        if min(launches["K3"], golden_k3i, golden_k4i) <= 0:
+            fail(f"golden runs skipped a kernel: K3 {launches['K3']}, K3-i16 {golden_k3i}, "
                  f"K4-i16 {golden_k4i}")
         print(f"[5b golden 1024x1024] card: {card} | scene from golden/ ({len(walls)} wall "
               f"cells, {gparams.max_iters} steps, accel {gparams.accel}) | check vs golden "
               f"(max deviation av_vels, final_state): "
               + "; ".join(f"{v} {', '.join(d)}" for v, d in golden_dev.items())
-              + f" | launches K3 {launches['K3']}, K1-i16 {golden_k1i}, K4-i16 {golden_k4i}"
+              + f" | launches K3 {launches['K3']}, K3-i16 {golden_k3i}, K4-i16 {golden_k4i}"
               + elapsed())
 
         # Phase 5l: K10 at full length on the golden scene (its main path:
@@ -1259,9 +1313,9 @@ def main() -> int:
                                                               "golden async")))
         si_dir = sharded_run("golden1024", "sync", "sync-i16", ("K1-slab-i16",), "--storage",
                              "i16")
-        if not same_final_state(si_dir, golden_dirs["cuda-step-i16"]):
-            fail("golden sync --storage i16: final_state.dat differs from cuda-step-i16's")
-        notes.append("sync-i16 byte-identical to cuda-step-i16")
+        if not same_final_state(si_dir, golden_dirs["cuda-inplace-i16"]):
+            fail("golden sync --storage i16: final_state.dat differs from cuda-inplace-i16's")
+        notes.append("sync-i16 byte-identical to cuda-inplace-i16")
         sync_dirs = {}
         for steps, variant, want, uses in ((2000, "async-k", "async-2", ("K1-slab",)),
                                            (2001, "chunked", "chunked-2+sync-tail1",
@@ -1320,7 +1374,7 @@ def main() -> int:
             dev_pct = cli_check(ref_av, ref_fs, d, f"golden {want} {use}")
             notes.append(f"{want} {engine or 'auto'} ({use}) byte-identical, av_vels max rel "
                          f"{rel:.2e}, vs golden {', '.join(dev_pct)}")
-        for engine, want, use, same_as in ((None, "ca-8-i16", "K8-i16", "cuda-step-i16"),
+        for engine, want, use, same_as in ((None, "ca-8-i16", "K8-i16", "cuda-inplace-i16"),
                                            ("slab", "ca-4-i16", "K4-slab-i16",
                                             "cuda-trapezoid-i16")):
             d = ca_run(f"golden1024-ca-i16-{engine or 'auto'}", "ca", want, use, engine,
@@ -1522,9 +1576,10 @@ def main() -> int:
     print(f"[6a run MLUPS] card: {card} | "
           + "; ".join(f"{k} {v:.1f}" for k, v in mlups.items()))
     gbps = kernel_times.copy_gbps(dev, repeats=5)
+    l2 = kernel_times.l2_rates(dev, repeats=5)
     table = {n: kernel_times.time_grid(n, dev, repeats=5) for n in GRID_SIZES + (1536,)}
     print(f"[6b us/step: median [q1, q3], MLUPS, GB/s] card: {card} | "
-          f"copy 1 GiB {gbps[0]:.1f} GB/s | "
+          f"copy 1 GiB {gbps[0]:.1f} GB/s | {kernel_times.format_l2(l2)} | "
           + " ; ".join(kernel_times.format_grid(n, t) for n, t in table.items()))
 
     sweeps = {n: kernel_times.time_sweeps(n, dev, SWEEP_DEPTHS, repeats=5) for n in SWEEP_GRIDS}
@@ -1532,9 +1587,7 @@ def main() -> int:
           f"card: {card} | " + " ; ".join(kernel_times.format_grid(n, t)
                                            for n, t in sweeps.items()))
 
-    # Phase 6d: the sharded disciplines' rates and their kernels' times,
-    # and a copy whose source and destination fit L2 together.
-    l2_copy = kernel_times.copy_gbps(dev, repeats=21, nbytes=16 * 2**20)
+    # Phase 6d: the sharded disciplines' rates and their kernels' times.
     shard_times = {n: kernel_times.time_shard(n, dev, repeats=5) for n in (1024, 4096)}
     scene_b = bench.make_scene("4096x4096")
     rates4k, fields4k = {}, {}
@@ -1558,8 +1611,6 @@ def main() -> int:
           + "; ".join(f"{k} {v:.1f}" for k, v in golden_rates.items())
           + " | 4096x4096 box x 400 steps (ca-4 on K4-slab, fields equal to sync; "
             f"K4-slab launches {slab_6d}): " + "; ".join(f"{k} {v:.1f}" for k, v in rates4k.items())
-          + f" | copy 16 MiB (fits L2) {l2_copy[0]:.1f} GB/s [{l2_copy[1]:.1f}, "
-            f"{l2_copy[2]:.1f}]"
           + " | shard kernels in turns, then plain: "
           + " ; ".join(kernel_times.format_shard(n, t) for n, t in shard_times.items()))
 
@@ -1584,31 +1635,47 @@ def main() -> int:
     # K1-slab one step of one shard; one of K6 k steps of one shard.  Every
     # row has its bound (bound_ms: the launch's bytes over 3.35 TB/s or its
     # operations over 67 TFLOP/s, whichever is larger) and the memory tier
-    # its state lives in; for a state in HBM also tier_bound_ms, the bytes
-    # it moves over the 1 GiB copy's rate of phase 6b.  L2 has no measured
-    # rate (the 16 MiB copy of 6d reads no faster than HBM), so an L2 row's
-    # tier_bound_ms is null.  No single PyTorch call computes a D2Q9 step,
-    # so library_ms is null.
+    # its state lives in, with tier_bound_ms, the bytes it moves over that
+    # tier's measured rate: for a state in HBM the 1 GiB copy's of phase 6b
+    # (a one-step kernel's state read and written once per launch); for a
+    # state in L2 (K2, K3, K6, K7, K8) the L2 copy's of 6b with a barrier
+    # per pass, at the smallest measured working set that holds the
+    # kernel's copies (9.6, 18 or 36 MiB), over every step of the launch
+    # (9 values read and written per cell-step).  No single PyTorch call
+    # computes a D2Q9 step, so library_ms is null.
     chunk = inplace_cuda.DEFAULT_CHUNK
 
-    def bounds(rows, nx, fluid, steps, storage, tier, ghosts=False):
+    def l2_tier_ms(cells, steps, storage, copies):
+        """The launch's state traffic over the L2 copy's rate at the working
+        set of ``copies`` copies of a ``cells``-cell state: (ms, working
+        set label)."""
+        vb = 2 if storage == "i16" else 4
+        label, rate = kernel_times.l2_rate_for(l2, copies * 9 * cells * vb)
+        return cells * steps * 2 * 9 * vb / (rate * 1e9) * 1e3, label
+
+    def bounds(rows, nx, fluid, steps, storage, tier, ghosts=False, copies=1):
         """bound_ms, bound_by, tier and tier_bound_ms of one launch on a
-        rows x nx state (a shard: plus its two ghost rows)."""
+        rows x nx state (a shard: plus its two ghost rows), ``copies``
+        copies of it in L2."""
         cells = rows * nx
         extra = 2 * 9 * nx * (2 if storage == "i16" else 4) if ghosts else 0
         b, by = kernel_times.bound_ms(cells, fluid, steps, storage, extra)
         per_cell = (kernel_times.BYTES_PER_CELL_STEP_I16 if storage == "i16"
                     else kernel_times.BYTES_PER_CELL_STEP)
-        tier_b = cells * per_cell / (gbps[0] * 1e9) * 1e3 if tier == "HBM" else None
+        if tier == "HBM":
+            tier_b, tier = cells * per_cell / (gbps[0] * 1e9) * 1e3, "HBM"
+        else:
+            tier_b, label = l2_tier_ms(cells, steps, storage, copies)
+            tier = f"L2 ({label} copy)"
         return {"bound_ms": b, "bound_by": by, "library_ms": None, "tier": tier,
                 "tier_bound_ms": tier_b}
 
-    def row(name, source, replaces, key, err, n, plain, per_launch, storage, tier):
+    def row(name, source, replaces, key, err, n, plain, per_launch, storage, tier, copies=1):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[key], "max_abs_err": err,
                 "ms": table[n][key][0] / 1e3 * per_launch,
                 "plain_ms": table[n][plain][0] / 1e3 * per_launch,
-                **bounds(n, n, (n - 2) ** 2, per_launch, storage, tier)}
+                **bounds(n, n, (n - 2) ** 2, per_launch, storage, tier, copies=copies)}
 
     kernels = [
         row("K1 one-step fused kernel (ms per launch = 1 step, 1536x1536)",
@@ -1616,13 +1683,13 @@ def main() -> int:
             "K1", k1_err, 1536, "twin", 1, "f32", "HBM"),
         row("K2 persistent multi-step kernel (ms per launch = 256 steps, 256x256)",
             "lbm_tpu_torch/csrc/resident.cu", "lbm_tpu/ops/resident_pallas.py:213",
-            "K2", k2_err, 256, "twin", resident_cuda.DEFAULT_CHUNK, "f32", "L2"),
+            "K2", k2_err, 256, "twin", resident_cuda.DEFAULT_CHUNK, "f32", "L2", copies=2),
         row("K3 in-place persistent kernel (ms per launch = 256 steps, 1024x1024)",
             "lbm_tpu_torch/csrc/inplace.cu", "lbm_tpu/ops/resident_pallas.py:601",
             "K3", k3_err, 1024, "twin", chunk, "f32", "L2"),
         row("K3-i16 in-place persistent kernel, int16 state (ms per launch = 256 steps, "
-            "256x256)", "lbm_tpu_torch/csrc/inplace.cu",
-            "lbm_tpu/ops/resident_pallas.py:601", "K3-i16", k3i_err, 256, "twin-i16", chunk,
+            "1024x1024)", "lbm_tpu_torch/csrc/inplace.cu",
+            "lbm_tpu/ops/resident_pallas.py:601", "K3-i16", k3i_err, 1024, "twin-i16", chunk,
             "i16", "L2"),
         row("K1-i16 one-step fused kernel, int16 state (ms per launch = 1 step, 1536x1536)",
             "lbm_tpu_torch/csrc/step.cu", "lbm_tpu/ops/fused_pallas.py:249",
@@ -1663,7 +1730,8 @@ def main() -> int:
         rows = n // 4
         return {"ms": shard_times[n][timed][0] / 1e3 * per_launch,
                 "plain_ms": shard_times[n][plain][0] / 1e3 * per_launch,
-                **bounds(rows, n, (rows - 1) * (n - 2), per_launch, storage, tier, ghosts=True)}
+                **bounds(rows, n, (rows - 1) * (n - 2), per_launch, storage, tier, ghosts=True,
+                         copies=2)}
 
     for key, storage, what in (("K1-slab", "f32", ""), ("K1-slab-i16", "i16", ", int16 state")):
         sfx = "-i16" if storage == "i16" else ""
@@ -1685,29 +1753,36 @@ def main() -> int:
         "max_abs_err": slab_err["K6"],
         **shard_row(1024, "K6 k=2", "plain K6 k=2", 2, "f32", "L2"),
         "by_chunk": [{"k": 8, "ms": shard_times[1024]["K6 k=8"][0] / 1e3 * 8,
-                      **bounds(256, 1024, 255 * 1022, 8, "f32", "L2", ghosts=True)}]})
+                      **bounds(256, 1024, 255 * 1022, 8, "f32", "L2", ghosts=True,
+                               copies=2)}]})
     # The ca engines (ms per launch = one K-step sweep of one shard, frozen
     # ghosts): K8, K8-i16 and K7 on the 256x1024 shard of the golden runs
     # (K = 8; K7 at K = 4, its default depth when forced), K4-slab and
     # K4-slab-i16 on the 1024x4096 shard of the 4096^2 run (K = 4); the shard
     # is the last of 4 (its top row and edge columns are walls).  Bytes: the
     # body read and written once, the 2K ghost rows read once, the extended
-    # slab's mask; operations: the body's fluid cells, K steps.
+    # slab's mask; operations: the body's fluid cells, K steps.  Tier: L2
+    # for the 256x1024 shard, its body's cell-steps over the L2 copy's rate
+    # at the engine's working set (K8 one copy of the extended slab, K7 two,
+    # K4-slab the body's input and output).
     def ca_row(name, source, replaces, key, shard, K, storage, plain_key, **more):
         n, nx = shard
         t = ca_times[shard]
         vb = 2 if storage == "i16" else 4
         b, by = kernel_times.bound_ms(n * nx, (n - 1) * (nx - 2), K, storage,
                                       extra_bytes=2 * K * nx * (9 * vb + 1))
-        tier = "L2" if n * nx <= 256 * 1024 else "HBM"
         per_cell = (kernel_times.BYTES_PER_CELL_STEP_I16 if storage == "i16"
                     else kernel_times.BYTES_PER_CELL_STEP)
+        if n * nx <= 256 * 1024:
+            tier_b, label = l2_tier_ms(n * nx, K, storage, 1 if key.startswith("K8") else 2)
+            tier = f"L2 ({label} copy)"
+        else:
+            tier_b, tier = n * nx * per_cell / (gbps[0] * 1e9) * 1e3, "HBM"
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[key], "max_abs_err": ca_err[key],
                 "ms": t[f"{key} K={K}"][0] / 1e3 * K, "plain_ms": t[plain_key][0] / 1e3 * K,
                 "bound_ms": b, "bound_by": by, "library_ms": None, "tier": tier,
-                "tier_bound_ms": (n * nx * per_cell / (gbps[0] * 1e9) * 1e3 if tier == "HBM"
-                                  else None), **more}
+                "tier_bound_ms": tier_b, **more}
 
     # K4-slab's launches by the shape they ran at: 256x1024 in 5h (the
     # forced slab engine on the golden scene over 4), 1024x4096 in 6d

@@ -23,9 +23,11 @@
 //
 // Bound: 9 reads + 9 writes of state per cell-step of the extended slab,
 // from L2 while its one copy stays there (the wrappers map a slab only
-// where it fits inplace_cuda.L2_INPLACE_BUDGET), plus one grid barrier per
-// step; K9 also reads each part's slab from device memory and writes its
-// body back once per sweep.
+// where it fits inplace_cuda.L2_INPLACE_BUDGET), plus the steps' waits;
+// K9 also reads each part's slab from device memory and writes its body
+// back once per sweep.  On the 256x1024 shard at K = 8 half of the parent
+// kernel's time was its step floor (the grid barrier and the block sum,
+// no cell: 3.95 of 7.83 us/step; PERF.md Findings PR 8).
 //
 // Design: K3's AA access pattern (csrc/inplace.cu) on the extended slab, so
 // that every cell reads and writes only its own slots and all cells run in
@@ -41,6 +43,13 @@
 // - the last step computes the body rows and writes them, canonical, to
 //   the output window: another buffer, so an odd K needs no second copy.
 //
+// Work map and synchronisation as K3's (aa_inplace.cuh): each step's rows
+// are split evenly over all the blocks afresh (the host's band plan, one
+// entry per step and block), so the shrinking steps never leave a near-empty
+// round; a block's step t + 1 waits only for the blocks whose step-t cells
+// lie within one row of its own; the last step ends in a grid barrier
+// before the |u| pass.
+//
 // The driven row sits at extended row `drow` (from the shard's row offset;
 // -1 when the slab holds none; at most one image, as ext <= ny_global), in
 // the body or in either ghost region.  Step 0 recomputes its injection
@@ -50,126 +59,123 @@
 //
 // Scratch and guard bytes are written during the launch and read through
 // L2 only (__ldcg).  |u|: per step each block sums its body cells in a fixed
-// order into partials[step][block]; after the last step, block b sums rows
-// b, b + grid, ... in a fixed order into tot_out, or adds them to it
+// order into its partial; after the last step, block b sums rows b,
+// b + grid, ... in a fixed order into tot_out, or adds them to it
 // (accumulate: K9's parts and ca's split sub-slabs, in part order).  No
 // float atomics.
 
 #include <cooperative_groups.h>
 
-#include "lbm_common.cuh"
+#include "aa_inplace.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-// Speed numbering as in lbm_common.cuh.
-__device__ __forceinline__ constexpr int cx(int k) {
-  return (k == 1 || k == 5 || k == 8) ? 1 : ((k == 3 || k == 6 || k == 7) ? -1 : 0);
-}
-__device__ __forceinline__ constexpr int cy(int k) {
-  return (k == 2 || k == 5 || k == 6) ? 1 : ((k == 4 || k == 7 || k == 8) ? -1 : 0);
-}
-__device__ __forceinline__ constexpr int opp(int k) {
-  return k == 0 ? 0 : (k <= 4 ? (k + 1) % 4 + 1 : (k - 3) % 4 + 5);
-}
+using lbm::aa::Cell;
 
-// The guard byte of a driven-row cell from its stored values, decoded.
 template <typename T>
-__device__ __forceinline__ uint8_t stored_guard(const T q[9], bool fluid,
-                                                const lbm::StepParams& p) {
-  return lbm::lbm_guard(fluid, lbm::lbm_decode(q[3], 3, p), lbm::lbm_decode(q[6], 6, p),
-                        lbm::lbm_decode(q[7], 7, p), p);
-}
-
-// K3's occupancy: at least 4 blocks per SM.
-template <typename T>
-__global__ void __launch_bounds__(lbm::kThreads, 4)
+__global__ void __launch_bounds__(lbm::kThreads, lbm::aa::kMinBlocks)
     lbm_ca_inplace_kernel(lbm::Ext<T> in, T* a, const uint8_t* __restrict__ obst, uint8_t* gate,
                           T* out, long long ps_out, float* partials, float* tot_out,
                           lbm::StepParams p, int drow, int accumulate) {
+  namespace aa = lbm::aa;
+  constexpr int kC = aa::kCells;
   __shared__ float sh[lbm::kThreads];
+  __shared__ float wsum[lbm::kThreads / 32];
   cg::grid_group grid = cg::this_grid();
   const int nx = p.nx, K = in.K, n = in.n;
   const int ext = n + 2 * K;
-  const size_t plane = static_cast<size_t>(ext) * nx;
-  const int stride = gridDim.x * lbm::kThreads;
-  const int first = blockIdx.x * lbm::kThreads + threadIdx.x;
+  const int plane = ext * nx;
+  const int G = gridDim.x;
+  const int* plan = reinterpret_cast<const int*>(partials);
+  unsigned* flags = reinterpret_cast<unsigned*>(partials) + 4 * K * G;
+  float* sums = partials + 4 * K * G + G;
+  const unsigned base = __ldcg(flags + blockIdx.x);
+  const int dj = lbm::kThreads / nx, di = lbm::kThreads - dj * nx;
+  // The driven row's offset; body rows [K, K + n) count in |u|.
+  const int drow_off = drow < 0 ? -1 : drow * nx;
+  const int body_lo = K * nx, body_hi = (K + n) * nx;
 
+  aa::Band next = aa::band(plan, 0, G);
   for (int t = 0; t < K; ++t) {
+    const aa::Band bd = next;
+    if (t + 1 < K) next = aa::band(plan, t + 1, G);  // in flight during this step
     const bool last = t + 1 == K;
     const bool neighbour = (t & 1) == 0;  // reads Q (t >= 2) or the windows (t = 0)
     const uint8_t* gcur = gate + (t & 1) * nx;
     uint8_t* gnext = gate + (~t & 1) * nx;
-    const int e0 = t + 1;  // rows [e0, ext - e0) are exact after step t
-    const int ncell = (ext - 2 * e0) * nx;
+    if (t > 0) aa::band_wait(flags, bd, G, base + t);
     float acc = 0.0f;
-    for (int c = first; c < ncell; c += stride) {
-      const int e = e0 + c / nx;
-      const int i = c - (e - e0) * nx;
-      const int iw = (i == 0) ? nx - 1 : i - 1;
-      const int ie = (i + 1 == nx) ? 0 : i + 1;
-      const uint8_t* wj = obst + static_cast<size_t>(e) * nx;
-      float tv[9];
-      if (t == 0) {
-        long long pss, psj, psn;
-        const T* rs = lbm::lbm_ext_row(in, e - 1, nx, &pss);
-        const T* rj = lbm::lbm_ext_row(in, e, nx, &psj);
-        const T* rn = lbm::lbm_ext_row(in, e + 1, nx, &psn);
-        lbm::lbm_pull_3rows<true>(rs, pss, rj, psj, rn, psn, wj - nx, wj, wj + nx,
-                                  e - 1 == drow, e == drow, e + 1 == drow, i, p, tv);
-      } else {
-        const int src_row[3] = {e - 1, e, e + 1};  // source row of cy = +1, 0, -1
-        const int src_col[3] = {iw, i, ie};        // source column of cx = +1, 0, -1
+    const int c_first = bd.start + static_cast<int>(threadIdx.x);
+    int e = c_first / nx, i = c_first - e * nx;
+    for (int c0 = c_first; c0 < bd.end; c0 += kC * lbm::kThreads) {
+      Cell cl[kC];
+      bool act[kC];
 #pragma unroll
-        for (int k = 0; k < 9; ++k) {
-          const int sj = src_row[1 - cy(k)];
-          const int si = src_col[1 - cx(k)];
-          const size_t slot = neighbour
-                                  ? opp(k) * plane + static_cast<size_t>(sj) * nx + si
-                                  : k * plane + static_cast<size_t>(e) * nx + i;
-          tv[k] = lbm::lbm_load<true>(a + slot, k, p);
-          // Injection of the source cell when it is on the driven row; a
-          // false guard adds 0.0f, as K1 and the plain version do.
-          if ((k == 1 || k == 3 || k >= 5) && sj == drow) {
-            const float w = (k == 1 || k == 3) ? p.w1 : p.w2;
-            const float d = __ldcg(gcur + si) ? w : 0.0f;
-            tv[k] = (k == 1 || k == 5 || k == 8) ? tv[k] + d : tv[k] - d;
-          }
+      for (int m = 0; m < kC; ++m) {
+        act[m] = c0 + m * lbm::kThreads < bd.end;
+        cl[m] = aa::cell_at(e, i, e - 1, e + 1, nx);
+        i += di;
+        e += dj;
+        if (i >= nx) {
+          i -= nx;
+          ++e;
         }
       }
-      const bool wall = wj[i] != 0;
-      float o[9];
-      const float speed = lbm::lbm_collide(tv, wall, p.omega, o);
-      if (e >= K && e < K + n) acc = acc + speed;
-      T q[9];
+      float tv[kC][9];
 #pragma unroll
-      for (int k = 0; k < 9; ++k) q[k] = lbm::lbm_encode<T>(o[k], k, p);
-      if (last) {
-        T* oc = out + static_cast<size_t>(e - K) * nx + i;
-#pragma unroll
-        for (int k = 0; k < 9; ++k) oc[k * ps_out] = q[k];
-      } else if (neighbour) {
-        const int dst_row[3] = {e + 1, e, e - 1};  // destination row of cy = +1, 0, -1
-        const int dst_col[3] = {ie, i, iw};
-#pragma unroll
-        for (int k = 0; k < 9; ++k) {
-          a[k * plane + static_cast<size_t>(dst_row[1 - cy(k)]) * nx + dst_col[1 - cx(k)]] = q[k];
+      for (int m = 0; m < kC; ++m) {
+        if (!act[m]) continue;
+        const Cell& c = cl[m];
+        if (t == 0) {
+          long long pss, psj, psn;
+          const T* rs = lbm::lbm_ext_row(in, c.j - 1, nx, &pss);
+          const T* rj = lbm::lbm_ext_row(in, c.j, nx, &psj);
+          const T* rn = lbm::lbm_ext_row(in, c.j + 1, nx, &psn);
+          const uint8_t* wj = obst + c.rj;
+          lbm::lbm_pull_3rows<true>(rs, pss, rj, psj, rn, psn, wj - nx, wj, wj + nx,
+                                    c.rs == drow_off, c.rj == drow_off, c.rn == drow_off, c.i,
+                                    p, tv[m]);
+        } else if (neighbour) {
+          aa::load_q(a, plane, c, p, tv[m]);
+        } else {
+          aa::load_p(a, plane, c, p, tv[m]);
         }
-      } else {
-#pragma unroll
-        for (int k = 0; k < 9; ++k) a[opp(k) * plane + static_cast<size_t>(e) * nx + i] = q[k];
       }
-      if (e == drow && !last) gnext[i] = stored_guard(q, !wall, p);
+#pragma unroll
+      for (int m = 0; m < kC; ++m) {
+        if (!act[m]) continue;
+        const Cell& c = cl[m];
+        if (t > 0) {
+          aa::inject(tv[m], gcur, c.rs == drow_off, c.rj == drow_off, c.rn == drow_off, c, p);
+        }
+        const bool wall = obst[c.rj + c.i] != 0;
+        float o[9];
+        const float speed = lbm::lbm_collide(tv[m], wall, p.omega, o);
+        if (c.rj >= body_lo && c.rj < body_hi) acc = acc + speed;
+        T q[9];
+#pragma unroll
+        for (int k = 0; k < 9; ++k) q[k] = lbm::lbm_encode<T>(o[k], k, p);
+        if (last) {
+          T* oc = out + static_cast<size_t>(c.rj - body_lo + c.i);
+#pragma unroll
+          for (int k = 0; k < 9; ++k) oc[k * ps_out] = q[k];
+        } else if (neighbour) {
+          aa::store_p(a, plane, c, q);
+        } else {
+          aa::store_local(a, plane, c.rj + c.i, q, false);
+        }
+        if (c.rj == drow_off && !last) gnext[c.i] = aa::stored_guard(q, !wall, p);
+      }
     }
-    const float total = lbm::lbm_block_sum(acc, sh);
-    if (threadIdx.x == 0) partials[static_cast<size_t>(t) * gridDim.x + blockIdx.x] = total;
-    grid.sync();
+    aa::step_end(acc, wsum, sums + t * G + blockIdx.x, flags + blockIdx.x, base + t + 1);
   }
-  for (int t = blockIdx.x; t < K; t += gridDim.x) {
-    const float* r = partials + static_cast<size_t>(t) * gridDim.x;
+  grid.sync();
+  for (int t = blockIdx.x; t < K; t += G) {
+    const float* r = sums + static_cast<size_t>(t) * G;
     float acc = 0.0f;
-    for (int b = threadIdx.x; b < gridDim.x; b += lbm::kThreads) acc = acc + __ldcg(r + b);
+    for (int b = threadIdx.x; b < G; b += lbm::kThreads) acc = acc + __ldcg(r + b);
     const float total = lbm::lbm_block_sum(acc, sh);
     if (threadIdx.x == 0) tot_out[t] = accumulate ? tot_out[t] + total : total;
   }
@@ -223,11 +229,15 @@ int lbm_ca_inplace_grid(int ext, int nx, int i16, int device) {
 // cooperative launch of `grid` blocks (from lbm_ca_inplace_grid).  `a` is
 // scratch of 9 x (n + 2K) x nx values of the state's type, `gate` 2 x nx
 // bytes; obst the (n + 2K, nx) extended obstacle slab; drow the extended
-// row of the driven row, or -1.  partials holds K x grid floats; tot_out
-// receives the K per-level sums over the body's fluid cells (accumulate = 1:
-// adds them to it).  float32 state for i16 = 0, int16 with the 27 codec
-// constants at `codec` (host memory) for i16 = 1.  Returns the launch's
-// error code, or cudaGetLastError().
+// row of the driven row, or -1.  partials holds, in 32-bit words, the band
+// plan of this slab and grid (K x grid x 4 int32: ops/inplace_cuda.py
+// band_plan), grid step counters (zero before the first launch on the
+// buffer; the kernel keeps them equal between launches) and K x grid
+// floats; tot_out receives the K per-level sums over the body's fluid cells
+// (accumulate = 1: adds them to it).  float32 state for i16 = 0, int16 with
+// the 27 codec constants at `codec` (host memory) for i16 = 1.  9 x (n + 2K)
+// x nx must stay below 2^31 (32-bit offsets in the scratch).  Returns the
+// launch's error code, or cudaGetLastError().
 int lbm_ca_inplace(const void* lo, long long ps_lo, const void* body, long long ps,
                    const void* hi, long long ps_hi, void* a, uint8_t* gate, const uint8_t* obst,
                    void* out, long long ps_out, float* partials, float* tot_out, int n, int nx,
@@ -235,7 +245,8 @@ int lbm_ca_inplace(const void* lo, long long ps_lo, const void* body, long long 
                    float w2, int i16, const float* codec, int grid, void* stream, int device) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (K < 1 || n < K || grid < 1 || drow >= n + 2 * K) {
+  if (K < 1 || n < K || grid < 1 || nx < 1 || drow >= n + 2 * K ||
+      9LL * (n + 2 * K) * nx >= (1LL << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   lbm::StepParams p{n + 2 * K, nx, accel_row, omega, w1, w2};
@@ -261,17 +272,18 @@ int lbm_ca_inplace(const void* lo, long long ps_lo, const void* body, long long 
 // [qR - K, qR + R + K) mod ny of fin (three windows that never straddle the
 // wrap), sweeps them in the scratch `a` (9 x (R + 2K) x nx floats; gate
 // 2 x nx bytes) with obstacle slab obst_parts[q] ((R + 2K) x nx bytes each)
-// and writes its R body rows to fout.  partials holds K x grid floats
-// (grid from lbm_ca_inplace_grid(R + 2K, nx, 0, device)); tot_out receives
-// the K per-level sums, the parts added in order.  Returns the first CUDA
-// error, or 0.
+// and writes its R body rows to fout.  partials is K8's, for an extended
+// slab of R + 2K rows (grid from lbm_ca_inplace_grid(R + 2K, nx, 0,
+// device)), shared by the parts; tot_out receives the K per-level sums, the
+// parts added in order.  Returns the first CUDA error, or 0.
 int lbm_hbm_sweep(const float* fin, float* fout, const uint8_t* obst_parts, float* a,
                   uint8_t* gate, float* partials, float* tot_out, int ny, int nx, int R, int K,
                   int accel_row, float omega, float w1, float w2, int grid, void* stream,
                   int device) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (K < 1 || R < K || ny % R || R + 2 * K > ny || grid < 1) {
+  if (K < 1 || R < K || ny % R || R + 2 * K > ny || grid < 1 || nx < 1 ||
+      9LL * (R + 2 * K) * nx >= (1LL << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const lbm::StepParams p{R + 2 * K, nx, accel_row, omega, w1, w2};

@@ -7,7 +7,9 @@
 // card's 50 MB L2 where the two copies of K2 (72 MiB) do not.
 //
 // Bound: 9 reads + 9 writes of state per cell-step, as K1/K2, from L2 while
-// the copy stays there, plus one grid barrier per step.
+// the copy stays there (a persistent in-place copy of 36 MiB ran 4.1 TB/s
+// with a grid barrier per pass and 6.0 TB/s without: the barrier, not L2,
+// is the tier's limit; PERF.md Findings PR 8).
 //
 // The TPU kernel is correct because its grid steps run in sequence: block j
 // reads old rows >= jB plus a carried old row jB-1 (resident_pallas.py
@@ -15,8 +17,7 @@
 // again, as the AA access pattern: steps alternate between two layouts of
 // the one buffer A so that every slot a cell reads in a step is one that the
 // same cell writes in that step.  No cell ever reads a value another cell
-// wrote in the same step, so all cells run in parallel, one thread each, as
-// in K2, with one grid barrier per step.
+// wrote in the same step, so all cells of a step run in parallel.
 //
 // - Q layout, A[opp(k)][x] = F[k][x]: the post-collision values of cell x
 //   with each pair of opposite speeds swapped.  A "neighbour" step reads
@@ -41,65 +42,64 @@
 //   parity, from the stored (dequantized) values.  The injected value is
 //   never requantized, as in B1/B3.
 //
-// Every state and guard load goes through L2 only (__ldcg): other blocks
-// wrote them in the same launch.  No state pointer is __restrict__/const.
+// The work map and the synchronisation are those of aa_inplace.cuh: each
+// block owns one even share of the cells (the host's band plan, the same
+// every step), each thread kCells of them per round with all their loads in
+// flight before the first collide, rows and columns from counters, 32-bit
+// offsets; a block's next step waits only for the blocks within one row of
+// its cells (periodic in y).  The first launch of a run swaps the layout and
+// ends in a grid barrier; the last step of every launch in one, before the
+// |u| pass.  Every state and guard load goes through L2 only (__ldcg):
+// other blocks wrote them in the same launch.  No state pointer is
+// __restrict__/const.
 //
-// |u|: per step each block reduces its cells in a fixed order into
-// partials[step][block]; after the last step, one more barrier, and block b
-// sums rows b, b + grid, ... in a fixed order into tot_out.  No float
-// atomics, so a run repeats bitwise.
+// |u|: per step each block sums its cells in a fixed order (per thread in
+// cell order, per warp a butterfly, the warps in order) into its partial;
+// after the last step, block b sums rows b, b + grid, ... in a fixed order
+// into tot_out.  No float atomics, so a run repeats bitwise.
 
 #include <cooperative_groups.h>
 
-#include "lbm_common.cuh"
+#include "aa_inplace.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-// Speed numbering as in lbm_common.cuh.
-__device__ __forceinline__ constexpr int cx(int k) {
-  return (k == 1 || k == 5 || k == 8) ? 1 : ((k == 3 || k == 6 || k == 7) ? -1 : 0);
-}
-__device__ __forceinline__ constexpr int cy(int k) {
-  return (k == 2 || k == 5 || k == 6) ? 1 : ((k == 4 || k == 7 || k == 8) ? -1 : 0);
-}
-__device__ __forceinline__ constexpr int opp(int k) {
-  return k == 0 ? 0 : (k <= 4 ? (k + 1) % 4 + 1 : (k - 3) % 4 + 5);
-}
+using lbm::aa::Cell;
 
-// The guard byte of a driven-row cell from its stored values, decoded.
 template <typename T>
-__device__ __forceinline__ uint8_t stored_guard(const T q[9], bool fluid,
-                                                const lbm::StepParams& p) {
-  return lbm::lbm_guard(fluid, lbm::lbm_decode(q[3], 3, p), lbm::lbm_decode(q[6], 6, p),
-                        lbm::lbm_decode(q[7], 7, p), p);
-}
-
-// At least 4 blocks per SM (62 registers): measured on the card at 1024^2,
-// 29.0 us/step against 33.5 for the compiler's own 80-84 registers, and no
-// faster at 5, 6 or 8 blocks (PERF.md, Findings PR 2).
-template <typename T>
-__global__ void __launch_bounds__(lbm::kThreads, 4)
+__global__ void __launch_bounds__(lbm::kThreads, lbm::aa::kMinBlocks)
     lbm_inplace_kernel(T* a, T* spare, const uint8_t* __restrict__ obst, uint8_t* gate,
                        float* partials, float* tot_out, lbm::StepParams p, int s0, int nsteps,
                        int first, int final_run) {
+  namespace aa = lbm::aa;
+  constexpr int kC = aa::kCells;
   __shared__ float sh[lbm::kThreads];
+  __shared__ float wsum[lbm::kThreads / 32];
   cg::grid_group grid = cg::this_grid();
   const int nx = p.nx, ny = p.ny, ar = p.accel_row;
-  const int ncell = ny * nx;
-  const size_t plane = static_cast<size_t>(ncell);
-  const int stride = gridDim.x * lbm::kThreads;
+  const int plane = ny * nx;
+  const int G = gridDim.x;
+  const aa::Band bd = aa::band(reinterpret_cast<const int*>(partials), 0, G);
+  unsigned* flags = reinterpret_cast<unsigned*>(partials) + 4 * G;
+  float* sums = partials + 5 * G;
+  const unsigned base = __ldcg(flags + blockIdx.x);
+  // The thread's first cell, and the move of kThreads cells, in rows and columns.
+  const int c_first = bd.start + static_cast<int>(threadIdx.x);
+  const int j_first = c_first / nx, i_first = c_first - j_first * nx;
+  const int arow = ar * nx;  // the driven row's offset
+  const int dj = lbm::kThreads / nx, di = lbm::kThreads - dj * nx;
 
   if (first) {  // canonical -> Q layout, and the guards of step 0
-    for (int c = blockIdx.x * lbm::kThreads + threadIdx.x; c < ncell; c += stride) {
+    for (int c = c_first; c < bd.end; c += lbm::kThreads) {
       T v[9];
 #pragma unroll
       for (int k = 0; k < 9; ++k) v[k] = __ldcg(a + k * plane + c);
 #pragma unroll
-      for (int k = 0; k < 9; ++k) a[opp(k) * plane + c] = v[k];
+      for (int k = 0; k < 9; ++k) a[aa::opp(k) * plane + c] = v[k];
       const int j = c / nx;
-      if (j == ar) gate[c - j * nx] = stored_guard(v, obst[c] == 0, p);
+      if (j == ar) gate[c - j * nx] = aa::stored_guard(v, obst[c] == 0, p);
     }
     grid.sync();
   }
@@ -110,62 +110,59 @@ __global__ void __launch_bounds__(lbm::kThreads, 4)
     const uint8_t* gcur = gate + (s & 1) * nx;
     uint8_t* gnext = gate + (~s & 1) * nx;
     const bool last = final_run && t + 1 == nsteps;
+    if (t > 0) aa::band_wait(flags, bd, G, base + t);
     float acc = 0.0f;
-    for (int c = blockIdx.x * lbm::kThreads + threadIdx.x; c < ncell; c += stride) {
-      const int j = c / nx;
-      const int i = c - j * nx;
-      const int js = (j == 0) ? ny - 1 : j - 1;
-      const int jn = (j + 1 == ny) ? 0 : j + 1;
-      const int iw = (i == 0) ? nx - 1 : i - 1;
-      const int ie = (i + 1 == nx) ? 0 : i + 1;
-      const int src_row[3] = {js, j, jn};  // source row of cy = +1, 0, -1
-      const int src_col[3] = {iw, i, ie};  // source column of cx = +1, 0, -1
-      float tv[9];
+    int j = j_first, i = i_first;
+    for (int c0 = c_first; c0 < bd.end; c0 += kC * lbm::kThreads) {
+      Cell cl[kC];
+      bool act[kC];
 #pragma unroll
-      for (int k = 0; k < 9; ++k) {
-        const int sj = src_row[1 - cy(k)];
-        const int si = src_col[1 - cx(k)];
-        const size_t slot = neighbour
-                                ? opp(k) * plane + static_cast<size_t>(sj) * nx + si
-                                : k * plane + c;
-        tv[k] = lbm::lbm_load<true>(a + slot, k, p);
-        // Injection of the source cell when it is on the driven row; a false
-        // guard adds 0.0f, as K1 and the plain version do.
-        if ((k == 1 || k == 3 || k >= 5) && sj == ar) {
-          const float w = (k == 1 || k == 3) ? p.w1 : p.w2;
-          const float d = __ldcg(gcur + si) ? w : 0.0f;
-          tv[k] = (k == 1 || k == 5 || k == 8) ? tv[k] + d : tv[k] - d;
+      for (int m = 0; m < kC; ++m) {
+        act[m] = c0 + m * lbm::kThreads < bd.end;
+        cl[m] = aa::cell_at(j, i, j == 0 ? ny - 1 : j - 1, j + 1 == ny ? 0 : j + 1, nx);
+        i += di;
+        j += dj;
+        if (i >= nx) {
+          i -= nx;
+          ++j;
         }
       }
-      const bool wall = obst[c] != 0;
-      float out[9];
-      acc = acc + lbm::lbm_collide(tv, wall, p.omega, out);
-      T q[9];
+      float tv[kC][9];
 #pragma unroll
-      for (int k = 0; k < 9; ++k) q[k] = lbm::lbm_encode<T>(out[k], k, p);
-      if (neighbour && last) {
-#pragma unroll
-        for (int k = 0; k < 9; ++k) spare[k * plane + c] = q[k];
-      } else if (neighbour) {
-        const int dst_row[3] = {jn, j, js};  // destination row of cy = +1, 0, -1
-        const int dst_col[3] = {ie, i, iw};
-#pragma unroll
-        for (int k = 0; k < 9; ++k) {
-          a[k * plane + static_cast<size_t>(dst_row[1 - cy(k)]) * nx + dst_col[1 - cx(k)]] = q[k];
+      for (int m = 0; m < kC; ++m) {
+        if (act[m]) {
+          if (neighbour) {
+            aa::load_q(a, plane, cl[m], p, tv[m]);
+          } else {
+            aa::load_p(a, plane, cl[m], p, tv[m]);
+          }
         }
-      } else {
-#pragma unroll
-        for (int k = 0; k < 9; ++k) a[(last ? k : opp(k)) * plane + c] = q[k];
       }
-      if (j == ar && !last) gnext[i] = stored_guard(q, !wall, p);
+#pragma unroll
+      for (int m = 0; m < kC; ++m) {
+        if (!act[m]) continue;
+        const Cell& c = cl[m];
+        aa::inject(tv[m], gcur, c.rs == arow, c.rj == arow, c.rn == arow, c, p);
+        const bool wall = obst[c.rj + c.i] != 0;
+        float out[9];
+        acc = acc + lbm::lbm_collide(tv[m], wall, p.omega, out);
+        T q[9];
+#pragma unroll
+        for (int k = 0; k < 9; ++k) q[k] = lbm::lbm_encode<T>(out[k], k, p);
+        if (neighbour && last) {
+          aa::store_local(spare, plane, c.rj + c.i, q, true);
+        } else if (neighbour) {
+          aa::store_p(a, plane, c, q);
+        } else {
+          aa::store_local(a, plane, c.rj + c.i, q, last);
+        }
+        if (c.rj == arow && !last) gnext[c.i] = aa::stored_guard(q, !wall, p);
+      }
     }
-    const float total = lbm::lbm_block_sum(acc, sh);
-    if (threadIdx.x == 0) partials[static_cast<size_t>(t) * gridDim.x + blockIdx.x] = total;
-    grid.sync();
+    aa::step_end(acc, wsum, sums + t * G + blockIdx.x, flags + blockIdx.x, base + t + 1);
   }
-  for (int t = blockIdx.x; t < nsteps; t += gridDim.x) {
-    lbm::lbm_reduce_row(partials, gridDim.x, t, tot_out, sh);
-  }
+  grid.sync();
+  for (int t = blockIdx.x; t < nsteps; t += G) lbm::lbm_reduce_row(sums, G, t, tot_out, sh);
 }
 
 template <typename T>
@@ -217,16 +214,21 @@ int lbm_inplace_grid(int ny, int nx, int i16, int device) {
 // for an even total step count and in `spare` for an odd one.  Between
 // launches of a run, `a` and `gate` (2 x nx bytes) hold the run's state.
 // The state is float32 for i16 = 0, int16 with the 27 codec constants at
-// `codec` (host memory) for i16 = 1.  partials holds nsteps x grid floats;
-// tot_out receives nsteps per-step sums.  Returns the launch's error code,
-// or cudaGetLastError().
+// `codec` (host memory) for i16 = 1.  partials holds, in 32-bit words,
+// the band plan of this grid (grid x 4 int32: ops/inplace_cuda.py
+// band_plan), grid step counters (zero before a runner's first launch; the
+// kernel keeps them equal between launches) and nsteps x grid floats;
+// tot_out receives nsteps per-step sums.  9 x ny x nx must stay below 2^31
+// (32-bit offsets).  Returns the launch's error code, or
+// cudaGetLastError().
 int lbm_inplace_chunk(void* a, void* spare, const uint8_t* obst, uint8_t* gate, float* partials,
                       float* tot_out, int ny, int nx, int accel_row, float omega, float w1,
                       float w2, int i16, const float* codec, int s0, int nsteps, int first,
                       int final_run, int grid, void* stream, int device) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (nsteps < 1 || grid < 1 || s0 < 0 || (first && s0 != 0))
+  if (nsteps < 1 || grid < 1 || s0 < 0 || (first && s0 != 0) || ny < 1 || nx < 1 ||
+      9LL * ny * nx >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   lbm::StepParams p{ny, nx, accel_row, omega, w1, w2};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -16,7 +16,7 @@ variant names in brackets, ``-i16`` appended for int16 storage):
    is;
 2. K3 (``cuda-inplace``) where one copy fits
    ``inplace_cuda.L2_INPLACE_BUDGET`` (f32: the 1024^2 headline, 36 MiB)
-   or ``L2_INPLACE_BUDGET_I16`` (int16: 2 MiB, to 256^2), only when
+   or ``L2_INPLACE_BUDGET_I16`` (int16: 18 MiB, to 1024^2), only when
    ``temporal_k`` is None: an explicit ``--temporal-k`` opts back into the
    sweeps;
 3. the temporal sweeps, K steps per pass over device memory, where the
@@ -25,13 +25,13 @@ variant names in brackets, ``-i16`` appended for int16 storage):
    maps one: K4 (``cuda-trapezoid``; the default), K5 (``cuda-skew``;
    forced only) or K9 (``cuda-hbm``, the HBM-parts sweep; forced only, f32),
    the remainder steps on K1;
-4. else a loop of K1 launches (``cuda-step``; int16 from 512^2 up).  A
+4. else a loop of K1 launches (``cuda-step``; int16 above 1024^2).  A
    forced depth that cannot map warns and lands here.
 
 So by default f32 runs K2 to 768^2, K3 at 1024^2 and K4 (K = 4) above:
 the fastest kernel of each grid in the H100 table (PERF.md §5), except
 1024^2, where K4 timed faster than K3 but ``lbm_tpu``'s order keeps the
-in-place kernel.  int16 runs K3-i16 to 256^2 and K1-i16 above; K4-i16,
+in-place kernel.  int16 runs K3-i16 to 1024^2 and K1-i16 above; K4-i16,
 though faster, strays further from f32 (``temporal_cuda.pick_k``) and runs
 only with ``--temporal-k``.
 

@@ -77,6 +77,8 @@ _SIGNATURES = {
     "lbm_hbm_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _I],
     "lbm_inplace_chunk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P, _I, _I, _I,
                           _I, _I, _P, _I],
+    "lbm_l2_copy_grid": [_I],
+    "lbm_l2_copy": [_P, _L, _I, _I, _I, _P, _I],
 }
 # The sweep kernels K4 and K5 share one signature per entry point.
 for _kind in ("trapezoid", "skew"):

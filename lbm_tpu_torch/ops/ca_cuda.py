@@ -103,6 +103,13 @@ def parts_valid(nloc: int, nx: int, K: int, ny_global: int, parts: int) -> bool:
     return K >= 2 and sub >= K and sub + 2 * K <= ny_global
 
 
+def sweep_plan(ext: int, nx: int, K: int, grid: int) -> list:
+    """K8's band plan (``inplace_cuda.band_plan``) for a K-step sweep of an
+    extended slab of ext rows: step t computes the rows still exact,
+    [t + 1, ext - t - 1), split evenly over the grid afresh."""
+    return inplace_cuda.band_plan([(t + 1, ext - t - 1) for t in range(K)], nx, grid)
+
+
 def driven_ext_row(accel_row: int, row_offset: int, K: int, n: int, ny_global: int) -> int:
     """The extended row e of the driven row in the slab of a body of n rows
     at ``row_offset`` (global row ``(row_offset - K + e) mod ny_global``),
@@ -171,14 +178,15 @@ def bind_resident(params: LBMParams, lo: torch.Tensor, body: torch.Tensor, hi: t
 def bind_inplace(params: LBMParams, lo: torch.Tensor, body: torch.Tensor, hi: torch.Tensor,
                  obst_ext: torch.Tensor, out: torch.Tensor, tots: torch.Tensor,
                  row_offset: int, ny_global: int, storage: str = "f32",
-                 accumulate: bool = False):
+                 accumulate: bool = False, lib=None):
     """Bind one K8 sweep (one sub-slab of a split shard, or a whole shard)
     to fixed buffers: returns ``launch(t0)``, as :func:`bind_resident`,
     f32 or int16; ``accumulate`` adds the per-level sums to
     ``tots[t0 : t0 + K]`` instead of writing them (the later sub-slabs of a
     split, in part order).  The K8 constraints of :func:`parts_valid` are
-    checked, not the L2 budget.  On CPU tensors ``launch`` runs the plain
-    version; on CUDA tensors it launches the kernel or raises."""
+    checked, not the L2 budget.  ``lib`` as in ``inplace_cuda.make_run_all``.
+    On CPU tensors ``launch`` runs the plain version; on CUDA tensors it
+    launches the kernel or raises."""
     quant.check_storage(storage)
     n, nx, K = check_ext_args(lo, body, hi, obst_ext, out, tots,
                               fused_cuda.STATE_DTYPES[storage])
@@ -190,7 +198,7 @@ def bind_inplace(params: LBMParams, lo: torch.Tensor, body: torch.Tensor, hi: to
                                                 storage),
             lo, body, hi, obst_ext, out, tots, accumulate)
 
-    lib = _build.load()
+    lib = lib or _build.load()
     dev = body.device
     ext = n + 2 * K
     i16, codec = fused_cuda.codec_arg(params, storage)
@@ -200,7 +208,7 @@ def bind_inplace(params: LBMParams, lo: torch.Tensor, body: torch.Tensor, hi: to
             f"K8 cannot be launched cooperatively on {torch.cuda.get_device_name(dev)}")
     scratch = torch.empty((9, ext, nx), dtype=fused_cuda.STATE_DTYPES[storage], device=dev)
     gate = torch.empty((2, nx), dtype=torch.uint8, device=dev)
-    partials = torch.empty((K, grid), dtype=torch.float32, device=dev)
+    partials = inplace_cuda.partials_buffer(sweep_plan(ext, nx, K, grid), K, dev)
     omega, w1, w2 = fused_torch.step_constants(params)
     head = (lo.data_ptr(), lo.stride(0), body.data_ptr(), body.stride(0), hi.data_ptr(),
             hi.stride(0), scratch.data_ptr(), gate.data_ptr(), obst_ext.data_ptr(),
@@ -227,15 +235,17 @@ def bind_inplace(params: LBMParams, lo: torch.Tensor, body: torch.Tensor, hi: to
 
 def bind_sweep(engine: str, params: LBMParams, lo: torch.Tensor, body: torch.Tensor,
                hi: torch.Tensor, obst_ext: torch.Tensor, out: torch.Tensor, tots: torch.Tensor,
-               row_offset: int, ny_global: int, storage: str = "f32", parts: int = 1):
+               row_offset: int, ny_global: int, storage: str = "f32", parts: int = 1,
+               lib=None):
     """The launches of one ca sweep of a shard on ``engine`` (``slab``:
     K4-slab, ``resident``: K7, ``inplace``: K8), each ``launch(t0)``; the
     in-place engine over ``parts`` sub-slabs, whose inner ghosts are
     windows of the neighbouring sub-slabs' rows of ``body`` and whose |u|
-    adds up in part order (``make_ca_inplace_runner``'s split, :1719-1767)."""
+    adds up in part order (``make_ca_inplace_runner``'s split, :1719-1767).
+    ``lib`` (slab and in-place engines) as in ``inplace_cuda.make_run_all``."""
     if engine == "slab":
         return [temporal_cuda.bind_slab_sweep(params, lo, body, hi, obst_ext, out, tots,
-                                              row_offset, ny_global, storage)]
+                                              row_offset, ny_global, storage, lib=lib)]
     if engine == "resident":
         return [bind_resident(params, lo, body, hi, obst_ext, out, tots, row_offset, ny_global)]
     K, sub = lo.shape[1], body.shape[1] // parts
@@ -243,5 +253,6 @@ def bind_sweep(engine: str, params: LBMParams, lo: torch.Tensor, body: torch.Ten
                          body[:, i * sub:(i + 1) * sub],
                          hi if i == parts - 1 else body[:, (i + 1) * sub:(i + 1) * sub + K],
                          obst_ext[i * sub:(i + 1) * sub + 2 * K], out[:, i * sub:(i + 1) * sub],
-                         tots, row_offset + i * sub, ny_global, storage, accumulate=i > 0)
+                         tots, row_offset + i * sub, ny_global, storage, accumulate=i > 0,
+                         lib=lib)
             for i in range(parts)]

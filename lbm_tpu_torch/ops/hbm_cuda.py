@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import torch
 
-from lbm_tpu_torch.ops import _build, fused_cuda, fused_torch, inplace_cuda, quant
+from lbm_tpu_torch.ops import _build, ca_cuda, fused_cuda, fused_torch, inplace_cuda, quant
 from lbm_tpu_torch.params import LBMParams
 
 LAUNCHES = 0
@@ -84,13 +84,14 @@ def run_plain(f: torch.Tensor, obstacles: torch.Tensor, params: LBMParams, num_s
 
 
 def make_run_all(params: LBMParams, obstacles: torch.Tensor, num_steps: int, K: int,
-                 storage: str = "f32"):
+                 storage: str = "f32", lib=None):
     """Build ``f0 -> (f_final, tot_us (num_steps,))``: K9 sweeps, then K1
     steps for ``num_steps mod K`` (the signature of
     ``hbm_pallas.make_run_all``).  Both state buffers, the part scratch and
     the per-part obstacle slabs are allocated here, once.  ``f0`` is not
     modified; on the card the returned state is one of the runner's buffers
-    and stays valid until its next call."""
+    and stays valid until its next call.  ``lib`` as in
+    ``inplace_cuda.make_run_all``."""
     if not supports(params, K, storage):
         raise ValueError(f"the HBM-parts sweep (K={K}, {storage}) cannot map a "
                          f"{params.ny}x{params.nx} grid")
@@ -105,7 +106,7 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, num_steps: int, K: 
         return run_all_plain
 
     fused_cuda.check_mask(obstacles, params)
-    lib = _build.load()
+    lib = lib or _build.load()
     dev = obstacles.device
     R = plan(params, K)
     ext = R + 2 * K
@@ -118,7 +119,7 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, num_steps: int, K: 
     fb = torch.empty_like(fa)
     scratch = torch.empty((9, ext, params.nx), dtype=torch.float32, device=dev)
     gate = torch.empty((2, params.nx), dtype=torch.uint8, device=dev)
-    partials = torch.empty((K, grid), dtype=torch.float32, device=dev)
+    partials = inplace_cuda.partials_buffer(ca_cuda.sweep_plan(ext, params.nx, K, grid), K, dev)
     obst_parts = part_obstacles(obstacles, R, K)
     tail = fused_cuda.make_run_all(params, obstacles, rem) if rem else None
     omega, w1, w2 = fused_torch.step_constants(params)

@@ -9,13 +9,19 @@ two copies do not fit the card's 50 MB L2 (1024^2 f32: 72 MiB) can still
 stay there (36 MiB).
 
 Bound: 9 reads + 9 writes of state per cell-step from L2 while the copy
-stays there, plus one grid barrier per step.  Steps alternate between two
-layouts of the buffer (the AA pattern) so that every cell reads and writes
-only its own slots and all cells run in parallel; a byte per driven-row
-column carries the injection guard (see the note at the top of
-csrc/inplace.cu).  Between the launches of one run the buffer holds a
-kernel layout; a run ends in the canonical (9, ny, nx) layout, in the
-state buffer for an even step count and in a second buffer for an odd one.
+stays there, plus each step's wait for the neighbouring blocks.  Steps
+alternate between two layouts of the buffer (the AA pattern) so that every
+cell reads and writes only its own slots and all cells run in parallel; a
+byte per driven-row column carries the injection guard (see the notes at
+the top of csrc/inplace.cu and csrc/aa_inplace.cuh).  Between the launches
+of one run the buffer holds a kernel layout; a run ends in the canonical
+(9, ny, nx) layout, in the state buffer for an even step count and in a
+second buffer for an odd one.
+
+The band plan (:func:`band_plan`) is host logic that K3 and K8 share: each
+step's cells split evenly into one range per block, and the blocks each
+range waits for before its step; it travels to the kernel at the head of
+the partials buffer (:func:`partials_buffer`).
 
 Beside the kernel:
 
@@ -42,13 +48,13 @@ DEFAULT_CHUNK = 256
 
 # One copy of the state must fit this many bytes for the program to pick K3
 # (where K2 has not been picked), per storage.  f32: the 1024^2 headline
-# (36 MiB); on the card K3 was faster there than K2 and K1 (29.0 us/step
-# against 30.1 and 31.5).  int16: to 256^2 (1.1 MiB), where K3-i16 beat
-# K1-i16 in turns (256^2: 3.32 against 3.79; 128^2: 2.63 against 3.45);
-# K1-i16 won in turns at 512^2 (7.15 against 7.83), 768^2 (12.97 against
-# 17.18) and 1024^2 (25.64 against 26.97; PERF.md §5).
+# (36 MiB); on the card K3 was faster there than K2 and K1 (22.1 us/step
+# against 30.7 and 32.0 in turns).  int16: to 1024^2 (18 MiB), where K3-i16
+# beat K1-i16 in turns at every grid timed (512^2: 6.20 against 7.31;
+# 768^2: 12.75 against 12.99; 1024^2: 21.00 against 26.15; PERF.md §5);
+# at 1536^2 (40.5 MiB) one copy no longer fits L2.
 L2_INPLACE_BUDGET = 36 * 2**20
-L2_INPLACE_BUDGET_I16 = 2 * 2**20
+L2_INPLACE_BUDGET_I16 = 18 * 2**20
 
 
 def state_bytes(ny: int, nx: int, storage: str = "f32") -> int:
@@ -63,6 +69,76 @@ def fits_l2(ny: int, nx: int, storage: str = "f32") -> bool:
     return state_bytes(ny, nx, storage) <= budget
 
 
+def band_plan(rows: list[tuple[int, int]], nx: int, grid: int,
+              ny: int | None = None) -> list[list[tuple[int, int, int, int]]]:
+    """The work map of the AA kernels (csrc/aa_inplace.cuh), per step t
+    and block b: ``(start, end, dep_lo, dep_n)``.
+
+    Step t computes the rows ``rows[t] = (r0, r1)`` of a grid ``nx`` wide;
+    its n = (r1 - r0) x nx cells split evenly, block b taking the absolute
+    cells [r0 nx + b n // grid, r0 nx + (b + 1) n // grid).  The block's
+    step waits for the blocks of step t - 1 whose cells lie within one row
+    of its own: ``dep_n`` blocks from ``dep_lo``, cyclically modulo
+    ``grid``; step 0 waits for none.  With ``ny`` the rows are periodic
+    over ny rows and ``rows`` holds one entry, the split of every step
+    (K3), whose step 0 waits on that same split (the previous launch's
+    last step, or the previous step).  Needs at least ``grid`` cells per
+    step, so that no block's range is empty."""
+    if grid < 1 or nx < 1 or not rows:
+        raise ValueError(f"band plan of {len(rows)} steps, nx {nx}, grid {grid}")
+
+    def split(r0, r1):
+        n = (r1 - r0) * nx
+        if n < grid:
+            raise ValueError(f"{n} cells cannot be split over {grid} blocks")
+        return [r0 * nx + b * n // grid for b in range(grid + 1)]
+
+    def owner(x, r0, r1):  # the block of split(r0, r1) that holds absolute cell x
+        return ((x - r0 * nx + 1) * grid - 1) // ((r1 - r0) * nx)
+
+    plan, prev = [], None
+    for t, (r0, r1) in enumerate(rows):
+        starts = split(r0, r1)
+        if ny is not None:
+            prev = (r0, r1)
+        step = []
+        for b in range(grid):
+            s, e = starts[b], starts[b + 1]
+            first, last = s // nx, (e - 1) // nx
+            if prev is None:
+                dep = (0, 0)
+            elif ny is not None and last - first + 3 >= ny:
+                dep = (0, grid)
+            else:
+                p0, p1 = prev
+                if ny is not None:
+                    lo_row, hi_row = (first - 1) % ny, (last + 1) % ny
+                else:
+                    lo_row, hi_row = max(first - 1, p0), min(last + 1, p1 - 1)
+                lo, hi = owner(lo_row * nx, p0, p1), owner(hi_row * nx + nx - 1, p0, p1)
+                dep = (lo, (hi - lo) % grid + 1)
+            step.append((s, e) + dep)
+        plan.append(step)
+        prev = (r0, r1)
+    return plan
+
+
+def partials_words(plan_steps: int, grid: int, sum_steps: int) -> int:
+    """32-bit words of an AA kernel's partials buffer: the plan
+    (plan_steps x grid x 4), grid step counters, sum_steps x grid sums."""
+    return 4 * plan_steps * grid + grid + sum_steps * grid
+
+
+def partials_buffer(plan: list, sum_steps: int, device) -> torch.Tensor:
+    """The partials buffer of an AA kernel (csrc/aa_inplace.cuh): float32
+    words, the plan (int32) at the head, the step counters zero, the sums
+    after them."""
+    grid = len(plan[0])
+    buf = torch.zeros(partials_words(len(plan), grid, sum_steps), dtype=torch.float32)
+    buf.view(torch.int32)[:4 * len(plan) * grid] = torch.tensor(plan, dtype=torch.int32).flatten()
+    return buf.to(device)
+
+
 def run_plain(f: torch.Tensor, obstacles: torch.Tensor, params: LBMParams, num_steps: int,
               storage: str = "f32"):
     """The plain version of K3: ``num_steps`` twin steps, per-step tot_u."""
@@ -75,17 +151,21 @@ def make_run_all(
     num_steps: int,
     chunk: int = DEFAULT_CHUNK,
     storage: str = "f32",
+    lib=None,
 ):
     """Build ``f0 -> (f_final, tot_us (num_steps,))`` as full chunks, then a
     remainder chunk, each one K3 launch (the signature of
     ``lbm_tpu.ops.resident_pallas.make_run_all(..., inplace=True)``).
 
     The state buffer (and, for an odd ``num_steps``, the second buffer the
-    last step writes), the guard bytes and the (chunk, blocks) partials are
-    allocated here, once.  ``f0`` is not modified: it is copied into the
+    last step writes), the guard bytes and the partials (the band plan, the
+    blocks' step counters and chunk x blocks sums: :func:`partials_buffer`)
+    are allocated here, once.  ``f0`` is not modified: it is copied into the
     state buffer, unless it is that buffer (the previous call's result, as
     the driver passes segment to segment).  On the card the returned state
-    is one of the runner's buffers and stays valid until its next call."""
+    is one of the runner's buffers and stays valid until its next call.
+    ``lib`` is the kernel library (``_build.load()`` by default;
+    ``_build.load_variant`` gives another version of the kernel to time)."""
     quant.check_storage(storage)
     chunk = max(1, min(chunk, num_steps)) if num_steps else 1
     n_full, rem = divmod(num_steps, chunk)
@@ -101,7 +181,7 @@ def make_run_all(
         return run_all_plain
 
     fused_cuda.check_mask(obstacles, params)
-    lib = _build.load()
+    lib = lib or _build.load()
     dev = obstacles.device
     i16, codec = fused_cuda.codec_arg(params, storage)
     grid = lib.lbm_inplace_grid(params.ny, params.nx, i16, dev.index)
@@ -114,7 +194,8 @@ def make_run_all(
     state = torch.empty(shape, dtype=dtype, device=dev)
     spare = torch.empty(shape, dtype=dtype, device=dev) if num_steps % 2 else state
     gate = torch.empty((2, params.nx), dtype=torch.uint8, device=dev)
-    partials = torch.empty((chunk, grid), dtype=torch.float32, device=dev)
+    partials = partials_buffer(band_plan([(0, params.ny)], params.nx, grid, params.ny), chunk,
+                               dev)
     omega, w1, w2 = fused_torch.step_constants(params)
 
     def run_all(f):

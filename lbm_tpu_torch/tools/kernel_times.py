@@ -30,19 +30,29 @@ For each grid of ``--blocked``: K10 (the two-copy row-block kernel) at each
 row-block height of ``--blocked-rows``, in turns with K2 where it maps (to
 768^2), else with K3 and K4 at K = 4, and K10's plain version.
 
-``--variant NAME=PATH[@RHxRW]`` (repeatable) builds a second kernel library
-whose ``temporal.cu`` is PATH (for example the parent commit's, from ``git
-show HEAD~1:lbm_tpu_torch/csrc/temporal.cu``, under the ignored ``build/``),
-on the package's regions (``temporal_cuda.tile``) or on the region RHxRW at
-every depth, and times its K4 (``K4@NAME K=4``) in turns with the package's
-own in ``--sweeps`` (K5 left out there), and its K4-slab (``K4-slab@NAME
-K=4``) beside the package's in ``--ca``.
+``--variant NAME=PATH[+PATH...][@RHxRW]`` (repeatable) builds a second kernel
+library in which each PATH replaces the package's source of the same file
+name (for example the parent commit's, from ``git show
+HEAD:lbm_tpu_torch/csrc/inplace.cu``, under the ignored ``build/``), and
+times the kernels of the replaced files (and of the sources that include a
+replaced header), named ``@NAME``, in turns with the package's own:
+``temporal.cu`` K4 in ``--sweeps`` (K5 left out there; on the package's
+regions, ``temporal_cuda.tile``, or on the region RHxRW at every depth) and
+K4-slab in ``--ca``; ``inplace.cu`` K3 and K3-i16 in ``--grids``,
+``--sweeps`` and ``--policy``; ``ca_inplace.cu`` K8 and K8-i16 in ``--ca``
+and K9 in ``--hbm``.
 ``--k4-regions 48x64,...`` times K4 and K4-slab on compiled regions other
 than the table's at each depth (``K4[48x64] K=4``), the same way.
 
+``--l2`` times the L2 copy kernel (csrc/l2_copy.cu: one buffer read and
+written in place, pass after pass, in one persistent launch) at the working
+sets of K8's 272x1024 f32 slab (9.6 MiB), K3-i16 at 1024^2 (18 MiB) and K3
+at 1024^2 (36 MiB), with and without a grid barrier per pass: the rate of
+the tier the L2-resident kernels' tier bounds divide by.
+
 ``--policy`` times, in turns, K2 against K3 at 128^2, 256^2 and 512^2 and
-K1-i16 against K3-i16 at 1024^2: the questions behind the program's L2
-budgets.
+K1-i16 against K3-i16 at 512^2, 768^2 and 1024^2: the questions behind the
+program's L2 budgets.
 
 Prints microseconds per step (median and quartiles), MLUPS, and the
 computed traffic rate of a one-step kernel (73 B per cell-step in f32, 37 B
@@ -52,8 +62,9 @@ process, and the card's name and power limit::
     python -m lbm_tpu_torch.tools.kernel_times [--grids 128,256,512,1024,1536] \
         [--sweeps 1536,2048,4096] [--depths 2,4,8] [--shards 1024,4096] \
         [--ca 64x1024,256x1024,1024x4096] [--ca-depths 4,8] [--ca-parts 1,2,4,8,16] \
-        [--hbm 2048,4096] [--blocked 256,512,768,1024] [--blocked-rows 8] [--policy] \
-        [--variant parent=build/parent/temporal.cu] [--k4-regions 48x64] [--repeats 7]
+        [--hbm 2048,4096] [--blocked 256,512,768,1024] [--blocked-rows 8] [--policy] [--l2] \
+        [--variant parent=build/parent/inplace.cu+build/parent/ca_inplace.cu] \
+        [--k4-regions 48x64] [--repeats 7]
 
 Needs a CUDA device; without one it exits 1.
 """
@@ -63,6 +74,7 @@ from __future__ import annotations
 import argparse
 import statistics
 import sys
+from typing import NamedTuple
 
 BYTES_PER_CELL_STEP = 2 * 9 * 4 + 1  # f32 state read + written, obstacle byte
 BYTES_PER_CELL_STEP_I16 = 2 * 9 * 2 + 1
@@ -100,25 +112,64 @@ LARGE_F32_KERNELS = ("K1", "twin")  # above 1024^2 (the sweeps there: time_sweep
 I16_KERNELS = ("K1-i16", "K3-i16", "twin-i16")
 
 
-def load_variants(specs) -> dict:
-    """``NAME=PATH[@RHxRW]`` -> {NAME: (library, tile of depth K)}: the
-    package's sources with ``temporal.cu`` taken from PATH
-    (``_build.load_variant``), on the package's regions or on the region
-    RHxRW at every depth."""
+# The L2 copy's working sets: K8's 272x1024 f32 slab (the 256x1024 shard at
+# K = 8), K3-i16 and K3 at 1024^2; each one copy of a 9-plane state.
+L2_WORKING_SETS = {"9.6 MiB": 9 * 272 * 1024 * 4, "18 MiB": 9 * 1024 * 1024 * 2,
+                   "36 MiB": 9 * 1024 * 1024 * 4}
+L2_PASSES = 256
+
+
+class Variant(NamedTuple):
+    lib: object  # the library (ctypes.CDLL)
+    tile: object  # K -> (tile rows, tile columns) of K4
+    files: frozenset  # the package's sources it replaces
+
+
+def parse_variant(spec: str):
+    """``NAME=PATH[+PATH...][@RHxRW]`` -> (NAME, {file name: path}, region
+    or None)."""
     import pathlib
 
+    name, rest = spec.split("=", 1)
+    region = None
+    if "@" in rest:
+        rest, shape = rest.rsplit("@", 1)
+        region = tuple(int(v) for v in shape.split("x"))
+    paths = [pathlib.Path(p) for p in rest.split("+") if p]
+    if not name or not paths:
+        raise ValueError(f"--variant {spec!r}: want NAME=PATH[+PATH...][@RHxRW]")
+    return name, {path.name: path for path in paths}, region
+
+
+def load_variants(specs) -> dict:
+    """``NAME=PATH[+PATH...][@RHxRW]`` -> {NAME: :class:`Variant`}: the
+    package's sources with each PATH in place of the source of its name
+    (``_build.load_variant``); K4 on the package's regions or on the region
+    RHxRW at every depth."""
     from lbm_tpu_torch.ops import _build, temporal_cuda
 
     out = {}
     for spec in specs or ():
-        name, path = spec.split("=", 1)
+        name, replace, region = parse_variant(spec)
         tile = temporal_cuda.tile
-        if "@" in path:
-            path, shape = path.rsplit("@", 1)
-            rh, rw = (int(v) for v in shape.split("x"))
-            tile = lambda K, rh=rh, rw=rw: (rh - 2 * K, rw - 2 * K)  # noqa: E731
-        out[name] = (_build.load_variant({"temporal.cu": pathlib.Path(path)}), tile)
+        if region is not None:
+            tile = lambda K, rh=region[0], rw=region[1]: (rh - 2 * K, rw - 2 * K)  # noqa: E731
+        out[name] = Variant(_build.load_variant(replace), tile, frozenset(replace))
     return out
+
+
+def replacing(variants, source: str) -> dict:
+    """The variants that replace ``source`` (a file name of csrc/) or a
+    header it includes."""
+    import re
+
+    from lbm_tpu_torch.ops import _build
+
+    headers = set(re.findall(r'#include "([^"]+)"', (_build.CSRC / source).read_text()))
+    headers |= {h2 for h in headers if (_build.CSRC / h).exists()
+                for h2 in re.findall(r'#include "([^"]+)"', (_build.CSRC / h).read_text())}
+    return {name: v for name, v in (variants or {}).items()
+            if source in v.files or headers & v.files}
 
 
 def _timed_ms(fn, repeats: int) -> list[float]:
@@ -147,10 +198,9 @@ def _quartiles(xs: list[float]) -> tuple[float, float, float]:
 
 def copy_gbps(device, repeats: int = 7, nbytes: int = 2**30) -> tuple[float, float, float]:
     """(median, q1, q3) GB/s of a device-to-device copy of ``nbytes``, read
-    + write counted.  1 GiB gives the device-memory rate.  A 16 MiB copy,
-    whose source and destination fit the 50 MB L2 together, is what the L2
-    rate would be read from, but torch's copy reads no faster there than
-    from device memory (PERF.md, section 7): it gives no L2 rate."""
+    + write counted.  1 GiB gives the device-memory rate (the L2 tier's is
+    :func:`l2_copy_gbps`'s: torch's copy of 16 MiB reads no faster than
+    from device memory, PERF.md Findings PR 8)."""
     import torch
 
     a = torch.empty(nbytes // 4, dtype=torch.float32, device=device)
@@ -159,9 +209,64 @@ def copy_gbps(device, repeats: int = 7, nbytes: int = 2**30) -> tuple[float, flo
     return 2 * nbytes / med / 1e6, 2 * nbytes / q3 / 1e6, 2 * nbytes / q1 / 1e6
 
 
-def time_grid(n: int, device, repeats: int = 7) -> dict[str, tuple[float, float, float]]:
-    """us/step (median, q1, q3) of every kernel and plain version on an
-    n x n grid up to 1024^2; above it, of K1, the twin and the int16 ones."""
+def l2_copy_gbps(device, nbytes: int, barrier: bool, passes: int = L2_PASSES,
+                 repeats: int = 7) -> tuple[float, float, float]:
+    """(median, q1, q3) GB/s of the L2 copy kernel (csrc/l2_copy.cu) on one
+    buffer of ``nbytes``: ``passes`` in-place passes in one launch, each
+    16-byte word read and written once per pass (read + write counted),
+    with a grid barrier after every pass when ``barrier``."""
+    import torch
+
+    from lbm_tpu_torch.ops import _build
+
+    lib = _build.load()
+    grid = lib.lbm_l2_copy_grid(device.index)
+    if grid <= 0:
+        raise RuntimeError("the L2 copy cannot be launched cooperatively")
+    buf = torch.zeros(nbytes // 16 * 4, dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def run():
+        _build.check(lib.lbm_l2_copy(buf.data_ptr(), buf.numel() // 4, passes, int(barrier),
+                                     grid, stream, device.index), "L2 copy")
+
+    med, q1, q3 = _quartiles(_timed_ms(run, repeats))
+    moved = 2 * buf.numel() * 4 * passes
+    return moved / med / 1e6, moved / q3 / 1e6, moved / q1 / 1e6
+
+
+def l2_rates(device, repeats: int = 7) -> dict[str, dict[str, tuple[float, float, float]]]:
+    """GB/s (median, q1, q3) of the L2 copy at each of
+    :data:`L2_WORKING_SETS`, with (``barrier``) and without (``free``) a
+    grid barrier per pass."""
+    return {label: {"barrier": l2_copy_gbps(device, nbytes, True, repeats=repeats),
+                    "free": l2_copy_gbps(device, nbytes, False, repeats=repeats)}
+            for label, nbytes in L2_WORKING_SETS.items()}
+
+
+def l2_rate_for(rates: dict, nbytes: int) -> tuple[str, float]:
+    """(label, GB/s with a barrier per pass) of the smallest measured L2
+    working set that holds ``nbytes``, or of the largest: the rate an
+    L2-resident kernel's tier bound divides by."""
+    fits = [lb for lb, b in L2_WORKING_SETS.items() if b >= nbytes and lb in rates]
+    label = min(fits, key=L2_WORKING_SETS.get) if fits else max(rates, key=L2_WORKING_SETS.get)
+    return label, rates[label]["barrier"][0]
+
+
+def format_l2(rates: dict) -> str:
+    return "L2 copy GB/s: " + " | ".join(
+        f"{label} barrier {r['barrier'][0]:.1f} [{r['barrier'][1]:.1f}, {r['barrier'][2]:.1f}]"
+        f" free {r['free'][0]:.1f} [{r['free'][1]:.1f}, {r['free'][2]:.1f}]"
+        for label, r in rates.items())
+
+
+def time_grid(n: int, device, repeats: int = 7,
+              variants=None) -> dict[str, tuple[float, float, float]]:
+    """us/step (median, q1, q3) of every kernel on an n x n grid up to
+    1024^2, in turns, then of the plain versions; above it, of K1, the twin
+    and the int16 ones.  Each variant that replaces ``inplace.cu``
+    (:func:`load_variants`) adds its K3 and K3-i16 (``K3@NAME``) to the
+    turns."""
     import torch
 
     from lbm_tpu_torch.core import lattice
@@ -189,11 +294,20 @@ def time_grid(n: int, device, repeats: int = 7) -> dict[str, tuple[float, float,
         "twin-i16": lambda: (lambda f: fused_torch.run_steps(f, obst, p, twin_steps, "i16"),
                              q0, twin_steps, twin_reps),
     }
-    out = {}
+    runs = {name: makers[name]()[:3] for name in kernels if not name.startswith("twin")}
+    for vname, v in replacing(variants, "inplace.cu").items():
+        if "K3" in kernels:
+            runs[f"K3@{vname}"] = (inplace_cuda.make_run_all(p, obst, steps, lib=v.lib), f0,
+                                   steps)
+        runs[f"K3-i16@{vname}"] = (inplace_cuda.make_run_all(p, obst, steps, storage="i16",
+                                                             lib=v.lib), q0, steps)
+    out = time_in_turns(runs, repeats)
+    del runs
     for name in kernels:
-        run, start, n_steps, reps = makers[name]()
-        med, q1, q3 = _quartiles(_timed_ms(lambda: run(start), reps))
-        out[name] = (med * 1e3 / n_steps, q1 * 1e3 / n_steps, q3 * 1e3 / n_steps)
+        if name.startswith("twin"):
+            run, start, n_steps, reps = makers[name]()
+            med, q1, q3 = _quartiles(_timed_ms(lambda: run(start), reps))
+            out[name] = (med * 1e3 / n_steps, q1 * 1e3 / n_steps, q3 * 1e3 / n_steps)
     return out
 
 
@@ -224,9 +338,11 @@ def time_sweeps(n: int, device, depths=(2, 4, 8), repeats: int = 5,
     and K3 where the state fits their L2 budgets, in turns per storage, and
     of the plain sweep at each depth (``plain K=4``; the int16 names end in
     ``-i16``), on an n x n grid.  With ``variants`` (:func:`load_variants`)
-    each variant's K4 (``K4@NAME K=4``) runs in the same turns, and K5 is
-    left out; with ``regions`` ((rows, columns) of compiled regions) so does
-    K4 on each of them (``K4[48x64] K=4``)."""
+    the K4 of each variant that replaces ``temporal.cu`` (``K4@NAME K=4``)
+    runs in the same turns, and K5 is left out, and so does the K3 of each
+    that replaces ``inplace.cu`` (``K3@NAME``) where K3 maps; with
+    ``regions`` ((rows, columns) of compiled regions) so does K4 on each of
+    them (``K4[48x64] K=4``)."""
     import torch
 
     from lbm_tpu_torch.core import lattice
@@ -256,13 +372,17 @@ def time_sweeps(n: int, device, depths=(2, 4, 8), repeats: int = 5,
         if inplace_cuda.state_bytes(n, n, storage) <= inplace_cuda.L2_INPLACE_BUDGET:
             runs[f"K3{sfx}"] = (inplace_cuda.make_run_all(p, obst, steps, storage=storage),
                                 start, steps)
+            for vname, v in replacing(variants, "inplace.cu").items():
+                runs[f"K3{sfx}@{vname}"] = (inplace_cuda.make_run_all(
+                    p, obst, steps, storage=storage, lib=v.lib), start, steps)
+        k4_variants = replacing(variants, "temporal.cu")
         for K in depths:
-            for name, mod in (("K4", temporal_cuda), ("K5", skew_cuda))[:1 if variants else 2]:
+            for name, mod in (("K4", temporal_cuda), ("K5", skew_cuda))[:1 if k4_variants else 2]:
                 runs[f"{name}{sfx} K={K}"] = (mod.make_run_all(p, obst, steps, K, storage),
                                               start, steps)
-            for vname, (lib, tile) in (variants or {}).items():
+            for vname, v in k4_variants.items():
                 runs[f"K4{sfx}@{vname} K={K}"] = (temporal_cuda.make_run_all(
-                    p, obst, steps, K, storage, tile_hw=tile(K), lib=lib), start, steps)
+                    p, obst, steps, K, storage, tile_hw=v.tile(K), lib=v.lib), start, steps)
             for rh, rw in regions:
                 if min(rh, rw) > 2 * K:
                     runs[f"K4{sfx}[{rh}x{rw}] K={K}"] = (temporal_cuda.make_run_all(
@@ -376,9 +496,11 @@ def time_ca(nloc: int, nx: int, device, depths=(4, 8), parts=(1, 2, 4, 8, 16), r
     split counts that ``ca_cuda.parts_valid`` allows and that leave at least
     as many sub-slabs as the planner's), in turns per storage and depth,
     ghosts frozen; then the plain ca sweep (``plain K=4``).  With
-    ``variants`` (:func:`load_variants`) each variant's K4-slab
-    (``K4-slab@NAME K=4``) runs in the same turns, and with ``regions``
-    K4-slab on each of them (``K4-slab[48x64] K=4``)."""
+    ``variants`` (:func:`load_variants`) the K4-slab of each variant that
+    replaces ``temporal.cu`` (``K4-slab@NAME K=4``) and the K8 of each that
+    replaces ``ca_inplace.cu`` (``K8@NAME K=4``, whole or split as K8) run
+    in the same turns, and with ``regions`` K4-slab on each of them
+    (``K4-slab[48x64] K=4``)."""
     import torch
 
     from lbm_tpu_torch.ops import ca_cuda, fused_torch, temporal_cuda
@@ -398,17 +520,25 @@ def time_ca(nloc: int, nx: int, device, depths=(4, 8), parts=(1, 2, 4, 8, 16), r
             if storage == "f32" and ca_cuda.supports_resident(nloc, nx, K):
                 engines.append(("K7", "resident", 1))
             least = ca_cuda.inplace_parts(nloc, nx, K, ny, storage)
+            k8_variants = replacing(variants, "ca_inplace.cu")
             for n in parts:
                 if least is not None and n >= least and ca_cuda.parts_valid(nloc, nx, K, ny, n):
                     engines.append(("K8", "inplace", n))
+                    engines += [(f"K8@{v}", ("inplace", v), n) for v in k8_variants]
             if temporal_cuda.supports_shard(nloc, nx, K):
-                engines += [(f"K4-slab@{v}", v, 1) for v in variants or {}]
+                engines += [(f"K4-slab@{v}", v, 1) for v in replacing(variants, "temporal.cu")]
                 engines += [(f"K4-slab[{rh}x{rw}]", (rh, rw), 1) for rh, rw in regions
                             if min(rh, rw) > 2 * K]
             runs = {}
             for name, engine, n in engines:
-                if engine in (variants or {}) or isinstance(engine, tuple):
-                    lib, tile = (variants[engine] if engine in (variants or {}) else
+                if isinstance(engine, tuple) and engine[0] == "inplace":
+                    lib = variants[engine[1]].lib
+                    fwd, bwd = (ca_cuda.bind_sweep("inplace", p, lo, x, hi, ob, y, tots, off, ny,
+                                                   storage, n, lib=lib)
+                                for x, y in ((a, b), (b, a)))
+                elif engine in (variants or {}) or isinstance(engine, tuple):
+                    lib, tile = ((variants[engine].lib, variants[engine].tile)
+                                 if engine in (variants or {}) else
                                  (None, lambda K, e=engine: (e[0] - 2 * K, e[1] - 2 * K)))
                     fwd, bwd = ([temporal_cuda.bind_slab_sweep(
                         p, lo, x, hi, ob, y, tots, off, ny, storage, tile(K), lib)]
@@ -436,9 +566,12 @@ def time_ca(nloc: int, nx: int, device, depths=(4, 8), parts=(1, 2, 4, 8, 16), r
     return out
 
 
-def time_hbm(n: int, device, depths=(4, 8), repeats: int = 5) -> dict[str, tuple[float, float, float]]:
+def time_hbm(n: int, device, depths=(4, 8), repeats: int = 5,
+             variants=None) -> dict[str, tuple[float, float, float]]:
     """us/step (median, q1, q3) of K1, and of K4 and K9 at each depth, in
-    turns, on an n x n closed box from rest."""
+    turns, on an n x n closed box from rest; with ``variants``
+    (:func:`load_variants`) the K9 of each that replaces ``ca_inplace.cu``
+    (``K9@NAME K=4``) in the same turns."""
     import torch
 
     from lbm_tpu_torch.core import lattice
@@ -455,6 +588,9 @@ def time_hbm(n: int, device, depths=(4, 8), repeats: int = 5) -> dict[str, tuple
         runs[f"K4 K={K}"] = (temporal_cuda.make_run_all(p, obst, steps, K), f0, steps)
         if hbm_cuda.supports(p, K):
             runs[f"K9 K={K}"] = (hbm_cuda.make_run_all(p, obst, steps, K), f0, steps)
+            for vname, v in replacing(variants, "ca_inplace.cu").items():
+                runs[f"K9@{vname} K={K}"] = (hbm_cuda.make_run_all(p, obst, steps, K, lib=v.lib),
+                                             f0, steps)
     return time_in_turns(runs, repeats)
 
 
@@ -493,9 +629,13 @@ def time_blocked(n: int, device, repeats: int = 7, block_rows=(8,),
     return out
 
 
-def time_policy(device, repeats: int = 7) -> dict[str, dict[str, tuple[float, float, float]]]:
+def time_policy(device, repeats: int = 7,
+                variants=None) -> dict[str, dict[str, tuple[float, float, float]]]:
     """The budget questions, each pair timed in turns in one process:
-    K2 vs K3 (f32) at 128^2, 256^2, 512^2 and K1-i16 vs K3-i16 at 1024^2."""
+    K2 vs K3 (f32) at 128^2, 256^2, 512^2 and K1-i16 vs K3-i16 at 512^2,
+    768^2 and 1024^2; each variant that replaces ``inplace.cu``
+    (:func:`load_variants`) adds its K3 or K3-i16 (``K3@NAME``) to the
+    turns."""
     import torch
 
     from lbm_tpu_torch.core import lattice
@@ -503,21 +643,27 @@ def time_policy(device, repeats: int = 7) -> dict[str, dict[str, tuple[float, fl
     from lbm_tpu_torch.tools.bench import make_scene
 
     out = {}
-    for n in (128, 256, 512, 1024):
+    for n, storage in ((128, "f32"), (256, "f32"), (512, "f32"), (512, "i16"), (768, "i16"),
+                       (1024, "i16")):
         scene = make_scene(f"{n}x{n}")
         p = scene.params
         obst = torch.from_numpy(scene.obstacles).to(device)
         f0 = lattice.equilibrium_rest_device(p.density, n, n, device)
         steps = 4000 if n <= 512 else 2000
-        if n <= 512:
+        if storage == "f32":
             runs = {"K2": (resident_cuda.make_run_all(p, obst, steps), f0, steps),
                     "K3": (inplace_cuda.make_run_all(p, obst, steps), f0, steps)}
+            sfx = ""
         else:
-            q0 = quant.quantize(f0, p.density)
-            runs = {"K1-i16": (fused_cuda.make_run_all(p, obst, steps, "i16"), q0, steps),
-                    "K3-i16": (inplace_cuda.make_run_all(p, obst, steps, storage="i16"), q0,
+            f0 = quant.quantize(f0, p.density)
+            runs = {"K1-i16": (fused_cuda.make_run_all(p, obst, steps, "i16"), f0, steps),
+                    "K3-i16": (inplace_cuda.make_run_all(p, obst, steps, storage="i16"), f0,
                                steps)}
-        out[n] = time_in_turns(runs, repeats)
+            sfx = "-i16"
+        for vname, v in replacing(variants, "inplace.cu").items():
+            runs[f"K3{sfx}@{vname}"] = (inplace_cuda.make_run_all(p, obst, steps, storage=storage,
+                                                                  lib=v.lib), f0, steps)
+        out[f"{n}^2 {storage}"] = time_in_turns(runs, repeats)
     return out
 
 
@@ -566,9 +712,12 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--blocked-rows", default="8",
                         help="K10 row-block heights to time, e.g. 4,8,16")
     parser.add_argument("--policy", action="store_true")
+    parser.add_argument("--l2", action="store_true",
+                        help="time the L2 copy kernel at K8's and K3's working sets")
     parser.add_argument("--variant", action="append", default=[],
-                        help="NAME=PATH: time K4 and K4-slab built from another temporal.cu "
-                        "in turns with the package's own")
+                        help="NAME=PATH[+PATH...]: time the kernels of other versions of "
+                        "temporal.cu, inplace.cu or ca_inplace.cu in turns with the package's "
+                        "own")
     parser.add_argument("--k4-regions", default="",
                         help="compiled regions of K4 and K4-slab to time beside the table's, "
                         "e.g. 48x64")
@@ -583,8 +732,11 @@ def main(argv: list[str] | None = None) -> int:
     regions = tuple(tuple(int(v) for v in r.split("x")) for r in args.k4_regions.split(",") if r)
     med, q1, q3 = copy_gbps(device, args.repeats)
     print(f"copy 1 GiB: {med:.1f} GB/s [{q1:.1f}, {q3:.1f}] | {card}")
+    if args.l2:
+        print(format_l2(l2_rates(device, args.repeats)) + f" | {card}")
     for n in (int(g) for g in args.grids.split(",") if g):
-        print(format_grid(n, time_grid(n, device, args.repeats)) + f" | {card}")
+        print("in turns " + format_grid(n, time_grid(n, device, args.repeats, variants))
+              + f" | {card}")
     depths = tuple(int(k) for k in args.depths.split(","))
     for n in (int(g) for g in args.sweeps.split(",") if g):
         print(format_grid(n, time_sweeps(n, device, depths, args.repeats, variants=variants,
@@ -599,14 +751,16 @@ def main(argv: list[str] | None = None) -> int:
         print(format_ca(nloc, nx, time_ca(nloc, nx, device, ca_depths, ca_parts, args.repeats,
                                           variants=variants, regions=regions)) + f" | {card}")
     for n in (int(g) for g in args.hbm.split(",") if g):
-        print(format_grid(n, time_hbm(n, device, ca_depths, args.repeats)) + f" | {card}")
+        print(format_grid(n, time_hbm(n, device, ca_depths, args.repeats, variants))
+              + f" | {card}")
     rows = tuple(int(b) for b in args.blocked_rows.split(","))
     for n in (int(g) for g in args.blocked.split(",") if g):
         print("in turns " + format_grid(n, time_blocked(n, device, args.repeats, rows))
               + f" | {card}")
     if args.policy:
-        for n, times in time_policy(device, args.repeats).items():
-            print("in turns " + format_grid(n, times) + f" | {card}")
+        for key, times in time_policy(device, args.repeats, variants).items():
+            print("in turns " + format_grid(int(key.split("^")[0]), times)
+                  + f" ({key.split()[1]}) | {card}")
     return 0
 
 

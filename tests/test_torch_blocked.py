@@ -160,7 +160,8 @@ def test_blocked_refuses_int16_and_bad_blocks():
     [("mono", 64, "f32", "cuda-resident"), ("mono", 1024, "f32", None),
      ("mono", 64, "i16", None), ("inplace", 512, "f32", "cuda-inplace"),
      ("inplace", 2048, "f32", None), ("inplace", 256, "i16", "cuda-inplace-i16"),
-     ("inplace", 512, "i16", None), ("blocked", 64, "f32", "cuda-blocked"),
+     ("inplace", 512, "i16", "cuda-inplace-i16"), ("inplace", 2048, "i16", None),
+     ("blocked", 64, "f32", "cuda-blocked"),
      ("blocked", 4096, "f32", "cuda-blocked"), ("blocked", 64, "i16", None),
      ("auto", 64, "f32", "cuda-resident"), ("auto", 1024, "f32", "cuda-inplace")],
     ids=lambda v: str(v))

@@ -228,6 +228,52 @@ def test_ca_split_parts_and_runner_bitwise(monkeypatch):
         modes.build_sharded_program(p, mask, _mesh(4), "ca", 4)
 
 
+@pytest.mark.parametrize("n,nx,K,grid", [(256, 1024, 8, 528), (64, 1024, 8, 320),
+                                          (8, 100, 8, 10), (13, 128, 3, 14), (24, 99, 8, 19),
+                                          (8, 100, 2, 5), (2, 7, 2, 1)], ids=str)
+def test_k8_sweep_plan_edges(n, nx, K, grid):
+    """K8's band plan (``ca_cuda.sweep_plan``): step t splits the rows still
+    exact, [t + 1, ext - t - 1), evenly over every block afresh (the shrinking
+    steps leave no block a near-empty share: shares differ by one cell at
+    most); step 0 reads only the windows and waits for no block; a later
+    step's block waits for the blocks of the step before that hold a cell
+    within one row of its own, and for no block outside it."""
+    import bisect
+
+    ext = n + 2 * K
+    plan = ca_cuda.sweep_plan(ext, nx, K, grid)
+    assert len(plan) == K
+    for t, step in enumerate(plan):
+        cells = [e - s for s, e, _, _ in step]
+        assert step[0][0] == (t + 1) * nx and step[-1][1] == (ext - t - 1) * nx
+        assert all(step[b][1] == step[b + 1][0] for b in range(grid - 1))
+        assert min(cells) >= 1 and max(cells) - min(cells) <= 1
+        if t == 0:
+            assert all(n_dep == 0 for *_, n_dep in step)
+            continue
+        starts = [s for s, _, _, _ in plan[t - 1]]
+        for s, e, lo, n_dep in step:
+            rows = range(s // nx - 1, (e - 1) // nx + 2)
+            need = {bisect.bisect_right(starts, x) - 1
+                    for r in rows for x in (r * nx, r * nx + nx - 1)}
+            assert set(range(lo, lo + n_dep)) == set(range(min(need), max(need) + 1))
+
+
+def test_k8_partials_sizes():
+    """The partials of one K8 launch on the 256x1024 shard at K = 8 over 528
+    blocks (and of K9's parts, which share one buffer): the plan (8 x 528 x 4
+    words), 528 step counters and 8 x 528 sums; a slab too short to give
+    every block a cell of its last step is refused."""
+    from lbm_tpu_torch.ops import inplace_cuda
+
+    plan = ca_cuda.sweep_plan(272, 1024, 8, 528)
+    buf = inplace_cuda.partials_buffer(plan, 8, "cpu")
+    assert buf.numel() == inplace_cuda.partials_words(8, 528, 8) == 8 * 528 * 4 + 528 + 8 * 528
+    assert not buf.view(torch.int32)[8 * 528 * 4:].any()
+    with pytest.raises(ValueError, match="cannot be split"):
+        ca_cuda.sweep_plan(6, 4, 2, 9)
+
+
 def test_ca_policy_functions(monkeypatch):
     """ca_depth, ca_engine_choice, ca_parts, ca_supported and
     ca_default_staleness against their docstrings."""

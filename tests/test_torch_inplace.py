@@ -91,10 +91,11 @@ def test_k3_budget_and_state_bytes():
     assert inplace_cuda.state_bytes(1024, 1024) == 36 * 2**20
     assert inplace_cuda.state_bytes(1536, 1536, "i16") == 40.5 * 2**20
     assert inplace_cuda.fits_l2(1024, 1024)  # the 1024^2 f32 headline, 36 MiB
-    # int16 has its own budget: K3-i16 won in turns to 256^2, K1-i16 from 512^2.
+    # int16 has its own budget: K3-i16 won in turns to 1024^2 (18 MiB).
     assert inplace_cuda.fits_l2(256, 256, "i16")  # 1.1 MiB
-    assert not inplace_cuda.fits_l2(512, 512, "i16")  # 4.5 MiB
-    assert not inplace_cuda.fits_l2(1024, 1024, "i16")
+    assert inplace_cuda.fits_l2(512, 512, "i16")  # 4.5 MiB
+    assert inplace_cuda.fits_l2(1024, 1024, "i16")
+    assert not inplace_cuda.fits_l2(1025, 1024, "i16")
     assert not inplace_cuda.fits_l2(1536, 1536, "i16")  # 40.5 MiB: K1-i16 measured faster
     assert not inplace_cuda.fits_l2(1536, 1536)  # 81 MiB
     assert not inplace_cuda.fits_l2(2048, 2048, "i16")  # 72 MiB
@@ -111,3 +112,82 @@ def test_k3_wrapper_on_cpu_validates():
         run(torch.empty((9, 6, 8), device="meta"))
     f, tot = inplace_cuda.make_run_all(params, obst, 0)(torch.ones((9, 6, 8)))
     assert tot.shape == (0,) and torch.equal(f, torch.ones((9, 6, 8)))
+
+
+# --- the band plan of the AA kernels (K3 here, K8 in test_torch_ca.py) --------
+
+
+def check_band_plan(plan, rows, nx, grid, ny=None):
+    """Every step's ranges cover its rows in order, evenly, none empty; and
+    every cell within one row of a block's cells (periodic over ny rows, or
+    within the previous step's rows) belongs, in the previous step's split
+    (K3: the same split), to a block the block waits for.  Owners are found
+    by bisection on the ranges, not by the plan's own formula."""
+    import bisect
+
+    assert len(plan) == len(rows)
+    for t, step in enumerate(plan):
+        r0, r1 = rows[t]
+        assert len(step) == grid
+        assert step[0][0] == r0 * nx and step[-1][1] == r1 * nx
+        assert all(step[b][1] == step[b + 1][0] for b in range(grid - 1))
+        sizes = [e - s for s, e, _, _ in step]
+        assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+        if ny is None and t == 0:
+            assert all(n == 0 for _, _, _, n in step)  # step 0 reads only its inputs
+            continue
+        prev = step if ny is not None else plan[t - 1]
+        p0, p1 = rows[t] if ny is not None else rows[t - 1]
+        starts = [s for s, _, _, _ in prev]
+
+        def owner(x):
+            return bisect.bisect_right(starts, x) - 1
+
+        for s, e, lo, n in step:
+            assert 1 <= n <= grid and 0 <= lo < grid
+            deps = {(lo + d) % grid for d in range(n)}
+            for row in range(s // nx - 1, (e - 1) // nx + 2):
+                if ny is not None:
+                    row %= ny
+                elif not p0 <= row < p1:
+                    continue
+                need = set(range(owner(row * nx), owner(row * nx + nx - 1) + 1))
+                assert need <= deps, (t, s, e, row, sorted(need - deps))
+
+
+@pytest.mark.parametrize("ny,nx,grid", [(1024, 1024, 528), (1024, 1024, 264), (60, 100, 24),
+                                        (64, 100, 37), (7, 33, 1), (5, 6, 1), (3, 7, 2),
+                                        (2, 5, 3), (48, 40, 8), (9, 1000, 7), (256, 256, 256)],
+                         ids=str)
+def test_k3_band_plan_edges(ny, nx, grid):
+    """K3's plan: one split for every step, periodic in y; its waits cover
+    the rows above and below, across the wrap; grids of every size the
+    card gives, down to one block, and rows shorter and longer than a
+    block's share."""
+    plan = inplace_cuda.band_plan([(0, ny)], nx, grid, ny)
+    check_band_plan(plan, [(0, ny)], nx, grid, ny)
+
+
+def test_k3_band_plan_waits_are_local_at_1024():
+    """At the main path's 1024^2 on 528 blocks (1985-1986 cells, about two
+    rows, each) a block waits for itself and its two neighbours, or three
+    where its rows reach a third block (block 0 across the wrap: 527 and
+    1)."""
+    plan = inplace_cuda.band_plan([(0, 1024)], 1024, 528, 1024)[0]
+    assert {n for _, _, _, n in plan} == {3, 4}
+    assert plan[0][2:] == (527, 3) and plan[527][2:] == (526, 3)
+    with pytest.raises(ValueError, match="cannot be split"):
+        inplace_cuda.band_plan([(0, 2)], 3, 7, 2)
+
+
+def test_aa_partials_layout():
+    """The partials buffer of K3 and K8: the plan at its head (int32), then
+    one zero step counter per block, then the per-step sums, t x grid + b
+    (the fixed order of the |u| pass); its size in words."""
+    plan = inplace_cuda.band_plan([(0, 6)], 10, 4, 6)
+    assert inplace_cuda.partials_words(1, 4, 256) == 4 * 4 + 4 + 256 * 4
+    buf = inplace_cuda.partials_buffer(plan, 256, "cpu")
+    assert buf.dtype == torch.float32 and buf.shape == (4 * 4 + 4 + 256 * 4,)
+    words = buf.view(torch.int32)
+    assert words[:16].tolist() == [v for entry in plan[0] for v in entry]
+    assert not words[16:].any()  # counters and sums start at zero

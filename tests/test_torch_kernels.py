@@ -259,6 +259,33 @@ def test_kernel_times_on_card(cuda_device):
         assert 0 < q1 <= med <= q3
     med, q1, q3 = kernel_times.copy_gbps(cuda_device, repeats=2, nbytes=2**24)
     assert 0 < q1 <= med <= q3
+    for barrier in (True, False):
+        med, q1, q3 = kernel_times.l2_copy_gbps(cuda_device, 2**20, barrier, passes=4,
+                                                repeats=2)
+        assert 0 < q1 <= med <= q3
+
+
+def test_kernel_times_variants_and_l2_tiers():
+    """``--variant`` specs, which kernels a replaced source or header
+    reaches, and the L2 working set a kernel's tier bound divides by."""
+    name, files, region = kernel_times.parse_variant("p=a/inplace.cu+b/aa_inplace.cuh@48x64")
+    assert (name, sorted(files), region) == ("p", ["aa_inplace.cuh", "inplace.cu"], (48, 64))
+    with pytest.raises(ValueError):
+        kernel_times.parse_variant("p=")
+    v = {n: kernel_times.Variant(None, None, frozenset(f)) for n, f in (
+        ("k3", {"inplace.cu"}), ("aa", {"aa_inplace.cuh"}), ("k4", {"temporal.cu"}))}
+    assert set(kernel_times.replacing(v, "inplace.cu")) == {"k3", "aa"}
+    assert set(kernel_times.replacing(v, "ca_inplace.cu")) == {"aa"}
+    assert set(kernel_times.replacing(v, "temporal.cu")) == {"k4"}
+    rates = {lb: {"barrier": (float(i + 1), 0.0, 0.0)}
+             for i, lb in enumerate(kernel_times.L2_WORKING_SETS)}
+    sets = kernel_times.L2_WORKING_SETS
+    assert kernel_times.l2_rate_for(rates, 1) == ("9.6 MiB", 1.0)
+    assert kernel_times.l2_rate_for(rates, sets["9.6 MiB"] + 1) == ("18 MiB", 2.0)
+    assert kernel_times.l2_rate_for(rates, sets["36 MiB"]) == ("36 MiB", 3.0)
+    assert kernel_times.l2_rate_for(rates, 10 * sets["36 MiB"]) == ("36 MiB", 3.0)
+    assert "36 MiB barrier 3.0" in kernel_times.format_l2(
+        {lb: {"barrier": r["barrier"], "free": r["barrier"]} for lb, r in rates.items()})
 
 
 def test_kernel_times_report(monkeypatch, capsys):
@@ -392,11 +419,12 @@ def test_build_flags_and_sources(tmp_path, monkeypatch):
     assert "fast_math" not in flags and "fast-math" not in flags
     assert {s.name for s in _build.sources()} == {
         "step.cu", "resident.cu", "inplace.cu", "temporal.cu", "skew.cu", "ghosted.cu",
-        "ca_resident.cu", "ca_inplace.cu", "blocked.cu", "lbm_common.cuh"}
+        "ca_resident.cu", "ca_inplace.cu", "blocked.cu", "l2_copy.cu", "lbm_common.cuh",
+        "aa_inplace.cuh"}
     assert {"lbm_inplace_grid", "lbm_inplace_chunk", "lbm_step_run", "lbm_trapezoid_run",
             "lbm_skew_run", "lbm_slab_step", "lbm_ghosted_chunk", "lbm_trapezoid_slab",
             "lbm_ca_resident", "lbm_ca_inplace", "lbm_hbm_sweep", "lbm_blocked_grid",
-            "lbm_blocked_chunk"} <= set(_build._SIGNATURES)
+            "lbm_blocked_chunk", "lbm_l2_copy_grid", "lbm_l2_copy"} <= set(_build._SIGNATURES)
     d0 = _build.build_dir()
     assert d0.parent == _build.BUILD_ROOT and len(d0.name) == 16
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))

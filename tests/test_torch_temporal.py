@@ -281,8 +281,8 @@ def test_pick_k_and_impl_choice(monkeypatch):
     ("f32", {128: "cuda-resident", 256: "cuda-resident", 512: "cuda-resident",
              768: "cuda-resident", 1024: "cuda-inplace", 1536: "cuda-trapezoid",
              2048: "cuda-trapezoid", 4096: "cuda-trapezoid"}),
-    ("i16", {128: "cuda-inplace-i16", 256: "cuda-inplace-i16", 512: "cuda-step-i16",
-             768: "cuda-step-i16", 1024: "cuda-step-i16", 1536: "cuda-step-i16",
+    ("i16", {128: "cuda-inplace-i16", 256: "cuda-inplace-i16", 512: "cuda-inplace-i16",
+             768: "cuda-inplace-i16", 1024: "cuda-inplace-i16", 1536: "cuda-step-i16",
              2048: "cuda-step-i16", 4096: "cuda-step-i16"}),
 ])
 def test_default_policy_table(monkeypatch, storage, table):
