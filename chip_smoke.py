@@ -33,7 +33,12 @@ power limit as nvidia-smi reports them):
    split rows between blocks;
 3c. the int16 kernels vs their plain version (int16 fields torch.equal,
    tot_u rtol 1e-6): K1-i16 at 1024x1024, 1536x1536 and 2048x2048 x 50
-   steps from rest and perturbed starts, K3-i16 at 256x256, 1024x1024 (the
+   steps from rest and perturbed starts, and at the shapes its two columns
+   a lane and 64 x 8 cells a block make hard (:data:`K1_I16_EDGES`: nx
+   33, 64, 65, 130, 1023 and 2, odd nx taking 16-bit accesses, the driven
+   row on the first and the last row of a block's 8) and at 16384x14564 x
+   2 steps (9 ny nx just above 2^31: its long long offsets), K3-i16 at
+   256x256, 1024x1024 (the
    largest grid the policy gives it) and 1536x1536 from rest and
    perturbed starts (200 steps), on the small grids above and at 256x256
    with (steps, chunk) = (600, 256), and K3-i16 vs K1-i16 at 1024x1024
@@ -58,7 +63,10 @@ power limit as nvidia-smi reports them):
    8, 13 and 256 rows, nx 1024 and 100, and on the 1024x4096 shard of
    4096x4096 over 4 (phases 5f and 6d), the driven row in the body, in
    either ghost and in none, the whole slab and overlap's three windows,
-   rest and perturbed starts; K6 at chunks 1, 2, 3 and 8; fields
+   rest and perturbed starts; K1-slab-i16 also on shards of 1 and 9 rows
+   with nx 33, 64 and 65, the driven row on the first and the last body
+   row too, and on 9-row windows of a tensor whose planes lie 2^28
+   elements apart (long long offsets); K6 at chunks 1, 2, 3 and 8; fields
    torch.equal (int16 too), tot_u within rtol 1e-6;
 3g. the ca engines vs the plain ca sweep (:func:`ca_kernel_checks`):
    K4-slab, K4-slab-i16 (once-per-sweep codec), K7 (where two copies of
@@ -180,8 +188,11 @@ power limit as nvidia-smi reports them):
    K5-i16 at K in {2, 4, 8} at 1536^2, 2048^2 and 4096^2, in turns with
    K1 / K1-i16, beside the plain sweep's time; (6d) MLUPS of every
    sharded discipline at 1024^2/4 (5e) and 4096^2/4 (400 steps, beside
-   the single-device default), and K1-slab / K1-slab-i16 / K6 us/step on
-   the 256x1024 and 1024x4096 shards beside their plain versions and bounds,
+   the single-device default; sync-i16 too, its fields equal to
+   cuda-step-i16's), and K1-slab / K1-slab-i16 / K6 us/step on
+   the 256x1024 and 1024x4096 shards beside their plain versions and bounds
+   (K1-slab host-paced, as the sharded runs call it, and card-paced, the
+   same loop replayed from a CUDA graph),
    and ca-4 at 4096^2/4 (K4-slab) with fields equal to sync's; (6e) the ca
    engines in turns on the 256x1024 (K = 4, 8) and 1024x4096 (K = 4; K8
    split) shards, and K9 against K4 in turns at 2048^2; (6f) K10 in turns
@@ -193,7 +204,8 @@ power limit as nvidia-smi reports them):
    state in device memory its bytes over the 1 GiB copy's measured rate,
    for a state in L2 its cell-steps' bytes over the L2 copy's; K4,
    K5 and their int16 forms timed at 2048x2048, K=4, and at each grid and
-   depth of 6c under "by_grid_and_depth"), then the last line
+   depth of 6c under "by_grid_and_depth"; K1-slab and K1-slab-i16 at
+   their card-paced time, the host-paced one beside it), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no final line.  It
@@ -337,6 +349,14 @@ def compare(name: str, f_k, tot_k, f_p, tot_p) -> tuple[float, float]:
     return err, rel
 
 
+# Phase 3c's edge shapes of K1-i16 (64 columns and 8 rows a block, two
+# columns a lane): nx below, at, just above and well above a warp's
+# columns, odd (16-bit accesses) and tiny, and the driven row (ny - 2) on
+# the first (ny = 10, 1026) and the last (ny = 17, 1025) row of a block's 8.
+K1_I16_EDGES = ((10, 33), (17, 33), (10, 64), (17, 64), (10, 65), (17, 65), (17, 130),
+                (1026, 1023), (1025, 1023), (10, 2))
+
+
 def slab_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
     """Phase 3f: K1-slab and K1-slab-i16 against the plain slab step, and K6
     against its plain version (chunk frozen-ghost slab steps), every case
@@ -346,7 +366,12 @@ def slab_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
     multiple of 32) of a 1024-row grid, and the 1024x4096 shard of
     4096x4096 over 4 shards (the large-shard runs of phases 5f and 6d), the
     driven row in the body, in the ghost below, in the
-    ghost above and in none, the whole slab (separate ghost tensors) and
+    ghost above and in none (K1-slab-i16 also on shards of 1 and 9 rows
+    with nx 33, 64 and 65, the driven row on the first and the last body
+    row too: its warps take whole rows of 64 columns; and on 9-row windows,
+    nx 64 and 65, of one tensor whose planes lie 2^28 elements or more
+    apart, which take its long long offsets), the whole slab
+    (separate ghost tensors) and
     overlap's three windows of one shard tensor (interior, bottom, top:
     the shard's own edge rows as ghosts, written into windows of the new
     state), from rest and from a seeded perturbation with the injection
@@ -384,9 +409,10 @@ def slab_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
         return p, ft, torch.from_numpy(m).to(dev)
 
     def offset(n, where, p):
-        """The row offset that puts the driven row in the body, a ghost or none."""
+        """The row offset that puts the driven row in the body (its middle,
+        first or last row), a ghost or none."""
         return {"body": p.accel_row - n // 2, "lo": p.accel_row + 1, "hi": p.accel_row - n,
-                "none": 0}[where]
+                "none": 0, "first": p.accel_row, "last": p.accel_row - n + 1}[where]
 
     def held(name, out, tot, ref, ref_tot):
         e = float((out.double() - ref.double()).abs().max())
@@ -398,9 +424,10 @@ def slab_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
 
     wheres = ("body", "lo", "hi", "none")
     shapes = [(n, nx) for n in (2, 8, 13, 256) for nx in (1024, 100)] + [(1024, 4096)]
+    i16_edges = [(n, nx) for n in (1, 9) for nx in (33, 64, 65)]
     for storage in ("f32", "i16"):
         kern = "K1-slab" + ("-i16" if storage == "i16" else "")
-        for n, nx in shapes:
+        for n, nx in shapes + (i16_edges if storage == "i16" else []):
             for start in ("rest", "mixed"):
                 p, f, m = field(n, nx, start)
                 if storage == "i16":
@@ -408,16 +435,17 @@ def slab_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
                 shard, ghost_lo, ghost_hi = f[:, 1:-1], f[:, :1].clone(), f[:, -1:].clone()
                 shard = shard.contiguous()
                 # (form, body, lo, hi, obst rows, out window, rows of the window)
-                forms = [("full", shard, ghost_lo, ghost_hi, m, slice(None), n),
-                         ("bottom", shard[:, :1], ghost_lo, shard[:, 1:2], m[:3],
-                          slice(0, 1), 1),
-                         ("top", shard[:, -1:], shard[:, -2:-1], ghost_hi, m[-3:],
-                          slice(n - 1, n), 1)]
+                forms = [("full", shard, ghost_lo, ghost_hi, m, slice(None), n)]
+                if n > 1:
+                    forms += [("bottom", shard[:, :1], ghost_lo, shard[:, 1:2], m[:3],
+                               slice(0, 1), 1),
+                              ("top", shard[:, -1:], shard[:, -2:-1], ghost_hi, m[-3:],
+                               slice(n - 1, n), 1)]
                 if n > 2:
                     forms.append(("interior", shard[:, 1:-1], shard[:, :1], shard[:, -1:],
                                   m[1:-1], slice(1, n - 1), n - 2))
                 for form, body, lo, hi, ob, win, rows in forms:
-                    for where in wheres:
+                    for where in wheres + (("first", "last") if (n, nx) in i16_edges else ()):
                         off = offset(rows, where, p)
                         new = torch.zeros_like(shard)
                         tots = torch.zeros(2, dtype=torch.float32, device=dev)
@@ -429,6 +457,24 @@ def slab_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
                                  new[:, win], tots[1:], ref, ref_tot.reshape(1))
                         err[kern] = max(err[kern], e)
                         cases[kern] += 1
+    # Ghosts, body and output as windows of one tensor whose plane 8 starts
+    # beyond 2^31 elements.
+    for nx in (64, 65):
+        p, f, m = field(9, nx, "mixed")
+        rows = -(-(2**28) // nx)
+        big = torch.zeros((9, rows, nx), dtype=torch.int16, device=dev)
+        big[:, :11] = quant.quantize(f, p.density)
+        body, lo, hi, out = big[:, 1:10], big[:, :1], big[:, 10:11], big[:, rows - 9:]
+        for where in wheres + ("first", "last"):
+            off = offset(9, where, p)
+            tots = torch.zeros(2, dtype=torch.float32, device=dev)
+            fused_cuda.bind_slab_step(p, body, lo, hi, m, out, tots, off, "i16")(1)
+            ref, ref_tot = fused_cuda.slab_plain(body, lo, hi, m, p, off, "i16")
+            e = held(f"K1-slab-i16 n=9 nx={nx} planes {rows * nx} apart driven={where}", out,
+                     tots[1:], ref, ref_tot.reshape(1))
+            err["K1-slab-i16"] = max(err["K1-slab-i16"], e)
+            cases["K1-slab-i16"] += 1
+        del big, body, lo, hi, out
     for n, nx in ((256, 1024), (13, 100), (8, 1024)):
         for start in ("rest", "mixed"):
             p, f, m = field(n, nx, start)
@@ -808,6 +854,26 @@ def main() -> int:
             q_p, tot_p = fused_cuda.run_plain(q0, obst, p, 50, "i16")
             e, r = compare(f"K1-i16 {n}x{n} {start}", q_k, tot_k, q_p, tot_p)
             k1i_err, k1i_rel = max(k1i_err, e), max(k1i_rel, r)
+    for ny, nx in K1_I16_EDGES:
+        p, _, obst, _ = field(ny, nx)
+        q0 = i16_start(p, mixed_state(p, dev))
+        q_k, tot_k = fused_cuda.make_run_all(p, obst, 9, "i16")(q0)
+        q_p, tot_p = fused_cuda.run_plain(q0, obst, p, 9, "i16")
+        e, r = compare(f"K1-i16 {ny}x{nx} (driven row {p.accel_row % 8} of a block's 8)", q_k,
+                       tot_k, q_p, tot_p)
+        k1i_err, k1i_rel = max(k1i_err, e), max(k1i_rel, r)
+    # 9 ny nx just above 2^31: K1-i16's long long offsets, from a seeded
+    # 64-row field repeated down the grid.
+    wide_p, wide_mask = box_scene(16384, 14564, 0.005)
+    wide_obst = torch.from_numpy(wide_mask).to(dev)
+    band, _ = box_scene(64, 14564, 0.005)
+    wide_q0 = i16_start(wide_p, mixed_state(band, dev)).repeat(1, 16384 // 64, 1)
+    q_k, tot_k = fused_cuda.make_run_all(wide_p, wide_obst, 2, "i16")(wide_q0)
+    q_p, tot_p = fused_cuda.run_plain(wide_q0, wide_obst, wide_p, 2, "i16")
+    e, r = compare("K1-i16 16384x14564 (long long offsets)", q_k, tot_k, q_p, tot_p)
+    k1i_err, k1i_rel = max(k1i_err, e), max(k1i_rel, r)
+    del wide_q0, wide_obst, wide_mask, q_k, q_p
+    torch.cuda.empty_cache()
     k3i_err, k3i_rel, n_cases = 0.0, 0.0, 0
     for n in (256, 1024, 1536):
         for start in ("rest", "mixed"):
@@ -839,8 +905,11 @@ def main() -> int:
     if not {"first", "last", "split rows"} <= k3_paths:
         fail(f"3b/3c: the driven row and the K3 bands reached only {sorted(k3_paths)}")
     print(f"[3c i16 kernels vs plain] card: {card} | K1-i16 1024x1024, 1536x1536 and "
-          f"2048x2048 x 50 steps, rest and perturbed: int16 fields equal, tot_u max rel "
-          f"{k1i_rel:.2e} | K3-i16 256x256, 1024x1024 and 1536x1536 x 200 steps, rest and "
+          f"2048x2048 x 50 steps, rest and perturbed, and "
+          + ", ".join(f"{ny}x{nx}" for ny, nx in K1_I16_EDGES)
+          + f" x 9 steps perturbed, 16384x14564 x 2 (long long offsets): int16 fields equal, "
+          f"tot_u max rel {k1i_rel:.2e} | "
+          f"K3-i16 256x256, 1024x1024 and 1536x1536 x 200 steps, rest and "
           f"perturbed, + {n_cases} chunked cases (60x100, 7x33, 45x99, 256x256): int16 fields "
           f"equal, tot_u max rel {k3i_rel:.2e} | K3-i16 vs K1-i16 1024x1024 x 20000 steps: "
           f"int16 fields equal, tot_u max rel {k3i_k1i_rel:.2e} | K3's bands: the driven row "
@@ -1604,14 +1673,33 @@ def main() -> int:
         fail(f"4096x4096 over 4 shards x 400 steps: ca ({sorted(fields4k)}) differs from sync")
     if slab_6d <= 0:
         fail("4096x4096 ca over 4 shards did not launch K4-slab")
+    # The card-bound int16 sharded run: sync-i16 on K1-slab-i16, against the
+    # single-device int16 default (cuda-step-i16, K1-i16).
+    fields4k = {}
+    slab_i16_6d = fused_cuda.SLAB_LAUNCHES_I16
+    for variant in ("cuda", "sync"):
+        res = run_simulation(scene_b, RunConfig(variant=variant, device="cuda", num_steps=400,
+                                                storage="i16",
+                                                host_devices=None if variant == "cuda" else 4))
+        rates4k[res.variant] = res.mlups
+        fields4k[res.variant] = res.f
+    slab_i16_6d = fused_cuda.SLAB_LAUNCHES_I16 - slab_i16_6d
+    if set(fields4k) != {"cuda-step-i16", "sync-i16"} or not np.array_equal(
+            fields4k["sync-i16"], fields4k["cuda-step-i16"]):
+        fail(f"4096x4096 int16 over 4 shards x 400 steps: sync-i16 ({sorted(fields4k)}) differs "
+             "from cuda-step-i16")
+    if slab_i16_6d <= 0:
+        fail("4096x4096 sync-i16 over 4 shards did not launch K1-slab-i16")
     del fields4k
     golden_rates = {k: v for k, v in mlups.items() if k.startswith("golden1024")}
     print(f"[6d sharded rates] card: {card} | MLUPS, golden 1024x1024 (4 shards unless "
           f"cuda-*; 20000 steps, async-2 2000, chunked 2001): "
           + "; ".join(f"{k} {v:.1f}" for k, v in golden_rates.items())
-          + " | 4096x4096 box x 400 steps (ca-4 on K4-slab, fields equal to sync; "
-            f"K4-slab launches {slab_6d}): " + "; ".join(f"{k} {v:.1f}" for k, v in rates4k.items())
-          + " | shard kernels in turns, then plain: "
+          + " | 4096x4096 box x 400 steps (ca-4 on K4-slab, fields equal to sync; sync-i16 "
+            f"fields equal to cuda-step-i16; K4-slab launches {slab_6d}, K1-slab-i16 "
+            f"{slab_i16_6d}): " + "; ".join(f"{k} {v:.1f}" for k, v in rates4k.items())
+          + " | shard kernels in turns (K1-slab: host-paced, and card-paced from a CUDA "
+            "graph), then plain: "
           + " ; ".join(kernel_times.format_shard(n, t) for n, t in shard_times.items()))
 
     # Phase 6e: the ca engines in turns on the shards of the 1024^2 and
@@ -1725,11 +1813,16 @@ def main() -> int:
                     for n in SWEEP_GRIDS for K in SWEEP_DEPTHS]})
 
     # The sharded kernels, timed on the last shard of the n x n box over 4
-    # (rows 3n/4 .. n-1: its top row and edge columns are walls).
+    # (rows 3n/4 .. n-1: its top row and edge columns are walls).  K1-slab's
+    # time is card-paced (its loop replayed from a CUDA graph), with the
+    # host-paced loop's, the sharded runs' own pace, beside it.
     def shard_row(n, timed, plain, per_launch, storage, tier):
         rows = n // 4
-        return {"ms": shard_times[n][timed][0] / 1e3 * per_launch,
-                "plain_ms": shard_times[n][plain][0] / 1e3 * per_launch,
+        paced = ({"ms": shard_times[n][f"{timed} graph"][0] / 1e3 * per_launch,
+                  "host_paced_ms": shard_times[n][timed][0] / 1e3 * per_launch}
+                 if f"{timed} graph" in shard_times[n] else
+                 {"ms": shard_times[n][timed][0] / 1e3 * per_launch})
+        return {**paced, "plain_ms": shard_times[n][plain][0] / 1e3 * per_launch,
                 **bounds(rows, n, (rows - 1) * (n - 2), per_launch, storage, tier, ghosts=True,
                          copies=2)}
 
@@ -1737,13 +1830,15 @@ def main() -> int:
         sfx = "-i16" if storage == "i16" else ""
         kernels.append({
             "name": f"{key} one-step slab kernel of the sharded modes{what} (ms per launch = "
-                    "1 step of one 256x1024 shard of 1024x1024; the shard's copies sit in L2)",
+                    "1 step of one 256x1024 shard of 1024x1024, card-paced; the shard's copies "
+                    "sit in L2)",
             "route": "cuda", "source": "lbm_tpu_torch/csrc/step.cu",
             "replaces": "lbm_tpu/ops/fused_pallas.py:581", "launches": launches[key],
             "max_abs_err": slab_err[key],
             **shard_row(1024, key, f"plain-slab{sfx}", 1, storage, "L2"),
             "by_shard": [{"shard": "1024x4096 of 4096x4096",
                           "launches_5f": slab_5f if storage == "f32" else 0,
+                          "launches_6d": slab_i16_6d if storage == "i16" else 0,
                           **shard_row(4096, key, f"plain-slab{sfx}", 1, storage, "HBM")}]})
     kernels.append({
         "name": "K6 ghosted chunk kernel (ms per launch = 2 steps of one 256x1024 shard of "

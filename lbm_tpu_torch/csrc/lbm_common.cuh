@@ -14,7 +14,9 @@
 //
 // Storage: the state is float32, or int16 fixed-point deviations from rest
 // (ops/quant.py).  lbm_load() dequantizes and lbm_encode() quantizes with
-// the host-computed float32 constants in StepParams::q, so every kernel
+// the host-computed float32 constants in StepParams::q (K1-i16 and
+// K1-slab-i16: lbm_decode_word() and lbm_encode_bits(), the same values
+// without conversion instructions), so every kernel
 // computes in float32 whatever the storage, and the injection guard sees
 // dequantized values, as B1 does (lbm_tpu/ops/fused_pallas.py:304-307).
 //
@@ -35,6 +37,9 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <mutex>
 
 namespace lbm {
 
@@ -91,6 +96,36 @@ __device__ __forceinline__ int16_t lbm_encode<int16_t>(float v, int k, const Ste
   // torch.round and rintf both round half to even.
   const float r = rintf((v - p.q.rest[k]) * p.q.scale[k]);
   return static_cast<int16_t>(fminf(fmaxf(r, -32767.0f), 32767.0f));
+}
+
+// The same codec with no instruction of the conversion pipe, decoding two
+// int16 values packed in a 32-bit word (the low half first): bitwise equal
+// to lbm_decode() / lbm_encode() for every input (tests/test_torch_codec.py
+// runs the formulas in numpy float32).  K1-i16 and K1-slab-i16 use it.
+//
+// Decode: flipping the sign bit makes q + 32768 (0..65535) of each half;
+// ORed under the bits of 12582912.0f (0x4B400000: exponent 2^23, the low 16
+// mantissa bits zero) it is the float 12582912 + q + 32768 exactly, so one
+// exact subtraction gives (float)q.  The multiply and add that follow are
+// lbm_decode()'s.
+__device__ __forceinline__ void lbm_decode_word(uint32_t w, int k, const StepParams& p,
+                                                float* lo, float* hi) {
+  const uint32_t u = w ^ 0x80008000u;
+  const float a = __uint_as_float(__byte_perm(u, 0x4B400000u, 0x7610)) - 12615680.0f;
+  const float b = __uint_as_float(__byte_perm(u, 0x4B400000u, 0x7632)) - 12615680.0f;
+  *lo = a * p.q.inv[k] + p.q.rest[k];  // --fmad=false: no FMA
+  *hi = b * p.q.inv[k] + p.q.rest[k];
+}
+
+// Encode: clamp first (the bounds are integers and rint is monotone, so
+// clamp-then-round equals round-then-clamp; fmaxf returns -32767 for NaN
+// either way), then add 12582912.0f: in [2^23, 2^24) the float's unit is
+// 1, so the sum rounds to nearest, half to even, as rintf does, and its low
+// 16 bits are the two's-complement int16 (two of them pack into a word by
+// __byte_perm(lo, hi, 0x5410)).
+__device__ __forceinline__ uint32_t lbm_encode_bits(float v, int k, const StepParams& p) {
+  const float r = fminf(fmaxf((v - p.q.rest[k]) * p.q.scale[k], -32767.0f), 32767.0f);
+  return __float_as_uint(r + 12582912.0f);
 }
 
 // State loads of plane k, decoded to float32.  kL2 = true reads through L2
@@ -472,6 +507,50 @@ __global__ void __launch_bounds__(kThreads)
     lbm_reduce_kernel(const float* __restrict__ partials, int n, float* __restrict__ out) {
   __shared__ float sh[kThreads];
   lbm_reduce_row(partials, n, blockIdx.x, out, sh);
+}
+
+// Blocks of the persistent grid of `kernel` (NT threads a block, `smem`
+// bytes of dynamic shared memory) on the current device: as many as the
+// card holds at once, at most one per tile.  The shared-memory attribute
+// and the occupancy are asked once per kernel, device and size and kept;
+// a failed query returns its error.
+template <int NT, typename Kernel>
+cudaError_t persistent_blocks(Kernel kernel, size_t smem, int ntiles, int* blocks) {
+  struct Entry {
+    const void* fn;
+    int device;
+    size_t smem;
+    int blocks;  // per card
+  };
+  static Entry cache[64];
+  static int used = 0;
+  static std::mutex lock;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> guard(lock);
+  for (int i = 0; i < used; ++i) {
+    if (cache[i].fn == fn && cache[i].device == device && cache[i].smem == smem) {
+      *blocks = std::min(ntiles, cache[i].blocks);
+      return cudaSuccess;
+    }
+  }
+  if (smem > 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  int sms = 0, per_sm = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+      cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  if (used < 64) cache[used++] = Entry{fn, device, smem, sms * per_sm};
+  *blocks = std::min(ntiles, sms * per_sm);
+  return cudaSuccess;
 }
 
 }  // namespace lbm

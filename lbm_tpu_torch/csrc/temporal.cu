@@ -65,9 +65,6 @@
 // two forms differ only in their Src (where rows come from and go to) and
 // share the tile loop and the level loop.
 
-#include <algorithm>
-#include <mutex>
-
 #include "lbm_common.cuh"
 
 namespace {
@@ -384,53 +381,13 @@ int region_threads(int rh, int rw) {
   return 0;
 }
 
-// Blocks of the persistent grid of a compiled region's kernel: as many as
-// the card holds at once, at most one per tile.  The shared-memory
-// attribute and the occupancy are asked once per kernel, device and size.
-template <int NT, typename Kernel>
-cudaError_t persistent_blocks(Kernel kernel, size_t smem, int ntiles, int* blocks) {
-  struct Entry {
-    const void* fn;
-    int device;
-    size_t smem;
-    int blocks;  // per card
-  };
-  static Entry cache[64];
-  static int used = 0;
-  static std::mutex lock;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const void* fn = reinterpret_cast<const void*>(kernel);
-  std::lock_guard<std::mutex> guard(lock);
-  for (int i = 0; i < used; ++i) {
-    if (cache[i].fn == fn && cache[i].device == device && cache[i].smem == smem) {
-      *blocks = std::min(ntiles, cache[i].blocks);
-      return cudaSuccess;
-    }
-  }
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  int sms = 0, per_sm = 0;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-      cudaSuccess)
-    return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  if (used < 64) cache[used++] = Entry{fn, device, smem, sms * per_sm};
-  *blocks = std::min(ntiles, sms * per_sm);
-  return cudaSuccess;
-}
-
 // Launch one sweep of a compiled region on its persistent grid.
 template <typename T, int RH, int RW, int NT, typename Src, typename Kernel>
 cudaError_t launch_region(Kernel kernel, const Src& s, float* partials,
                           const lbm::StepParams& p, const Geometry& g, cudaStream_t st) {
   const size_t smem = region_smem(RH, RW, NT, g.K);
   int blocks = 0;
-  const cudaError_t err = persistent_blocks<NT>(kernel, smem, g.ntiles, &blocks);
+  const cudaError_t err = lbm::persistent_blocks<NT>(kernel, smem, g.ntiles, &blocks);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, NT, smem, st>>>(s, partials, p, g.K, g.ntx, g.ntiles);
   return cudaGetLastError();
@@ -509,10 +466,11 @@ int lbm_trapezoid_blocks(int nrows, int nx, int K, int tile_h, int tile_w) {
 int lbm_trapezoid_grid(int K, int tile_h, int tile_w, int ntiles) {
   const int rh = tile_h + 2 * K, rw = tile_w + 2 * K;
   int blocks = -1;
-#define LBM_REGION_BLOCKS(RH, RW, NT)                                                     \
-  if (rh == RH && rw == RW &&                                                             \
-      persistent_blocks<NT>(lbm_trapezoid_kernel<float, RH, RW, NT>,                      \
-                            region_smem(RH, RW, NT, K), ntiles, &blocks) != cudaSuccess) \
+#define LBM_REGION_BLOCKS(RH, RW, NT)                                            \
+  if (rh == RH && rw == RW &&                                                    \
+      lbm::persistent_blocks<NT>(lbm_trapezoid_kernel<float, RH, RW, NT>,        \
+                                 region_smem(RH, RW, NT, K), ntiles, &blocks) != \
+          cudaSuccess)                                                           \
     return -1;
   LBM_TRAPEZOID_REGIONS(LBM_REGION_BLOCKS)
 #undef LBM_REGION_BLOCKS

@@ -11,7 +11,10 @@ Bound: device-memory bytes, 9 x 4 B read + 9 x 4 B written per cell-step
 (9 x 2 B each way for int16).  The kernel reads every plane's pulled row
 segments coalesced and wraps both axes by index arithmetic, so a step is
 one pass over the state with no ghost assembly (see the note at the top of
-csrc/step.cu).
+csrc/step.cu).  The int16 forms (K1-i16, K1-slab-i16) are a design of their
+own for Hopper: persistent blocks, two cells a lane in adjacent columns with
+32-bit accesses, a codec without conversion instructions, and one launch a
+shard step (csrc/step.cu, namespace i16; PERF.md Findings).
 
 Beside the kernel:
 
@@ -117,12 +120,14 @@ def codec_ptr(codec: np.ndarray | None) -> ctypes.c_void_p | None:
 
 
 def make_run_all(params: LBMParams, obstacles: torch.Tensor, num_steps: int,
-                 storage: str = "f32"):
+                 storage: str = "f32", lib=None):
     """Build ``f0 -> (f_final, tot_us (num_steps,))``: ``num_steps`` K1
     launches ping-ponging between two buffers, allocated here once.
 
     ``f0`` is not modified.  On the card the returned state is one of the
-    runner's two buffers and stays valid until the runner's next call."""
+    runner's two buffers and stays valid until the runner's next call.
+    ``lib`` is the kernel library (``_build.load()`` by default;
+    ``_build.load_variant`` gives another version of the kernel to time)."""
     quant.check_storage(storage)
     if obstacles.device.type == "cpu":
 
@@ -134,7 +139,7 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, num_steps: int,
         return run_all_plain
 
     check_mask(obstacles, params)
-    lib = _build.load()
+    lib = lib or _build.load()
     dev = obstacles.device
     shape = (9, params.ny, params.nx)
     fa = torch.empty(shape, dtype=STATE_DTYPES[storage], device=dev)
@@ -208,7 +213,7 @@ def _check_window(name: str, t: torch.Tensor, rows: int, nx: int, dtype, device)
 
 def bind_slab_step(params: LBMParams, body: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                    obst_slab: torch.Tensor, out: torch.Tensor, tots: torch.Tensor,
-                   row_offset: int, storage: str = "f32"):
+                   row_offset: int, storage: str = "f32", lib=None):
     """Bind one K1-slab step to fixed buffers: returns ``launch(t)``, which
     advances ``body`` (9, n, nx) one step, with ghost rows ``lo`` / ``hi``
     (9, 1, nx) below / above it, into ``out`` (9, n, nx), and writes the
@@ -218,8 +223,11 @@ def bind_slab_step(params: LBMParams, body: torch.Tensor, lo: torch.Tensor, hi: 
     (any plane stride, rows nx apart); ``obst_slab`` is the contiguous
     (n + 2, nx) bool mask with its ghost rows; ``row_offset`` the global row
     of body row 0.  Everything is checked here, once, so that the launch
-    itself costs one call.  On CPU tensors ``launch`` runs the plain
-    version; on CUDA tensors it launches the kernel or raises."""
+    itself costs one call.  The launches go to the stream that is current
+    here, at binding (so a loop bound while a CUDA graph captures lands in
+    the graph).  On CPU tensors ``launch`` runs the plain version; on CUDA
+    tensors it launches the kernel or raises.  ``lib`` as for
+    :func:`make_run_all`."""
     quant.check_storage(storage)
     n, nx = body.shape[1], body.shape[2]
     dev, dtype = body.device, STATE_DTYPES[storage]
@@ -235,8 +243,9 @@ def bind_slab_step(params: LBMParams, body: torch.Tensor, lo: torch.Tensor, hi: 
     if is_plain(body):
         return bind_slab_plain(params, body, lo, hi, obst_slab, out, tots, row_offset, storage)
 
-    lib = _build.load()
-    partials = torch.empty(lib.lbm_step_blocks(n, nx), dtype=torch.float32, device=dev)
+    lib = lib or _build.load()
+    # Word 0: the int16 kernel's ticket counter, zero between launches.
+    partials = torch.zeros(lib.lbm_step_blocks(n, nx) + 1, dtype=torch.float32, device=dev)
     omega, w1, w2 = fused_torch.step_constants(params)
     i16, codec = codec_arg(params, storage)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -258,7 +267,8 @@ def bind_slab_step(params: LBMParams, body: torch.Tensor, lo: torch.Tensor, hi: 
         else:
             SLAB_LAUNCHES += 1
 
-    launch.keep = (partials, codec)  # alive while the launcher is
+    # Alive while the launcher is: what it writes to and reads from by address.
+    launch.keep = (partials, codec, tots, body, lo, hi, obst_slab, out)
     return launch
 
 

@@ -15,7 +15,11 @@ order on odd rounds), and the plain sweep at each depth.
 For each grid of ``--shards`` (n x n over 4 row shards, the sharded
 modes' layout): K1-slab, K1-slab-i16 and K6 (k = 2, 8, where the shard fits
 its L2 budget) on the shard that holds the driven row, in turns, and their
-plain versions.
+plain versions.  K1-slab and K1-slab-i16 are timed twice: as the sharded
+modes run them, a Python loop of one bound call (two launches) per step,
+which the host paces on small shards; and card-paced (``K1-slab graph``),
+the same calls bound while a CUDA graph captures the loop, the graph
+replayed, so the time is the card's for the two launches of every step.
 
 For each shard of ``--ca`` (rows x columns, the last of 4 row shards of a
 closed box of 4 x rows x columns, the one that holds the driven row): the
@@ -36,7 +40,9 @@ name (for example the parent commit's, from ``git show
 HEAD:lbm_tpu_torch/csrc/inplace.cu``, under the ignored ``build/``), and
 times the kernels of the replaced files (and of the sources that include a
 replaced header), named ``@NAME``, in turns with the package's own:
-``temporal.cu`` K4 in ``--sweeps`` (K5 left out there; on the package's
+``step.cu`` K1 and K1-i16 in ``--grids``, ``--policy`` and as the control of
+``--sweeps``, K1-slab and K1-slab-i16 (host- and card-paced) in
+``--shards``; ``temporal.cu`` K4 in ``--sweeps`` (K5 left out there; on the package's
 regions, ``temporal_cuda.tile``, or on the region RHxRW at every depth) and
 K4-slab in ``--ca``; ``inplace.cu`` K3 and K3-i16 in ``--grids``,
 ``--sweeps`` and ``--policy``; ``ca_inplace.cu`` K8 and K8-i16 in ``--ca``
@@ -63,7 +69,7 @@ process, and the card's name and power limit::
         [--sweeps 1536,2048,4096] [--depths 2,4,8] [--shards 1024,4096] \
         [--ca 64x1024,256x1024,1024x4096] [--ca-depths 4,8] [--ca-parts 1,2,4,8,16] \
         [--hbm 2048,4096] [--blocked 256,512,768,1024] [--blocked-rows 8] [--policy] [--l2] \
-        [--variant parent=build/parent/inplace.cu+build/parent/ca_inplace.cu] \
+        [--variant parent=build/parent/step.cu] \
         [--k4-regions 48x64] [--repeats 7]
 
 Needs a CUDA device; without one it exits 1.
@@ -266,7 +272,7 @@ def time_grid(n: int, device, repeats: int = 7,
     1024^2, in turns, then of the plain versions; above it, of K1, the twin
     and the int16 ones.  Each variant that replaces ``inplace.cu``
     (:func:`load_variants`) adds its K3 and K3-i16 (``K3@NAME``) to the
-    turns."""
+    turns, and each that replaces ``step.cu`` its K1 and K1-i16."""
     import torch
 
     from lbm_tpu_torch.core import lattice
@@ -301,6 +307,10 @@ def time_grid(n: int, device, repeats: int = 7,
                                    steps)
         runs[f"K3-i16@{vname}"] = (inplace_cuda.make_run_all(p, obst, steps, storage="i16",
                                                              lib=v.lib), q0, steps)
+    for vname, v in replacing(variants, "step.cu").items():
+        runs[f"K1@{vname}"] = (fused_cuda.make_run_all(p, obst, steps, lib=v.lib), f0, steps)
+        runs[f"K1-i16@{vname}"] = (fused_cuda.make_run_all(p, obst, steps, "i16", lib=v.lib),
+                                   q0, steps)
     out = time_in_turns(runs, repeats)
     del runs
     for name in kernels:
@@ -342,7 +352,8 @@ def time_sweeps(n: int, device, depths=(2, 4, 8), repeats: int = 5,
     runs in the same turns, and K5 is left out, and so does the K3 of each
     that replaces ``inplace.cu`` (``K3@NAME``) where K3 maps; with
     ``regions`` ((rows, columns) of compiled regions) so does K4 on each of
-    them (``K4[48x64] K=4``)."""
+    them (``K4[48x64] K=4``); so does the K1 of each variant that replaces
+    ``step.cu`` (``K1@NAME``)."""
     import torch
 
     from lbm_tpu_torch.core import lattice
@@ -367,6 +378,9 @@ def time_sweeps(n: int, device, depths=(2, 4, 8), repeats: int = 5,
         sfx = "-i16" if storage == "i16" else ""
         start = quant.quantize(f0, p.density) if storage == "i16" else f0
         runs = {f"K1{sfx}": (fused_cuda.make_run_all(p, obst, steps, storage), start, steps)}
+        for vname, v in replacing(variants, "step.cu").items():
+            runs[f"K1{sfx}@{vname}"] = (fused_cuda.make_run_all(p, obst, steps, storage,
+                                                                lib=v.lib), start, steps)
         if storage == "f32" and resident_cuda.fits_l2(n, n):
             runs["K2"] = (resident_cuda.make_run_all(p, obst, steps), start, steps)
         if inplace_cuda.state_bytes(n, n, storage) <= inplace_cuda.L2_INPLACE_BUDGET:
@@ -398,13 +412,18 @@ def time_sweeps(n: int, device, depths=(2, 4, 8), repeats: int = 5,
 
 
 def time_shard(n: int, device, shards: int = 4, chunks=(2, 8), repeats: int = 5,
-               storages=("f32", "i16")) -> dict[str, tuple[float, float, float]]:
+               storages=("f32", "i16"), variants=None) -> dict[str, tuple[float, float, float]]:
     """us/step (median, q1, q3) of the sharded modes' kernels on the last
     shard of an n x n closed box over ``shards`` row shards (the one that
     holds the driven row), from rest: K1-slab (and K1-slab-i16) as a loop of
-    launches, and K6 at each chunk length of ``chunks`` where the shard fits
-    its L2 budget, in turns; then their plain versions, the plain slab step
-    (``plain-slab``, ``plain-slab-i16``) and K6's (``plain K6 k=2``)."""
+    launches, host-paced (``K1-slab``: one bound call per step, as the
+    sharded modes make them) and card-paced (``K1-slab graph``: the same
+    calls captured once into a CUDA graph and replayed), and K6 at each chunk
+    length of ``chunks`` where the shard fits its L2 budget, in turns; then
+    their plain versions, the plain slab step (``plain-slab``,
+    ``plain-slab-i16``) and K6's (``plain K6 k=2``).  With ``variants``
+    (:func:`load_variants`) the K1-slab of each that replaces ``step.cu``
+    (``K1-slab@NAME``, ``K1-slab@NAME graph``) runs in the same turns."""
     import torch
 
     from lbm_tpu_torch.core import lattice
@@ -418,22 +437,34 @@ def time_shard(n: int, device, shards: int = 4, chunks=(2, 8), repeats: int = 5,
     ob = torch.from_numpy(modes._extended_obstacle_slabs(scene.obstacles, shards)[r]).to(device)
     f0 = lattice.equilibrium_rest_device(p.density, nloc + 2, n, device)
     steps = 16 * max(1, 2**26 // (16 * nloc * n))  # a multiple of 2 x 8; ~2^26 cell-steps
+    libs = {"": None, **{f"@{vname}": v.lib
+                         for vname, v in replacing(variants, "step.cu").items()}}
     runs, plain = {}, {}
+    buffers = []  # every bound launch reads and writes these by address: keep them
     for storage in storages:
         sfx = "-i16" if storage == "i16" else ""
         x = quant.quantize(f0, p.density) if storage == "i16" else f0
         a, lo, hi = x[:, 1:-1].contiguous(), x[:, :1].clone(), x[:, -1:].clone()
         b = torch.empty_like(a)
         tots = torch.empty(steps, dtype=torch.float32, device=device)
-        ab = fused_cuda.bind_slab_step(p, a, lo, hi, ob, b, tots, r * nloc, storage)
-        ba = fused_cuda.bind_slab_step(p, b, lo, hi, ob, a, tots, r * nloc, storage)
+        buffers.append((a, b, lo, hi, tots))
+        for tag, lib in libs.items():
 
-        def run_slab(_, ab=ab, ba=ba):
-            for t in range(0, steps, 2):
-                ab(t)
-                ba(t + 1)
+            def bind(lib=lib, a=a, b=b, lo=lo, hi=hi, tots=tots, storage=storage):
+                ab = fused_cuda.bind_slab_step(p, a, lo, hi, ob, b, tots, r * nloc, storage,
+                                               lib=lib)
+                ba = fused_cuda.bind_slab_step(p, b, lo, hi, ob, a, tots, r * nloc, storage,
+                                               lib=lib)
 
-        runs[f"K1-slab{sfx}"] = (run_slab, None, steps)
+                def run_slab(_=None):
+                    for t in range(0, steps, 2):
+                        ab(t)
+                        ba(t + 1)
+
+                return run_slab
+
+            runs[f"K1-slab{sfx}{tag}"] = (bind(), None, steps)
+            runs[f"K1-slab{sfx}{tag} graph"] = (card_paced(bind, device), None, steps)
         plain[f"plain-slab{sfx}"] = (
             lambda a=a, lo=lo, hi=hi, storage=storage:
                 fused_cuda.slab_plain(a, lo, hi, ob, p, r * nloc, storage), 1)
@@ -452,10 +483,31 @@ def time_shard(n: int, device, shards: int = 4, chunks=(2, 8), repeats: int = 5,
                 lambda a=a, lo=lo, hi=hi: ghosted_cuda.chunk_plain(a, lo, hi, ob, p, r * nloc, 2),
                 2)
     out = time_in_turns(runs, repeats)
+    del runs, buffers
     for name, (fn, k) in plain.items():
         med, q1, q3 = _quartiles(_timed_ms(fn, min(repeats, 3)))
         out[name] = (med * 1e3 / k, q1 * 1e3 / k, q3 * 1e3 / k)
     return out
+
+
+def card_paced(bind, device):
+    """``run(_)`` replaying a CUDA graph of the launch loop that ``bind()``
+    returns, bound while the graph captures (the wrappers bind to the stream
+    current at binding, which is then the capture's): the loop's launches
+    with no host call between them."""
+    import torch
+
+    bind()()  # a warm run outside the capture (builds and loads the library)
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        loop = bind()
+        loop()
+
+    def run(_=None, loop=loop):  # the loop keeps its buffers alive with the graph
+        graph.replay()
+
+    return run
 
 
 def ca_shard(nloc: int, nx: int, K: int, device, shards: int = 4, storage: str = "f32"):
@@ -635,7 +687,7 @@ def time_policy(device, repeats: int = 7,
     K2 vs K3 (f32) at 128^2, 256^2, 512^2 and K1-i16 vs K3-i16 at 512^2,
     768^2 and 1024^2; each variant that replaces ``inplace.cu``
     (:func:`load_variants`) adds its K3 or K3-i16 (``K3@NAME``) to the
-    turns."""
+    turns, and each that replaces ``step.cu`` its K1-i16."""
     import torch
 
     from lbm_tpu_torch.core import lattice
@@ -663,6 +715,10 @@ def time_policy(device, repeats: int = 7,
         for vname, v in replacing(variants, "inplace.cu").items():
             runs[f"K3{sfx}@{vname}"] = (inplace_cuda.make_run_all(p, obst, steps, storage=storage,
                                                                   lib=v.lib), f0, steps)
+        if storage == "i16":
+            for vname, v in replacing(variants, "step.cu").items():
+                runs[f"K1-i16@{vname}"] = (fused_cuda.make_run_all(p, obst, steps, "i16",
+                                                                   lib=v.lib), f0, steps)
         out[f"{n}^2 {storage}"] = time_in_turns(runs, repeats)
     return out
 
@@ -716,8 +772,8 @@ def main(argv: list[str] | None = None) -> int:
                         help="time the L2 copy kernel at K8's and K3's working sets")
     parser.add_argument("--variant", action="append", default=[],
                         help="NAME=PATH[+PATH...]: time the kernels of other versions of "
-                        "temporal.cu, inplace.cu or ca_inplace.cu in turns with the package's "
-                        "own")
+                        "step.cu, temporal.cu, inplace.cu or ca_inplace.cu in turns with the "
+                        "package's own")
     parser.add_argument("--k4-regions", default="",
                         help="compiled regions of K4 and K4-slab to time beside the table's, "
                         "e.g. 48x64")
@@ -743,7 +799,8 @@ def main(argv: list[str] | None = None) -> int:
                                                  regions=regions))
               + f" | {card}")
     for n in (int(g) for g in args.shards.split(",") if g):
-        print(format_shard(n, time_shard(n, device, repeats=args.repeats)) + f" | {card}")
+        print(format_shard(n, time_shard(n, device, repeats=args.repeats, variants=variants))
+              + f" | {card}")
     ca_depths = tuple(int(k) for k in args.ca_depths.split(","))
     ca_parts = tuple(int(k) for k in args.ca_parts.split(","))
     for shard in (s for s in args.ca.split(",") if s):

@@ -139,6 +139,94 @@ def test_k1_i16_matches_plain_on_card(cuda_device, shape, kind):
     _assert_matches(q_k, tot_k, q_p, tot_p)
 
 
+# K1-i16 takes two columns a lane and one row a warp, 64 x 8 cells a block:
+# nx below, at and just above a warp's 64 columns, odd and even (odd nx and
+# nx = 1 take 16-bit accesses), and the driven row (ny - 2) on the first
+# (ny = 10) and the last (ny = 17) row of a block's 8 rows.
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rest", "mixed"])
+@pytest.mark.parametrize("shape", [(10, 33), (17, 33), (10, 64), (17, 64), (10, 65), (17, 65),
+                                   (10, 130), (17, 2), (10, 1)], ids=str)
+def test_k1_i16_edge_shapes_match_plain_on_card(cuda_device, shape, kind):
+    params, mask = _scene(*shape)
+    obst = torch.from_numpy(mask).to(cuda_device)
+    q0 = _start(params, kind, cuda_device, "i16")
+    q_k, tot_k = fused_cuda.make_run_all(params, obst, 7, "i16")(q0)
+    q_p, tot_p = fused_cuda.run_plain(q0, obst, params, 7, "i16")
+    _assert_matches(q_k, tot_k, q_p, tot_p)
+
+
+# K1-slab-i16 on the same columns, one body row and more, the driven row on
+# the first and the last body row, in either ghost and in none; the whole
+# slab and overlap's edge windows of one shard tensor (body rows as ghosts,
+# the output a window of the new state).
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["first", "last", "lo", "hi", "none"])
+@pytest.mark.parametrize("nx", [33, 64, 65])
+def test_k1_slab_i16_edge_shapes_match_plain_on_card(cuda_device, nx, where):
+    params = LBMParams(nx=nx, ny=64, max_iters=1, reynolds_dim=10, density=0.1, accel=0.005,
+                       omega=1.85)  # the grid the shard is cut from: driven row 62
+    for n in (1, 9):
+        slab_params, mask = _scene(n + 2, nx)  # the slab's rows, ghosts included
+        x = quant.quantize(_state(slab_params, "mixed", cuda_device), params.density)
+        m = torch.from_numpy(mask).to(cuda_device)
+        shard, lo, hi = x[:, 1:-1].contiguous(), x[:, :1].clone(), x[:, -1:].clone()
+        forms = [(shard, lo, hi, m, slice(None), n)]
+        if n > 1:
+            forms += [(shard[:, :1], lo, shard[:, 1:2], m[:3], slice(0, 1), 1),
+                      (shard[:, -1:], shard[:, -2:-1], hi, m[-3:], slice(n - 1, n), 1)]
+        for body, glo, ghi, ob, win, rows in forms:
+            off = {"first": params.accel_row, "last": params.accel_row - rows + 1,
+                   "lo": params.accel_row + 1, "hi": params.accel_row - rows, "none": 0}[where]
+            new = torch.zeros_like(shard)
+            tots = torch.zeros(1, dtype=torch.float32, device=cuda_device)
+            before = fused_cuda.SLAB_LAUNCHES_I16
+            fused_cuda.bind_slab_step(params, body, glo, ghi, ob.contiguous(), new[:, win], tots,
+                                      off, "i16")(0)
+            assert fused_cuda.SLAB_LAUNCHES_I16 == before + 1
+            ref, ref_tot = fused_cuda.slab_plain(body, glo, ghi, ob, params, off, "i16")
+            _assert_matches(new[:, win], tots, ref, ref_tot.reshape(1))
+
+
+# K1-i16 and K1-slab-i16 take long long offsets once 9 planes (or 8 plane
+# strides and the body) reach 2^31 elements, int below.  Full grids with 9
+# ny nx just above 2^31 (32- and 16-bit accesses), from a seeded 64-row
+# field repeated down the grid.
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx", [14564, 14565])
+def test_k1_i16_wide_offsets_match_plain_on_card(cuda_device, nx):
+    ny = 16384
+    assert 9 * ny * nx >= 2**31
+    params, mask = _scene(ny, nx)
+    obst = torch.from_numpy(mask).to(cuda_device)
+    band, _ = _scene(64, nx)
+    q0 = _start(band, "mixed", cuda_device, "i16").repeat(1, ny // 64, 1)
+    q_k, tot_k = fused_cuda.make_run_all(params, obst, 2, "i16")(q0)
+    q_p, tot_p = fused_cuda.run_plain(q0, obst, params, 2, "i16")
+    _assert_matches(q_k, tot_k, q_p, tot_p)
+
+
+# K1-slab-i16 on windows of one tensor whose planes lie 2^28 elements or
+# more apart (plane 8 beyond 2^31): the ghosts, the body and the output.
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx", [64, 65])
+def test_k1_slab_i16_wide_offsets_match_plain_on_card(cuda_device, nx):
+    params = LBMParams(nx=nx, ny=64, max_iters=1, reynolds_dim=10, density=0.1, accel=0.005,
+                       omega=1.85)  # driven row 62
+    n = 9
+    rows = -(-(2**28) // nx)
+    big = torch.zeros((9, rows, nx), dtype=torch.int16, device=cuda_device)
+    slab_params, mask = _scene(n + 2, nx)
+    big[:, :n + 2] = quant.quantize(_state(slab_params, "mixed", cuda_device), params.density)
+    body, lo, hi, out = big[:, 1:n + 1], big[:, :1], big[:, n + 1:n + 2], big[:, rows - n:]
+    m = torch.from_numpy(mask).to(cuda_device)
+    for off in (params.accel_row, params.accel_row - n + 1, params.accel_row + 1, 0):
+        tots = torch.zeros(1, dtype=torch.float32, device=cuda_device)
+        fused_cuda.bind_slab_step(params, body, lo, hi, m, out, tots, off, "i16")(0)
+        ref, ref_tot = fused_cuda.slab_plain(body, lo, hi, m, params, off, "i16")
+        _assert_matches(out, tots, ref, ref_tot.reshape(1))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", ["f32", "i16"])
 def test_k3_and_i16_deterministic_and_segmentable_on_card(cuda_device, storage):
@@ -410,6 +498,24 @@ def test_i16_wrappers_on_cpu_take_the_plain_version():
 def test_kernel_times_report_i16():
     line = kernel_times.format_grid(128, {"K3-i16": (2.0, 1.5, 2.5)})
     assert line == "128^2: K3-i16 2.000 us/step [1.500, 2.500] 8192 MLUPS 303 GB/s"
+
+
+def test_kernel_times_step_variants_and_card_paced_shard_line():
+    """``--variant`` of step.cu (or of the header it includes) reaches the
+    one-step kernels; the shard line carries the host- and card-paced
+    K1-slab times side by side."""
+    name, files, region = kernel_times.parse_variant("parent=build/parent/step.cu")
+    assert (name, sorted(files), region) == ("parent", ["step.cu"], None)
+    v = {n: kernel_times.Variant(None, None, frozenset(f)) for n, f in (
+        ("k1", {"step.cu"}), ("common", {"lbm_common.cuh"}), ("k3", {"inplace.cu"}))}
+    assert set(kernel_times.replacing(v, "step.cu")) == {"k1", "common"}
+    assert set(kernel_times.replacing(v, "inplace.cu")) == {"k3", "common"}
+    line = kernel_times.format_shard(1024, {"K1-slab-i16": (14.0, 13.5, 14.5),
+                                            "K1-slab-i16 graph": (5.0, 4.75, 5.25),
+                                            "K1-slab-i16@parent graph": (8.0, 7.5, 8.5)})
+    assert line == ("1024^2/4 shard 256x1024: K1-slab-i16 14.000 us/step [13.500, 14.500] "
+                    "18725 MLUPS | K1-slab-i16 graph 5.000 us/step [4.750, 5.250] 52429 MLUPS | "
+                    "K1-slab-i16@parent graph 8.000 us/step [7.500, 8.500] 32768 MLUPS")
 
 
 def test_build_flags_and_sources(tmp_path, monkeypatch):
