@@ -20,8 +20,12 @@ power limit as nvidia-smi reports them):
    perturbation of rest with the injection guard false at some driven-row
    cells; fields torch.equal, per-step tot_u within rtol 1e-6;
 3. K2 (persistent multi-step kernel) vs its plain version: 128x128, 256x128,
-   256x256 with (steps, chunk) in {(7,4), (8,4), (5,8), (600,256)}, and
-   256x256 from the perturbed state for 600 steps; same bounds;
+   256x256 with (steps, chunk) in {(7,4), (8,4), (5,8), (600,256)},
+   256x256 from the perturbed state for 600 steps, and the band-edge shapes
+   :data:`K2_EDGES` from the perturbed state over two chunks and a step at
+   chunks 1, 2, 3, 8 and 256; same bounds; the script fails unless the
+   blocks' bands (the band plan on the card's grid) put the driven row on a
+   band's first row and on its last, and split rows between blocks;
 3b. K3 (in-place persistent kernel) vs its plain version: 1024x1024 and
    1021x1023 from rest and from the perturbed state, 200 steps; 60x100,
    7x33 (a wall on the driven row) and 45x99 with (steps, chunk) in
@@ -66,8 +70,12 @@ power limit as nvidia-smi reports them):
    rest and perturbed starts; K1-slab-i16 also on shards of 1 and 9 rows
    with nx 33, 64 and 65, the driven row on the first and the last body
    row too, and on 9-row windows of a tensor whose planes lie 2^28
-   elements apart (long long offsets); K6 at chunks 1, 2, 3 and 8; fields
-   torch.equal (int16 too), tot_u within rtol 1e-6;
+   elements apart (long long offsets); K6 on 256x1024, 13x100, 8x1024 and
+   30x129 at chunks 1, 2, 3, 8 and 256, two chunks a case, the driven row
+   also on the body's first and last row and on a row two blocks' bands
+   share (the script fails unless that put it on a band's first and last
+   row, rows split between blocks); fields torch.equal (int16 too), tot_u
+   within rtol 1e-6;
 3g. the ca engines vs the plain ca sweep (:func:`ca_kernel_checks`):
    K4-slab, K4-slab-i16 (once-per-sweep codec), K7 (where two copies of
    the extended slab fit its L2 budget), K8 and K8-i16 (per-step codec) on
@@ -191,7 +199,7 @@ power limit as nvidia-smi reports them):
    the single-device default; sync-i16 too, its fields equal to
    cuda-step-i16's), and K1-slab / K1-slab-i16 / K6 us/step on
    the 256x1024 and 1024x4096 shards beside their plain versions and bounds
-   (K1-slab host-paced, as the sharded runs call it, and card-paced, the
+   (each host-paced, as the sharded runs call it, and card-paced, the
    same loop replayed from a CUDA graph),
    and ca-4 at 4096^2/4 (K4-slab) with fields equal to sync's; (6e) the ca
    engines in turns on the 256x1024 (K = 4, 8) and 1024x4096 (K = 4; K8
@@ -204,7 +212,7 @@ power limit as nvidia-smi reports them):
    state in device memory its bytes over the 1 GiB copy's measured rate,
    for a state in L2 its cell-steps' bytes over the L2 copy's; K4,
    K5 and their int16 forms timed at 2048x2048, K=4, and at each grid and
-   depth of 6c under "by_grid_and_depth"; K1-slab and K1-slab-i16 at
+   depth of 6c under "by_grid_and_depth"; K1-slab, K1-slab-i16 and K6 at
    their card-paced time, the host-paced one beside it), then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -349,6 +357,13 @@ def compare(name: str, f_k, tot_k, f_p, tot_p) -> tuple[float, float]:
     return err, rel
 
 
+# Phase 3's band-edge shapes of K2 (one block per 256 cells): bands end
+# mid-row, the driven row (ny - 2) the last row of one band and the first
+# of the next (30x129: rows split two ways; 7x1000: four ways), and bands
+# spanning rows (45x33).
+K2_EDGES = ((30, 129), (7, 1000), (45, 33))
+
+
 # Phase 3c's edge shapes of K1-i16 (64 columns and 8 rows a block, two
 # columns a lane): nx below, at, just above and well above a warp's
 # columns, odd (16-bit accesses) and tiny, and the driven row (ny - 2) on
@@ -357,7 +372,7 @@ K1_I16_EDGES = ((10, 33), (17, 33), (10, 64), (17, 64), (10, 65), (17, 65), (17,
                 (1026, 1023), (1025, 1023), (10, 2))
 
 
-def slab_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
+def slab_kernel_checks(dev, k6_paths: set) -> tuple[dict[str, float], dict[str, int]]:
     """Phase 3f: K1-slab and K1-slab-i16 against the plain slab step, and K6
     against its plain version (chunk frozen-ghost slab steps), every case
     bitwise on fields (int16 too) and tot_u within rtol 1e-6.
@@ -376,14 +391,19 @@ def slab_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
     the shard's own edge rows as ghosts, written into windows of the new
     state), from rest and from a seeded perturbation with the injection
     guard false at every third cell.  K6: shards of 256x1024 (the 1024^2
-    golden grid over 4 shards), 13x100 and 8x1024 x chunks 1, 2, 3, 8, the
-    driven row in the body, each ghost and none, rest and perturbed.
-    Returns the largest |diff| per kernel and the number of cases."""
+    golden grid over 4 shards), 13x100, 8x1024 and 30x129 x chunks 1, 2, 3,
+    8 (and 256 from the perturbed start), two chunks a case (the second
+    through the launcher the first one's result asks for), the driven row
+    in the body's middle, first or last row, on a row two blocks' bands
+    share, in each ghost and none, rest and perturbed; ``k6_paths`` gains
+    where K6's cases put the driven row in the blocks' bands
+    (:func:`band_cover`).  Returns the largest |diff| per kernel and the
+    number of cases."""
     import numpy as np
     import torch
 
     from lbm_tpu_torch.core import lattice
-    from lbm_tpu_torch.ops import fused_cuda, ghosted_cuda, quant
+    from lbm_tpu_torch.ops import _build, fused_cuda, ghosted_cuda, quant
     from lbm_tpu_torch.params import LBMParams
 
     err = {"K1-slab": 0.0, "K1-slab-i16": 0.0, "K6": 0.0}
@@ -475,20 +495,30 @@ def slab_kernel_checks(dev) -> tuple[dict[str, float], dict[str, int]]:
             err["K1-slab-i16"] = max(err["K1-slab-i16"], e)
             cases["K1-slab-i16"] += 1
         del big, body, lo, hi, out
-    for n, nx in ((256, 1024), (13, 100), (8, 1024)):
+    for n, nx in ((256, 1024), (13, 100), (8, 1024), (30, 129)):
+        grid = _build.load().lbm_ghosted_grid(n, nx, dev.index)
+        plan = ghosted_cuda.shard_plan(n, nx, grid)
+        split = [s // nx for s, _, _, _ in plan[0] if s % nx]  # rows two bands share
         for start in ("rest", "mixed"):
             p, f, m = field(n, nx, start)
             body, lo, hi = f[:, 1:-1].contiguous(), f[:, :1], f[:, -1:]
-            for chunk in (1, 2, 3, 8):
-                for where in wheres:
-                    off = offset(n, where, p)
-                    out = torch.empty_like(body)
-                    tots = torch.zeros(chunk + 1, dtype=torch.float32, device=dev)
-                    ghosted_cuda.bind_chunk(p, body.clone(), lo, hi, m, out, tots, off,
-                                            chunk)(1)
-                    ref, ref_tot = ghosted_cuda.chunk_plain(body, lo, hi, m, p, off, chunk)
-                    e = held(f"K6 {n}x{nx} {start} chunk={chunk} driven={where}", out,
-                             tots[1:], ref, ref_tot)
+            for chunk in (1, 2, 3, 8) + ((256,) if start == "mixed" else ()):
+                for where in wheres + ("first", "last") + (("split",) if split else ()):
+                    off = (p.accel_row - split[len(split) // 2] if where == "split"
+                           else offset(n, where, p))
+                    band_cover(k6_paths, plan, nx, p.accel_row - off)
+                    # Two chunks, the second through the launcher the first's
+                    # result asks for (the parity: no closing copy).
+                    a, b = body.clone(), torch.empty_like(body)
+                    tots = torch.zeros(2 * chunk + 1, dtype=torch.float32, device=dev)
+                    fwd = ghosted_cuda.bind_chunk(p, a, lo, hi, m, b, tots, off, chunk)
+                    bwd = ghosted_cuda.bind_chunk(p, b, lo, hi, m, a, tots, off, chunk)
+                    nxt = bwd if fwd.result is b else fwd
+                    fwd(1)
+                    nxt(1 + chunk)
+                    ref, ref_tot = ghosted_cuda.chunk_plain(body, lo, hi, m, p, off, 2 * chunk)
+                    e = held(f"K6 {n}x{nx} {start} chunk={chunk} x 2 driven={where}",
+                             nxt.result, tots[1:], ref, ref_tot)
                     err["K6"] = max(err["K6"], e)
                     cases["K6"] += 1
     return err, cases
@@ -781,24 +811,38 @@ def main() -> int:
         notes.append(f"{ny}x{nx} {start} start: equal, tot_u rel {r:.2e}")
     print(f"[2 K1 vs plain] card: {card} | 50 steps | " + "; ".join(notes))
 
-    # Phase 3: K2 vs plain.
+    # Phase 3: K2 vs plain.  k2_paths: where the driven row sits in the
+    # blocks' bands (the band plan on the card's grid, csrc/two_copy.cuh).
     k2_err, k2_rel, n_cases = 0.0, 0.0, 0
+    k2_paths: set = set()
+
+    def k2_case(name, p, obst, f0, steps, chunk):
+        nonlocal k2_err, k2_rel, n_cases
+        grid = _build.load().lbm_resident_grid(p.ny, p.nx, dev.index)
+        band_cover(k2_paths, resident_cuda.grid_plan(p.ny, p.nx, grid), p.nx, p.accel_row)
+        f_k, tot_k = resident_cuda.make_run_all(p, obst, steps, chunk=chunk)(f0)
+        f_p, tot_p = resident_cuda.run_plain(f0, obst, p, steps)
+        e, r = compare(f"K2 {name} steps={steps} chunk={chunk}", f_k, tot_k, f_p, tot_p)
+        k2_err, k2_rel = max(k2_err, e), max(k2_rel, r)
+        n_cases += 1
+
     for ny, nx in ((128, 128), (256, 128), (256, 256)):
         p, _, obst, f0 = field(ny, nx)
         for steps, chunk in ((7, 4), (8, 4), (5, 8), (600, 256)):
-            f_k, tot_k = resident_cuda.make_run_all(p, obst, steps, chunk=chunk)(f0)
-            f_p, tot_p = resident_cuda.run_plain(f0, obst, p, steps)
-            e, r = compare(f"K2 {ny}x{nx} steps={steps} chunk={chunk}", f_k, tot_k, f_p, tot_p)
-            k2_err, k2_rel = max(k2_err, e), max(k2_rel, r)
-            n_cases += 1
-    f0 = mixed_state(p, dev)  # the last grid, 256x256, from a mixed-guard start
-    f_k, tot_k = resident_cuda.make_run_all(p, obst, 600)(f0)
-    f_p, tot_p = resident_cuda.run_plain(f0, obst, p, 600)
-    e, r = compare("K2 256x256 mixed start", f_k, tot_k, f_p, tot_p)
-    k2_err, k2_rel = max(k2_err, e), max(k2_rel, r)
+            k2_case(f"{ny}x{nx}", p, obst, f0, steps, chunk)
+    k2_case("256x256 mixed start", p, obst, mixed_state(p, dev), 600, 256)
+    for ny, nx in K2_EDGES:
+        p, _, obst, _ = field(ny, nx)
+        f0 = mixed_state(p, dev)
+        for chunk in (1, 2, 3, 8, 256):
+            k2_case(f"{ny}x{nx} mixed start", p, obst, f0, 2 * chunk + 1, chunk)
+    if not {"first", "last", "split rows"} <= k2_paths:
+        fail(f"K2's cases put the driven row only at {sorted(k2_paths)} of the bands")
     print(f"[3 K2 vs plain] card: {card} | {n_cases} cases (128x128, 256x128, 256x256 "
-          f"x (7,4) (8,4) (5,8) (600,256)) + 256x256 mixed start 600 steps: "
-          f"fields equal, tot_u max rel {k2_rel:.2e}")
+          f"x (7,4) (8,4) (5,8) (600,256); 256x256 mixed start 600 steps; "
+          f"{', '.join(f'{a}x{b}' for a, b in K2_EDGES)} mixed x chunks 1, 2, 3, 8, 256, "
+          f"2 chunks + 1 step): fields equal, tot_u max rel {k2_rel:.2e}; the driven row on a "
+          f"band's {' and '.join(sorted(k2_paths))}")
 
     # Phase 3b: K3 vs plain, and K3 vs K1 at full length.  k3_paths: where
     # the driven row sits in the blocks' bands, over every K3 and K3-i16
@@ -983,10 +1027,14 @@ def main() -> int:
           f"K={long_k}: fields equal; {'; '.join(long_rel)}")
 
     # Phase 3f: the sharded modes' kernels vs their plain versions.
-    slab_err, slab_cases = slab_kernel_checks(dev)
+    k6_paths: set = set()
+    slab_err, slab_cases = slab_kernel_checks(dev, k6_paths)
+    if not {"first", "last", "split rows"} <= k6_paths:
+        fail(f"3f: the driven row and the K6 bands reached only {sorted(k6_paths)}")
     print(f"[3f shard kernels vs plain] card: {card} | "
           + "; ".join(f"{k} {slab_cases[k]} cases, fields equal, max |diff| {slab_err[k]:.1e}"
                       for k in slab_err)
+          + f" | K6's bands: the driven row as {sorted(k6_paths)}"
           + f" | {time.perf_counter() - t_start:.1f} s elapsed")
 
     # Phase 3g: the ca engines vs the plain ca sweep; 3h: K9 vs plain and K1.
@@ -1698,8 +1746,8 @@ def main() -> int:
           + " | 4096x4096 box x 400 steps (ca-4 on K4-slab, fields equal to sync; sync-i16 "
             f"fields equal to cuda-step-i16; K4-slab launches {slab_6d}, K1-slab-i16 "
             f"{slab_i16_6d}): " + "; ".join(f"{k} {v:.1f}" for k, v in rates4k.items())
-          + " | shard kernels in turns (K1-slab: host-paced, and card-paced from a CUDA "
-            "graph), then plain: "
+          + " | shard kernels in turns (K1-slab and K6: host-paced, and card-paced from a "
+            "CUDA graph), then plain: "
           + " ; ".join(kernel_times.format_shard(n, t) for n, t in shard_times.items()))
 
     # Phase 6e: the ca engines in turns on the shards of the 1024^2 and
@@ -1842,12 +1890,13 @@ def main() -> int:
                           **shard_row(4096, key, f"plain-slab{sfx}", 1, storage, "HBM")}]})
     kernels.append({
         "name": "K6 ghosted chunk kernel (ms per launch = 2 steps of one 256x1024 shard of "
-                "1024x1024, k = 2)",
+                "1024x1024, k = 2, card-paced)",
         "route": "cuda", "source": "lbm_tpu_torch/csrc/ghosted.cu",
         "replaces": "lbm_tpu/ops/resident_pallas.py:997", "launches": launches["K6"],
         "max_abs_err": slab_err["K6"],
         **shard_row(1024, "K6 k=2", "plain K6 k=2", 2, "f32", "L2"),
-        "by_chunk": [{"k": 8, "ms": shard_times[1024]["K6 k=8"][0] / 1e3 * 8,
+        "by_chunk": [{"k": 8, "ms": shard_times[1024]["K6 k=8 graph"][0] / 1e3 * 8,
+                      "host_paced_ms": shard_times[1024]["K6 k=8"][0] / 1e3 * 8,
                       **bounds(256, 1024, 255 * 1022, 8, "f32", "L2", ghosts=True,
                                copies=2)}]})
     # The ca engines (ms per launch = one K-step sweep of one shard, frozen

@@ -5,9 +5,10 @@
 // lbm_load(), updates a cell with lbm_collide() and stores with
 // lbm_encode(), so they stay bitwise equal to each other and to the plain
 // torch step (ops/stencil_math.py, which this file follows op for op, in the
-// same association order).  step.cu and resident.cu pull a cell's 9 values
-// with lbm_pull(); the slab kernels of the sharded modes (K1-slab in
-// step.cu, K6 in ghosted.cu) with lbm_pull_slab(); the ca engines K7 and K8
+// same association order).  step.cu pulls a cell's 9 values with
+// lbm_pull() (K1) and lbm_pull_slab() (K1-slab, the sharded modes' slab
+// step); the two-copy kernels K2 and K6 (two_copy.cuh) from their copies,
+// K6's rows next to a ghost with lbm_pull_slab(); the ca engines K7 and K8
 // from a ghost-extended slab (Ext) with lbm_pull_3rows(); inplace.cu and
 // ca_inplace.cu read them from their in-place layout; temporal.cu and
 // skew.cu pull from levels held in shared memory with lbm_pull_rows().
@@ -152,14 +153,14 @@ __device__ __forceinline__ bool lbm_guard(bool fluid, float f3, float f6, float 
 
 // The injection of the driven row's cell (sj, si), guarded on its
 // pre-injection values: w, or 0.0f where the guard is false.
-template <bool kL2, typename T>
+template <typename T>
 __device__ __forceinline__ float lbm_accel_gate(const T* f, const uint8_t* obst,
                                                 size_t plane, int sj, int si,
                                                 float w, const StepParams& p) {
   const size_t c = static_cast<size_t>(sj) * p.nx + si;
-  const bool ok = lbm_guard(!obst[c], lbm_load<kL2>(f + 3 * plane + c, 3, p),
-                            lbm_load<kL2>(f + 6 * plane + c, 6, p),
-                            lbm_load<kL2>(f + 7 * plane + c, 7, p), p);
+  const bool ok = lbm_guard(!obst[c], lbm_load<false>(f + 3 * plane + c, 3, p),
+                            lbm_load<false>(f + 6 * plane + c, 6, p),
+                            lbm_load<false>(f + 7 * plane + c, 7, p), p);
   return ok ? w : 0.0f;
 }
 
@@ -167,8 +168,9 @@ __device__ __forceinline__ float lbm_accel_gate(const T* f, const uint8_t* obst,
 // The injection happens before streaming in the reference, so a value pulled
 // from the driven row carries its source cell's own injection.  The guard is
 // recomputed here from the source cell (the TPU kernel does the same for its
-// ghost rows, lbm_tpu/ops/fused_pallas.py:316-325).
-template <bool kL2, typename T>
+// ghost rows, lbm_tpu/ops/fused_pallas.py:316-325).  K1 reads a buffer no
+// one writes during its launch, so the loads take the default cached path.
+template <typename T>
 __device__ __forceinline__ void lbm_pull(const T* f, const uint8_t* obst, int j,
                                          int i, const StepParams& p, float t[9]) {
   const size_t plane = static_cast<size_t>(p.ny) * p.nx;
@@ -180,28 +182,28 @@ __device__ __forceinline__ void lbm_pull(const T* f, const uint8_t* obst, int j,
   const size_t rs = static_cast<size_t>(js) * p.nx;
   const size_t rn = static_cast<size_t>(jn) * p.nx;
 
-  t[0] = lbm_load<kL2>(f + 0 * plane + rj + i, 0, p);
-  t[1] = lbm_load<kL2>(f + 1 * plane + rj + iw, 1, p);
-  t[2] = lbm_load<kL2>(f + 2 * plane + rs + i, 2, p);
-  t[3] = lbm_load<kL2>(f + 3 * plane + rj + ie, 3, p);
-  t[4] = lbm_load<kL2>(f + 4 * plane + rn + i, 4, p);
-  t[5] = lbm_load<kL2>(f + 5 * plane + rs + iw, 5, p);
-  t[6] = lbm_load<kL2>(f + 6 * plane + rs + ie, 6, p);
-  t[7] = lbm_load<kL2>(f + 7 * plane + rn + ie, 7, p);
-  t[8] = lbm_load<kL2>(f + 8 * plane + rn + iw, 8, p);
+  t[0] = lbm_load<false>(f + 0 * plane + rj + i, 0, p);
+  t[1] = lbm_load<false>(f + 1 * plane + rj + iw, 1, p);
+  t[2] = lbm_load<false>(f + 2 * plane + rs + i, 2, p);
+  t[3] = lbm_load<false>(f + 3 * plane + rj + ie, 3, p);
+  t[4] = lbm_load<false>(f + 4 * plane + rn + i, 4, p);
+  t[5] = lbm_load<false>(f + 5 * plane + rs + iw, 5, p);
+  t[6] = lbm_load<false>(f + 6 * plane + rs + ie, 6, p);
+  t[7] = lbm_load<false>(f + 7 * plane + rn + ie, 7, p);
+  t[8] = lbm_load<false>(f + 8 * plane + rn + iw, 8, p);
 
   // Speeds 1, 3 come from row j; 5, 6 from row js; 7, 8 from row jn.
   if (j == p.accel_row) {
-    t[1] = t[1] + lbm_accel_gate<kL2>(f, obst, plane, j, iw, p.w1, p);
-    t[3] = t[3] - lbm_accel_gate<kL2>(f, obst, plane, j, ie, p.w1, p);
+    t[1] = t[1] + lbm_accel_gate(f, obst, plane, j, iw, p.w1, p);
+    t[3] = t[3] - lbm_accel_gate(f, obst, plane, j, ie, p.w1, p);
   }
   if (js == p.accel_row) {
-    t[5] = t[5] + lbm_accel_gate<kL2>(f, obst, plane, js, iw, p.w2, p);
-    t[6] = t[6] - lbm_accel_gate<kL2>(f, obst, plane, js, ie, p.w2, p);
+    t[5] = t[5] + lbm_accel_gate(f, obst, plane, js, iw, p.w2, p);
+    t[6] = t[6] - lbm_accel_gate(f, obst, plane, js, ie, p.w2, p);
   }
   if (jn == p.accel_row) {
-    t[7] = t[7] - lbm_accel_gate<kL2>(f, obst, plane, jn, ie, p.w2, p);
-    t[8] = t[8] + lbm_accel_gate<kL2>(f, obst, plane, jn, iw, p.w2, p);
+    t[7] = t[7] - lbm_accel_gate(f, obst, plane, jn, ie, p.w2, p);
+    t[8] = t[8] + lbm_accel_gate(f, obst, plane, jn, iw, p.w2, p);
   }
 }
 
@@ -237,9 +239,8 @@ __device__ __forceinline__ float lbm_slab_gate(const T* row, long long ps, const
 // the edges.  The driven row is found by global row (row_offset + r for
 // slab row r, ghosts included, never wrapped), as lbm_tpu's
 // fused_step_slab injects every slab row whose global index is accel_row;
-// the guard is recomputed from the source cell.  kInjectGhosts = false
-// skips the ghost rows: their injection was applied once, in place (K6).
-template <bool kL2, bool kInjectGhosts, typename T>
+// the guard is recomputed from the source cell, ghost rows included.
+template <bool kL2, typename T>
 __device__ __forceinline__ void lbm_pull_slab(const Slab<T>& s, int n, const uint8_t* obst,
                                               int row_offset, int j, int i,
                                               const StepParams& p, float t[9]) {
@@ -272,11 +273,11 @@ __device__ __forceinline__ void lbm_pull_slab(const Slab<T>& s, int n, const uin
     t[1] = t[1] + lbm_slab_gate<kL2>(rj, pj, wall, iw, p.w1, p);
     t[3] = t[3] - lbm_slab_gate<kL2>(rj, pj, wall, ie, p.w1, p);
   }
-  if (g - 1 == p.accel_row && (kInjectGhosts || !lo_edge)) {
+  if (g - 1 == p.accel_row) {
     t[5] = t[5] + lbm_slab_gate<kL2>(rs, psr, wall - nx, iw, p.w2, p);
     t[6] = t[6] - lbm_slab_gate<kL2>(rs, psr, wall - nx, ie, p.w2, p);
   }
-  if (g + 1 == p.accel_row && (kInjectGhosts || !hi_edge)) {
+  if (g + 1 == p.accel_row) {
     t[7] = t[7] - lbm_slab_gate<kL2>(rn, pnr, wall + nx, ie, p.w2, p);
     t[8] = t[8] + lbm_slab_gate<kL2>(rn, pnr, wall + nx, iw, p.w2, p);
   }

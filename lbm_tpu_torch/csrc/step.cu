@@ -58,7 +58,7 @@ __global__ void __launch_bounds__(lbm::kThreads)
   float speed = 0.0f;
   if (i < p.nx && j < p.ny) {
     float t[9], out[9];
-    lbm::lbm_pull<false>(fin, obst, j, i, p, t);
+    lbm::lbm_pull(fin, obst, j, i, p, t);
     const size_t c = static_cast<size_t>(j) * p.nx + i;
     speed = lbm::lbm_collide(t, obst[c] != 0, p.omega, out);
     const size_t plane = static_cast<size_t>(p.ny) * p.nx;
@@ -81,7 +81,7 @@ __global__ void __launch_bounds__(lbm::kThreads)
   float speed = 0.0f;
   if (i < p.nx && j < n) {
     float t[9], o[9];
-    lbm::lbm_pull_slab<false, true>(s, n, obst, row_offset, j, i, p, t);
+    lbm::lbm_pull_slab<false>(s, n, obst, row_offset, j, i, p, t);
     speed = lbm::lbm_collide(t, obst[static_cast<size_t>(j + 1) * p.nx + i] != 0, p.omega, o);
     float* c = out + static_cast<size_t>(j) * p.nx + i;
 #pragma unroll

@@ -57,8 +57,8 @@ _SIGNATURES = {
     "lbm_slab_step": [_P, _L, _P, _L, _P, _L, _P, _P, _L, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                       _I, _P, _P, _I],
     "lbm_ghosted_grid": [_I, _I, _I],
-    "lbm_ghosted_chunk": [_P, _P, _P, _L, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
-                          _I, _I, _P, _I],
+    "lbm_ghosted_chunk": [_P, _P, _P, _L, _P, _L, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I,
+                          _I, _P, _I],
     "lbm_resident_grid": [_I, _I, _I],
     "lbm_resident_chunk": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P, _I],
     "lbm_blocked_grid": [_I, _I, _I, _I],

@@ -18,10 +18,12 @@ of one run the buffer holds a kernel layout; a run ends in the canonical
 (9, ny, nx) layout, in the state buffer for an even step count and in a
 second buffer for an odd one.
 
-The band plan (:func:`band_plan`) is host logic that K3 and K8 share: each
-step's cells split evenly into one range per block, and the blocks each
-range waits for before its step; it travels to the kernel at the head of
-the partials buffer (:func:`partials_buffer`).
+The band plan (:func:`band_plan`) is host logic that K3 and K8 share, and
+K2 and K6 (ops/resident_cuda.py, ops/ghosted_cuda.py) with their bands
+aligned: each step's cells split evenly into one range per block, and the
+blocks each range waits for before its step; it travels to the kernel in
+the partials buffer (:func:`partials_buffer`; K2's and K6's own,
+``resident_cuda.partials_buffer``).
 
 Beside the kernel:
 
@@ -36,6 +38,8 @@ tensor it launches the kernel or raises; it never falls back.
 """
 
 from __future__ import annotations
+
+import bisect
 
 import torch
 
@@ -69,38 +73,42 @@ def fits_l2(ny: int, nx: int, storage: str = "f32") -> bool:
     return state_bytes(ny, nx, storage) <= budget
 
 
-def band_plan(rows: list[tuple[int, int]], nx: int, grid: int,
-              ny: int | None = None) -> list[list[tuple[int, int, int, int]]]:
-    """The work map of the AA kernels (csrc/aa_inplace.cuh), per step t
-    and block b: ``(start, end, dep_lo, dep_n)``.
+def band_plan(rows: list[tuple[int, int]], nx: int, grid: int, ny: int | None = None,
+              align: int = 1) -> list[list[tuple[int, int, int, int]]]:
+    """The work map of the AA kernels (csrc/aa_inplace.cuh) and the
+    two-copy ones (csrc/two_copy.cuh), per step t and block b:
+    ``(start, end, dep_lo, dep_n)``.
 
     Step t computes the rows ``rows[t] = (r0, r1)`` of a grid ``nx`` wide;
     its n = (r1 - r0) x nx cells split evenly, block b taking the absolute
-    cells [r0 nx + b n // grid, r0 nx + (b + 1) n // grid).  The block's
+    cells [r0 nx + b n // grid, r0 nx + (b + 1) n // grid), each inner end
+    rounded down to a multiple of ``align`` (the two-copy kernels take 32:
+    a warp's loads and stores then start on a 128-byte line).  The block's
     step waits for the blocks of step t - 1 whose cells lie within one row
     of its own: ``dep_n`` blocks from ``dep_lo``, cyclically modulo
     ``grid``; step 0 waits for none.  With ``ny`` the rows are periodic
     over ny rows and ``rows`` holds one entry, the split of every step
     (K3), whose step 0 waits on that same split (the previous launch's
     last step, or the previous step).  Needs at least ``grid`` cells per
-    step, so that no block's range is empty."""
-    if grid < 1 or nx < 1 or not rows:
-        raise ValueError(f"band plan of {len(rows)} steps, nx {nx}, grid {grid}")
+    step (``align`` x ``grid`` with alignment), so that no block's range
+    is empty."""
+    if grid < 1 or nx < 1 or align < 1 or not rows:
+        raise ValueError(f"band plan of {len(rows)} steps, nx {nx}, grid {grid}, align {align}")
 
     def split(r0, r1):
         n = (r1 - r0) * nx
-        if n < grid:
-            raise ValueError(f"{n} cells cannot be split over {grid} blocks")
-        return [r0 * nx + b * n // grid for b in range(grid + 1)]
-
-    def owner(x, r0, r1):  # the block of split(r0, r1) that holds absolute cell x
-        return ((x - r0 * nx + 1) * grid - 1) // ((r1 - r0) * nx)
+        starts = [r0 * nx + b * n // grid for b in range(grid + 1)]
+        starts[1:-1] = [x - x % align for x in starts[1:-1]]
+        if any(a >= b for a, b in zip(starts, starts[1:])):
+            raise ValueError(f"{n} cells cannot be split over {grid} blocks "
+                             f"at an alignment of {align}")
+        return starts
 
     plan, prev = [], None
     for t, (r0, r1) in enumerate(rows):
         starts = split(r0, r1)
         if ny is not None:
-            prev = (r0, r1)
+            prev = (r0, r1, starts)
         step = []
         for b in range(grid):
             s, e = starts[b], starts[b + 1]
@@ -110,16 +118,18 @@ def band_plan(rows: list[tuple[int, int]], nx: int, grid: int,
             elif ny is not None and last - first + 3 >= ny:
                 dep = (0, grid)
             else:
-                p0, p1 = prev
+                p0, p1, pstarts = prev
                 if ny is not None:
                     lo_row, hi_row = (first - 1) % ny, (last + 1) % ny
                 else:
                     lo_row, hi_row = max(first - 1, p0), min(last + 1, p1 - 1)
-                lo, hi = owner(lo_row * nx, p0, p1), owner(hi_row * nx + nx - 1, p0, p1)
+                # The blocks of the previous split that hold those rows' ends.
+                lo = bisect.bisect_right(pstarts, lo_row * nx) - 1
+                hi = bisect.bisect_right(pstarts, hi_row * nx + nx - 1) - 1
                 dep = (lo, (hi - lo) % grid + 1)
             step.append((s, e) + dep)
         plan.append(step)
-        prev = (r0, r1)
+        prev = (r0, r1, starts)
     return plan
 
 

@@ -517,7 +517,8 @@ class _Runner:
         if self.lay.k6:
             for r in range(self.lay.mesh.size):
                 self._k6(r, self.p)(t0)
-            self.p = 1 - self.p
+            if self.lay.staleness % 2:  # K6 ends in F[1 - p] for an odd chunk, in F[p] else
+                self.p = 1 - self.p
         else:
             for j in range(self.lay.staleness):
                 self._inner(t0 + j)

@@ -15,11 +15,11 @@ order on odd rounds), and the plain sweep at each depth.
 For each grid of ``--shards`` (n x n over 4 row shards, the sharded
 modes' layout): K1-slab, K1-slab-i16 and K6 (k = 2, 8, where the shard fits
 its L2 budget) on the shard that holds the driven row, in turns, and their
-plain versions.  K1-slab and K1-slab-i16 are timed twice: as the sharded
-modes run them, a Python loop of one bound call (two launches) per step,
-which the host paces on small shards; and card-paced (``K1-slab graph``),
-the same calls bound while a CUDA graph captures the loop, the graph
-replayed, so the time is the card's for the two launches of every step.
+plain versions.  Each kernel is timed twice: as the sharded modes run it, a
+Python loop of bound calls (one per step, or per chunk for K6), which the
+host paces on small shards; and card-paced (``K1-slab graph``, ``K6 k=2
+graph``), the same loop captured once into a CUDA graph and replayed, so
+the time is the card's for its launches.
 
 For each shard of ``--ca`` (rows x columns, the last of 4 row shards of a
 closed box of 4 x rows x columns, the one that holds the driven row): the
@@ -42,7 +42,9 @@ times the kernels of the replaced files (and of the sources that include a
 replaced header), named ``@NAME``, in turns with the package's own:
 ``step.cu`` K1 and K1-i16 in ``--grids``, ``--policy`` and as the control of
 ``--sweeps``, K1-slab and K1-slab-i16 (host- and card-paced) in
-``--shards``; ``temporal.cu`` K4 in ``--sweeps`` (K5 left out there; on the package's
+``--shards``; ``resident.cu`` K2 in ``--grids`` and ``--policy``;
+``ghosted.cu`` K6 (host- and card-paced) in ``--shards``; ``temporal.cu``
+K4 in ``--sweeps`` (K5 left out there; on the package's
 regions, ``temporal_cuda.tile``, or on the region RHxRW at every depth) and
 K4-slab in ``--ca``; ``inplace.cu`` K3 and K3-i16 in ``--grids``,
 ``--sweeps`` and ``--policy``; ``ca_inplace.cu`` K8 and K8-i16 in ``--ca``
@@ -56,9 +58,11 @@ sets of K8's 272x1024 f32 slab (9.6 MiB), K3-i16 at 1024^2 (18 MiB) and K3
 at 1024^2 (36 MiB), with and without a grid barrier per pass: the rate of
 the tier the L2-resident kernels' tier bounds divide by.
 
-``--policy`` times, in turns, K2 against K3 at 128^2, 256^2 and 512^2 and
-K1-i16 against K3-i16 at 512^2, 768^2 and 1024^2: the questions behind the
-program's L2 budgets.
+``--policy`` times, in turns, K2 against K3 at 128^2, 256^2, 512^2 and
+768^2 and K1-i16 against K3-i16 at 512^2, 768^2 and 1024^2: the questions
+behind the program's L2 budgets; ``--placements N`` times each pair on N
+placements of its buffers, the rounds pooled (a small grid's time moves
+with where its buffers land).
 
 Prints microseconds per step (median and quartiles), MLUPS, and the
 computed traffic rate of a one-step kernel (73 B per cell-step in f32, 37 B
@@ -68,7 +72,8 @@ process, and the card's name and power limit::
     python -m lbm_tpu_torch.tools.kernel_times [--grids 128,256,512,1024,1536] \
         [--sweeps 1536,2048,4096] [--depths 2,4,8] [--shards 1024,4096] \
         [--ca 64x1024,256x1024,1024x4096] [--ca-depths 4,8] [--ca-parts 1,2,4,8,16] \
-        [--hbm 2048,4096] [--blocked 256,512,768,1024] [--blocked-rows 8] [--policy] [--l2] \
+        [--hbm 2048,4096] [--blocked 256,512,768,1024] [--blocked-rows 8] [--policy] \
+        [--placements 5] [--l2] \
         [--variant parent=build/parent/step.cu] \
         [--k4-regions 48x64] [--repeats 7]
 
@@ -272,7 +277,8 @@ def time_grid(n: int, device, repeats: int = 7,
     1024^2, in turns, then of the plain versions; above it, of K1, the twin
     and the int16 ones.  Each variant that replaces ``inplace.cu``
     (:func:`load_variants`) adds its K3 and K3-i16 (``K3@NAME``) to the
-    turns, and each that replaces ``step.cu`` its K1 and K1-i16."""
+    turns, each that replaces ``resident.cu`` its K2 where K2 runs, and
+    each that replaces ``step.cu`` its K1 and K1-i16."""
     import torch
 
     from lbm_tpu_torch.core import lattice
@@ -307,6 +313,10 @@ def time_grid(n: int, device, repeats: int = 7,
                                    steps)
         runs[f"K3-i16@{vname}"] = (inplace_cuda.make_run_all(p, obst, steps, storage="i16",
                                                              lib=v.lib), q0, steps)
+    if "K2" in kernels:
+        for vname, v in replacing(variants, "resident.cu").items():
+            runs[f"K2@{vname}"] = (resident_cuda.make_run_all(p, obst, steps, lib=v.lib), f0,
+                                   steps)
     for vname, v in replacing(variants, "step.cu").items():
         runs[f"K1@{vname}"] = (fused_cuda.make_run_all(p, obst, steps, lib=v.lib), f0, steps)
         runs[f"K1-i16@{vname}"] = (fused_cuda.make_run_all(p, obst, steps, "i16", lib=v.lib),
@@ -321,11 +331,12 @@ def time_grid(n: int, device, repeats: int = 7,
     return out
 
 
-def time_in_turns(runs: dict, rounds: int) -> dict[str, tuple[float, float, float]]:
+def time_in_turns(runs: dict, rounds: int, raw: bool = False) -> dict:
     """us/step (median, q1, q3) of each ``name -> (run, start, steps)``,
     each timed once per round after a warm call, in the given order on even
     rounds and reversed on odd ones (A B B A ...), so that a drift of the
-    card's clocks falls on all of them alike."""
+    card's clocks falls on all of them alike; with ``raw``, each name's
+    per-round times."""
     import torch
 
     names = list(runs)
@@ -338,7 +349,22 @@ def time_in_turns(runs: dict, rounds: int) -> dict[str, tuple[float, float, floa
         for name in (names if r % 2 == 0 else names[::-1]):
             run, start, n_steps = runs[name]
             times[name].append(_timed_ms(lambda: run(start), 1)[0] * 1e3 / n_steps)
-    return {name: _quartiles(ts) for name, ts in times.items()}
+    return times if raw else {name: _quartiles(ts) for name, ts in times.items()}
+
+
+def time_placed(make_runs, rounds: int, placements: int) -> dict[str, tuple[float, float, float]]:
+    """:func:`time_in_turns` of ``make_runs()``, ``placements`` times over:
+    each time on runners built anew while the earlier ones stay allocated,
+    so that their buffers land elsewhere in device memory and in L2, and
+    each name's rounds pooled over all of them.  A small grid's time can
+    move with where its buffers land (K3 by 10% at 256^2, PERF.md Findings
+    PR 10); pooled, that spread falls on every kernel alike."""
+    keep, pooled = [], {}
+    for _ in range(placements):
+        keep.append(make_runs())
+        for name, ts in time_in_turns(keep[-1], rounds, raw=True).items():
+            pooled.setdefault(name, []).extend(ts)
+    return {name: _quartiles(ts) for name, ts in pooled.items()}
 
 
 def time_sweeps(n: int, device, depths=(2, 4, 8), repeats: int = 5,
@@ -416,14 +442,16 @@ def time_shard(n: int, device, shards: int = 4, chunks=(2, 8), repeats: int = 5,
     """us/step (median, q1, q3) of the sharded modes' kernels on the last
     shard of an n x n closed box over ``shards`` row shards (the one that
     holds the driven row), from rest: K1-slab (and K1-slab-i16) as a loop of
-    launches, host-paced (``K1-slab``: one bound call per step, as the
-    sharded modes make them) and card-paced (``K1-slab graph``: the same
-    calls captured once into a CUDA graph and replayed), and K6 at each chunk
-    length of ``chunks`` where the shard fits its L2 budget, in turns; then
-    their plain versions, the plain slab step (``plain-slab``,
-    ``plain-slab-i16``) and K6's (``plain K6 k=2``).  With ``variants``
-    (:func:`load_variants`) the K1-slab of each that replaces ``step.cu``
-    (``K1-slab@NAME``, ``K1-slab@NAME graph``) runs in the same turns."""
+    launches, and K6 at each chunk length of ``chunks`` where the shard fits
+    its L2 budget, in turns, each host-paced (``K1-slab``, ``K6 k=2``: one
+    bound call per step or chunk, as the sharded modes make them) and
+    card-paced (``K1-slab graph``, ``K6 k=2 graph``: the same calls captured
+    once into a CUDA graph and replayed); then their plain versions, the
+    plain slab step (``plain-slab``, ``plain-slab-i16``) and K6's (``plain K6
+    k=2``).  With ``variants`` (:func:`load_variants`) the K1-slab of each
+    that replaces ``step.cu`` (``K1-slab@NAME``, ``K1-slab@NAME graph``) and
+    the K6 of each that replaces ``ghosted.cu`` (``K6@NAME k=2``, ...) run
+    in the same turns."""
     import torch
 
     from lbm_tpu_torch.core import lattice
@@ -439,6 +467,8 @@ def time_shard(n: int, device, shards: int = 4, chunks=(2, 8), repeats: int = 5,
     steps = 16 * max(1, 2**26 // (16 * nloc * n))  # a multiple of 2 x 8; ~2^26 cell-steps
     libs = {"": None, **{f"@{vname}": v.lib
                          for vname, v in replacing(variants, "step.cu").items()}}
+    k6_libs = {"": None, **{f"@{vname}": v.lib
+                            for vname, v in replacing(variants, "ghosted.cu").items()}}
     runs, plain = {}, {}
     buffers = []  # every bound launch reads and writes these by address: keep them
     for storage in storages:
@@ -469,16 +499,27 @@ def time_shard(n: int, device, shards: int = 4, chunks=(2, 8), repeats: int = 5,
             lambda a=a, lo=lo, hi=hi, storage=storage:
                 fused_cuda.slab_plain(a, lo, hi, ob, p, r * nloc, storage), 1)
         if storage == "f32" and ghosted_cuda.supports_shard(nloc, n):
-            for k in chunks:
-                fwd = ghosted_cuda.bind_chunk(p, a, lo, hi, ob, b, tots, r * nloc, k)
-                bwd = ghosted_cuda.bind_chunk(p, b, lo, hi, ob, a, tots, r * nloc, k)
+            for tag, lib in k6_libs.items():
+                for k in chunks:
 
-                def run_k6(_, fwd=fwd, bwd=bwd, k=k):
-                    for t in range(0, steps, 2 * k):
-                        fwd(t)
-                        bwd(t + k)
+                    def bind_k6(lib=lib, k=k, a=a, b=b, lo=lo, hi=hi, tots=tots):
+                        # Each chunk starts from where the last one left the
+                        # state: a launcher from b follows one that ends in b.
+                        fwd = ghosted_cuda.bind_chunk(p, a, lo, hi, ob, b, tots, r * nloc, k,
+                                                      lib=lib)
+                        bwd = ghosted_cuda.bind_chunk(p, b, lo, hi, ob, a, tots, r * nloc, k,
+                                                      lib=lib)
+                        nxt = bwd if fwd.result is b else fwd
 
-                runs[f"K6 k={k}"] = (run_k6, None, steps)
+                        def run_k6(_=None):
+                            for t in range(0, steps, 2 * k):
+                                fwd(t)
+                                nxt(t + k)
+
+                        return run_k6
+
+                    runs[f"K6{tag} k={k}"] = (bind_k6(), None, steps)
+                    runs[f"K6{tag} k={k} graph"] = (card_paced(bind_k6, device), None, steps)
             plain["plain K6 k=2"] = (
                 lambda a=a, lo=lo, hi=hi: ghosted_cuda.chunk_plain(a, lo, hi, ob, p, r * nloc, 2),
                 2)
@@ -492,16 +533,20 @@ def time_shard(n: int, device, shards: int = 4, chunks=(2, 8), repeats: int = 5,
 
 def card_paced(bind, device):
     """``run(_)`` replaying a CUDA graph of the launch loop that ``bind()``
-    returns, bound while the graph captures (the wrappers bind to the stream
-    current at binding, which is then the capture's): the loop's launches
-    with no host call between them."""
+    returns: the loop's launches with no host call between them.  The loop
+    is bound on a stream of its own (the wrappers launch on the stream
+    current at binding), run once there to warm, and captured on that
+    stream, so that what a binding allocates and copies stays outside the
+    graph."""
     import torch
 
-    bind()()  # a warm run outside the capture (builds and loads the library)
+    stream = torch.cuda.Stream(device)
+    with torch.cuda.stream(stream):
+        loop = bind()
+        loop()  # a warm run outside the capture (builds and loads the library)
     torch.cuda.synchronize(device)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        loop = bind()
+    with torch.cuda.graph(graph, stream=stream):
         loop()
 
     def run(_=None, loop=loop):  # the loop keeps its buffers alive with the graph
@@ -681,13 +726,15 @@ def time_blocked(n: int, device, repeats: int = 7, block_rows=(8,),
     return out
 
 
-def time_policy(device, repeats: int = 7,
-                variants=None) -> dict[str, dict[str, tuple[float, float, float]]]:
+def time_policy(device, repeats: int = 7, variants=None,
+                placements: int = 1) -> dict[str, dict[str, tuple[float, float, float]]]:
     """The budget questions, each pair timed in turns in one process:
-    K2 vs K3 (f32) at 128^2, 256^2, 512^2 and K1-i16 vs K3-i16 at 512^2,
-    768^2 and 1024^2; each variant that replaces ``inplace.cu``
+    K2 vs K3 (f32) at 128^2, 256^2, 512^2, 768^2 and K1-i16 vs K3-i16 at
+    512^2, 768^2 and 1024^2; each variant that replaces ``inplace.cu``
     (:func:`load_variants`) adds its K3 or K3-i16 (``K3@NAME``) to the
-    turns, and each that replaces ``step.cu`` its K1-i16."""
+    turns, each that replaces ``resident.cu`` its K2, and each that
+    replaces ``step.cu`` its K1-i16; each pair at ``placements`` placements
+    of its buffers (:func:`time_placed`)."""
     import torch
 
     from lbm_tpu_torch.core import lattice
@@ -695,31 +742,37 @@ def time_policy(device, repeats: int = 7,
     from lbm_tpu_torch.tools.bench import make_scene
 
     out = {}
-    for n, storage in ((128, "f32"), (256, "f32"), (512, "f32"), (512, "i16"), (768, "i16"),
-                       (1024, "i16")):
+    for n, storage in ((128, "f32"), (256, "f32"), (512, "f32"), (768, "f32"), (512, "i16"),
+                       (768, "i16"), (1024, "i16")):
         scene = make_scene(f"{n}x{n}")
         p = scene.params
         obst = torch.from_numpy(scene.obstacles).to(device)
         f0 = lattice.equilibrium_rest_device(p.density, n, n, device)
         steps = 4000 if n <= 512 else 2000
-        if storage == "f32":
-            runs = {"K2": (resident_cuda.make_run_all(p, obst, steps), f0, steps),
-                    "K3": (inplace_cuda.make_run_all(p, obst, steps), f0, steps)}
-            sfx = ""
-        else:
-            f0 = quant.quantize(f0, p.density)
-            runs = {"K1-i16": (fused_cuda.make_run_all(p, obst, steps, "i16"), f0, steps),
-                    "K3-i16": (inplace_cuda.make_run_all(p, obst, steps, storage="i16"), f0,
-                               steps)}
-            sfx = "-i16"
-        for vname, v in replacing(variants, "inplace.cu").items():
-            runs[f"K3{sfx}@{vname}"] = (inplace_cuda.make_run_all(p, obst, steps, storage=storage,
-                                                                  lib=v.lib), f0, steps)
         if storage == "i16":
-            for vname, v in replacing(variants, "step.cu").items():
-                runs[f"K1-i16@{vname}"] = (fused_cuda.make_run_all(p, obst, steps, "i16",
-                                                                   lib=v.lib), f0, steps)
-        out[f"{n}^2 {storage}"] = time_in_turns(runs, repeats)
+            f0 = quant.quantize(f0, p.density)
+
+        def make_runs(p=p, obst=obst, f0=f0, steps=steps, storage=storage):
+            sfx = "-i16" if storage == "i16" else ""
+            if storage == "f32":
+                runs = {"K2": (resident_cuda.make_run_all(p, obst, steps), f0, steps),
+                        "K3": (inplace_cuda.make_run_all(p, obst, steps), f0, steps)}
+                for vname, v in replacing(variants, "resident.cu").items():
+                    runs[f"K2@{vname}"] = (resident_cuda.make_run_all(p, obst, steps,
+                                                                      lib=v.lib), f0, steps)
+            else:
+                runs = {"K1-i16": (fused_cuda.make_run_all(p, obst, steps, "i16"), f0, steps),
+                        "K3-i16": (inplace_cuda.make_run_all(p, obst, steps, storage="i16"),
+                                   f0, steps)}
+                for vname, v in replacing(variants, "step.cu").items():
+                    runs[f"K1-i16@{vname}"] = (fused_cuda.make_run_all(p, obst, steps, "i16",
+                                                                       lib=v.lib), f0, steps)
+            for vname, v in replacing(variants, "inplace.cu").items():
+                runs[f"K3{sfx}@{vname}"] = (inplace_cuda.make_run_all(
+                    p, obst, steps, storage=storage, lib=v.lib), f0, steps)
+            return runs
+
+        out[f"{n}^2 {storage}"] = time_placed(make_runs, repeats, placements)
     return out
 
 
@@ -772,12 +825,15 @@ def main(argv: list[str] | None = None) -> int:
                         help="time the L2 copy kernel at K8's and K3's working sets")
     parser.add_argument("--variant", action="append", default=[],
                         help="NAME=PATH[+PATH...]: time the kernels of other versions of "
-                        "step.cu, temporal.cu, inplace.cu or ca_inplace.cu in turns with the "
-                        "package's own")
+                        "step.cu, resident.cu, ghosted.cu, temporal.cu, inplace.cu or "
+                        "ca_inplace.cu in turns with the package's own")
     parser.add_argument("--k4-regions", default="",
                         help="compiled regions of K4 and K4-slab to time beside the table's, "
                         "e.g. 48x64")
     parser.add_argument("--repeats", type=int, default=7)
+    parser.add_argument("--placements", type=int, default=1,
+                        help="--policy: time each pair on this many placements of its buffers, "
+                        "the rounds pooled")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("Error: no CUDA device", file=sys.stderr)
@@ -815,7 +871,8 @@ def main(argv: list[str] | None = None) -> int:
         print("in turns " + format_grid(n, time_blocked(n, device, args.repeats, rows))
               + f" | {card}")
     if args.policy:
-        for key, times in time_policy(device, args.repeats, variants).items():
+        for key, times in time_policy(device, args.repeats, variants,
+                                      args.placements).items():
             print("in turns " + format_grid(int(key.split("^")[0]), times)
                   + f" ({key.split()[1]}) | {card}")
     return 0

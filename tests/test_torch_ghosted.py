@@ -64,9 +64,10 @@ def test_k6_plain_matches_pallas_ghosted_chunk(shard):
     t = torch.from_numpy(f)
     out = torch.empty((9, n, p.nx), dtype=torch.float32)
     tots = torch.empty(chunk, dtype=torch.float32)
-    ghosted_cuda.bind_chunk(p, t[:, 1:-1].contiguous(), t[:, :1], t[:, -1:],
-                            torch.from_numpy(m), out, tots, off, chunk)(0)
-    np.testing.assert_allclose(out.numpy(), np.asarray(jf), atol=2e-7, rtol=0)
+    launch = ghosted_cuda.bind_chunk(p, t[:, 1:-1].contiguous(), t[:, :1], t[:, -1:],
+                                     torch.from_numpy(m), out, tots, off, chunk)
+    launch(0)
+    np.testing.assert_allclose(launch.result.numpy(), np.asarray(jf), atol=2e-7, rtol=0)
     np.testing.assert_allclose(tots.numpy(), np.asarray(jav), rtol=1e-4)
 
 
@@ -82,15 +83,18 @@ def test_k6_plain_is_frozen_ghost_slab_steps(chunk, where):
     off = {"body": p.accel_row - 2, "lo": p.accel_row + 1, "hi": p.accel_row - n}[where]
     t, mt = torch.from_numpy(f), torch.from_numpy(m)
     body, lo, hi = t[:, 1:-1].contiguous(), t[:, :1], t[:, -1:]
-    out = torch.empty_like(body)
+    f_in, out = body.clone(), torch.empty_like(body)
     tots = torch.zeros(chunk + 2, dtype=torch.float32)
-    ghosted_cuda.bind_chunk(p, body.clone(), lo, hi, mt, out, tots, off, chunk)(2)
+    launch = ghosted_cuda.bind_chunk(p, f_in, lo, hi, mt, out, tots, off, chunk)
+    launch(2)
     x, y = body.clone(), torch.empty_like(body)
     ref_tots = torch.zeros(chunk, dtype=torch.float32)
     for s in range(chunk):
         fused_cuda.bind_slab_step(p, x, lo, hi, mt, y, ref_tots, off)(s)
         x, y = y, x
-    assert torch.equal(out, x)
+    # The two buffers ping-pong: an odd chunk ends in out, an even one in f.
+    assert launch.result is (out if chunk % 2 else f_in)
+    assert torch.equal(launch.result, x)
     assert torch.equal(tots[2:], ref_tots)
 
 
@@ -169,9 +173,51 @@ def test_k6_matches_plain_on_card(cuda_device, chunk, shape, where):
     out = torch.empty_like(body)
     tots = torch.zeros(chunk, dtype=torch.float32, device=cuda_device)
     before = ghosted_cuda.LAUNCHES
-    ghosted_cuda.bind_chunk(p, body.clone(), lo, hi, mt, out, tots, off, chunk)(0)
+    launch = ghosted_cuda.bind_chunk(p, body.clone(), lo, hi, mt, out, tots, off, chunk)
+    launch(0)
     torch.cuda.synchronize()
     assert ghosted_cuda.LAUNCHES == before + 1
     ref, ref_tots = ghosted_cuda.chunk_plain(body, lo, hi, mt, p, off, chunk)
-    assert torch.equal(out, ref)
+    assert torch.equal(launch.result, ref)
+    torch.testing.assert_close(tots, ref_tots, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 2, 3, 8, 256])
+@pytest.mark.parametrize("shape", [(13, 100), (30, 129), (8, 1024)], ids=str)
+@pytest.mark.parametrize("where", ["split", "first", "last", "lo", "hi", "none"])
+def test_k6_band_edges_match_plain_on_card(cuda_device, chunk, shape, where):
+    """K6 where the blocks' bands (the band plan on the card's grid) end
+    mid-row, with the driven row on a row two bands share (the last row of
+    one, the first of the next), on the shard's first or last row (next to
+    a ghost), in either ghost, or nowhere; two chunks, through the launcher
+    the first one's result asks for (the step counters run on), against
+    2 x chunk plain slab steps.  The result lands where the parity puts it."""
+    from lbm_tpu_torch.ops import _build
+
+    n, nx = shape
+    p = _params(1024, nx)
+    f, m = _shard(n, nx, 9, p)
+    grid = _build.load().lbm_ghosted_grid(n, nx, cuda_device.index)
+    plan = ghosted_cuda.shard_plan(n, nx, grid)[0]
+    split = [s // nx for s, _, _, _ in plan if s % nx]
+    assert split
+    dr = {"split": split[len(split) // 2], "first": 0, "last": n - 1}.get(where)
+    off = {"lo": p.accel_row + 1, "hi": p.accel_row - n, "none": 0}.get(
+        where, p.accel_row - (dr if dr is not None else 0))
+    t, mt = torch.from_numpy(f).to(cuda_device), torch.from_numpy(m).to(cuda_device)
+    body, lo, hi = t[:, 1:-1].contiguous(), t[:, :1], t[:, -1:]
+    a, b = body.clone(), torch.empty_like(body)
+    tots = torch.zeros(2 * chunk, dtype=torch.float32, device=cuda_device)
+    fwd = ghosted_cuda.bind_chunk(p, a, lo, hi, mt, b, tots, off, chunk)
+    bwd = ghosted_cuda.bind_chunk(p, b, lo, hi, mt, a, tots, off, chunk)
+    assert fwd.result is (b if chunk % 2 else a)
+    nxt = bwd if fwd.result is b else fwd
+    before = ghosted_cuda.LAUNCHES
+    fwd(0)
+    nxt(chunk)
+    torch.cuda.synchronize()
+    assert ghosted_cuda.LAUNCHES == before + 2
+    ref, ref_tots = ghosted_cuda.chunk_plain(body, lo, hi, mt, p, off, 2 * chunk)
+    assert torch.equal(nxt.result, ref)
     torch.testing.assert_close(tots, ref_tots, rtol=1e-6, atol=0.0)

@@ -100,6 +100,33 @@ def test_k2_matches_plain_on_card(cuda_device, steps, chunk, kind):
     _assert_matches(f_k, tot_k, f_p, tot_p)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 2, 3, 8, 256])
+@pytest.mark.parametrize("shape", [(30, 129), (7, 1000), (45, 33)], ids=str)
+def test_k2_band_edges_match_plain_on_card(cuda_device, shape, chunk):
+    """K2 where the blocks' bands (the band plan on the card's grid) end
+    mid-row: on 30x129 and 7x1000 the driven row is a band's first row and
+    another's last, rows split two and four ways; 45x33 bands span rows.
+    Two chunks and a 1-step remainder, the step counters running on from
+    launch to launch, from the mixed start."""
+    ny, nx = shape
+    params, mask = _scene(ny, nx)
+    obst = torch.from_numpy(mask).to(cuda_device)
+    f0 = _state(params, "mixed", cuda_device)
+    grid = _build.load().lbm_resident_grid(ny, nx, cuda_device.index)
+    plan = resident_cuda.grid_plan(ny, nx, grid)[0]
+    if shape != (45, 33):
+        assert any(s % nx for s, _, _, _ in plan)
+        assert any(s // nx == params.accel_row for s, _, _, _ in plan)
+        assert any((e - 1) // nx == params.accel_row for _, e, _, _ in plan)
+    steps = 2 * chunk + 1
+    before = resident_cuda.LAUNCHES
+    f_k, tot_k = resident_cuda.make_run_all(params, obst, steps, chunk=chunk)(f0)
+    assert resident_cuda.LAUNCHES == before + 3
+    f_p, tot_p = resident_cuda.run_plain(f0, obst, params, steps)
+    _assert_matches(f_k, tot_k, f_p, tot_p)
+
+
 def _start(params, kind, device, storage):
     f = _state(params, kind, device)
     return quant.quantize(f, params.density) if storage == "i16" else f
@@ -526,7 +553,7 @@ def test_build_flags_and_sources(tmp_path, monkeypatch):
     assert {s.name for s in _build.sources()} == {
         "step.cu", "resident.cu", "inplace.cu", "temporal.cu", "skew.cu", "ghosted.cu",
         "ca_resident.cu", "ca_inplace.cu", "blocked.cu", "l2_copy.cu", "lbm_common.cuh",
-        "aa_inplace.cuh"}
+        "aa_inplace.cuh", "two_copy.cuh"}
     assert {"lbm_inplace_grid", "lbm_inplace_chunk", "lbm_step_run", "lbm_trapezoid_run",
             "lbm_skew_run", "lbm_slab_step", "lbm_ghosted_chunk", "lbm_trapezoid_slab",
             "lbm_ca_resident", "lbm_ca_inplace", "lbm_hbm_sweep", "lbm_blocked_grid",
