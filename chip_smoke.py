@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of lbm_tpu_torch: builds the CUDA kernels, holds each
 against its plain PyTorch version, anchors the main path to the numpy
-oracle and to the 1024x1024 golden run, drives the CLI end to end, and
+oracle and to the 1024x1024 golden run, drives the CLI end to end (run,
+--plan, --profile, --divergence, golden), writes the verify artifact, and
 times kernels and twin.
 
 Run from the root of a checkout, on a machine with one CUDA card:
@@ -188,6 +189,24 @@ power limit as nvidia-smi reports them):
    K1-slab loop (K6's counter unchanged), within 1% of sync's av;
 5g. the dryrun analog (tools/dryrun.py) on 8 shards of the card: every
    relation holds with ulp 0;
+a. the verify artifact (tools/verify_device.py ``run_verify``): one probe
+   per kernel form of the kernel table, 19, each its wrapper against the
+   twin on one recipe, every max |diff| 0, and the golden prefixes (f32
+   and int16, 120 steps of the golden scene) under 1%; written into the
+   temporary directory and printed as its JSON line;
+b. ``run --plan`` for every run of 5b, 5e, 5h, 5k and 5l, under the run's
+   forcing variables: its ``program`` is the run's Variant line and its
+   ``kernel`` the one the run's launch counters showed;
+c. ``run --profile`` on the golden scene x 2000 steps (K3) and sync over 4
+   shards x 200: output files byte-identical to an unprofiled run's, the
+   trace holds the launched kernel's events (``lbm_inplace_kernel``,
+   ``lbm_slab_kernel``); each run's device busy share (kernel time over
+   the compute bracket) and host time per step beyond the kernels;
+d. ``run --divergence`` on the golden scene over 4 shards, async-1 x 2000
+   steps: the av_sync column equals 5e's sync run's av_vels.dat (as
+   float32), the last field_rel_linf printed;
+e. ``golden --variant cuda`` on phase 5's 256x256 scene: both files
+   byte-identical to that run's;
 6. MLUPS of those runs, and K1 / K2 / K3 / K1-i16 / K3-i16 (in turns) /
    twin times at 128^2 .. 1024^2 and K1 / K1-i16 / K3-i16 / twin at 1536^2
    (tools/kernel_times.py) beside a 1 GiB device copy's bandwidth, the L2
@@ -228,6 +247,7 @@ import filecmp
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -725,6 +745,10 @@ def build_native_writer() -> str:
     return "C++ writer" if built and native.available() else "Python writer (make native failed)"
 
 
+# The forcing variables a plan reads (phase (b) sets each as its run did).
+FORCING = ("LBM_RESIDENT_KIND", "LBM_TEMPORAL_IMPL", "LBM_CA_ENGINE", "LBM_CA_PARTS")
+
+
 @contextlib.contextmanager
 def temporal_impl(impl: str | None):
     """LBM_TEMPORAL_IMPL set to ``impl`` (unset for None) inside the block."""
@@ -767,7 +791,7 @@ def main() -> int:
         temporal_cuda,
     )
     from lbm_tpu_torch.params import LBMParams
-    from lbm_tpu_torch.tools import bench, dryrun, kernel_times, scenegen
+    from lbm_tpu_torch.tools import bench, dryrun, kernel_times, scenegen, verify_device
 
     dev = torch.device("cuda", 0)
     card = bench.card_line()
@@ -1080,10 +1104,15 @@ def main() -> int:
     # counters of the main path can be read.
     mlups: dict[str, float] = {}
     launches: dict[str, int] = {}
+    # Phase 5's runs that phase (b) plans again: (params, obstacles,
+    # variant, extra flags, forcing variables, the run's Variant line, the
+    # kernel its launch counters showed).
+    plan_cases: list[tuple] = []
+    run_texts: dict[str, str] = {}  # out_dir -> the run's stdout
     with tempfile.TemporaryDirectory() as td:
 
-        def cli_run(tag, pfile, ofile, variant, *extra):
-            out_dir = os.path.join(td, f"{tag}-{variant}{'-'.join(extra)}")
+        def cli_run(tag, pfile, ofile, variant, *extra, out_dir=None):
+            out_dir = out_dir or os.path.join(td, f"{tag}-{variant}{'-'.join(extra)}")
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 rc = cli.main(["run", pfile, ofile, "--variant", variant, "--device", "cuda",
@@ -1094,6 +1123,7 @@ def main() -> int:
             rate = [ln for ln in text.splitlines() if ln.startswith("Compute rate:")]
             run_variant = [ln for ln in text.splitlines() if ln.startswith("Variant:")]
             mlups[f"{tag} {run_variant[0].split()[-1]}"] = float(rate[0].split()[-2])
+            run_texts[out_dir] = text
             return out_dir, run_variant[0].split()[-1]
 
         def same_final_state(a, b):
@@ -1185,6 +1215,9 @@ def main() -> int:
                      f"expected {want}")
             golden_dev[want] = cli_check(ref_av, ref_fs, out_dir, f"golden {want}")
             golden_dirs[want] = out_dir
+            plan_cases.append((gp, go, "cuda", ("--storage", storage, *extra), {}, got,
+                               {"cuda-inplace": "K3", "cuda-inplace-i16": "K3-i16",
+                                "cuda-trapezoid-i16": "K4-i16"}[want]))
         launches["K3"] = inplace_cuda.LAUNCHES
         golden_k3i = inplace_cuda.LAUNCHES_I16 - k3i_before
         golden_k4i = temporal_cuda.LAUNCHES_I16
@@ -1210,6 +1243,7 @@ def main() -> int:
                  f"{launches['K10']}")
         if not same_final_state(blocked_dir, golden_dirs["cuda-inplace"]):
             fail("golden cuda-blocked: final_state.dat differs from cuda-inplace's")
+        plan_cases.append((gp, go, "cuda", (), {"LBM_RESIDENT_KIND": "blocked"}, got, "K10"))
         av_k10, av_k3 = (read_av_vels(os.path.join(d, "av_vels.dat"))
                          for d in (blocked_dir, golden_dirs["cuda-inplace"]))
         k10_av_rel = float(np.max(np.abs(av_k10 - av_k3) / np.abs(av_k3)))
@@ -1222,7 +1256,12 @@ def main() -> int:
                 ("mono", "cuda-resident", runs[0], cuda_runs["256x256"][0]),
                 ("inplace", "cuda-inplace", runs[0], cuda_runs["256x256"][0])):
             with dryrun.env(LBM_RESIDENT_KIND=forced_kind):
+                before = resident_cuda.LAUNCHES, inplace_cuda.LAUNCHES
                 d, got = cli_run(f"{tag}-{forced_kind}", pf, of, "cuda")
+                moved = [k for k, b, a in zip(("K2", "K3"), before, (
+                    resident_cuda.LAUNCHES, inplace_cuda.LAUNCHES)) if a > b]
+            plan_cases.append((pf, of, "cuda", (), {"LBM_RESIDENT_KIND": forced_kind}, got,
+                               moved[0] if len(moved) == 1 else f"counters moved: {moved}"))
             if got != want or not same_final_state(d, ref_dir):
                 fail(f"LBM_RESIDENT_KIND={forced_kind} at {tag}: variant {got}, or "
                      "final_state.dat differs from the default run's")
@@ -1375,6 +1414,8 @@ def main() -> int:
         launches["K9"] = hbm_cuda.LAUNCHES
         if got != "cuda-hbm" or launches["K9"] <= 0:
             fail(f"LBM_TEMPORAL_IMPL=hbm at 2048x2048: variant {got}, K9 launches {launches['K9']}")
+        plan_cases.append((*scenes["2048x2048"], "cuda", (), {"LBM_TEMPORAL_IMPL": "hbm"}, got,
+                           "K9"))
         if not same_final_state(hbm_dir, k1_dirs["2048x2048"]):
             fail("LBM_TEMPORAL_IMPL=hbm at 2048x2048: final_state.dat differs from K1's")
         print(f"[5k HBM-parts sweep] card: {card} | 2048x2048 channel x 2000 steps, "
@@ -1403,6 +1444,8 @@ def main() -> int:
                 fail(f"{tag} --variant {variant}: variant {got}, expected {want}")
             if any(after[names.index(k)] <= before[names.index(k)] for k in uses):
                 fail(f"{tag} {got} skipped a kernel of {uses}: counts {before} -> {after}")
+            plan_cases.append((gp, go, variant, ("--host-devices", "4", *extra), {}, got,
+                               uses[0]))
             return out_dir
 
         def av_rel(a, b):
@@ -1479,6 +1522,8 @@ def main() -> int:
             i = ca_names.index(use)
             if after[i] <= before[i]:
                 fail(f"{tag} {got} skipped {use}: counts {before} -> {after}")
+            plan_cases.append((gp, go, variant, ("--host-devices", "4", *extra),
+                               {"LBM_CA_ENGINE": engine}, got, use))
             return out_dir
 
         notes = []
@@ -1655,6 +1700,142 @@ def main() -> int:
                      "av_vels.dat byte-identical to the unbroken run")
         print(f"[5m frames, debug, checkpoint/resume] card: {card} | golden 1024x1024, "
               f"20000 steps | {' | '.join(notes)}{elapsed()}")
+
+        # Phase (a): the verify artifact, every kernel form against the twin
+        # and the golden prefixes (tools/verify_device.py), written here and
+        # printed as its JSON line.
+        t0 = time.perf_counter()
+        report = verify_device.run_verify("cuda")
+        with open(os.path.join(td, "VERIFY_H100.json"), "w") as fp:
+            json.dump(report, fp, indent=1)
+        print(json.dumps(report))
+        probes = report["probes"]
+        if (not report["ok"] or set(probes) != set(verify_device.PROBES) or len(probes) != 19
+                or any(v["max_abs"] != 0.0 for v in probes.values())):
+            fail(f"verify: ok {report['ok']}, probes "
+                 + ", ".join(f"{k} {v['max_abs']:.3e}" for k, v in probes.items()))
+        print(f"[a verify] card: {card} | {len(probes)} probes, every max |diff| 0 | golden "
+              f"prefix {report['golden_prefix']['steps']} steps: "
+              f"{report['golden_prefix']['variant']} {report['golden_prefix']['max_pct']:.4f}%, "
+              f"{report['golden_prefix_i16']['variant']} "
+              f"{report['golden_prefix_i16']['max_pct']:.4f}% | "
+              f"{time.perf_counter() - t0:.1f} s{elapsed()}")
+
+        # Phase (b): run --plan for each run of 5b, 5e, 5h, 5k and 5l, under
+        # the run's forcing variables: its program is the run's Variant line
+        # and its kernel the one the run's counters showed.
+        def plan_of(pfile, ofile, variant, extra, env):
+            buf = io.StringIO()
+            with dryrun.env(**{k: env.get(k) for k in FORCING}), \
+                    contextlib.redirect_stdout(buf):
+                rc = cli.main(["run", pfile, ofile, "--variant", variant, "--device", "cuda",
+                               *extra, "--plan"])
+            text = buf.getvalue()
+            words = {ln.split(":")[0]: ln.split()[1] for ln in text.splitlines()
+                     if ln.startswith(("program: ", "kernel: "))}
+            if rc != 0 or "will FAIL" in text:
+                fail(f"plan of {variant} {' '.join(extra)} {env}: rc {rc}\n{text}")
+            return words.get("program"), words.get("kernel")
+
+        planned = []
+        for pfile, ofile, variant, extra, env, got, kernel in plan_cases:
+            prog, kern = plan_of(pfile, ofile, variant, extra, env)
+            if (prog, kern) != (got, kernel):
+                fail(f"plan of {variant} {' '.join(extra)} {env}: program {prog}, kernel {kern}; "
+                     f"the run: {got} on {kernel}")
+            planned.append(f"{got} {kern}")
+        print(f"[b plan] card: {card} | {len(plan_cases)} runs of 5b, 5e, 5h, 5k, 5l planned "
+              f"again, program = the run's Variant line, kernel = the one its counters showed: "
+              + "; ".join(planned) + elapsed())
+
+        # Phase (c): --profile on K3 (the golden scene, 2000 steps) and on
+        # sync over 4 shards (200 steps): the trace holds the launched
+        # kernel's events, the files equal an unprofiled run's, and the
+        # device's busy share (the union of kernel intervals over the
+        # compute bracket) is the first measurement of the host's share.
+        notes = []
+        for tag, variant, steps, extra, kname in (
+                ("K3", "cuda", 2000, (), "lbm_inplace_kernel"),
+                ("sync", "sync", 200, ("--host-devices", "4"), "lbm_slab_kernel")):
+            flags = ("--steps", str(steps), *extra)
+            plain_dir, got = cli_run(f"prof-{tag}-plain", gp, go, variant, *flags,
+                                     out_dir=os.path.join(td, f"prof-{tag}-plain"))
+            prof_dir, got_p = cli_run(f"prof-{tag}", gp, go, variant, *flags, "--profile",
+                                      os.path.join(td, f"trace-{tag}"),
+                                      out_dir=os.path.join(td, f"prof-{tag}"))
+            for name in ("final_state.dat", "av_vels.dat"):
+                if not filecmp.cmp(os.path.join(plain_dir, name), os.path.join(prof_dir, name),
+                                   shallow=False):
+                    fail(f"--profile {tag}: {name} differs from the unprofiled run's")
+            with open(os.path.join(td, f"trace-{tag}", "trace.json")) as fp:
+                events = json.load(fp)["traceEvents"]
+            kern = [e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+            launched = [e for e in kern if kname in e["name"]]
+            if got != got_p or not launched:
+                fail(f"--profile {tag}: {got} / {got_p}, {len(kern)} kernel events, "
+                     f"{len(launched)} of {kname}")
+            busy = sum(e["dur"] for e in kern) * 1e-6  # one stream: no overlap
+            # Kernel time per step by kernel (the name up to its template
+            # or argument list), the largest first.
+            per: dict[str, list] = {}
+            for e in kern:
+                name = e["name"].removeprefix("void ").replace("(anonymous namespace)::", "")
+                entry = per.setdefault(re.split(r"[(<]", name)[0].split("::")[-1], [0, 0.0])
+                entry[0] += 1
+                entry[1] += e["dur"]
+            split = ", ".join(f"{k} {us / steps:.2f} us ({n / steps:g} a step)" for k, (n, us) in
+                              sorted(per.items(), key=lambda kv: -kv[1][1]))
+            secs = {d: float([ln for ln in run_texts[d].splitlines()
+                              if ln.startswith("Elapsed Compute time:")][0].split()[-2])
+                    for d in (plain_dir, prof_dir)}
+            notes.append(
+                f"{got} x {steps}: {len(kern)} kernel events ({len(launched)} {kname}), busy "
+                f"{busy * 1e3:.3f} ms = {100 * busy / secs[plain_dir]:.2f}% of the unprofiled "
+                f"bracket ({secs[plain_dir] * 1e3:.3f} ms; {100 * busy / secs[prof_dir]:.2f}% of "
+                f"the profiled one, {secs[prof_dir] * 1e3:.3f} ms); host per step "
+                f"{(secs[plain_dir] - busy) / steps * 1e6:.2f} us beyond the kernels, kernels "
+                f"{busy / steps * 1e6:.2f} us/step: {split}; files byte-identical")
+        print(f"[c profile] card: {card} | " + " | ".join(notes) + elapsed())
+
+        # Phase (d): run --divergence on the golden scene over 4 shards,
+        # async-1, 2000 steps: its av_sync is 5e's sync run's av_vels.
+        t0 = time.perf_counter()
+        div_dir = os.path.join(td, "divergence")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["run", gp, go, "--divergence", "--host-devices", "4", "--staleness",
+                           "1", "--steps", "2000", "--device", "cuda", "--out-dir", div_dir])
+        div_s = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"run --divergence exited {rc}:\n{buf.getvalue()}")
+        rows = np.loadtxt(os.path.join(div_dir, "divergence.csv"), delimiter=",", skiprows=1)
+        av_sync = read_av_vels(os.path.join(sync_dirs[2000], "av_vels.dat"))
+        if rows.shape != (2000, 6) or not np.array_equal(rows[:, 1].astype(np.float32),
+                                                         av_sync.astype(np.float32)):
+            fail(f"divergence {rows.shape}: av_sync differs from the sync run's av_vels.dat")
+        print(f"[d divergence] card: {card} | golden 1024x1024 over 4 shards, async-1 against "
+              f"sync, 2000 steps in {div_s:.1f} s: av_sync = 5e's sync av_vels.dat at the "
+              f"printed digits | max av deviation {np.nanmax(rows[:, 3]):.4f}% (step "
+              f"{int(rows[np.nanargmax(rows[:, 3]), 0])}), last field_rel_linf "
+              f"{rows[-1, 4]:.3e}, last field_rms {rows[-1, 5]:.3e}, av deviation at the last "
+              f"step {rows[-1, 3]:.4f}%{elapsed()}")
+
+        # Phase (e): golden --variant cuda on phase 5's 256x256 scene writes
+        # that run's two files.
+        tag, pf, of = runs[0]
+        gold_dir = os.path.join(td, "golden-cmd")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["golden", pf, of, "--variant", "cuda", "--out-dir", gold_dir])
+        for mine, theirs in (("256x256.av_vels.dat", "av_vels.dat"),
+                             ("256x256.final_state.dat", "final_state.dat")):
+            if rc != 0 or not filecmp.cmp(os.path.join(gold_dir, mine), os.path.join(
+                    cuda_runs[tag][0], theirs), shallow=False):
+                fail(f"golden --variant cuda {tag} (rc {rc}): {mine} differs from the run's "
+                     f"{theirs}\n{buf.getvalue()}")
+        print(f"[e golden] card: {card} | golden --variant cuda on the {tag} cylinder x 4400 "
+              f"steps ({buf.getvalue().strip().split('variant=')[-1].rstrip(')')}): both files "
+              f"byte-identical to phase 5's run{elapsed()}")
 
     # Phase 5f: large shards, 4096x4096 over 4 shards of 1024x4096.
     p4k = LBMParams(nx=4096, ny=4096, max_iters=200, reynolds_dim=10, density=0.1, accel=0.01,

@@ -51,6 +51,12 @@ count on every variant with a per-step decomposition; av_vels too wherever
 the kernel's per-step |u| grouping does not depend on where a launch
 starts (every single-device kernel but the sweeps' K1 tails).
 
+With ``profile_dir`` the compute bracket, and only it, runs under
+``torch.profiler`` (host and, on a card, CUPTI's kernel activity); its
+Chrome trace lands in ``profile_dir/trace.json`` and ``RunResult.profile``
+sums its kernel events (:func:`_profile_summary`).  The profiler changes no
+launch, so the outputs are those of the unprofiled run.
+
 Launches are asynchronous, so the compute bracket ends with
 ``torch.cuda.synchronize()`` on every device of the run; without it the
 run would report the rate at which launches were queued.  Inside the loop
@@ -60,9 +66,11 @@ segment's runner holds its buffers.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
+import json
 import math
 import os
 import warnings
@@ -116,6 +124,9 @@ class RunConfig:
     checkpoint_every: int | None = None  # save the state every N steps
     checkpoint_dir: str = "checkpoints"
     resume_from: str | None = None  # a checkpoint .npz to continue
+    # A directory for a torch.profiler Chrome trace of the compute bracket
+    # (lbm_tpu's profile_dir); None = no trace.
+    profile_dir: str | None = None
 
 
 @dataclasses.dataclass
@@ -131,6 +142,8 @@ class RunResult:
     # Steps this run's compute phase advanced (fewer than len(av_vels) when
     # it resumed a checkpoint: the prefix was computed earlier).
     steps_computed: int | None = None
+    # profile_dir runs: what the trace holds (:func:`_profile_summary`).
+    profile: dict | None = None
 
     @property
     def mlups(self) -> float:
@@ -248,14 +261,8 @@ def build_program(
     variant = variant or choose_variant(scene, config, device)
     params, obst = scene.params, scene.obstacles
     if variant in SHARDED:
-        mode = "async" if variant == "async-k" else variant
         mesh = mesh_devices(config, device)
-        if variant == "ca":
-            staleness = ca_staleness(scene, config, mesh.size)
-        elif config.staleness is not None and variant in modes.STALENESS_DEFAULTS:
-            staleness = config.staleness
-        else:
-            staleness = modes.STALENESS_DEFAULTS.get(variant, 1)
+        mode, staleness = sharded_mode(scene, config, variant, mesh.size)
         f_host = None if f0 is None else np.asarray(torch.as_tensor(f0).cpu(), np.float32)
         return modes.build_sharded_program(
             params, obst, mesh, mode=mode, staleness=staleness,
@@ -263,6 +270,18 @@ def build_program(
         )
     return build_single_program(params, obst, device, backend=variant, f0=f0,
                                 storage=config.storage, temporal_k=config.temporal_k)
+
+
+def sharded_mode(scene: Scene, config: RunConfig, variant: str, n_dev: int) -> tuple[str, int]:
+    """(mode, staleness) of a sharded variant's program over ``n_dev``
+    shards (lbm_tpu/models/driver.py:218-247): ``async-k`` is the async
+    mode; ca's depth knob from :func:`ca_staleness`."""
+    mode = "async" if variant == "async-k" else variant
+    if variant == "ca":
+        return mode, ca_staleness(scene, config, n_dev)
+    if config.staleness is not None and variant in modes.STALENESS_DEFAULTS:
+        return mode, config.staleness
+    return mode, modes.STALENESS_DEFAULTS.get(variant, 1)
 
 
 def _segment_lengths(num_steps: int, config: RunConfig, sweep_k: int = 1) -> list[int] | None:
@@ -298,17 +317,25 @@ def _sync(dev: torch.device) -> None:
 
 
 def _segments(config: RunConfig, program: StepProgram, num_steps: int) -> list[tuple[int, int]]:
+    """:func:`plan_segments` of a built program."""
+    return plan_segments(config, num_steps, program.steps_per_call, program.sweep_k,
+                         program.chunk_inner_step is not None, program.variant)
+
+
+def plan_segments(config: RunConfig, num_steps: int, spc: int = 1, sweep_k: int = 1,
+                  chunked: bool = False, variant: str = "") -> list[tuple[int, int]]:
     """The segments ``(start, n)`` that a run's ``num_steps`` steps advance
-    in, one advance each: with ``--debug`` one per step; with frames one
-    step, then ``frame_interval`` steps per further frame (frame k is the
-    state after k * interval + 1 steps), then the rest (``lbm_tpu``'s
-    ``_make_scan``, driver.py:459-652); with checkpoints
-    ``checkpoint_every`` steps (:722-725); else whole sweeps or chunks
-    (:func:`_segment_lengths`), then the tail of a multi-step program,
-    fewer steps than one chunk or ca sweep.  Raises with ``lbm_tpu``'s
-    refusals (:345-346, :410-416, :713-720)."""
-    spc = program.steps_per_call
-    chunked = spc > 1 and program.chunk_inner_step is not None
+    in, one advance each, for a program of ``spc`` steps per call
+    (``chunked``: with chunk primitives) and sweeps of ``sweep_k`` steps:
+    with ``--debug`` one per step; with frames one step, then
+    ``frame_interval`` steps per further frame (frame k is the state after
+    k * interval + 1 steps), then the rest (``lbm_tpu``'s ``_make_scan``,
+    driver.py:459-652); with checkpoints ``checkpoint_every`` steps
+    (:722-725); else whole sweeps or chunks (:func:`_segment_lengths`),
+    then the tail of a multi-step program, fewer steps than one chunk or ca
+    sweep.  Raises with ``lbm_tpu``'s refusals (:345-346, :410-416,
+    :713-720)."""
+    chunked = spc > 1 and chunked
     interval = config.frame_interval
     if config.debug:
         if chunked and interval is not None:
@@ -317,7 +344,7 @@ def _segments(config: RunConfig, program: StepProgram, num_steps: int) -> list[t
     elif interval is not None:
         if chunked and interval % spc:
             raise ValueError(
-                f"frame capture with {program.variant} requires --frame-interval to be a "
+                f"frame capture with {variant} requires --frame-interval to be a "
                 f"multiple of the {spc}-step chunk (capture segments must all start at the "
                 "same in-chunk phase)")
         lengths = [1] + [interval] * (math.ceil(num_steps / interval) - 1) if num_steps else []
@@ -327,13 +354,13 @@ def _segments(config: RunConfig, program: StepProgram, num_steps: int) -> list[t
             raise ValueError("checkpoint_every must be a multiple of the chunk size")
         if spc > 1 and num_steps % spc:
             raise ValueError(
-                f"checkpointed {program.variant} runs require the step count to be a multiple "
+                f"checkpointed {variant} runs require the step count to be a multiple "
                 f"of the {spc}-step chunk (drop --checkpoint-every to run the remainder as a "
                 "sync tail)")
         lengths = [seg] * (num_steps // seg)
     else:
         bulk = num_steps - num_steps % spc
-        lengths = (_segment_lengths(bulk, config, max(program.sweep_k, spc))
+        lengths = (_segment_lengths(bulk, config, max(sweep_k, spc))
                    or ([bulk] if bulk else []))
     if sum(lengths) < num_steps:
         lengths.append(num_steps - sum(lengths))
@@ -519,6 +546,73 @@ def _check_observable(scene, config, device, variant) -> str | None:
     return f"ca-{modes.ca_depth(staleness)}" + ("-i16" if config.storage == "i16" else "")
 
 
+def _profiler(device: torch.device):
+    """A torch.profiler of the compute bracket: host activity, and the
+    card's (CUPTI) on a CUDA run.  No shapes, no stacks: the trace of a
+    long sharded run grows with its Python calls."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=activities)
+
+
+def _busy_seconds(intervals: list[tuple[float, float]]) -> float:
+    """Seconds covered by the union of (start, end) intervals in us."""
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy * 1e-6
+
+
+def _profile_summary(prof, out_dir: str, device: torch.device, compute_s: float) -> dict:
+    """Write the bracket's Chrome trace to ``out_dir/trace.json`` and read
+    its kernel events back: their count, launches and microseconds per
+    kernel name, and the busy share (the union of their intervals over the
+    compute bracket's seconds, which the profiler itself lengthens).  On a
+    CUDA run a trace without a kernel event raises: the card's activity was
+    not recorded."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fp:
+        events = json.load(fp).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    if device.type == "cuda" and not kernels:
+        raise ValueError(f"--profile: the trace {path} holds no CUDA kernel event; the "
+                         "profiler could not record the card (CUPTI missing?)")
+    busy = _busy_seconds([(e["ts"], e["ts"] + e["dur"]) for e in kernels])
+    by_name: dict = {}
+    for e in kernels:
+        launches, us = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (launches + 1, us + e["dur"])
+    return {"trace": path, "kernel_events": len(kernels),
+            "kernels": {k: {"launches": n, "us": us} for k, (n, us) in by_name.items()},
+            "busy_s": busy, "busy_share": busy / compute_s if kernels and compute_s > 0 else None}
+
+
+def check_config(config: RunConfig, variant: str) -> None:
+    """The run's refusals that depend only on its options and its variant
+    (lbm_tpu/models/driver.py:786-797, 963-972)."""
+    observed = config.frame_interval is not None or config.debug
+    if config.frame_interval is not None and config.frame_interval < 1:
+        raise ValueError(f"--frame-interval must be at least 1, got {config.frame_interval}")
+    if config.checkpoint_every is not None:
+        if config.checkpoint_every < 1:
+            raise ValueError(f"--checkpoint-every must be at least 1, got "
+                             f"{config.checkpoint_every}")
+        if observed:
+            raise ValueError("frames/debug are not supported with checkpointing")
+    if variant == "serial":
+        if config.resume_from or config.checkpoint_every:
+            raise ValueError("checkpoint/resume is not supported with the serial oracle "
+                             "variant; use the torch or cuda variant")
+        if observed:
+            raise ValueError("frames and --debug are not supported with the serial oracle "
+                             "variant; use the torch or cuda variant")
+
+
 def run_simulation(
     scene: Scene,
     config: RunConfig | None = None,
@@ -535,24 +629,10 @@ def run_simulation(
     params = scene.params
     num_steps = config.num_steps if config.num_steps is not None else params.max_iters
     timer = PhaseTimer()
-    frames_on = config.frame_interval is not None
-    observed = frames_on or config.debug
-    if frames_on and config.frame_interval < 1:
-        raise ValueError(f"--frame-interval must be at least 1, got {config.frame_interval}")
-    if config.checkpoint_every is not None:
-        if config.checkpoint_every < 1:
-            raise ValueError(f"--checkpoint-every must be at least 1, got "
-                             f"{config.checkpoint_every}")
-        if observed:
-            raise ValueError("frames/debug are not supported with checkpointing")
+    observed = config.frame_interval is not None or config.debug
+    check_config(config, variant)
 
     if variant == "serial":
-        if config.resume_from or config.checkpoint_every:
-            raise ValueError("checkpoint/resume is not supported with the serial oracle "
-                             "variant; use the torch or cuda variant")
-        if observed:
-            raise ValueError("frames and --debug are not supported with the serial oracle "
-                             "variant; use the torch or cuda variant")
         with timer.section("init"):
             f_init = None if f0 is None else torch.as_tensor(f0).cpu().numpy()
         with timer.section("compute"):
@@ -594,15 +674,19 @@ def run_simulation(
             _sync(d)
     timer.stop("init")
 
-    timer.start("compute")
-    for (start, n), run in zip(segments, advances):
-        state, tot_us = run(state)
-        tots[start:start + n] = tot_us
-        if hook is not None:
-            hook(start + n, state)
-    for d in devices:
-        _sync(d)
-    timer.stop("compute")
+    profiler = _profiler(device) if config.profile_dir else contextlib.nullcontext()
+    with profiler:
+        timer.start("compute")
+        for (start, n), run in zip(segments, advances):
+            state, tot_us = run(state)
+            tots[start:start + n] = tot_us
+            if hook is not None:
+                hook(start + n, state)
+        for d in devices:
+            _sync(d)
+        timer.stop("compute")
+    profile = (_profile_summary(profiler, config.profile_dir, device,
+                                timer.elapsed["compute"]) if config.profile_dir else None)
 
     timer.start("collate")
     f = program.f_of(state).cpu().numpy().astype(np.float32, copy=False)
@@ -630,4 +714,4 @@ def run_simulation(
     tail = 0 if observed else remaining % program.steps_per_call
     label = program.variant + (f"+sync-tail{tail}" if tail else "")
     return RunResult(f, av_vels, reynolds, timer, label, device_name(device), frames=frames,
-                     frame_steps=frame_steps, steps_computed=remaining)
+                     frame_steps=frame_steps, steps_computed=remaining, profile=profile)

@@ -252,6 +252,94 @@ def ca_decomposes_per_step(engine: str | None, storage: str) -> bool:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShardedPlan:
+    """What a sharded build of a scene takes, before any buffer exists:
+    :func:`plan_sharded`'s answer, which :func:`build_sharded_program` and
+    the execution plan (models/plan.py) both read."""
+
+    backend: str  # "cuda" or "torch"
+    ny: int  # rows of the grid, seam padding included
+    nloc: int  # rows per shard
+    open_pad: int  # rows of open-seam padding (0: none, or walled)
+    stale_fraction: float  # async / chunked: the stale-row model's exposure, else 0
+    spc: int  # steps per call: the chunk (chunked), K (ca), else 1
+    label: str  # the program's variant: mode, -k or -K, -i16
+    k6: bool = False  # chunked through K6
+    K: int = 0  # ca: exchange depth
+    engine: str | None = None  # ca: K-sweep engine (ca_engine_choice)
+    parts: int = 1  # ca on the in-place engine: sub-slabs
+
+
+def plan_sharded(params: LBMParams, obstacles: np.ndarray, num_shards: int, mode: str = "sync",
+                 staleness: int = 1, backend: str | None = None, storage: str = "f32",
+                 device_type: str = "cuda") -> ShardedPlan:
+    """The choices of a sharded build over ``num_shards`` shards of
+    ``device_type`` devices, arguments as :func:`build_sharded_program`,
+    which calls it: backend, seam padding, the ca engine and its sub-slabs,
+    K6 for chunked, the stale-row exposure and the variant the program
+    reports.  Raises the build's refusals; allocates nothing."""
+    ny, nx = obstacles.shape
+    R = num_shards
+    quant.check_storage(storage)
+    if mode not in MODES:
+        raise ValueError(f"unknown sharded mode {mode!r}; use one of {MODES}")
+    if staleness < 1:
+        raise ValueError("staleness must be >= 1")
+    if backend is None:
+        backend = ("cuda" if (device_type == "cuda" or storage == "i16" or mode == "ca")
+                   and sharded_cuda_supported(ny, nx, R) else "torch")
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; use 'torch' or 'cuda'")
+    backend = _BACKENDS[backend]
+    if storage == "i16" and backend != "cuda":
+        raise ValueError(f"storage 'i16' requires the cuda backend, got {backend!r}")
+    open_pad = open_seam_pad(obstacles, R)
+    ny_pad = ny + (-ny) % R
+    nloc = ny_pad // R
+    if nloc < 2:
+        raise ValueError(f"need at least 2 rows per shard, got {nloc}")
+    if open_pad and open_pad > nloc - 1:
+        raise ValueError(
+            f"ny={ny} over {R} shards needs {open_pad} open-seam padding rows but "
+            f"shards have only {nloc} rows; choose fewer devices")
+    K, engine, parts = 0, None, 1
+    if mode == "ca":
+        # modes.py:1010-1034: walled seam padding stays, open seams go.
+        K = ca_depth(staleness)
+        if open_pad:
+            raise ValueError("ca mode does not support open-seam row padding; use a shard count "
+                             "that divides ny, or the sync/overlap variants")
+        if backend != "cuda":
+            raise ValueError(f"ca mode runs on the cuda backend's K-sweep engines, got {backend!r}")
+        engine = ca_engine_choice(params, nloc, nx, K, storage=storage, backend=backend,
+                                  ny_global=ny_pad)
+        if engine is None:
+            raise ValueError(f"ca mode needs a K-sweep engine (K4-slab, K7 or K8) that maps "
+                             f"{nloc}x{nx} shards at depth K={K}"
+                             + (f" with LBM_CA_ENGINE={os.environ['LBM_CA_ENGINE']}"
+                                if os.environ.get("LBM_CA_ENGINE") else "")
+                             + "; use sync/overlap, fewer devices or a smaller staleness")
+        if engine == "inplace":
+            parts = ca_parts(nloc, nx, K, ny_pad, storage)
+    stale_fraction = 0.0
+    if mode in ("async", "chunked"):
+        # The stale-row model (modes.py:1447-1466): 1.6% stale rows -> ~0.15%
+        # av_vels deviation, ~6% -> ~1%.  Chunked ghosts age 1..k.
+        age = (staleness + 1) / 2 if mode == "chunked" else staleness
+        stale_fraction = 2.0 * R / ny_pad * age
+    k6 = (backend == "cuda" and mode == "chunked" and storage == "f32" and not open_pad
+          and ghosted_cuda.supports_shard(nloc, nx))
+    # ca reports its effective depth (modes.py:1566-1577).
+    label = mode + (f"-{K}" if mode == "ca" else
+                    f"-{staleness}" if mode in ("async", "chunked") and staleness > 1 else "")
+    return ShardedPlan(backend=backend, ny=ny_pad, nloc=nloc, open_pad=open_pad,
+                       stale_fraction=stale_fraction,
+                       spc={"chunked": staleness, "ca": K}.get(mode, 1),
+                       label=label + ("-i16" if storage == "i16" else ""), k6=k6, K=K,
+                       engine=engine, parts=parts)
+
+
+@dataclasses.dataclass(frozen=True)
 class ShardedState:
     """The state of a sharded program: per shard its (9, nloc, nx) body and,
     for async and chunked, its ghost queue (Q, 2, 9, 1, nx), entry 0 the
@@ -598,26 +686,12 @@ def build_sharded_program(
     names).  ``storage``: ``f32`` or ``i16`` (int16
     state, ghosts exchanged as int16; the cuda backend).  ``f0``: the
     initial (9, ny, nx) distributions, default the rest state."""
-    ny, nx = obstacles.shape
+    ny_orig, nx = obstacles.shape
     R = mesh.size
-    quant.check_storage(storage)
-    if mode not in MODES:
-        raise ValueError(f"unknown sharded mode {mode!r}; use one of {MODES}")
-    if staleness < 1:
-        raise ValueError("staleness must be >= 1")
     dev0 = mesh.devices[0]
-    if backend is None:
-        backend = ("cuda" if (dev0.type == "cuda" or storage == "i16" or mode == "ca")
-                   and sharded_cuda_supported(ny, nx, R) else "torch")
-    if backend not in _BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; use 'torch' or 'cuda'")
-    backend = _BACKENDS[backend]
-    if storage == "i16" and backend != "cuda":
-        raise ValueError(f"storage 'i16' requires the cuda backend, got {backend!r}")
-
-    ny_orig = ny
-    pad_rows = (-ny) % R
-    open_pad = open_seam_pad(obstacles, R)
+    plan = plan_sharded(params, obstacles, R, mode, staleness, backend, storage, dev0.type)
+    backend, ny, nloc, open_pad = plan.backend, plan.ny, plan.nloc, plan.open_pad
+    K, engine, parts, pad_rows = plan.K, plan.engine, plan.parts, ny - ny_orig
     if pad_rows:
         # Walled seam: blocked rows at rest.  Open seam: live clones of the
         # global first rows (modes.py:967-1005).
@@ -627,53 +701,20 @@ def build_sharded_program(
             tail = (f0[:, :pad_rows, :] if open_pad
                     else lattice.equilibrium_rest(params.density, pad_rows, nx))
             f0 = np.concatenate([f0, tail], axis=1)
-        ny += pad_rows
-    nloc = ny // R
-    if nloc < 2:
-        raise ValueError(f"need at least 2 rows per shard, got {nloc}")
-    if open_pad and open_pad > nloc - 1:
-        raise ValueError(
-            f"ny={ny_orig} over {R} shards needs {open_pad} open-seam padding rows but "
-            f"shards have only {nloc} rows; choose fewer devices")
-    K, engine, parts = 0, None, 1
-    if mode == "ca":
-        # modes.py:1010-1034: walled seam padding stays, open seams go.
-        K = ca_depth(staleness)
-        if open_pad:
-            raise ValueError("ca mode does not support open-seam row padding; use a shard count "
-                             "that divides ny, or the sync/overlap variants")
-        if backend != "cuda":
-            raise ValueError(f"ca mode runs on the cuda backend's K-sweep engines, got {backend!r}")
-        engine = ca_engine_choice(params, nloc, nx, K, storage=storage, backend=backend,
-                                  ny_global=ny)
-        if engine is None:
-            raise ValueError(f"ca mode needs a K-sweep engine (K4-slab, K7 or K8) that maps "
-                             f"{nloc}x{nx} shards at depth K={K}"
-                             + (f" with LBM_CA_ENGINE={os.environ['LBM_CA_ENGINE']}"
-                                if os.environ.get("LBM_CA_ENGINE") else "")
-                             + "; use sync/overlap, fewer devices or a smaller staleness")
-        if engine == "inplace":
-            parts = ca_parts(nloc, nx, K, ny, storage)
-    if mode in ("async", "chunked"):
-        # The stale-row model (modes.py:1447-1466): 1.6% stale rows -> ~0.15%
-        # av_vels deviation, ~6% -> ~1%.  Chunked ghosts age 1..k.
-        age = (staleness + 1) / 2 if mode == "chunked" else staleness
-        stale_fraction = 2.0 * R / ny * age
-        if stale_fraction > 0.05:
-            warnings.warn(
-                f"{mode} mode with {R} shards over {ny} rows at halo age {staleness} has an "
-                f"effective stale-row exposure of {stale_fraction:.1%}; deviation from the "
-                "synchronous solution may exceed 1%. Use fewer shards, a larger grid, a "
-                "smaller staleness, or the sync/overlap variants.",
-                stacklevel=2,
-            )
+    if plan.stale_fraction > 0.05:
+        warnings.warn(
+            f"{mode} mode with {R} shards over {ny} rows at halo age {staleness} has an "
+            f"effective stale-row exposure of {plan.stale_fraction:.1%}; deviation from the "
+            "synchronous solution may exceed 1%. Use fewer shards, a larger grid, a "
+            "smaller staleness, or the sync/overlap variants.",
+            stacklevel=2,
+        )
 
     tot_cells = int(obstacles.size - np.count_nonzero(obstacles))
     slabs = _extended_obstacle_slabs(obstacles, R)
     obst = tuple(torch.from_numpy(np.ascontiguousarray(slabs[r])).to(d)
                  for r, d in enumerate(mesh.devices))
-    k6 = (backend == "cuda" and mode == "chunked" and storage == "f32" and not open_pad
-          and ghosted_cuda.supports_shard(nloc, nx))
+    k6 = plan.k6
     ca_obst = ()
     if mode == "ca":
         ca_obst = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(d) for x, d in
@@ -698,7 +739,7 @@ def build_sharded_program(
     def make_run_all(num_steps):
         return _Runner(lay, num_steps, mode)
 
-    spc = {"chunked": staleness, "ca": K}.get(mode, 1)
+    spc = plan.spc
     runners: dict[str, _Runner] = {}
 
     def call_once(kind, n, state):
@@ -731,16 +772,13 @@ def build_sharded_program(
     # dequantized for int16, seam padding dropped (modes.py:1550-1562).
     mag = u_mag_fn(torch.from_numpy(np.ascontiguousarray(obstacles[:ny_orig])).to(dev0))
 
-    # ca reports its effective depth (modes.py:1566-1577).
-    label = mode + (f"-{K}" if mode == "ca" else
-                    f"-{staleness}" if mode in ("async", "chunked") and staleness > 1 else "")
     return StepProgram(
         init_state=init_state,
         step=step,
         make_run_all=make_run_all,
         f_of=f_of,
         tot_cells=tot_cells,
-        variant=label + ("-i16" if storage == "i16" else ""),
+        variant=plan.label,
         steps_per_call=spc,
         chunk_inner_step=chunk_inner_step,
         chunk_exchange=chunk_exchange,

@@ -4,6 +4,8 @@ Tolerances as in tests/test_torch_step.py: fields atol 2e-7 and av rtol 1e-4
 against lbm_tpu's jnp runs (XLA's FMA contraction on the CPU); bitwise where
 both sides run the same code (serial oracle, segmented vs unsegmented)."""
 
+import filecmp
+import json
 import os
 import pathlib
 import subprocess
@@ -183,18 +185,134 @@ def test_cli_outputs_match_lbm_tpu(tmp_path, scene_files, capsys):
 
 
 @pytest.mark.parametrize(
-    "extra",
-    [["--plan"], ["--profile", "trace"], ["--divergence"], ["--platform", "cpu"]],
-    ids=lambda a: " ".join(a),
+    "command,extra,says",
+    [("run", ["--platform", "tpu"], "the TPU is lbm_tpu's platform"),
+     ("bench", ["--platform", "tpu"], "the TPU is lbm_tpu's platform"),
+     ("info", ["--platform", "tpu"], "the TPU is lbm_tpu's platform"),
+     ("info", ["--probe"], "info --probe is TPU-only; not ported to lbm_tpu_torch")],
+    ids=lambda a: " ".join(a) if isinstance(a, list) else None,
 )
-def test_cli_unported_flags_exit_1(tmp_path, scene_files, capsys, extra):
+def test_cli_unported_flags_exit_1(tmp_path, scene_files, capsys, command, extra, says):
+    """The refusals left: lbm_tpu's TPU platform and its TPU tunnel probe
+    exit 1 with ``Error: ...``, not argparse's 2, and write nothing."""
     pfile, ofile = scene_files
     out = tmp_path / "out"
-    rc = cli.main(["run", pfile, ofile, "--device", "cpu", "--out-dir", str(out), *extra])
+    argv = {"run": ["run", pfile, ofile, "--out-dir", str(out)],
+            "bench": ["bench", "--grid", "16x16", "--steps", "2"], "info": ["info"]}[command]
+    rc = cli.main(argv + extra)
     err = capsys.readouterr().err
     assert rc == 1
-    assert err.startswith("Error:") and "not yet ported to lbm_tpu_torch" in err
+    assert err.startswith("Error:") and says in err
     assert not out.exists()
+
+
+def test_cli_platform_is_the_device(tmp_path, scene_files, capsys):
+    """``--platform cpu`` runs as ``--device cpu``, byte for byte; with
+    ``--host-devices 2`` it runs 2 shards of the CPU; a platform that
+    contradicts ``--device`` exits 1."""
+    pfile, ofile = scene_files
+    runs = {"device": ["--device", "cpu"], "platform": ["--platform", "cpu"],
+            "both": ["--platform", "CPU", "--device", "cpu"],
+            "shards": ["--platform", "cpu", "--host-devices", "2", "--variant", "sync"]}
+    for tag, extra in runs.items():
+        assert cli.main(["run", pfile, ofile, "--out-dir", str(tmp_path / tag), *extra]) == 0
+        for name in ("final_state.dat", "av_vels.dat"):
+            if tag != "shards":  # sync's av_vels sums |u| per shard
+                assert filecmp.cmp(tmp_path / tag / name, tmp_path / "device" / name,
+                                   shallow=False), (tag, name)
+    assert filecmp.cmp(tmp_path / "shards" / "final_state.dat",
+                       tmp_path / "device" / "final_state.dat", shallow=False)
+    out = capsys.readouterr().out
+    assert "lbm_tpu_torch: device=cpu" in out and "Variant:\t\t\tsync\n" in out
+    assert cli.main(["run", pfile, ofile, "--platform", "cpu", "--host-devices", "2",
+                     "--variant", "sync", "--plan"]) == 0
+    assert "shards: 2 x 8 rows (one device, cpu)" in capsys.readouterr().out
+    assert cli.main(["run", pfile, ofile, "--platform", "gpu", "--device", "cpu"]) == 1
+    assert capsys.readouterr().err.strip() == "Error: --platform gpu contradicts --device cpu"
+
+
+def test_cli_profile_writes_a_trace_and_the_same_files(tmp_path, scene_files, capsys):
+    """``--profile DIR`` writes a Chrome trace of the compute bracket and
+    leaves the outputs byte-identical to the unprofiled run's."""
+    pfile, ofile = scene_files
+    base = ["run", pfile, ofile, "--device", "cpu", "--variant", "cuda", "--steps", "6"]
+    assert cli.main(base + ["--out-dir", str(tmp_path / "plain")]) == 0
+    assert cli.main(base + ["--out-dir", str(tmp_path / "prof"),
+                            "--profile", str(tmp_path / "trace")]) == 0
+    out = capsys.readouterr().out
+    assert f"trace {tmp_path / 'trace' / 'trace.json'}" in out
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert trace["traceEvents"]
+    for name in ("final_state.dat", "av_vels.dat"):
+        assert filecmp.cmp(tmp_path / "plain" / name, tmp_path / "prof" / name, shallow=False)
+    res = driver.run_simulation(_scene(16, 16, steps=4), _cpu(
+        "torch", profile_dir=str(tmp_path / "t2")))
+    assert res.profile["trace"] == str(tmp_path / "t2" / "trace.json")
+    assert res.profile["kernel_events"] == 0 and res.profile["busy_share"] is None
+
+
+class _FakeProfiler:
+    """Writes a fixed Chrome trace, as torch.profiler's export does."""
+
+    def __init__(self, events):
+        self.events = events
+
+    def export_chrome_trace(self, path):
+        with open(path, "w") as fp:
+            json.dump({"traceEvents": self.events}, fp)
+
+
+def test_profile_summary_reads_the_kernel_events(tmp_path):
+    """Kernel events (``cat: kernel``) are counted and timed per name, their
+    union over the bracket is the busy share; on a CUDA run a trace with no
+    kernel event is an error, on the CPU it is the expected trace."""
+    events = [{"cat": "kernel", "ph": "X", "name": "k_a", "ts": 0.0, "dur": 4.0},
+              {"cat": "kernel", "ph": "X", "name": "k_b", "ts": 2.0, "dur": 4.0},
+              {"cat": "kernel", "ph": "X", "name": "k_a", "ts": 10.0, "dur": 2.0},
+              {"cat": "cpu_op", "ph": "X", "name": "aten::add", "ts": 0.0, "dur": 50.0}]
+    got = driver._profile_summary(_FakeProfiler(events), str(tmp_path / "t"),
+                                  torch.device("cuda", 0), 16e-6)
+    assert got["trace"] == str(tmp_path / "t" / "trace.json") and got["kernel_events"] == 3
+    assert got["kernels"] == {"k_a": {"launches": 2, "us": 6.0}, "k_b": {"launches": 1, "us": 4.0}}
+    assert got["busy_s"] == pytest.approx(8e-6) and got["busy_share"] == pytest.approx(0.5)
+    cpu_only = [e for e in events if e["cat"] != "kernel"]
+    with pytest.raises(ValueError, match="holds no CUDA kernel event"):
+        driver._profile_summary(_FakeProfiler(cpu_only), str(tmp_path / "u"),
+                                torch.device("cuda", 0), 1.0)
+    got = driver._profile_summary(_FakeProfiler(cpu_only), str(tmp_path / "v"),
+                                  torch.device("cpu"), 1.0)
+    assert got["kernel_events"] == 0 and got["busy_share"] is None
+
+
+def test_busy_seconds_is_the_union_of_intervals():
+    assert driver._busy_seconds([(0.0, 10.0), (5.0, 12.0), (20.0, 21.0)]) == pytest.approx(13e-6)
+    assert driver._busy_seconds([]) == 0.0
+
+
+def test_cli_run_takes_every_lbm_tpu_run_flag():
+    """Every option of lbm_tpu's ``run`` is an option of the port's."""
+    import argparse
+
+    from lbm_tpu import cli as jcli
+
+    def options(add):
+        p = argparse.ArgumentParser()
+        add(p)
+        return {o for a in p._actions for o in a.option_strings}
+
+    assert options(jcli._add_run_args) <= options(cli._add_run_args)
+
+
+def test_cli_bench_and_info_take_lbm_tpus_flags(capsys):
+    """C3: ``bench --platform cpu`` and ``info --host-devices 2`` ran into
+    argparse's exit 2; every flag of lbm_tpu's bench and info parses."""
+    assert cli.main(["bench", "--grid", "16x16", "--steps", "3", "--repeats", "1",
+                     "--platform", "cpu", "--host-devices", "2", "--variant", "sync"]) == 0
+    report = json.loads(capsys.readouterr().out)
+    assert report["device"] == "cpu" and report["variant"] == "sync"
+    assert cli.main(["info", "--host-devices", "2"]) == 0
+    assert cli.main(["info", "--platform", "cpu", "--host-devices", "2"]) == 0
+    assert "run devices: 2 shards of cpu" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("variant", ["torch", "jnp", "serial"])
@@ -268,7 +386,7 @@ def test_cli_bench_i16(capsys):
     assert report["metric"] == "MLUPS 16x16 cuda-inplace-i16" and report["device"] == "cpu"
 
 
-@pytest.mark.parametrize("command", ["viz", "animate", "golden", "sweep", "speedup"])
+@pytest.mark.parametrize("command", ["sweep"])
 def test_cli_unported_commands_exit_1(capsys, command):
     assert cli.main([command, "x"]) == 1
     assert "not yet ported to lbm_tpu_torch" in capsys.readouterr().err
