@@ -87,15 +87,18 @@ power limit as nvidia-smi reports them):
    starts;
    fields torch.equal (int16 too), tot_u within rtol 1e-6; the script fails
    unless K8's cases put the driven row on the first and the last row of a
-   block's cells in some step, and rows split between blocks;
+   block's cells in some step, and rows split between blocks, and unless
+   K7's cases (its own 32-cell-aligned plan) put it on the first and the
+   last row of a block's cells in some step;
 3h. K9 (the HBM-parts sweep) vs its plain version and vs K1 at 2048x2048
    and 60x100, K in {2, 3, 4, 8} (:func:`hbm_kernel_checks`);
 3i. K10 (the two-copy row-block kernel) vs its plain version at 128^2,
    256^2, 512^2, 1024^2 and 72x100, the driven row in the first, a middle
    and the last row block and on a block edge (512^2 and 1024^2: the last
    only), odd and even chunks, rest and perturbed starts, and 256 steps in
-   one chunk at 128^2, fields and tot_u torch.equal; and vs K2 at 512^2
-   over 256 steps (:func:`blocked_kernel_checks`);
+   one chunk at 128^2, fields and tot_u torch.equal (its tiles' rows split
+   over 8 warps to 512^2 and over 2 at 1024^2); and vs K2 at 512^2 over
+   256 steps (:func:`blocked_kernel_checks`);
 4. the cuda main path on a 128x128 scene for 120 steps vs core/oracle:
    fields atol 2e-7, av rtol 1e-4;
 5. ``lbm_tpu_torch run`` on 256x256 (4400 steps: K2, two segments) and
@@ -154,8 +157,9 @@ power limit as nvidia-smi reports them):
    of the same length; the K1-slab, K1-slab-i16 and K6 counters, zeroed
    just before, must have gone up, each in the runs that use it;
 5h. ca on the golden scene over 4 shards of the card, 20000 steps, at
-   the default depth: on auto (K8, K = 8) and with LBM_CA_ENGINE=slab
-   (K4-slab, K = 4), =resident (K7, K = 4) and =inplace (K8, K = 8), each
+   the default depth: on auto (K7, K = 8) and with LBM_CA_ENGINE=slab
+   (K4-slab, K = 4), =resident with --staleness 4 (K7, K = 4) and
+   =inplace (K8, K = 8), each
    final_state.dat byte-identical to 5b's single-device f32 run and passing
    ``check`` against golden/; ca-i16 on the default int16 engine (K8-i16,
    quantized every step: byte-identical to 5b's cuda-inplace-i16) and with
@@ -547,7 +551,8 @@ def slab_kernel_checks(dev, k6_paths: set) -> tuple[dict[str, float], dict[str, 
 CA_SHAPES = ((256, 1024), (1024, 4096), (8, 1024), (13, 1024), (64, 100), (24, 99))
 
 
-def ca_kernel_checks(dev, k8_paths: set) -> tuple[dict[str, float], dict[str, int]]:
+def ca_kernel_checks(dev, k8_paths: set,
+                     k7_paths: set) -> tuple[dict[str, float], dict[str, int]]:
     """Phase 3g: the ca engines against the plain ca sweep
     (``fused_torch.ca_sweep``): K4-slab and K4-slab-i16 (int16 quantized once
     per sweep), K7 (f32, where two copies of the extended slab fit its L2
@@ -560,8 +565,8 @@ def ca_kernel_checks(dev, k8_paths: set) -> tuple[dict[str, float], dict[str, in
     from a seeded perturbation with the injection guard false at every third
     cell.  Fields (int16 too) bitwise, tot_u within rtol 1e-6.  Returns the
     largest |diff| per kernel and the number of cases, and adds to
-    ``k8_paths`` where K8's cases put the driven row in the blocks' bands
-    (:func:`band_cover`)."""
+    ``k8_paths`` and ``k7_paths`` where K8's and K7's cases put the driven
+    row in the blocks' bands (:func:`band_cover`)."""
     import numpy as np
     import torch
 
@@ -624,12 +629,17 @@ def ca_kernel_checks(dev, k8_paths: set) -> tuple[dict[str, float], dict[str, in
                             fail(f"{what}: tot_u {tots[1:].tolist()} vs plain {ref_tot.tolist()}")
                         err[name] = max(err[name], e)
                         cases[name] += 1
+                        ext = n + 2 * K
+                        drow = ca_cuda.driven_ext_row(ar, off % p.ny, K, n, p.ny)
                         if name.startswith("K8"):
-                            ext = n + 2 * K
                             grid = _build.load().lbm_ca_inplace_grid(
                                 ext, nx, int(storage == "i16"), dev.index)
-                            band_cover(k8_paths, ca_cuda.sweep_plan(ext, nx, K, grid), nx,
-                                       ca_cuda.driven_ext_row(ar, off % p.ny, K, n, p.ny))
+                            band_cover(k8_paths, ca_cuda.sweep_plan(ext, nx, K, grid), nx, drow)
+                        elif name == "K7":
+                            grid = ca_cuda.resident_grid(
+                                _build.load().lbm_ca_resident_grid(ext, nx, dev.index), n, nx)
+                            band_cover(k7_paths, ca_cuda.resident_plan(ext, nx, K, grid), nx,
+                                       drow)
     return err, cases
 
 
@@ -663,8 +673,9 @@ def hbm_kernel_checks(dev) -> tuple[float, int]:
 
 
 # Phase 3i's grids.  512^2 and 1024^2 keep the scene's driven row; 1024^2 is
-# K10's main path (5l): 64 row blocks, its copies in HBM, each block of the
-# cooperative grid striding over about 8 tiles.
+# K10's main path (5l): 64 row blocks, its copies in HBM, 2048 tiles of 16
+# rows x 32 columns, two warps a tile (8 rows each); the smaller grids
+# split a tile's rows over eight warps.
 BLOCKED_GRIDS = ((128, 128), (256, 256), (512, 512), (1024, 1024), (72, 100))
 
 
@@ -1063,9 +1074,12 @@ def main() -> int:
 
     # Phase 3g: the ca engines vs the plain ca sweep; 3h: K9 vs plain and K1.
     k8_paths: set = set()
-    ca_err, ca_cases = ca_kernel_checks(dev, k8_paths)
+    k7_paths: set = set()
+    ca_err, ca_cases = ca_kernel_checks(dev, k8_paths, k7_paths)
     if not {"first", "last", "split rows"} <= k8_paths:
         fail(f"3g: the driven row and the K8 bands reached only {sorted(k8_paths)}")
+    if not {"first", "last"} <= k7_paths:
+        fail(f"3g: the driven row and the K7 bands reached only {sorted(k7_paths)}")
     print(f"[3g ca engines vs plain] card: {card} | shards "
           + ", ".join(f"{n}x{nx}" for n, nx in CA_SHAPES) + " x K in (2, 3, 4, 8), driven row in "
           "body / lo / hi / none (K4-slab: also the first and last region row), rest and "
@@ -1073,6 +1087,7 @@ def main() -> int:
           + "; ".join(f"{k} {ca_cases[k]} cases, fields equal, max |diff| {ca_err[k]:.1e}"
                       for k in ca_err)
           + f" | K8's bands: the driven row as {sorted(k8_paths)}"
+          + f" | K7's bands: the driven row as {sorted(k7_paths)}"
           + f" | {time.perf_counter() - t_start:.1f} s elapsed")
     k9_err, k9_cases = hbm_kernel_checks(dev)
     print(f"[3h K9 vs plain and K1] card: {card} | 2048x2048 and 60x100 x K in (2, 3, 4, 8) x "
@@ -1527,9 +1542,11 @@ def main() -> int:
             return out_dir
 
         notes = []
-        for engine, want, use in ((None, "ca-8", "K8"), ("slab", "ca-4", "K4-slab"),
-                                  ("resident", "ca-4", "K7"), ("inplace", "ca-8", "K8")):
-            d = ca_run(f"golden1024-ca-{engine or 'auto'}", "ca", want, use, engine)
+        for engine, want, use, extra in ((None, "ca-8", "K7", ()),
+                                         ("slab", "ca-4", "K4-slab", ()),
+                                         ("resident", "ca-4", "K7", ("--staleness", "4")),
+                                         ("inplace", "ca-8", "K8", ())):
+            d = ca_run(f"golden1024-ca-{engine or 'auto'}", "ca", want, use, engine, *extra)
             if not same_final_state(d, single):
                 fail(f"golden {want} ({use}): final_state.dat differs from the single-device run")
             rel = av_rel(d, single)
@@ -1546,7 +1563,7 @@ def main() -> int:
                 fail(f"golden {want} ({use}): final_state.dat differs from {same_as}'s")
             notes.append(f"{want} {engine or 'auto'} ({use}) vs golden {', '.join(dev_pct)}, "
                          f"byte-identical to {same_as}")
-        d = ca_run("golden1024-2001-auto", "auto", "ca-8+sync-tail1", "K8", None,
+        d = ca_run("golden1024-2001-auto", "auto", "ca-8+sync-tail1", "K7", None,
                    "--steps", "2001")
         if not same_final_state(d, sync_dirs[2001]):
             fail("golden auto over 4 shards x 2001 steps: final_state.dat differs from sync's")
@@ -2134,9 +2151,9 @@ def main() -> int:
                "by_shard)", ca_src + "temporal.cu",
                "lbm_tpu/ops/temporal_pallas.py:535", "K4-slab-i16", (1024, 4096), 4, "i16",
                "plain-i16 K=4", by_shard=slab_shapes("K4-slab-i16", "i16", "plain-i16 K=4")),
-        ca_row("K7 ca resident sweep (ms per launch = 4 steps of one 256x1024 shard of "
-               "1024x1024, K=4)", ca_src + "ca_resident.cu",
-               "lbm_tpu/ops/resident_pallas.py:1192", "K7", (256, 1024), 4, "f32", "plain K=4"),
+        ca_row("K7 ca resident sweep (ms per launch = 8 steps of one 256x1024 shard of "
+               "1024x1024, K=8, the f32 ca default there)", ca_src + "ca_resident.cu",
+               "lbm_tpu/ops/resident_pallas.py:1192", "K7", (256, 1024), 8, "f32", "plain K=8"),
         ca_row("K8 ca in-place sweep (ms per launch = 8 steps of one 256x1024 shard of "
                "1024x1024, K=8)", ca_src + "ca_inplace.cu",
                "lbm_tpu/ops/resident_pallas.py:1643", "K8", (256, 1024), 8, "f32", "plain K=8"),

@@ -34,9 +34,9 @@ __global__ void __launch_bounds__(lbm::kThreads, lbm::aa::kMinBlocks)
                        float* partials, float* tot_out, lbm::StepParams p, int n,
                        int row_offset, int chunk) {
   const int dr = p.accel_row - row_offset;  // the driven row among the body rows
-  const lbm::two::Ghosted rows{glo, ps_lo, ghi, ps_hi, obst, n, row_offset};
-  lbm::two::run(fa, fb, obst + p.nx, partials, tot_out, p, rows, n,
-                dr >= 0 && dr < n ? dr * p.nx : -1, chunk);
+  const lbm::two::Ghosted rows{glo,        ps_lo, ghi, ps_hi, obst, n,
+                               row_offset, dr >= 0 && dr < n ? dr * p.nx : -1};
+  lbm::two::run(fa, fb, obst + p.nx, partials, tot_out, p, rows, n, chunk);
 }
 
 }  // namespace

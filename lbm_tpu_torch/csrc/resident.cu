@@ -25,7 +25,7 @@ __global__ void __launch_bounds__(lbm::kThreads, lbm::aa::kMinBlocks)
     lbm_resident_kernel(float* fa, float* fb, const uint8_t* __restrict__ obst, float* partials,
                         float* tot_out, lbm::StepParams p, int chunk) {
   const int arow = p.accel_row >= 0 && p.accel_row < p.ny ? p.accel_row * p.nx : -1;
-  lbm::two::run(fa, fb, obst, partials, tot_out, p, lbm::two::Periodic{p.ny}, p.ny, arow,
+  lbm::two::run(fa, fb, obst, partials, tot_out, p, lbm::two::Periodic{p.ny, arow}, p.ny,
                 chunk);
 }
 

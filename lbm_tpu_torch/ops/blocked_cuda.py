@@ -3,11 +3,16 @@
 Replaces ``lbm_tpu/ops/resident_pallas.py::_blocked_chunk_kernel`` (:480,
 built by ``make_chunk_runner`` :766 -> ``pallas_call`` :882, entry
 ``make_run_all`` :925).  One cooperative launch runs ``chunk`` steps,
-ping-ponging between two device copies of the float32 state with a grid
-barrier between steps; each step is walked as tiles of B rows x 256 / B
-columns whose windows are the periodic shifted rows of the source, the
-driven row read from an accel-adjusted row that the step before wrote
-once (see the note at the top of csrc/blocked.cu).
+ping-ponging between two device copies of the float32 state on the
+two-copy neighbour-wait machinery of K2 (csrc/two_copy.cuh): each step is
+walked as warp tiles of B rows x 32 columns, a lane walking its column's B
+rows in row order, so each (row block, column) partial of B4's |u|
+grouping comes out of one register (on small grids a tile's rows are split
+over 2, 4 or 8 warps of a block, whose |u| warp 0 adds in row order from
+shared memory after the group's own barrier); a tile
+waits only for the 3 x 3 tiles around it on their step counters, and warps
+of their own sum the partials over the row blocks (see the note at the top
+of csrc/blocked.cu).
 
 On the TPU this was the ping-pong fallback of a raised scoped-VMEM limit
 (``auto_raised_plan`` :165-169), which the in-place band dominated.  Here it
@@ -15,7 +20,8 @@ is forced only (``LBM_RESIDENT_KIND=blocked``, models/program.py): both
 copies stay in L2 up to 768^2 and stream from HBM beyond.
 
 Bound: 9 x 4 B read + 9 x 4 B written per cell-step, from L2 or HBM, plus
-one grid barrier per step and the (ny / B, nx) column partials.
+each step's wait for the neighbouring tiles and the (ny / B, nx) column
+partials.
 
 Beside the kernel:
 
@@ -47,6 +53,26 @@ DEFAULT_CHUNK = 256
 # grid of K10's main path, and 6.43 / 6.62 at 512^2; B = 4 and 32 were slower.
 DEFAULT_BLOCK_ROWS = 16
 
+# The kernel's step counters (csrc/blocked.cu): one per tile of B rows x
+# TILE_COLUMNS columns and one per column pass of as many columns,
+# COUNTER_WORDS apart (one 128-byte line each); its column partials: a ring
+# of PART_SLOTS slots.
+TILE_COLUMNS = 32
+COUNTER_WORDS = 32
+PART_SLOTS = 4
+
+
+def tiles(ny: int, nx: int, block_rows: int) -> tuple[int, int]:
+    """(row blocks, column tiles) of the kernel's walk."""
+    return -(-ny // block_rows), -(-nx // TILE_COLUMNS)
+
+
+def sync_words(ny: int, nx: int, block_rows: int) -> int:
+    """32-bit words of the kernel's step counters: one line per tile and
+    per column pass."""
+    nby, nbw = tiles(ny, nx, block_rows)
+    return (nby * nbw + nbw) * COUNTER_WORDS
+
 
 def check_storage(storage: str) -> None:
     """K10 takes float32 state only, as B4 (``lbm_tpu``'s text,
@@ -71,15 +97,17 @@ def make_run_all(
     chunk: int = DEFAULT_CHUNK,
     block_rows: int = DEFAULT_BLOCK_ROWS,
     storage: str = "f32",
+    lib=None,
 ):
     """Build ``f0 -> (f_final, tot_us (num_steps,))`` as full chunks, then a
     remainder chunk, each one K10 launch (the signature of
     ``lbm_tpu.ops.resident_pallas.make_run_all(..., force_blocked=True)``).
 
-    Both state copies, the driven-row scratch, the partials and the column
-    sums are allocated here, once.  ``f0`` is not modified.  On the card the
-    returned state is one of the runner's copies and stays valid until the
-    runner's next call."""
+    Both state copies, the step counters (zeroed before each launch), the
+    ring of column partials and the column sums are allocated here, once.
+    ``f0`` is not modified.  On the card the returned state is one of the
+    runner's copies and stays valid until the runner's next call.  ``lib``
+    as in ``inplace_cuda.make_run_all``."""
     check_storage(storage)
     if block_rows < 1 or 256 % block_rows:
         raise ValueError(f"block_rows must divide 256, got {block_rows}")
@@ -101,7 +129,7 @@ def make_run_all(
         return run_all_plain
 
     fused_cuda.check_mask(obstacles, params)
-    lib = _build.load()
+    lib = lib or _build.load()
     dev = obstacles.device
     grid = lib.lbm_blocked_grid(params.ny, params.nx, block_rows, dev.index)
     if grid <= 0:
@@ -111,9 +139,13 @@ def make_run_all(
     shape = (9, params.ny, params.nx)
     fa = torch.empty(shape, dtype=torch.float32, device=dev)
     fb = torch.empty(shape, dtype=torch.float32, device=dev)
-    adj = torch.zeros((2, 9, params.nx), dtype=torch.float32, device=dev)
     nby = -(-params.ny // block_rows)
-    part = torch.empty((2, nby, params.nx), dtype=torch.float32, device=dev)
+    # The step counters, as 32-bit words (at least the (2, 9, nx) float
+    # scratch row of the earlier K10, which takes this buffer in their place
+    # when it is timed through this runner in turns).
+    sync = torch.zeros(max(sync_words(params.ny, params.nx, block_rows), 18 * params.nx),
+                       dtype=torch.int32, device=dev)
+    part = torch.empty((PART_SLOTS, nby, params.nx), dtype=torch.float32, device=dev)
     colsum = torch.empty((chunk, params.nx), dtype=torch.float32, device=dev)
     omega, w1, w2 = fused_torch.step_constants(params)
 
@@ -128,8 +160,9 @@ def make_run_all(
         src, dst, done = fa, fb, 0
         stream = torch.cuda.current_stream(dev).cuda_stream
         for n in chunks:
+            sync.zero_()
             rc = lib.lbm_blocked_chunk(
-                src.data_ptr(), dst.data_ptr(), obstacles.data_ptr(), adj.data_ptr(),
+                src.data_ptr(), dst.data_ptr(), obstacles.data_ptr(), sync.data_ptr(),
                 part.data_ptr(), colsum.data_ptr(), tot.data_ptr() + 4 * done, params.ny,
                 params.nx, params.accel_row, omega, w1, w2, n, block_rows, grid, stream,
                 dev.index,

@@ -10,8 +10,11 @@ it: K4-slab (ops/temporal_cuda.py), and the two here.
 - **K7** replaces ``lbm_tpu/ops/resident_pallas.py::_ca_ext_kernel``
   (:1192, entry ``make_ca_chunk_runner`` :1241), f32: one cooperative
   launch per sweep, the extended slab ping-ponging between two scratch
-  copies in the card's 50 MB L2 with a grid barrier per step (K2's and
-  K6's structure).  Maps where the two copies fit
+  copies in the card's 50 MB L2 on K2's and K6's two-copy machinery
+  (csrc/two_copy.cuh): each step's rows split evenly over the blocks afresh
+  (:func:`resident_plan`, K8's per-step plan with bands aligned to 32
+  cells), a block's next step waiting only for the blocks within one row of
+  its cells.  Maps where the two copies fit
   ``resident_cuda.L2_STATE_BUDGET`` (:func:`supports_resident`).
 - **K8** (f32) and **K8-i16** replace ``_ca_inplace_kernel`` (:1643, body
   ``_inplace_slab_sweep`` :1474, entry ``make_ca_inplace_runner`` :1676):
@@ -25,8 +28,8 @@ it: K4-slab (ops/temporal_cuda.py), and the two here.
   rows; the launches add their |u| into the shard's sums in part order.
 
 Bound: 9 x 4 B (int16: 2 B) read + written per cell-step of the extended
-slab, from L2 while it fits, plus one grid barrier per step (see the notes
-at the top of the two sources).
+slab, from L2 while it fits, plus each step's wait for the neighbouring
+blocks (see the notes at the top of the two sources).
 
 Beside the kernels:
 
@@ -110,6 +113,24 @@ def sweep_plan(ext: int, nx: int, K: int, grid: int) -> list:
     return inplace_cuda.band_plan([(t + 1, ext - t - 1) for t in range(K)], nx, grid)
 
 
+def resident_grid(card_grid: int, n: int, nx: int) -> int:
+    """K7's blocks: the card's cooperative grid for the extended slab
+    (``lbm_ca_resident_grid``: one block per 256 cells at most, no more than
+    are resident), capped so that the last and smallest step, the n x nx
+    body, still gives every block at least ``resident_cuda.BAND_ALIGN``
+    cells (:func:`resident_plan` can then split every step); at least one."""
+    return max(1, min(card_grid, n * nx // resident_cuda.BAND_ALIGN))
+
+
+def resident_plan(ext: int, nx: int, K: int, grid: int) -> list:
+    """K7's band plan: K8's (:func:`sweep_plan`, step t over the rows still
+    exact, [t + 1, ext - t - 1), split evenly over the grid afresh) with
+    bands aligned to ``resident_cuda.BAND_ALIGN`` cells, as K2 and K6 take
+    them."""
+    return inplace_cuda.band_plan([(t + 1, ext - t - 1) for t in range(K)], nx, grid,
+                                  align=resident_cuda.BAND_ALIGN)
+
+
 def driven_ext_row(accel_row: int, row_offset: int, K: int, n: int, ny_global: int) -> int:
     """The extended row e of the driven row in the slab of a body of n rows
     at ``row_offset`` (global row ``(row_offset - K + e) mod ny_global``),
@@ -129,14 +150,17 @@ def sweep_plain(lo: torch.Tensor, body: torch.Tensor, hi: torch.Tensor, obst_ext
 
 def bind_resident(params: LBMParams, lo: torch.Tensor, body: torch.Tensor, hi: torch.Tensor,
                   obst_ext: torch.Tensor, out: torch.Tensor, tots: torch.Tensor,
-                  row_offset: int, ny_global: int):
+                  row_offset: int, ny_global: int, lib=None):
     """Bind one K7 sweep to fixed buffers: returns ``launch(t0)``, which
     advances ``body`` (9, n, nx) K = ``lo.shape[1]`` steps, with the ghost
     rows ``lo`` / ``hi`` (9, K, nx), into ``out``, and writes the K
     per-level sums into ``tots[t0 : t0 + K]``; arguments as
-    ``temporal_cuda.bind_slab_sweep``, f32 only.  On CPU tensors ``launch``
-    runs the plain version; on CUDA tensors it launches the kernel or
-    raises."""
+    ``temporal_cuda.bind_slab_sweep``, f32 only.  The two scratch copies
+    and the partials (the blocks' step counters, :func:`resident_plan` and
+    K x blocks sums: ``resident_cuda.partials_buffer``) are allocated here,
+    once.  ``lib`` as in ``inplace_cuda.make_run_all``.  On CPU tensors
+    ``launch`` runs the plain version; on CUDA tensors it launches the
+    kernel or raises."""
     n, nx, K = check_ext_args(lo, body, hi, obst_ext, out, tots, torch.float32)
     if not supports_resident(n, nx, K):
         raise ValueError(f"K7 (K={K}) cannot map a {n}x{nx} shard: two copies of its "
@@ -146,15 +170,16 @@ def bind_resident(params: LBMParams, lo: torch.Tensor, body: torch.Tensor, hi: t
             lambda lo_, b, hi_, ob: sweep_plain(lo_, b, hi_, ob, params, row_offset, ny_global),
             lo, body, hi, obst_ext, out, tots)
 
-    lib = _build.load()
+    lib = lib or _build.load()
     dev = body.device
     ext = n + 2 * K
-    grid = lib.lbm_ca_resident_grid(ext, nx, dev.index)
-    if grid <= 0:
+    card_grid = lib.lbm_ca_resident_grid(ext, nx, dev.index)
+    if card_grid <= 0:
         raise RuntimeError(
             f"K7 cannot be launched cooperatively on {torch.cuda.get_device_name(dev)}")
+    grid = resident_grid(card_grid, n, nx)
     scratch = torch.empty((2, 9, ext, nx), dtype=torch.float32, device=dev)
-    partials = torch.empty((K, grid), dtype=torch.float32, device=dev)
+    partials = resident_cuda.partials_buffer(resident_plan(ext, nx, K, grid), K, dev)
     omega, w1, w2 = fused_torch.step_constants(params)
     head = (lo.data_ptr(), lo.stride(0), body.data_ptr(), body.stride(0), hi.data_ptr(),
             hi.stride(0), scratch[0].data_ptr(), scratch[1].data_ptr(), obst_ext.data_ptr(),
@@ -242,12 +267,13 @@ def bind_sweep(engine: str, params: LBMParams, lo: torch.Tensor, body: torch.Ten
     in-place engine over ``parts`` sub-slabs, whose inner ghosts are
     windows of the neighbouring sub-slabs' rows of ``body`` and whose |u|
     adds up in part order (``make_ca_inplace_runner``'s split, :1719-1767).
-    ``lib`` (slab and in-place engines) as in ``inplace_cuda.make_run_all``."""
+    ``lib`` as in ``inplace_cuda.make_run_all``."""
     if engine == "slab":
         return [temporal_cuda.bind_slab_sweep(params, lo, body, hi, obst_ext, out, tots,
                                               row_offset, ny_global, storage, lib=lib)]
     if engine == "resident":
-        return [bind_resident(params, lo, body, hi, obst_ext, out, tots, row_offset, ny_global)]
+        return [bind_resident(params, lo, body, hi, obst_ext, out, tots, row_offset, ny_global,
+                              lib=lib)]
     K, sub = lo.shape[1], body.shape[1] // parts
     return [bind_inplace(params, lo if i == 0 else body[:, i * sub - K:i * sub],
                          body[:, i * sub:(i + 1) * sub],

@@ -121,29 +121,31 @@ def ca_depth(staleness: int) -> int:
     return max(2, staleness)
 
 
-# The deeper ca depth of shards that K8 sweeps unsplit.
+# The deeper ca depth of shards that K7 or K8 sweeps unsplit.
 CA_DEEP_K = 8
 
 
 def ca_default_staleness(params: LBMParams, obstacles: np.ndarray, num_shards: int,
                          storage: str = "f32") -> int:
     """The ca depth a run takes without ``--staleness`` (``lbm_tpu``'s
-    :56): :data:`CA_DEEP_K` = 8 where the engine ca takes at K = 8 is K8
-    unsplit (the shard's extended slab fits L2), else
+    :56): :data:`CA_DEEP_K` = 8 where the engine ca takes at K = 8 is K7 or
+    K8 unsplit (the shard's extended slab fits L2), else
     ``STALENESS_DEFAULTS["ca"]`` = 4.
 
     From the ca engines timed in turns on an NVIDIA H100 80GB HBM3 at 700 W
-    (PERF.md, Findings; ``tools/kernel_times.py --ca``): K8 at K = 8 against K = 4, 4.145
-    against 4.322 us/step on a 64x1024 shard and 7.900 against 8.017 on
-    256x1024 (int16 8.462 against 8.410), and a deeper sweep halves the
-    exchanges, the host's share of a step; K4-slab, which takes the shards
-    K8 cannot hold, ran K = 4 faster (1024x4096: 92.4 against 120.2).
-    ``lbm_tpu``'s K = 8 from 96 rows is a TPU measurement."""
+    (PERF.md, Findings; ``tools/kernel_times.py --ca``): K = 8 against K = 4,
+    K7 3.501 against 4.084 us/step on a 64x1024 shard and 6.450 against
+    7.202 on 256x1024 (the redesigned K7); K8 4.145 against 4.322 and
+    7.900 against 8.017 (int16 8.462 against 8.410); and a deeper sweep
+    halves the exchanges, the host's share of a step; K4-slab, which takes
+    the shards K7 and K8 cannot hold, ran K = 4 faster (1024x4096: 92.4
+    against 120.2).  ``lbm_tpu``'s K = 8 from 96 rows is a TPU measurement."""
     ny = obstacles.shape[0]
     ny_pad = ny + (-ny) % num_shards
-    if (ca_engine_of(params, obstacles, num_shards, CA_DEEP_K, storage) == "inplace"
-            and ca_cuda.inplace_parts(ny_pad // num_shards, obstacles.shape[1], CA_DEEP_K,
-                                      ny_pad, storage) == 1):
+    engine = ca_engine_of(params, obstacles, num_shards, CA_DEEP_K, storage)
+    if engine == "resident" or (
+            engine == "inplace" and ca_cuda.inplace_parts(
+                ny_pad // num_shards, obstacles.shape[1], CA_DEEP_K, ny_pad, storage) == 1):
         return CA_DEEP_K
     return STALENESS_DEFAULTS["ca"]
 
@@ -164,16 +166,18 @@ def ca_engine_choice(params: LBMParams, nloc: int, nx: int, K: int, *, storage: 
     700 W (PERF.md, Findings; ``lbm_tpu``'s table, :269-281, is a TPU
     measurement):
 
-    - f32: K8 where the whole shard's extended slab fits L2 (64x1024 K=8:
-      4.145 us/step against K4-slab 5.175 and K7 4.536; 256x1024 K=8: 7.900
-      against 9.475 and 8.664), else K4-slab (1024x4096 K=4: 92.4 against
-      K8 split into 8 sub-slabs 128.7), else K8 split, else K7;
+    - f32: where the whole shard's extended slab fits L2 for K8, K7 where
+      its two copies fit too (the redesigned K7, at K=8, median of
+      7 rounds x 5 placements: 64x1024 3.501 us/step against K8 3.886 and
+      K4-slab 6.065; 256x1024 6.450 against K8 6.769 and K4-slab 11.255;
+      golden ca-8 over 4 shards 33.2-33.4k MLUPS on K7 against 30.6-30.9k
+      on K8, byte-identical), else K8; else K4-slab (1024x4096 K=4: 92.4
+      against K8 split into 8 sub-slabs 128.7), else K8 split, else K7;
     - int16: K8-i16 wherever it maps, split or not, else K4-slab-i16.  It
       quantizes every step, as the single-device default does (int16 is not
       swept by default, ``temporal_cuda.pick_k``), so ca-i16 equals sync-i16
       bitwise; it was also the faster where it fits (256x1024 K=4: 8.410
-      against 8.881), not on 1024x4096 (116.5 split in 4 against 96.2).
-    K7 won no shard timed: it runs only when forced."""
+      against 8.881), not on 1024x4096 (116.5 split in 4 against 96.2)."""
     if _BACKENDS.get(backend) != "cuda":
         return None
     ny_global = params.ny if ny_global is None else ny_global
@@ -188,7 +192,7 @@ def ca_engine_choice(params: LBMParams, nloc: int, nx: int, K: int, *, storage: 
     if storage == "i16":
         order = ("inplace", "slab")
     elif ca_cuda.inplace_parts(nloc, nx, K, ny_global, storage) == 1:
-        order = ("inplace",)
+        order = ("resident", "inplace")
     else:
         order = ("slab", "inplace", "resident")
     return next((e for e in order if ok[e]), None)

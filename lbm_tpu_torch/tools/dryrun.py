@@ -13,8 +13,10 @@ relations ``lbm_tpu`` asserts:
   sync-i16 within ``ulp``;
 - ca (:242-351): each engine forced (``LBM_CA_ENGINE`` slab, resident,
   inplace) at K = 2 and 4 equals sync on the cuda backend within ``ulp``
-  (tot_u rtol 1e-4), and auto takes the in-place engine on these 8-row
-  shards; on a box of 16*P rows the in-place engine split in two
+  (tot_u rtol 1e-4), and auto takes the port's policy engine on these
+  8-row shards, K7 (``modes.ca_engine_choice``: where K8 would take the
+  whole shard and K7's two copies fit too; ``lbm_tpu``'s auto takes its
+  in-place engine there); on a box of 16*P rows the in-place engine split in two
   (``LBM_CA_PARTS=2``) equals sync within ``ulp``, and its runner (lbm_tpu's
   parts-carried hook) equals its per-step split bitwise; ca-i16 through the
   slab and the in-place engines stays within 1e-4 of the f32 run;
@@ -188,8 +190,8 @@ def dryrun(n_devices: int, device: str = "cuda", ulp: float = 0.0) -> list[str]:
             report("ca", K, "f32", f"== sync (exact comm-avoiding, {engine} engine)",
                    float(np.abs(f_ca - f_syc).max()))
     auto = build("ca", 4).engine
-    assert auto == "inplace", f"auto ca engine on 8x128 shards: {auto}"
-    report("ca", 4, "f32", "auto takes the in-place engine on 8-row shards", 0.0)
+    assert auto == "resident", f"auto ca engine on 8x128 shards: {auto}"
+    report("ca", 4, "f32", "auto takes the resident engine (K7) on 8-row shards", 0.0)
 
     # The in-place engine split into sub-slabs, on 16-row shards.
     scene_p = toy_scene(16 * n_devices, 128, STEPS)

@@ -48,7 +48,8 @@ K4 in ``--sweeps`` (K5 left out there; on the package's
 regions, ``temporal_cuda.tile``, or on the region RHxRW at every depth) and
 K4-slab in ``--ca``; ``inplace.cu`` K3 and K3-i16 in ``--grids``,
 ``--sweeps`` and ``--policy``; ``ca_inplace.cu`` K8 and K8-i16 in ``--ca``
-and K9 in ``--hbm``.
+and K9 in ``--hbm``; ``ca_resident.cu`` K7 in ``--ca``; ``blocked.cu`` K10
+at each height of ``--blocked-rows`` in ``--blocked``.
 ``--k4-regions 48x64,...`` times K4 and K4-slab on compiled regions other
 than the table's at each depth (``K4[48x64] K=4``), the same way.
 
@@ -60,8 +61,9 @@ the tier the L2-resident kernels' tier bounds divide by.
 
 ``--policy`` times, in turns, K2 against K3 at 128^2, 256^2, 512^2 and
 768^2 and K1-i16 against K3-i16 at 512^2, 768^2 and 1024^2: the questions
-behind the program's L2 budgets; ``--placements N`` times each pair on N
-placements of its buffers, the rounds pooled (a small grid's time moves
+behind the program's L2 budgets; ``--placements N`` times each pair (and
+the kernels of ``--ca`` and ``--blocked``) on N placements of its buffers,
+the rounds pooled (a small grid's time moves
 with where its buffers land).
 
 Prints microseconds per step (median and quartiles), MLUPS, and the
@@ -584,8 +586,8 @@ def torch_from(a, device):
 
 
 def time_ca(nloc: int, nx: int, device, depths=(4, 8), parts=(1, 2, 4, 8, 16), repeats: int = 5,
-            storages=("f32", "i16"), variants=None,
-            regions=()) -> dict[str, tuple[float, float, float]]:
+            storages=("f32", "i16"), variants=None, regions=(),
+            placements: int = 1) -> dict[str, tuple[float, float, float]]:
     """us/step (median, q1, q3) of the ca engines on the last of 4 row
     shards of nloc x nx (see :func:`ca_shard`): ``K4-slab K=4``,
     ``K7 K=4``, ``K8 K=4`` (``K8 K=4 parts=2`` split), ``-i16`` appended for
@@ -596,8 +598,10 @@ def time_ca(nloc: int, nx: int, device, depths=(4, 8), parts=(1, 2, 4, 8, 16), r
     ``variants`` (:func:`load_variants`) the K4-slab of each variant that
     replaces ``temporal.cu`` (``K4-slab@NAME K=4``) and the K8 of each that
     replaces ``ca_inplace.cu`` (``K8@NAME K=4``, whole or split as K8) run
-    in the same turns, and with ``regions`` K4-slab on each of them
-    (``K4-slab[48x64] K=4``)."""
+    in the same turns, as does the K7 of each that replaces
+    ``ca_resident.cu`` (``K7@NAME K=4``), and with ``regions`` K4-slab on
+    each of them (``K4-slab[48x64] K=4``).  The turns run on ``placements``
+    placements of the engines' buffers (:func:`time_placed`)."""
     import torch
 
     from lbm_tpu_torch.ops import ca_cuda, fused_torch, temporal_cuda
@@ -616,6 +620,8 @@ def time_ca(nloc: int, nx: int, device, depths=(4, 8), parts=(1, 2, 4, 8, 16), r
                 engines.append(("K4-slab", "slab", 1))
             if storage == "f32" and ca_cuda.supports_resident(nloc, nx, K):
                 engines.append(("K7", "resident", 1))
+                engines += [(f"K7@{v}", ("resident", v), 1)
+                            for v in replacing(variants, "ca_resident.cu")]
             least = ca_cuda.inplace_parts(nloc, nx, K, ny, storage)
             k8_variants = replacing(variants, "ca_inplace.cu")
             for n in parts:
@@ -626,41 +632,56 @@ def time_ca(nloc: int, nx: int, device, depths=(4, 8), parts=(1, 2, 4, 8, 16), r
                 engines += [(f"K4-slab@{v}", v, 1) for v in replacing(variants, "temporal.cu")]
                 engines += [(f"K4-slab[{rh}x{rw}]", (rh, rw), 1) for rh, rw in regions
                             if min(rh, rw) > 2 * K]
-            runs = {}
-            for name, engine, n in engines:
-                if isinstance(engine, tuple) and engine[0] == "inplace":
-                    lib = variants[engine[1]].lib
-                    fwd, bwd = (ca_cuda.bind_sweep("inplace", p, lo, x, hi, ob, y, tots, off, ny,
-                                                   storage, n, lib=lib)
-                                for x, y in ((a, b), (b, a)))
-                elif engine in (variants or {}) or isinstance(engine, tuple):
-                    lib, tile = ((variants[engine].lib, variants[engine].tile)
-                                 if engine in (variants or {}) else
-                                 (None, lambda K, e=engine: (e[0] - 2 * K, e[1] - 2 * K)))
-                    fwd, bwd = ([temporal_cuda.bind_slab_sweep(
-                        p, lo, x, hi, ob, y, tots, off, ny, storage, tile(K), lib)]
-                        for x, y in ((a, b), (b, a)))
-                else:
-                    fwd = ca_cuda.bind_sweep(engine, p, lo, a, hi, ob, b, tots, off, ny,
-                                             storage, n)
-                    bwd = ca_cuda.bind_sweep(engine, p, lo, b, hi, ob, a, tots, off, ny,
-                                             storage, n)
 
-                def run(_, fwd=fwd, bwd=bwd, K=K):
-                    for t in range(0, steps, 2 * K):
-                        for launch in fwd:
-                            launch(t)
-                        for launch in bwd:
-                            launch(t + K)
+            def make_runs(engines=engines, p=p, lo=lo, a=a, b=b, hi=hi, ob=ob, off=off, ny=ny,
+                          tots=tots, steps=steps, K=K, storage=storage, sfx=sfx):
+                return {name: run for name, run in _ca_runs(
+                    engines, variants, p, lo, a, b, hi, ob, off, ny, tots, steps, K, storage,
+                    sfx)}
 
-                runs[f"{name}{sfx} K={K}" + (f" parts={n}" if n > 1 else "")] = (run, None, steps)
-            out.update(time_in_turns(runs, repeats))
+            out.update(time_placed(make_runs, repeats, placements))
             med, q1, q3 = _quartiles(_timed_ms(
                 lambda: fused_torch.ca_sweep(lo, a, hi, ob, p, off, ny, storage,
                                              "sweep" if storage == "f32" else "step"),
                 min(repeats, 3)))
             out[f"plain{sfx} K={K}"] = (med * 1e3 / K, q1 * 1e3 / K, q3 * 1e3 / K)
     return out
+
+
+def _ca_runs(engines, variants, p, lo, a, b, hi, ob, off, ny, tots, steps, K, storage, sfx):
+    """The runs of :func:`time_ca`'s turns for one storage and depth: each
+    engine's binding of both directions (a -> b, b -> a), as (name, (run,
+    None, steps))."""
+    from lbm_tpu_torch.ops import ca_cuda, temporal_cuda
+
+    for name, engine, n in engines:
+        if isinstance(engine, tuple) and engine[0] in ("inplace", "resident"):
+            lib = variants[engine[1]].lib
+            fwd, bwd = (ca_cuda.bind_sweep(engine[0], p, lo, x, hi, ob, y, tots, off,
+                                           ny, storage, n, lib=lib)
+                        for x, y in ((a, b), (b, a)))
+        elif engine in (variants or {}) or isinstance(engine, tuple):
+            lib, tile = ((variants[engine].lib, variants[engine].tile)
+                         if engine in (variants or {}) else
+                         (None, lambda K, e=engine: (e[0] - 2 * K, e[1] - 2 * K)))
+            fwd, bwd = ([temporal_cuda.bind_slab_sweep(
+                p, lo, x, hi, ob, y, tots, off, ny, storage, tile(K), lib)]
+                for x, y in ((a, b), (b, a)))
+        else:
+            fwd = ca_cuda.bind_sweep(engine, p, lo, a, hi, ob, b, tots, off, ny,
+                                     storage, n)
+            bwd = ca_cuda.bind_sweep(engine, p, lo, b, hi, ob, a, tots, off, ny,
+                                     storage, n)
+
+        def run(_, fwd=fwd, bwd=bwd, K=K):
+            for t in range(0, steps, 2 * K):
+                for launch in fwd:
+                    launch(t)
+                for launch in bwd:
+                    launch(t + K)
+
+        yield (f"{name}{sfx} K={K}" + (f" parts={n}" if n > 1 else ""),
+               (run, None, steps))
 
 
 def time_hbm(n: int, device, depths=(4, 8), repeats: int = 5,
@@ -692,12 +713,17 @@ def time_hbm(n: int, device, depths=(4, 8), repeats: int = 5,
 
 
 def time_blocked(n: int, device, repeats: int = 7, block_rows=(8,),
-                 steps: int = 2048) -> dict[str, tuple[float, float, float]]:
+                 steps: int = 2048, variants=None,
+                 placements: int = 1) -> dict[str, tuple[float, float, float]]:
     """us/step (median, q1, q3) of K10 (256-step launches, each row-block
     height of ``block_rows``: ``K10 B=8``, ...) in turns with the kernel
     the policy would otherwise give the grid: K2 where two copies fit its
     L2 budget (to 768^2), else K3 and K4 at K = 4 (1024^2); then K10's plain
-    version (``plain K10``, 8 steps) on an n x n closed box from rest."""
+    version (``plain K10``, 8 steps) on an n x n closed box from rest.
+    With ``variants`` (:func:`load_variants`) the K10 of each that replaces
+    ``blocked.cu`` (``K10@NAME B=8``) at each height runs in the same
+    turns, on ``placements`` placements of the runners' buffers
+    (:func:`time_placed`)."""
     import torch
 
     from lbm_tpu_torch.core import lattice
@@ -708,17 +734,25 @@ def time_blocked(n: int, device, repeats: int = 7, block_rows=(8,),
     p = scene.params
     obst = torch.from_numpy(scene.obstacles).to(device)
     f0 = lattice.equilibrium_rest_device(p.density, n, n, device)
-    runs = {f"K10 B={b}": (blocked_cuda.make_run_all(p, obst, steps, block_rows=b), f0, steps)
-            for b in block_rows}
-    if resident_cuda.fits_l2(n, n):
-        runs["K2"] = (resident_cuda.make_run_all(p, obst, steps), f0, steps)
-    else:
-        if inplace_cuda.fits_l2(n, n):
-            runs["K3"] = (inplace_cuda.make_run_all(p, obst, steps), f0, steps)
-        if temporal_cuda.supports(p, 4):
-            runs["K4 K=4"] = (temporal_cuda.make_run_all(p, obst, steps, 4), f0, steps)
-    out = time_in_turns(runs, repeats)
-    del runs
+
+    def make_runs():
+        runs = {}
+        for b in block_rows:
+            runs[f"K10 B={b}"] = (blocked_cuda.make_run_all(p, obst, steps, block_rows=b), f0,
+                                  steps)
+            for vname, v in replacing(variants, "blocked.cu").items():
+                runs[f"K10@{vname} B={b}"] = (
+                    blocked_cuda.make_run_all(p, obst, steps, block_rows=b, lib=v.lib), f0, steps)
+        if resident_cuda.fits_l2(n, n):
+            runs["K2"] = (resident_cuda.make_run_all(p, obst, steps), f0, steps)
+        else:
+            if inplace_cuda.fits_l2(n, n):
+                runs["K3"] = (inplace_cuda.make_run_all(p, obst, steps), f0, steps)
+            if temporal_cuda.supports(p, 4):
+                runs["K4 K=4"] = (temporal_cuda.make_run_all(p, obst, steps, 4), f0, steps)
+        return runs
+
+    out = time_placed(make_runs, repeats, placements)
     plain_steps = 8
     med, q1, q3 = _quartiles(_timed_ms(
         lambda: blocked_cuda.run_plain(f0, obst, p, plain_steps), min(repeats, 3)))
@@ -825,15 +859,16 @@ def main(argv: list[str] | None = None) -> int:
                         help="time the L2 copy kernel at K8's and K3's working sets")
     parser.add_argument("--variant", action="append", default=[],
                         help="NAME=PATH[+PATH...]: time the kernels of other versions of "
-                        "step.cu, resident.cu, ghosted.cu, temporal.cu, inplace.cu or "
-                        "ca_inplace.cu in turns with the package's own")
+                        "step.cu, resident.cu, ghosted.cu, temporal.cu, inplace.cu, "
+                        "ca_inplace.cu, ca_resident.cu or blocked.cu in turns with the "
+                        "package's own")
     parser.add_argument("--k4-regions", default="",
                         help="compiled regions of K4 and K4-slab to time beside the table's, "
                         "e.g. 48x64")
     parser.add_argument("--repeats", type=int, default=7)
     parser.add_argument("--placements", type=int, default=1,
-                        help="--policy: time each pair on this many placements of its buffers, "
-                        "the rounds pooled")
+                        help="--policy, --ca and --blocked: time the kernels on this many "
+                        "placements of their buffers, the rounds pooled")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("Error: no CUDA device", file=sys.stderr)
@@ -862,13 +897,16 @@ def main(argv: list[str] | None = None) -> int:
     for shard in (s for s in args.ca.split(",") if s):
         nloc, nx = (int(v) for v in shard.split("x"))
         print(format_ca(nloc, nx, time_ca(nloc, nx, device, ca_depths, ca_parts, args.repeats,
-                                          variants=variants, regions=regions)) + f" | {card}")
+                                          variants=variants, regions=regions,
+                                          placements=args.placements)) + f" | {card}")
     for n in (int(g) for g in args.hbm.split(",") if g):
         print(format_grid(n, time_hbm(n, device, ca_depths, args.repeats, variants))
               + f" | {card}")
     rows = tuple(int(b) for b in args.blocked_rows.split(","))
     for n in (int(g) for g in args.blocked.split(",") if g):
-        print("in turns " + format_grid(n, time_blocked(n, device, args.repeats, rows))
+        print("in turns " + format_grid(n, time_blocked(n, device, args.repeats, rows,
+                                                        variants=variants,
+                                                        placements=args.placements))
               + f" | {card}")
     if args.policy:
         for key, times in time_policy(device, args.repeats, variants,

@@ -281,9 +281,13 @@ def test_ca_policy_functions(monkeypatch):
     monkeypatch.delenv("LBM_CA_PARTS", raising=False)
     assert [modes.ca_depth(s) for s in (1, 2, 3, 8)] == [2, 2, 3, 8]
     p = _params(1024, 1024)
-    # Auto: K8 where the whole extended slab fits L2, else K4-slab (f32);
+    # Auto: where K8 would take the whole extended slab, K7 where its two
+    # copies fit too (measured on the card), else K8; else K4-slab (f32);
     # int16 K8-i16 wherever it maps, split or not.
-    assert modes.ca_engine_choice(p, 256, 1024, 4) == "inplace"
+    assert modes.ca_engine_choice(p, 256, 1024, 4) == "resident"
+    assert modes.ca_engine_choice(p, 256, 1024, 8) == "resident"
+    assert modes.ca_engine_choice(_params(3072, 1024), 768, 1024, 8) == "inplace"  # 2 copies > L2
+    assert modes.ca_engine_choice(p, 256, 1024, 8, storage="i16") == "inplace"
     big = _params(4096, 4096)
     assert modes.ca_engine_choice(big, 1024, 4096, 4) == "slab"
     assert modes.ca_engine_choice(big, 1024, 4096, 4, storage="i16") == "inplace"
@@ -319,12 +323,15 @@ def test_ca_policy_functions(monkeypatch):
     assert not modes.ca_supported(_params(40, 16), box, 4, 12)  # 10-row shards < K
     open_seam = np.zeros((41, 16), dtype=bool)
     assert not modes.ca_supported(_params(41, 16), open_seam, 4, 4)
-    # K = 8 where K8 sweeps the shard unsplit at K = 8, else 4.
+    # K = 8 where K7 or K8 sweeps the shard unsplit at K = 8, else 4.
     assert modes.ca_default_staleness(p, np.zeros((1024, 1024), bool), 4) == 8
+    assert modes.ca_default_staleness(_params(3072, 1024), np.zeros((3072, 1024), bool), 4) == 8
     assert modes.ca_default_staleness(big, np.zeros((4096, 4096), bool), 4) == 4
     assert modes.ca_default_staleness(_params(24, 16), box[:24], 4) == 4  # 6-row shards < 8
     monkeypatch.setenv("LBM_CA_ENGINE", "slab")
     assert modes.ca_default_staleness(p, np.zeros((1024, 1024), bool), 4) == 4
+    monkeypatch.setenv("LBM_CA_ENGINE", "resident")
+    assert modes.ca_default_staleness(p, np.zeros((1024, 1024), bool), 4) == 8
     monkeypatch.delenv("LBM_CA_ENGINE")
     with pytest.raises(ValueError, match="open-seam"):
         modes.build_sharded_program(_params(41, 16), open_seam, _mesh(4), "ca", 4)
@@ -450,6 +457,46 @@ def test_ca_kernel_matches_plain_on_card(cuda_device, kernel, K, shape):
             assert torch.equal(out, ref), (where, start,
                                            float((out.double() - ref.double()).abs().max()))
             torch.testing.assert_close(tots[1:], ref_tot, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [2, 3, 8])
+def test_k7_bands_shorter_than_a_row_on_card(cuda_device, K):
+    """K7 on an 8x2048 shard: its grid splits every step's rows into bands
+    shorter than a row (its plan checked so), the driven row in the body,
+    either ghost region and none: fields equal the plain sweep, tot_u
+    within rtol 1e-6."""
+    from lbm_tpu_torch.ops import _build
+
+    n, nx = 8, 2048
+    ext = n + 2 * K
+    grid = ca_cuda.resident_grid(_build.load().lbm_ca_resident_grid(ext, nx, cuda_device.index),
+                                 n, nx)
+    plan = ca_cuda.resident_plan(ext, nx, K, grid)
+    assert all(max(e - s for s, e, _, _ in step) < nx for step in plan)
+    for where in ("body", "lo", "hi", "none"):
+        p, lo, body, hi, ob, off = _card_slab(n, nx, K, where, "mixed", cuda_device, "f32")
+        out = torch.zeros_like(body)
+        tots = torch.zeros(K, dtype=torch.float32, device=cuda_device)
+        ca_cuda.bind_resident(p, lo, body, hi, ob, out, tots, off, p.ny)(0)
+        ref, ref_tot = ca_cuda.sweep_plain(lo, body, hi, ob, p, off, p.ny)
+        assert torch.equal(out, ref), where
+        torch.testing.assert_close(tots, ref_tot, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_k7_repeats_bitwise_on_card(cuda_device):
+    """Two K7 launches of one binding from the same shard give the same
+    body and per-level sums, bit for bit (the step counters run on from
+    launch to launch)."""
+    p, lo, body, hi, ob, off = _card_slab(40, 256, 8, "body", "mixed", cuda_device, "f32")
+    out = torch.zeros_like(body)
+    tots = torch.zeros(16, dtype=torch.float32, device=cuda_device)
+    launch = ca_cuda.bind_resident(p, lo, body, hi, ob, out, tots, off, p.ny)
+    launch(0)
+    first = out.clone()
+    launch(8)
+    assert torch.equal(out, first) and torch.equal(tots[:8], tots[8:])
 
 
 @pytest.mark.cuda

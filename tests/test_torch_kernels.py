@@ -403,6 +403,20 @@ def test_kernel_times_variants_and_l2_tiers():
         {lb: {"barrier": r["barrier"], "free": r["barrier"]} for lb, r in rates.items()})
 
 
+def test_kernel_times_two_copy_variants():
+    """A variant of ``ca_resident.cu`` (K7) or ``blocked.cu`` (K10) is timed
+    as theirs, and one of ``two_copy.cuh`` reaches K2, K6, K7 and K10 (every
+    source that includes it), not K3 or K8."""
+    v = {n: kernel_times.Variant(None, None, frozenset(f)) for n, f in (
+        ("k7", {"ca_resident.cu"}), ("k10", {"blocked.cu"}), ("two", {"two_copy.cuh"}))}
+    assert set(kernel_times.replacing(v, "ca_resident.cu")) == {"k7", "two"}
+    assert set(kernel_times.replacing(v, "blocked.cu")) == {"k10", "two"}
+    for source in ("resident.cu", "ghosted.cu"):
+        assert set(kernel_times.replacing(v, source)) == {"two"}
+    for source in ("inplace.cu", "ca_inplace.cu"):
+        assert not kernel_times.replacing(v, source)
+
+
 def test_kernel_times_report(monkeypatch, capsys):
     line = kernel_times.format_grid(128, {"K1": (2.0, 1.5, 2.5), "twin": (100.0, 90.0, 110.0)})
     assert line == ("128^2: K1 2.000 us/step [1.500, 2.500] 8192 MLUPS 598 GB/s | "

@@ -347,7 +347,7 @@ def test_variants_and_ca():
     assert resolve_variant("ca") == "ca"
     p, m = _params(16, 16), _box(16, 16)
     prog = modes.build_sharded_program(p, m, _mesh(2), "ca", 4)
-    assert (prog.variant, prog.steps_per_call, prog.engine) == ("ca-4", 4, "inplace")
+    assert (prog.variant, prog.steps_per_call, prog.engine) == ("ca-4", 4, "resident")
 
 
 def test_auto_picks_lbm_tpu_rule_or_refuses_ca():

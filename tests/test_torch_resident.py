@@ -1,7 +1,8 @@
 """The work map of the two-copy resident kernels, K2 (csrc/resident.cu, a
-periodic grid) and K6 (csrc/ghosted.cu, a shard between two frozen ghost
-rows), on the CPU: the host band plan they run on
-(``resident_cuda.grid_plan`` and ``ghosted_cuda.shard_plan``, both
+periodic grid), K6 (csrc/ghosted.cu, a shard between two frozen ghost
+rows) and K7 (csrc/ca_resident.cu, a ca shard's ghost-extended slab), on
+the CPU: the host band plan they run on (``resident_cuda.grid_plan``,
+``ghosted_cuda.shard_plan`` and ``ca_cuda.resident_plan``, all
 ``inplace_cuda.band_plan``) and the partials buffer their wrappers build.
 
 Two copies add a hazard to K3's in-place one: at step t + 1 a block
@@ -10,16 +11,18 @@ well as reading what they wrote (read after write).  The kernels wait on
 one dependency set for both (csrc/two_copy.cuh); these tests hold the plan
 to that: each block's waits cover every block whose cells lie within one
 row of its own, both ways, and every block the cells it reads or writes
-meet.  They also walk the cells as the kernel does (a band per block, two
-cells a thread per round, rows and columns from counters) and check that
-every cell is computed once per step, at its own row and column.
+meet, also where two steps split their rows differently (K7: step t
+computes the rows [t + 1, ext - t - 1)).  They also walk the cells as the
+kernel does (a band per block, two cells a thread per round, rows and
+columns from counters) and check that every cell is computed once per
+step, at its own row and column.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from lbm_tpu_torch.ops import ghosted_cuda, inplace_cuda, resident_cuda
+from lbm_tpu_torch.ops import ca_cuda, ghosted_cuda, inplace_cuda, resident_cuda
 
 THREADS, CELLS = 256, 2  # csrc/lbm_common.cuh kThreads, csrc/aa_inplace.cuh kCells
 
@@ -56,40 +59,75 @@ def _near(a, b, rows, periodic):
 
 def _check_plan(plan, rows, nx, grid, periodic):
     assert len(plan) == 1 and len(plan[0]) == grid
-    entries = plan[0]
-    # Every cell once per step: the bands tile the cells in block order,
-    # each inner end on a 32-cell line (resident_cuda.BAND_ALIGN).
-    assert entries[0][0] == 0 and entries[-1][1] == rows * nx
+    _check_split(plan[0], 0, rows, nx, grid)
+    _check_hazards(plan[0], plan[0], rows, nx, grid, periodic)
+
+
+def _check_split(entries, r0, r1, nx, grid, waits=True):
+    """Every cell of rows [r0, r1) once: the bands tile them in block
+    order, each inner end on a 32-cell line (resident_cuda.BAND_ALIGN);
+    each block waits on 1 to grid blocks (``waits``), or on none."""
+    assert len(entries) == grid
+    assert entries[0][0] == r0 * nx and entries[-1][1] == r1 * nx
     assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(entries, entries[1:]))
-    assert all(s % resident_cuda.BAND_ALIGN == 0 for s, _, _, _ in entries)
-    assert all(0 < n <= grid for _, _, _, n in entries)
-    # Within one row, both ways (the hazards' superset).
-    spans = [_rows_of(e, nx) for e in entries]
-    deps = [_deps(e, grid) for e in entries]
-    for b in range(grid):
-        for c in range(grid):
-            if _near(spans[b], spans[c], rows, periodic):
-                assert c in deps[b] and b in deps[c], (b, c, spans[b], spans[c])
-    # The exact hazards: the cells a block's step reads (the 3 x 3
-    # neighbourhood, x wrapping; y wrapping on the grid, the ghosts on a
-    # shard, which no block writes) against the cells another one writes.
-    owner = np.repeat(np.arange(grid), [e - s for s, e, _, _ in entries])
-    reads = []
-    for s, e, _, _ in entries:
-        j, i = np.divmod(np.arange(s, e), nx)
-        cells = []
+    assert all(s % resident_cuda.BAND_ALIGN == 0 for s, _, _, _ in entries[1:])
+    assert all((0 < n <= grid) if waits else n == 0 for _, _, _, n in entries)
+
+
+def _check_hazards(prev, cur, rows, nx, grid, periodic):
+    """The waits of step t + 1's split ``cur`` on the blocks of step t's
+    split ``prev`` (the same split for K2 and K6) over a state of ``rows``
+    rows: within one row, both ways (the hazards' superset), and the exact
+    hazards: the cells a block's step reads (the 3 x 3 neighbourhood, x
+    wrapping; y wrapping on the periodic grid, the ghosts on a shard, which
+    no block writes) against the cells the other step's blocks write."""
+    deps = np.zeros((grid, grid), dtype=bool)  # deps[b, q]: cur's b waits on prev's q
+    for b, (_, _, lo, n) in enumerate(cur):
+        deps[b, (lo + np.arange(n)) % grid] = True
+    spans = [np.array([_rows_of(e, nx) for e in es]) for es in (cur, prev)]
+    if periodic:
+        near = np.array([[_near(tuple(a), tuple(c), rows, True) for c in spans[1]]
+                         for a in spans[0]])
+    else:
+        (a0, a1), (c0, c1) = spans[0].T, spans[1].T
+        near = (a0[:, None] <= c1[None, :] + 1) & (c0[None, :] <= a1[:, None] + 1)
+    assert not (near & ~deps).any(), np.argwhere(near & ~deps)[:5].tolist()
+
+    def owners(entries):
+        own = np.full(rows * nx, -1)
+        for b, (s, e, _, _) in enumerate(entries):
+            own[s:e] = b
+        return own
+
+    own_cur, own_prev = owners(cur), owners(prev)
+
+    def neighbours(entries):
+        """(cell, neighbour) pairs of the cells of a split."""
+        cells = np.arange(entries[0][0], entries[-1][1])
+        j, i = np.divmod(cells, nx)
+        out = []
         for dj in (-1, 0, 1):
             for di in (-1, 0, 1):
                 jj, ii = j + dj, (i + di) % nx
                 if periodic:
                     jj = jj % rows
                 keep = (jj >= 0) & (jj < rows)
-                cells.append(jj[keep] * nx + ii[keep])
-        reads.append(set(np.unique(owner[np.concatenate(cells)]).tolist()))
-    for b in range(grid):
-        raw = reads[b]  # blocks that wrote at step t what b reads at step t + 1
-        war = {c for c in range(grid) if b in reads[c]}  # blocks that read what b overwrites
-        assert (raw | war) - {b} <= deps[b], (b, sorted((raw | war) - deps[b]))
+                out.append(np.stack([cells[keep], jj[keep] * nx + ii[keep]]))
+        return np.concatenate(out, axis=1)
+
+    # Read after write: cur's b reads what prev's q wrote.
+    x, y = neighbours(cur)
+    raw = np.zeros_like(deps)
+    hit = own_prev[y] >= 0
+    raw[own_cur[x[hit]], own_prev[y[hit]]] = True
+    # Write after read: cur's b overwrites what prev's q read.
+    y, x = neighbours(prev)
+    war = np.zeros_like(deps)
+    hit = own_cur[x] >= 0
+    war[own_cur[x[hit]], own_prev[y[hit]]] = True
+    bad = (raw | war) & ~deps
+    np.fill_diagonal(bad, False)  # a block's own steps follow in program order
+    assert not bad.any(), np.argwhere(bad)[:5].tolist()
 
 
 @pytest.mark.parametrize("ny,nx,grid", K2_CASES)
@@ -100,6 +138,53 @@ def test_k2_plan_covers_both_hazards(ny, nx, grid):
 @pytest.mark.parametrize("n,nx,grid", K6_CASES)
 def test_k6_plan_covers_both_hazards(n, nx, grid):
     _check_plan(ghosted_cuda.shard_plan(n, nx, grid), n, nx, grid, periodic=False)
+
+
+def _k7_grid(n, nx, K, sms=132, per_sm=4):
+    """K7's blocks on an H100 (132 SMs, 4 blocks of 256 a SM): the card's
+    cooperative grid for the extended slab, capped by ``ca_cuda.resident_grid``."""
+    ext = n + 2 * K
+    return ca_cuda.resident_grid(min(-(-ext * nx // 256), sms * per_sm), n, nx)
+
+
+# K7: the ca shards of the golden grid over 16 and 4 (64x1024, 256x1024) at
+# the policy's depths, and the card tests' 8x100, 13x128 and 40x256 shards.
+K7_CASES = ([(64, 1024, K) for K in (4, 8)] + [(256, 1024, K) for K in (4, 8)]
+            + [(n, nx, K) for n, nx in ((8, 100), (13, 128), (40, 256)) for K in (2, 3, 4, 8)
+               if n >= K])
+
+
+@pytest.mark.parametrize("n,nx,K", K7_CASES, ids=str)
+def test_k7_plan_covers_both_hazards(n, nx, K):
+    """K7's plan (``ca_cuda.resident_plan`` on the grid ``resident_grid``
+    chooses): step t splits the rows still exact, [t + 1, ext - t - 1), in
+    32-cell-aligned bands, afresh; step t + 1's waits on step t's blocks
+    cover both hazards of two copies, block by block, though the two steps
+    split their rows differently; step 0 reads only the windows."""
+    ext = n + 2 * K
+    grid = _k7_grid(n, nx, K)
+    plan = ca_cuda.resident_plan(ext, nx, K, grid)
+    assert len(plan) == K and all(n_dep == 0 for *_, n_dep in plan[0])
+    for t, step in enumerate(plan):
+        _check_split(step, t + 1, ext - t - 1, nx, grid, waits=t > 0)
+        if t:
+            assert [s for s, *_ in step] != [s for s, *_ in plan[t - 1]]  # splits differ
+            _check_hazards(plan[t - 1], step, ext, nx, grid, periodic=False)
+
+
+def test_k7_grid_leaves_every_block_a_line_on_the_last_step():
+    """The grid is capped so that the last, smallest step (the n x nx body)
+    gives every block at least 32 cells: the card tests' 8x100 shard at
+    K = 2 takes at most 25 blocks; a shard narrower than a line, one."""
+    assert ca_cuda.resident_grid(528, 8, 100) == 25
+    assert _k7_grid(8, 100, 2) == 5  # ceil(12 x 100 / 256)
+    assert ca_cuda.resident_grid(528, 2, 8) == 1
+    assert ca_cuda.resident_plan(6, 8, 2, 1)[1] == [(16, 32, 0, 1)]  # the body, rows 2-3
+    assert _k7_grid(256, 1024, 8) == 528
+    for n, nx, K in K7_CASES:
+        grid = _k7_grid(n, nx, K)
+        assert min(e - s for s, e, _, _ in ca_cuda.resident_plan(n + 2 * K, nx, K, grid)[-1]) \
+            >= resident_cuda.BAND_ALIGN or grid == 1
 
 
 @pytest.mark.parametrize("rows,nx,grid", [(1024, 1024, 528), (1021, 1023, 528), (60, 100, 24),
@@ -140,16 +225,28 @@ def _walk(entry, nx):
 @pytest.mark.parametrize("rows,nx,grid,form", [(30, 129, 16, "K2"), (7, 1000, 28, "K2"),
                                                (45, 33, 6, "K2"), (5, 6, 1, "K2"),
                                                (13, 100, 6, "K6"), (1, 1000, 4, "K6"),
-                                               (2, 65, 1, "K6")])
+                                               (2, 65, 1, "K6"), (8, 100, 5, "K7 K=2"),
+                                               (13, 128, 13, "K7 K=3"),
+                                               (40, 256, 48, "K7 K=8")])
 def test_two_copy_walk_computes_each_cell_once(rows, nx, grid, form):
-    plan = (resident_cuda.grid_plan(rows, nx, grid) if form == "K2"
-            else ghosted_cuda.shard_plan(rows, nx, grid))
-    seen = []
-    for entry in plan[0]:
-        for c, j, i in _walk(entry, nx):
-            assert (j, i) == divmod(c, nx)
-            seen.append(c)
-    assert sorted(seen) == list(range(rows * nx))
+    """Every step computes each of its cells once; K7 (``rows`` body rows,
+    depth K) at every step of its shrinking plan."""
+    if form.startswith("K7"):
+        K = int(form.split("=")[1])
+        ext = rows + 2 * K
+        plan = ca_cuda.resident_plan(ext, nx, K, grid)
+        spans = [(t + 1, ext - t - 1) for t in range(K)]
+    else:
+        plan = (resident_cuda.grid_plan(rows, nx, grid) if form == "K2"
+                else ghosted_cuda.shard_plan(rows, nx, grid))
+        spans = [(0, rows)]
+    for step, (r0, r1) in zip(plan, spans):
+        seen = []
+        for entry in step:
+            for c, j, i in _walk(entry, nx):
+                assert (j, i) == divmod(c, nx)
+                seen.append(c)
+        assert sorted(seen) == list(range(r0 * nx, r1 * nx))
 
 
 @pytest.mark.parametrize("form,rows,nx,grid,chunk", [("K2", 256, 256, 256, 256),
@@ -170,6 +267,24 @@ def test_two_copy_partials_layout(form, rows, nx, grid, chunk):
     words = buf.view(torch.int32)
     assert not words[:head].any()
     assert words[head:head + 4 * grid].reshape(grid, 4).tolist() == [list(e) for e in plan[0]]
+
+
+@pytest.mark.parametrize("n,nx,K", [(256, 1024, 8), (8, 100, 2), (13, 128, 3)], ids=str)
+def test_k7_partials_layout(n, nx, K):
+    """K7's partials buffer (``resident_cuda.partials_buffer`` of its K-step
+    plan): grid step counters at zero, each on a 128-byte line of its own,
+    then the plan, step after step (K x grid x 4 int32), then K x grid
+    sums, where the kernel (two::run with ExtSlab::kPerStep) looks for
+    them."""
+    ext, grid = n + 2 * K, _k7_grid(n, nx, K)
+    plan = ca_cuda.resident_plan(ext, nx, K, grid)
+    buf = resident_cuda.partials_buffer(plan, K, "cpu")
+    head = resident_cuda.COUNTER_WORDS * grid
+    assert buf.numel() == head + 4 * K * grid + K * grid
+    words = buf.view(torch.int32)
+    assert not words[:head].any() and not words[head + 4 * K * grid:].any()
+    assert words[head:head + 4 * K * grid].reshape(K, grid, 4).tolist() == \
+        [[list(e) for e in step] for step in plan]
 
 
 def test_k6_plan_waits_stay_local_on_the_golden_shard():
