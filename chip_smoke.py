@@ -59,7 +59,13 @@ power limit as nvidia-smi reports them):
    cases reach the driven row in the first and last region row, tile counts
    below and not a multiple of the persistent grid, every float32 copy path
    (tiles that wrap in x, rows in 16-byte and in 4-byte copies) and int16
-   region rows that start at an odd element;
+   region rows that start at an odd element; K5 also, f32 and int16 from
+   both starts over two sweeps and a K1 step, at the shapes its walk makes
+   hard (:func:`k5_hard_shapes`: bands that its 2 rows a step do not divide
+   and bands shorter than 2 (K + 1), nx below one strip, ny = 2K, odd nx
+   and nx = 2 mod 4), failing unless its cases put the driven row on the
+   first and the last of a walk step's rows at every level and reach every
+   width of level-0 copy (16, 8 and 4 bytes, and int16's plain loads);
 3e. at 2048x2048 over 8000 steps, K=4: K4 and K5 vs K1 (fields
    torch.equal, tot_u rtol 1e-6), and K4-i16 vs K5-i16 (both quantize
    once per sweep: int16 fields torch.equal);
@@ -132,13 +138,15 @@ power limit as nvidia-smi reports them):
    int16, under the default policy and with ``--temporal-k 4`` under
    LBM_TEMPORAL_IMPL=trapezoid and =skew: 1536x1536 f32 (default policy
    only) and 2048x2048 channel x 2000 steps, 4096x4096 x 400 (there the
-   f32 default is the forced trapezoid's variant and depth, so that run is
-   not repeated, and the forced runs go through ``run_simulation``, their
+   f32 default is the forced skew's variant and depth, so that run is not
+   repeated, and the forced runs go through ``run_simulation``, their
    fields held in memory: each final_state.dat there is 1.5 GB of text);
-   each run reports the variant the policy table gives; the 1536x1536 and
-   2048x2048 f32 runs write a final_state.dat byte-identical to 5c's
-   --variant torch run (2048x2048 also passing ``check``), the 4096x4096
-   forced f32 skew run's fields equal the default run's; the default int16
+   each run reports the variant the policy table gives (f32: K5, cuda-skew,
+   since it beat K4 in turns at K=4 from 1024^2 cells); the 1536x1536 and
+   2048x2048 f32 runs, default (K5) and forced, write a final_state.dat
+   byte-identical to 5c's --variant torch run (2048x2048 also passing
+   ``check``), the 4096x4096 forced f32 trapezoid run's fields equal the
+   default (K5) run's; the default int16
    runs (K1-i16) pass ``check`` against their grid's default f32 run (1%),
    the forced int16 sweeps at 2048x2048 within I16_SWEEP_TOLERANCE (2.5%,
    the envelope measured for int16 quantized once per sweep there), and
@@ -270,12 +278,12 @@ SWEEP_DEPTHS = (2, 4, 8)
 # included, is held to the checker's 1%.
 I16_SWEEP_TOLERANCE = 2.5
 # The variant the default policy runs for each CLI scene of phase 5d (the
-# H100 table, PERF.md section 5: f32 on K4 at K=4 from 1024^2 cells, int16
-# on K1-i16).
-DEFAULT_VARIANTS = {("1536x1536", "f32"): "cuda-trapezoid",
-                    ("2048x2048", "f32"): "cuda-trapezoid",
+# H100 table, PERF.md section 5: f32 on K5 at K=4 from 1024^2 cells, where
+# it beat K4 in turns, int16 on K1-i16).
+DEFAULT_VARIANTS = {("1536x1536", "f32"): "cuda-skew",
+                    ("2048x2048", "f32"): "cuda-skew",
                     ("2048x2048", "i16"): "cuda-step-i16",
-                    ("4096x4096", "f32"): "cuda-trapezoid",
+                    ("4096x4096", "f32"): "cuda-skew",
                     ("4096x4096", "i16"): "cuda-step-i16"}
 
 
@@ -286,6 +294,16 @@ def last_row_ny(temporal_cuda) -> int:
     region row 0 of tile row 0.)"""
     th = temporal_cuda.tile(4)[0]
     return th * (1024 // th + 1) + 4 + 1
+
+
+def k5_hard_shapes(K: int) -> list[tuple[int, int, int]]:
+    """(ny, nx, band rows) that K5's walk makes hard, as
+    tests/test_torch_skew.py runs them: bands that R = 2 does not divide
+    and bands shorter than R (K + 1), nx below one strip, ny = 2K (bands
+    wrapping the grid), odd nx (float32 4-byte copies, int16 plain loads)
+    and nx = 2 mod 4 (8- and 4-byte copies)."""
+    return [(17, 40, 3), (60, 100, 5), (30, 20, 7), (2 * K, 33, 2 * K), (31, 66, 4),
+            (45, 99, 6)]
 
 
 def k4_cover(paths: dict, temporal_cuda, ny: int, nx: int, K: int, accel_row: int) -> None:
@@ -1027,6 +1045,34 @@ def main() -> int:
                         sweep_err[key] = max(sweep_err.get(key, 0.0), e)
                         sweep_rel = max(sweep_rel, r)
                         n_cases += 1
+    # K5 at the shapes its walk makes hard (k5_hard_shapes): the driven row
+    # on the first and the last of a walk step's R rows at every level, and
+    # every width of level-0 copy.
+    k5_paths: dict[str, set] = {"driven": set(), "copies": set()}
+    k5_cases = 0
+    for K in SWEEP_DEPTHS:
+        for ny, nx, bh in k5_hard_shapes(K):
+            p, _, obst, f0 = field(ny, nx)
+            k5_paths["driven"] |= {(K,) + d for d in skew_cuda.driven_positions(ny, K, bh)}
+            strip_band = (skew_cuda.strip_width(K), bh)
+            for start in ("rest", "mixed"):
+                s32 = f0 if start == "rest" else mixed_state(p, dev)
+                for storage in ("f32", "i16"):
+                    k5_paths["copies"].add(f"{storage} {skew_cuda.copy_bytes(nx, storage)}")
+                    s0 = i16_start(p, s32) if storage == "i16" else s32
+                    f_p, tot_p = skew_cuda.run_plain(s0, obst, p, 2 * K + 1, K, storage)
+                    f_k, tot_k = skew_cuda.make_run_all(p, obst, 2 * K + 1, K, storage,
+                                                        strip_band=strip_band)(s0)
+                    _, r = compare(f"K5 {storage} {ny}x{nx} K={K} band {bh} {start}", f_k,
+                                   tot_k, f_p, tot_p)
+                    sweep_rel = max(sweep_rel, r)
+                    k5_cases += 1
+    want = {(K, lv, i) for K in SWEEP_DEPTHS for lv in range(1, K + 1)
+            for i in range(skew_cuda.ROWS_PER_STEP)}
+    if not want <= k5_paths["driven"]:
+        fail(f"3d: K5's driven row missed {sorted(want - k5_paths['driven'])}")
+    if not {"f32 16", "f32 8", "f32 4", "i16 16", "i16 8", "i16 4", "i16 0"} <= k5_paths["copies"]:
+        fail(f"3d: K5's copy widths reached: {sorted(k5_paths['copies'])}")
     rh = temporal_cuda.region(4)[0]
     if not {0, rh - 1} <= k4_paths["driven"]:
         fail(f"3d: the driven row sat only at region rows {sorted(k4_paths['driven'])}")
@@ -1040,7 +1086,10 @@ def main() -> int:
           f"cases, fields equal (int16 too), tot_u max rel {sweep_rel:.2e} | K4's paths: the "
           f"driven row at region rows {sorted(k4_paths['driven'])} of {rh}, tile counts "
           f"{sorted(k4_paths['tiles'])} of the persistent grid, copies "
-          f"{sorted(k4_paths['copies'])}")
+          f"{sorted(k4_paths['copies'])} | K5 at its hard shapes (bands of 3 to 2K rows, nx "
+          f"20 to 100, ny 2K): {k5_cases} cases, fields equal; the driven row at both of a "
+          f"walk step's {skew_cuda.ROWS_PER_STEP} rows at every level, copies "
+          f"{sorted(k5_paths['copies'])} bytes")
 
     # Phase 3e: the sweeps against K1 at full length, and the two int16
     # sweeps against each other (each quantizes once per sweep).
@@ -1349,7 +1398,8 @@ def main() -> int:
                 for label, impl, extra in policies:
                     if tag == "1536x1536" and (storage, label) != ("f32", "default"):
                         continue
-                    if (tag, storage, label) == ("4096x4096", "f32", "trapezoid"):
+                    if (in_memory and storage == "f32" and impl is not None
+                            and f"cuda-{impl}" == DEFAULT_VARIANTS[(tag, "f32")]):
                         continue  # the default there: the same variant and depth
                     with temporal_impl(impl):
                         if in_memory and impl is not None:
@@ -1379,12 +1429,14 @@ def main() -> int:
             if in_memory:
                 f32_default = run_simulation(load_scene(pf, of),
                                              RunConfig(variant="cuda", device="cuda")).f
-                if not np.array_equal(fields[("f32", "skew")], f32_default):
-                    fail(f"{tag}: forced f32 skew fields differ from the default run's")
+                forced = [label for st, label in fields if st == "f32"]
+                for label in forced:
+                    if not np.array_equal(fields[("f32", label)], f32_default):
+                        fail(f"{tag}: forced f32 {label} fields differ from the default run's")
                 if not np.array_equal(fields[("i16", "trapezoid")], fields[("i16", "skew")]):
                     fail(f"{tag}: K4-i16 and K5-i16 fields differ")
-                note.append("forced runs through run_simulation: f32 skew fields equal to the "
-                            "default's, K4-i16 and K5-i16 fields equal")
+                note.append(f"forced runs through run_simulation: f32 {', '.join(forced)} fields "
+                            f"equal to the default's, K4-i16 and K5-i16 fields equal")
                 del f32_default, fields
             elif ("i16", "skew") in dirs:
                 if not same_final_state(dirs[("i16", "trapezoid")], dirs[("i16", "skew")]):

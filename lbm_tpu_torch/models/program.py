@@ -22,18 +22,20 @@ variant names in brackets, ``-i16`` appended for int16 storage):
 3. the temporal sweeps, K steps per pass over device memory, where the
    depth (``temporal_k``, else ``temporal_cuda.pick_k``: 4 from 1024^2
    cells in f32, 1 in int16) is at least 2 and :func:`temporal_impl_choice`
-   maps one: K4 (``cuda-trapezoid``; the default), K5 (``cuda-skew``;
-   forced only) or K9 (``cuda-hbm``, the HBM-parts sweep; forced only, f32),
-   the remainder steps on K1;
+   maps one: K5 (``cuda-skew``; the default for f32 at the policy's depth
+   from 1024^2 cells), K4 (``cuda-trapezoid``; every other sweep) or K9
+   (``cuda-hbm``, the HBM-parts sweep; forced only, f32), the remainder
+   steps on K1;
 4. else a loop of K1 launches (``cuda-step``; int16 above 1024^2).  A
    forced depth that cannot map warns and lands here.
 
-So by default f32 runs K2 to 768^2, K3 at 1024^2 and K4 (K = 4) above:
+So by default f32 runs K2 to 768^2, K3 at 1024^2 and K5 (K = 4) above:
 the fastest kernel of each grid in the H100 table (PERF.md §5), except
-1024^2, where K4 timed faster than K3 but ``lbm_tpu``'s order keeps the
-in-place kernel.  int16 runs K3-i16 to 1024^2 and K1-i16 above; K4-i16,
-though faster, strays further from f32 (``temporal_cuda.pick_k``) and runs
-only with ``--temporal-k``.
+1024^2, where the sweeps timed faster than K3 but ``lbm_tpu``'s order
+keeps the in-place kernel.  int16 runs K3-i16 to 1024^2 and K1-i16 above;
+the int16 sweeps, though faster, stray further from f32
+(``temporal_cuda.pick_k``) and run only with ``--temporal-k``, on K4-i16
+unless forced to K5-i16.
 
 ``LBM_RESIDENT_KIND`` forces the resident kernel (:func:`resident_kind_choice`):
 ``mono`` K2, ``inplace`` K3, ``blocked`` K10 (``cuda-blocked``, the port of
@@ -167,6 +169,13 @@ def resident_kind_choice(params: LBMParams, storage: str = "f32") -> str | None:
     return "cuda-blocked"
 
 
+# Auto runs a float32 sweep at the policy's depth (temporal_cuda.PICK_K) on
+# K5 rather than K4 on grids of at least this many cells: K5 beat K4 in
+# turns at K = 4 on every grid timed from 1024^2 up, by 1.8% (1024^2) to
+# 11.3% (4096^2) (PERF.md §5).
+SKEW_MIN_CELLS = 1024 * 1024
+
+
 def temporal_impl_choice(params: LBMParams, K: int, storage: str = "f32") -> str | None:
     """Which sweep kernel runs a K-deep sweep of this grid: ``'skew'`` (K5,
     ops/skew_cuda.py), ``'trapezoid'`` (K4, ops/temporal_cuda.py),
@@ -178,12 +187,14 @@ def temporal_impl_choice(params: LBMParams, K: int, storage: str = "f32") -> str
     it cannot map).  ``hbm`` (``modes.py`` :229-230) runs K9 and never
     falls through to another kernel: where K9 cannot map (int16 state, or
     no part size, ``hbm_cuda.plan``) it raises ``ValueError``.  Auto never
-    picks it, as in ``lbm_tpu``.  Auto: K4 where it maps, else None (the K1
-    loop), from the H100 table
-    (PERF.md §5, ``tools/kernel_times.py --sweeps``): K5 was slower than K1
-    at every grid (512^2-4096^2) and depth (2, 4, 8) timed, f32 and int16,
-    so it runs only when forced.  ``lbm_tpu`` prefers the skewed pair, which
-    won on the TPU."""
+    picks it, as in ``lbm_tpu``.  Auto, from the H100 table (PERF.md §5,
+    ``tools/kernel_times.py --sweeps``, K5, K4 and K1 in turns): K5 for a
+    float32 sweep at the policy's depth (K = 4) on a grid of at least
+    :data:`SKEW_MIN_CELLS` cells, where it beat K4 at 1024^2, 1536^2,
+    2048^2 and 4096^2 (``lbm_tpu`` prefers the skewed pair too, which won on
+    the TPU); K4 for every other sweep where it maps (int16, other depths,
+    smaller grids: the depth and storage the default policy does not
+    sweep, or, at 512^2, where K4 stayed ahead); else None (the K1 loop)."""
     impl = os.environ.get("LBM_TEMPORAL_IMPL", "auto").strip().lower()
     if impl not in ("auto", "skew", "trapezoid", "hbm"):
         raise ValueError(f"LBM_TEMPORAL_IMPL={impl!r}; use skew, trapezoid, hbm or auto")
@@ -194,6 +205,9 @@ def temporal_impl_choice(params: LBMParams, K: int, storage: str = "f32") -> str
         return "hbm"
     if impl == "skew":
         return "skew" if skew_cuda.supports(params, K, storage) else None
+    if (impl == "auto" and storage == "f32" and K == temporal_cuda.PICK_K
+            and params.ny * params.nx >= SKEW_MIN_CELLS and skew_cuda.supports(params, K)):
+        return "skew"
     return "trapezoid" if temporal_cuda.supports(params, K, storage) else None
 
 

@@ -77,6 +77,7 @@ _SIGNATURES = {
     "lbm_hbm_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _I],
     "lbm_inplace_chunk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P, _I, _I, _I,
                           _I, _I, _P, _I],
+    "lbm_skew_grid": [_I, _I, _I],
     "lbm_l2_copy_grid": [_I],
     "lbm_l2_copy": [_P, _L, _I, _I, _I, _P, _I],
 }

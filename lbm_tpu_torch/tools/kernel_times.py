@@ -44,10 +44,14 @@ replaced header), named ``@NAME``, in turns with the package's own:
 ``--sweeps``, K1-slab and K1-slab-i16 (host- and card-paced) in
 ``--shards``; ``resident.cu`` K2 in ``--grids`` and ``--policy``;
 ``ghosted.cu`` K6 (host- and card-paced) in ``--shards``; ``temporal.cu``
-K4 in ``--sweeps`` (K5 left out there; on the package's
+K4 in ``--sweeps`` (K5 left out there unless a variant replaces
+``skew.cu``; on the package's
 regions, ``temporal_cuda.tile``, or on the region RHxRW at every depth) and
-K4-slab in ``--ca``; ``inplace.cu`` K3 and K3-i16 in ``--grids``,
-``--sweeps`` and ``--policy``; ``ca_inplace.cu`` K8 and K8-i16 in ``--ca``
+K4-slab in ``--ca``; ``skew.cu`` K5 and K5-i16 in ``--sweeps``, beside the
+package's K5, K4 and K1 (on the variant's own strips and bands,
+``skew_cuda.geometry``: the one-row walk, whose library lacks
+``lbm_skew_grid``, on its strips of 64 columns and bands of 128 rows);
+``inplace.cu`` K3 and K3-i16 in ``--grids``, ``--sweeps`` and ``--policy``; ``ca_inplace.cu`` K8 and K8-i16 in ``--ca``
 and K9 in ``--hbm``; ``ca_resident.cu`` K7 in ``--ca``; ``blocked.cu`` K10
 at each height of ``--blocked-rows`` in ``--blocked``.
 ``--k4-regions 48x64,...`` times K4 and K4-slab on compiled regions other
@@ -377,7 +381,9 @@ def time_sweeps(n: int, device, depths=(2, 4, 8), repeats: int = 5,
     of the plain sweep at each depth (``plain K=4``; the int16 names end in
     ``-i16``), on an n x n grid.  With ``variants`` (:func:`load_variants`)
     the K4 of each variant that replaces ``temporal.cu`` (``K4@NAME K=4``)
-    runs in the same turns, and K5 is left out, and so does the K3 of each
+    runs in the same turns, and K5 is left out unless a variant replaces
+    ``skew.cu``; so does the K5 of each that replaces ``skew.cu``
+    (``K5@NAME K=4``), and the K3 of each
     that replaces ``inplace.cu`` (``K3@NAME``) where K3 maps; with
     ``regions`` ((rows, columns) of compiled regions) so does K4 on each of
     them (``K4[48x64] K=4``); so does the K1 of each variant that replaces
@@ -418,10 +424,15 @@ def time_sweeps(n: int, device, depths=(2, 4, 8), repeats: int = 5,
                 runs[f"K3{sfx}@{vname}"] = (inplace_cuda.make_run_all(
                     p, obst, steps, storage=storage, lib=v.lib), start, steps)
         k4_variants = replacing(variants, "temporal.cu")
+        k5_variants = replacing(variants, "skew.cu")
+        mods = (("K4", temporal_cuda), ("K5", skew_cuda))
         for K in depths:
-            for name, mod in (("K4", temporal_cuda), ("K5", skew_cuda))[:1 if k4_variants else 2]:
+            for name, mod in mods[:1 if k4_variants and not k5_variants else 2]:
                 runs[f"{name}{sfx} K={K}"] = (mod.make_run_all(p, obst, steps, K, storage),
                                               start, steps)
+            for vname, v in k5_variants.items():
+                runs[f"K5{sfx}@{vname} K={K}"] = (skew_cuda.make_run_all(
+                    p, obst, steps, K, storage, lib=v.lib), start, steps)
             for vname, v in k4_variants.items():
                 runs[f"K4{sfx}@{vname} K={K}"] = (temporal_cuda.make_run_all(
                     p, obst, steps, K, storage, tile_hw=v.tile(K), lib=v.lib), start, steps)
@@ -859,7 +870,7 @@ def main(argv: list[str] | None = None) -> int:
                         help="time the L2 copy kernel at K8's and K3's working sets")
     parser.add_argument("--variant", action="append", default=[],
                         help="NAME=PATH[+PATH...]: time the kernels of other versions of "
-                        "step.cu, resident.cu, ghosted.cu, temporal.cu, inplace.cu, "
+                        "step.cu, resident.cu, ghosted.cu, temporal.cu, skew.cu, inplace.cu, "
                         "ca_inplace.cu, ca_resident.cu or blocked.cu in turns with the "
                         "package's own")
     parser.add_argument("--k4-regions", default="",

@@ -103,21 +103,180 @@ def test_supports_and_geometry():
     assert not skew_cuda.supports(p(15, 40), 8)  # ny < 2K: no room for the warm-up
     assert not skew_cuda.supports(p(40, 15), 8)
     assert skew_cuda.supports(p(5, 100), 2)  # the driven row may lie anywhere
-    assert not skew_cuda.supports(p(4096, 4096), 32)  # rings beyond shared memory
-    assert skew_cuda.smem_bytes(2, 200, 64) is None  # wider than a step's loads
-    assert skew_cuda.smem_bytes(8, 121, 64) is not None  # 8 x 137 - 72 cells: 4 per thread
-    assert skew_cuda.smem_bytes(8, 122, 64) is None  # 4 and a bit
+    assert not skew_cuda.supports(p(4096, 4096), 32)  # no strip fits 512 threads
+    assert skew_cuda.smem_bytes(2, 300, 64) is None  # 2 x 304 - 6 pairs: beyond 512 threads
+    assert skew_cuda.smem_bytes(8, 57, 64) is not None  # 8 x 73 - 72 pairs: one a thread of 512
+    assert skew_cuda.smem_bytes(8, 58, 64) is None  # 520 pairs
     for K in (2, 3, 4, 8):
-        need = skew_cuda.smem_bytes(K, skew_cuda.STRIP_W, skew_cuda.BAND_H)
+        need = skew_cuda.smem_bytes(K, skew_cuda.strip_width(K), skew_cuda.BAND_MAX)
         assert need is not None and need <= 232448
     with pytest.raises(ValueError, match="cannot map"):
         skew_cuda.make_run_all(p(15, 40), torch.zeros((15, 40), dtype=torch.bool), 8, 8)
+
+
+@pytest.mark.parametrize("K", [2, 3, 4, 5, 8, 16, 21])
+def test_strip_pairs_fill_the_block(K):
+    """Every thread but at most K - 1 owns one (level, column) pair, each
+    pair of the strip once: a walk step is one round on (nearly) every
+    thread, never a round of a few.  Depths to 4 fill three blocks of 256
+    per SM in shared memory, deeper ones one block of 512."""
+    tw, nt = skew_cuda.strip_width(K), skew_cuda.threads(K)
+    pairs = skew_cuda.thread_pairs(K, tw)
+    cw = tw + 2 * K
+    assert tw >= 1 and len(pairs) == skew_cuda.strip_pairs(K, tw)
+    assert nt - K < len(pairs) <= nt
+    assert sorted(pairs) == sorted({(lv, c) for lv in range(1, K + 1) for c in range(lv, cw - lv)})
+    need = skew_cuda.smem_bytes(K, tw, skew_cuda.BAND_MAX)
+    blocks_per_sm = 233472 // (need + 1024)
+    assert blocks_per_sm >= (3 if K <= 4 else 1)
+    assert skew_cuda.smem_bytes(K, tw + 1, 8) is None or nt == 256  # the widest strip
+    if K in (4, 8):  # compiled in as kStrip4 / kStrip8 in csrc/skew.cu
+        assert tw == {4: 61, 8: 57}[K]
+
+
+@pytest.mark.parametrize("bh", [1, 3, 5, 8, 45, skew_cuda.BAND_MAX])
+@pytest.mark.parametrize("K", [2, 3, 4, 8])
+def test_walk_plan_hazards(K, bh):
+    """The kernel's walk (``skew_cuda.walk_plan``), for a band shorter than
+    R (K + 1), one that R does not divide, and the tallest: every (level,
+    row) in [l, rows - l) is computed exactly once, after the three level
+    l-1 rows it pulls were computed (or, level 0, had landed) at an earlier
+    step; no ring slot is written (or, level 0, has a copy issued into it)
+    while a row it holds is still to be read, in that step or later; level
+    K covers exactly the band's rows; the walk takes ``walk_steps``."""
+    R = skew_cuda.ROWS_PER_STEP
+    plan = skew_cuda.walk_plan(K, bh)
+    rows = plan["rows"]
+    steps = plan["steps"]
+    assert rows == bh + 2 * K and len(steps) == skew_cuda.walk_steps(K, bh)
+    done: dict[tuple[int, int], int] = {}  # (level, row) -> step it became readable
+    for q, sl in plan["prologue"]:
+        assert sl == q % skew_cuda.RING0
+    last_read: dict[tuple[int, int], int] = {}
+    for s, st in enumerate(steps):
+        for lv, q, reads, _ in st["cells"]:
+            for rl, rq, _ in reads:
+                last_read[(rl, rq)] = max(last_read.get((rl, rq), -1), s)
+    holder: dict[tuple[int, int], int] = {}  # (level, slot) -> row held
+    for q, sl in plan["prologue"]:
+        holder[(0, sl)] = q
+    for s, st in enumerate(steps):
+        for q, sl in st["copies"]:  # issued at step s: the slot must be dead from now on
+            old = holder.get((0, sl))
+            assert old is None or last_read.get((0, old), -1) < s, (s, q, old)
+            assert sl == q % skew_cuda.RING0
+            holder[(0, sl)] = q
+        for lv, q, reads, (wl, wq, wsl) in st["cells"]:
+            assert (lv, q) not in done, f"({lv}, {q}) computed twice"
+            assert lv <= q < rows - lv and len(reads) == 3
+            for rl, rq, rsl in reads:
+                assert rl == lv - 1 and abs(rq - q) <= 1
+                assert done.get((rl, rq), s) < s, f"({lv}, {q}) at step {s} reads ({rl}, {rq})"
+                assert holder.get((rl, rsl)) == rq, f"slot {rsl} of level {rl} lost row {rq}"
+            if wsl is None:
+                assert lv == K
+            else:
+                old = holder.get((lv, wsl))
+                assert old is None or old == q or last_read.get((lv, old), -1) < s
+                assert wsl == q % skew_cuda.RING
+                holder[(lv, wsl)] = q
+        for lv, q, _, _ in st["cells"]:
+            done[(lv, q)] = s
+        for q in st["landed"]:
+            done[(0, q)] = s
+        assert len({(lv, q) for lv, q, _, _ in st["cells"]}) == len(st["cells"])
+        per_level = {}
+        for lv, q, _, _ in st["cells"]:
+            per_level.setdefault(lv, []).append(q)
+        assert all(len(v) <= R for v in per_level.values())  # R rows a level a step
+    for lv in range(1, K + 1):
+        assert {q for (l2, q) in done if l2 == lv} == set(range(lv, rows - lv))
+    assert {q - K for (l2, q) in done if l2 == K} == set(range(bh))  # the band's rows
+
+
+def test_band_rows_fill_the_slots():
+    """Bands no taller than BAND_MAX; the blocks of the chosen height fill
+    their rounds of slots to at least 85% at the policy's grids; a tiny
+    grid takes bands of one row; the one-row walk's library keeps its own
+    strips and bands."""
+    for n in (512, 1024, 1536, 2048, 4096):
+        for K, slots in ((2, 396), (4, 396), (8, 132)):
+            bh = skew_cuda.band_rows(n, n, K, slots)
+            blocks = -(-n // skew_cuda.strip_width(K)) * -(-n // bh)
+            assert 1 <= bh <= skew_cuda.BAND_MAX
+            assert blocks / (-(-blocks // slots) * slots) >= 0.85, (n, K, bh, blocks)
+    assert skew_cuda.band_rows(17, 40, 4, 396) == 1
+    assert skew_cuda.geometry(4, 2048, 2048, lib=object()) == skew_cuda.LEGACY_GEOMETRY
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", ["f32", "i16"])
 @pytest.mark.parametrize("kind", ["rest", "mixed"])
 @pytest.mark.parametrize("K", [2, 3, 4, 8])
-@pytest.mark.parametrize("shape", [(17, 40), (60, 100)], ids=str)
+@pytest.mark.parametrize("shape", [(17, 40), (60, 100), (512, 512)], ids=str)
 def test_k5_matches_plain_on_card(cuda_device, shape, K, kind, storage):  # noqa: F811
     _sweep_matches_plain(skew_cuda, cuda_device, shape, K, kind, storage)
+
+
+# (ny, nx, band rows): bands that R does not divide and bands shorter than
+# R (K + 1), nx below one strip, ny = 2K (bands that wrap the grid), odd nx
+# (float32 4-byte copies, int16 plain loads) and nx = 2 mod 4 (8- and
+# 4-byte copies); together they put the driven row (ny - 2) on the first
+# and the last of a walk step's R rows at every level
+# (test_hard_shapes_cover_the_walk).
+def _hard_shapes(K):
+    return [(17, 40, 3), (60, 100, 5), (30, 20, 7), (2 * K, 33, 2 * K), (31, 66, 4),
+            (45, 99, 6)]
+
+
+@pytest.mark.parametrize("K", [2, 3, 4, 8])
+def test_hard_shapes_cover_the_walk(K):
+    R = skew_cuda.ROWS_PER_STEP
+    got = set().union(*(skew_cuda.driven_positions(ny, K, bh)
+                       for ny, _, bh in _hard_shapes(K)))
+    assert got == {(lv, i) for lv in range(1, K + 1) for i in range(R)}
+    for ny, nx, bh in _hard_shapes(K):
+        assert bh % R or bh < R * (K + 1) or nx < skew_cuda.strip_width(K) or ny == 2 * K
+    copies = {(st, skew_cuda.copy_bytes(nx, st)) for _, nx, _ in _hard_shapes(K)
+              for st in ("f32", "i16")}
+    assert copies == {("f32", 16), ("f32", 8), ("f32", 4), ("i16", 16), ("i16", 8), ("i16", 4),
+                      ("i16", 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["f32", "i16"])
+@pytest.mark.parametrize("kind", ["rest", "mixed"])
+@pytest.mark.parametrize("K", [2, 3, 4, 8])
+@pytest.mark.parametrize("case", range(6), ids=["bh3", "bh5", "narrow", "ny2K", "nx66",
+                                                "nx99"])
+def test_k5_hard_shapes_on_card(cuda_device, case, K, kind, storage):  # noqa: F811
+    ny, nx, bh = _hard_shapes(K)[case]
+    _sweep_matches_plain(skew_cuda, cuda_device, (ny, nx), K, kind, storage,
+                         strip_band=(skew_cuda.strip_width(K), bh))
+
+
+@pytest.mark.cuda
+def test_k5_geometry_on_card(cuda_device):  # noqa: F811
+    """The library's shared memory is the host's; the card holds at least
+    one block per SM at every depth (three at K <= 4); a sweep repeats
+    bitwise."""
+    from lbm_tpu_torch.ops import _build
+
+    lib = _build.load()
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for K in (2, 3, 4, 8):
+        tw = skew_cuda.strip_width(K)
+        for bh in (1, 45, skew_cuda.BAND_MAX):
+            assert lib.lbm_skew_smem(K, tw, bh) == skew_cuda.smem_bytes(K, tw, bh)
+        assert lib.lbm_skew_grid(K, tw, skew_cuda.BAND_MAX) >= (3 if K <= 4 else 1) * sms
+    assert lib.lbm_skew_smem(8, 58, 64) == -1
+    params = LBMParams(nx=100, ny=60, max_iters=1, reynolds_dim=10, density=DENSITY,
+                       accel=0.005, omega=1.85)
+    obst = torch.zeros((60, 100), dtype=torch.bool, device=cuda_device)
+    f0 = torch.from_numpy(np.ascontiguousarray(
+        np.random.default_rng(3).uniform(0.01, 0.02, (9, 60, 100)).astype(np.float32)
+    )).to(cuda_device)
+    run = skew_cuda.make_run_all(params, obst, 12, 4)
+    f_a, tot_a = (t.clone() for t in run(f0))
+    f_b, tot_b = run(f0)
+    assert torch.equal(f_a, f_b) and torch.equal(tot_a, tot_b)

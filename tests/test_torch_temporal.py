@@ -244,7 +244,8 @@ def test_load_variant_builds_from_replaced_sources(tmp_path, monkeypatch):
 
 
 def test_pick_k_and_impl_choice(monkeypatch):
-    """The depth and kernel the policy picks (PERF.md §5), and the
+    """The depth and kernel the policy picks (PERF.md §5: K5 for f32 at
+    K = 4 from 1024^2 cells, K4 for int16 and other depths), and the
     overrides: LBM_TEMPORAL_K, LBM_TEMPORAL_IMPL=trapezoid|skew|hbm; a
     forced hbm that cannot map raises rather than run another kernel."""
     monkeypatch.delenv("LBM_TEMPORAL_K", raising=False)
@@ -252,8 +253,12 @@ def test_pick_k_and_impl_choice(monkeypatch):
     for n in (1024, 1536, 2048, 4096):
         assert temporal_cuda.pick_k(_p(n)) == 4
         assert temporal_cuda.pick_k(_p(n), "i16") == 1  # int16 is not swept by default
-        for storage in ("f32", "i16"):
-            assert program.temporal_impl_choice(_p(n), 4, storage) == "trapezoid"
+        assert program.temporal_impl_choice(_p(n), 4) == "skew"
+        assert program.temporal_impl_choice(_p(n), 4, "i16") == "trapezoid"
+        for K in (2, 8):
+            assert program.temporal_impl_choice(_p(n), K) == "trapezoid"
+    assert program.temporal_impl_choice(_p(768), 4) == "trapezoid"  # below 1024^2 cells
+    assert program.temporal_impl_choice(_p(512, 2048), 4) == "skew"  # counted in cells
     assert temporal_cuda.pick_k(_p(768)) == 1
     assert temporal_cuda.pick_k(_p(512, 2048)) == 4  # counted in cells
     assert temporal_cuda.tile(4) == (24, 40) and temporal_cuda.tile(8) == (32, 48)
@@ -279,26 +284,29 @@ def test_pick_k_and_impl_choice(monkeypatch):
 
 @pytest.mark.parametrize("storage,table", [
     ("f32", {128: "cuda-resident", 256: "cuda-resident", 512: "cuda-resident",
-             768: "cuda-resident", 1024: "cuda-inplace", 1536: "cuda-trapezoid",
-             2048: "cuda-trapezoid", 4096: "cuda-trapezoid"}),
+             768: "cuda-resident", 1024: "cuda-inplace", 1536: "cuda-skew",
+             2048: "cuda-skew", 4096: "cuda-skew"}),
     ("i16", {128: "cuda-inplace-i16", 256: "cuda-inplace-i16", 512: "cuda-inplace-i16",
              768: "cuda-inplace-i16", 1024: "cuda-inplace-i16", 1536: "cuda-step-i16",
              2048: "cuda-step-i16", 4096: "cuda-step-i16"}),
 ])
 def test_default_policy_table(monkeypatch, storage, table):
     """The kernel the cuda backend runs by default at each square grid of
-    the H100 table (PERF.md §5): the fastest one timed in turns there, but
-    for 1024^2 f32, which lbm_tpu's order keeps on the in-place kernel, and
-    int16 from 1024^2, which stays on K1-i16 (quantized every step) because
-    K4-i16 strayed beyond 1% of f32 there.  Forced depths opt out of K3,
-    never out of K2, and reach the int16 sweeps."""
+    the H100 table (PERF.md §5): the fastest one timed in turns there (f32
+    sweeps at K = 4 on K5), but for 1024^2 f32, which lbm_tpu's order keeps
+    on the in-place kernel, and int16 from 1024^2, which stays on K1-i16
+    (quantized every step) because K4-i16 strayed beyond 1% of f32 there.
+    Forced depths opt out of K3, never out of K2, and reach the int16
+    sweeps (K4-i16)."""
     monkeypatch.delenv("LBM_TEMPORAL_K", raising=False)
     monkeypatch.delenv("LBM_TEMPORAL_IMPL", raising=False)
     got = {n: program.cuda_choice(_p(n), storage)[0] for n in table}
     assert got == table
     assert program.cuda_choice(_p(2048), storage)[1] == (4 if storage == "f32" else 1)
     sfx = "-i16" if storage == "i16" else ""
-    assert program.cuda_choice(_p(2048), storage, 4) == ("cuda-trapezoid" + sfx, 4)
+    sweep4 = "cuda-skew" if storage == "f32" else "cuda-trapezoid-i16"
+    assert program.cuda_choice(_p(2048), storage, 4) == (sweep4, 4)
+    assert program.cuda_choice(_p(1024), storage, 4) == (sweep4, 4)
     assert program.cuda_choice(_p(1024), storage, 2) == ("cuda-trapezoid" + sfx, 2)
     assert program.cuda_choice(_p(2048), storage, 1) == ("cuda-step" + sfx, 1)
     if storage == "f32":
@@ -457,14 +465,14 @@ def _start(params, kind, device, storage):
     return quant.quantize(f, params.density) if storage == "i16" else f
 
 
-def _sweep_matches_plain(mod, device, shape, K, kind, storage):
+def _sweep_matches_plain(mod, device, shape, K, kind, storage, **kw):
     params, mask = _box(*shape)
     obst = torch.from_numpy(mask).to(device)
     s0 = _start(params, kind, device, storage)
     steps = 2 * K + 1  # two sweeps and a K1 tail step
     counter = "LAUNCHES_I16" if storage == "i16" else "LAUNCHES"
     before, k1 = getattr(mod, counter), getattr(fused_cuda, counter)
-    f_k, tot_k = mod.make_run_all(params, obst, steps, K, storage)(s0)
+    f_k, tot_k = mod.make_run_all(params, obst, steps, K, storage, **kw)(s0)
     assert getattr(mod, counter) == before + 2 and getattr(fused_cuda, counter) == k1 + 1
     f_p, tot_p = mod.run_plain(s0, obst, params, steps, K, storage)
     assert f_k.dtype == s0.dtype
@@ -492,7 +500,7 @@ def test_k4_geometry_and_refusal_on_card(cuda_device):
     for K in (2, 4, 8):
         th, tw = temporal_cuda.tile(K)
         assert lib.lbm_trapezoid_smem(K, th, tw) == temporal_cuda.smem_bytes(K, th, tw)
-        strip = (skew_cuda.STRIP_W, skew_cuda.BAND_H)
+        strip = (skew_cuda.strip_width(K), skew_cuda.BAND_MAX)
         assert lib.lbm_skew_smem(K, *strip) == skew_cuda.smem_bytes(K, *strip)
     params, mask = _box(60, 100)
     obst = torch.from_numpy(mask).to(cuda_device)
