@@ -96,8 +96,10 @@ power limit as nvidia-smi reports them):
    block's cells in some step, and rows split between blocks, and unless
    K7's cases (its own 32-cell-aligned plan) put it on the first and the
    last row of a block's cells in some step;
-3h. K9 (the HBM-parts sweep) vs its plain version and vs K1 at 2048x2048
-   and 60x100, K in {2, 3, 4, 8} (:func:`hbm_kernel_checks`);
+3h. K9 (the HBM-parts sweep, one launch per sweep) vs its plain version
+   and vs K1 at 2048x2048 and 60x100, K in {2, 3, 4, 8}, and on 2, 3 and 8
+   parts in 2 and 3 slots with the driven row in either ghost region and
+   across the wrap, a second run bitwise equal (:func:`hbm_kernel_checks`);
 3i. K10 (the two-copy row-block kernel) vs its plain version at 128^2,
    256^2, 512^2, 1024^2 and 72x100, the driven row in the first, a middle
    and the last row block and on a block edge (512^2 and 1024^2: the last
@@ -193,8 +195,8 @@ power limit as nvidia-smi reports them):
    the unbroken run;
 5k. ``LBM_TEMPORAL_IMPL=hbm`` through ``run`` on 5c's 2048x2048 channel
    (2000 steps, K = 4, K9): final_state.dat byte-identical to 5c's
-   ``--temporal-k 1`` (K1) run; K9's count, zeroed just before, must have
-   gone up;
+   ``--temporal-k 1`` (K1) run; K9's count, zeroed just before, must be
+   one launch a sweep (the run's 500 and the warm-up's one);
 5f. large shards: a 4096x4096 channel over 4 shards of 1024x4096, 200
    steps, sync's fields equal to the single-device K1 run's
    (``--temporal-k 1``), av within rtol 1e-6; chunked (k = 2) on the
@@ -234,7 +236,7 @@ e. ``golden --variant cuda`` on phase 5's 256x256 scene: both files
    same loop replayed from a CUDA graph),
    and ca-4 at 4096^2/4 (K4-slab) with fields equal to sync's; (6e) the ca
    engines in turns on the 256x1024 (K = 4, 8) and 1024x4096 (K = 4; K8
-   split) shards, and K9 against K4 in turns at 2048^2; (6f) K10 in turns
+   split) shards, and K9 against K5, K4 and K1 in turns at 2048^2; (6f) K10 in turns
    with K3 and K4 (K = 4) at 1024^2;
 7. one JSON line of kernel findings (one row per kernel, with the
    launches of the main path's run, its time per launch beside its plain
@@ -661,16 +663,29 @@ def ca_kernel_checks(dev, k8_paths: set,
     return err, cases
 
 
+# Phase 3h's pinned parts (ny, nx, R, S, K): 2 and 3 parts, 3 parts in 3
+# slots, 8 parts of the 2048^2 grid in 2 slots; each with the driven row at
+# ny - 2, in part 1's body and part 0's upper ghosts (R + 1), in part 0's
+# body and part 1's lower ghosts (R - 1), and in row 0 (the last part's
+# upper ghosts across the wrap).
+HBM_PINNED = ((96, 128, 48, 2, 4), (96, 128, 32, 2, 4), (96, 128, 32, 3, 4),
+              (2048, 2048, 256, 2, 4))
+
+
 def hbm_kernel_checks(dev) -> tuple[float, int]:
-    """Phase 3h: K9 (the HBM-parts sweep) over 2K + 1 steps (two sweeps
-    and a K1 tail) against its plain version (K twin steps per sweep) and
-    against the K1 loop, at 2048x2048 (8 parts of 256 rows) and 60x100, K in
-    {2, 3, 4, 8}, rest and perturbed starts: fields equal, tot_u within rtol
-    1e-6.  Returns the largest |diff| and the number of cases."""
+    """Phase 3h: K9 (the HBM-parts sweep, one launch per sweep) over 2K + 1
+    steps (two sweeps and a K1 tail) against its plain version (K twin steps
+    per sweep) and against the K1 loop, at 2048x2048 and 60x100 on the
+    plan's parts, K in {2, 3, 4, 8}, rest and perturbed starts; then on
+    :data:`HBM_PINNED`'s parts and slots, the driven row in each place, a
+    second run bitwise equal to the first: fields equal, tot_u within rtol
+    1e-6, one launch per sweep.  Returns the largest |diff| and the number
+    of cases."""
     import torch
 
     from lbm_tpu_torch.core import lattice
     from lbm_tpu_torch.ops import fused_cuda, hbm_cuda
+    from lbm_tpu_torch.params import with_driven_row
 
     worst, n_cases = 0.0, 0
     for ny, nx in ((2048, 2048), (60, 100)):
@@ -687,6 +702,25 @@ def hbm_kernel_checks(dev) -> tuple[float, int]:
                 f_1, tot_1 = fused_cuda.make_run_all(p, obst, steps)(f0)
                 compare(f"K9 vs K1 {ny}x{nx} K={K} {start}", f_k, tot_k, f_1, tot_1)
                 worst, n_cases = max(worst, e), n_cases + 1
+    for ny, nx, R, S, K in HBM_PINNED:
+        p0, m = box_scene(ny, nx, 0.01 if ny >= 1024 else 0.005)
+        obst = torch.from_numpy(m).to(dev)
+        for row in (ny - 2, R + 1, R - 1, 0):
+            p = with_driven_row(p0, row)
+            f0 = mixed_state(p, dev)
+            steps = 2 * K + 1
+            what = f"K9 {ny}x{nx} R={R} S={S} K={K} driven row {row}"
+            run = hbm_cuda.make_run_all(p, obst, steps, K, rows=R, slots=S)
+            before = hbm_cuda.LAUNCHES
+            f_k, tot_k = (t.clone() for t in run(f0))
+            if hbm_cuda.LAUNCHES != before + 2:
+                fail(f"{what}: {hbm_cuda.LAUNCHES - before} launches for 2 sweeps")
+            f_p, tot_p = hbm_cuda.run_plain(f0, obst, p, steps, K)
+            e, _ = compare(what, f_k, tot_k, f_p, tot_p)
+            f_2, tot_2 = run(f0)
+            if not (torch.equal(f_2, f_k) and torch.equal(tot_2, tot_k)):
+                fail(f"{what}: a second run differs from the first")
+            worst, n_cases = max(worst, e), n_cases + 1
     return worst, n_cases
 
 
@@ -1140,8 +1174,9 @@ def main() -> int:
           + f" | {time.perf_counter() - t_start:.1f} s elapsed")
     k9_err, k9_cases = hbm_kernel_checks(dev)
     print(f"[3h K9 vs plain and K1] card: {card} | 2048x2048 and 60x100 x K in (2, 3, 4, 8) x "
-          f"2K + 1 steps, rest and perturbed: {k9_cases} cases, fields equal to plain and to K1, "
-          f"max |diff| {k9_err:.1e}")
+          f"2K + 1 steps, rest and perturbed; (ny, nx, R, S, K) in {HBM_PINNED} x the driven "
+          f"row at ny - 2, R + 1, R - 1 and 0, a second run bitwise: {k9_cases} cases, fields "
+          f"equal to plain and to K1, one launch per sweep, max |diff| {k9_err:.1e}")
     k10_err, k10_cases = blocked_kernel_checks(dev)
     print(f"[3i K10 vs plain and K2] card: {card} | "
           + ", ".join(f"{ny}x{nx}" for ny, nx in BLOCKED_GRIDS)
@@ -1474,21 +1509,25 @@ def main() -> int:
         # Phase 5k: the HBM-parts sweep through the CLI, forced (as in
         # lbm_tpu), at 2048x2048 against 5c's K1 run.  Its count starts from
         # 0 here: this run is K9's main path.
-        hbm_rows = hbm_cuda.plan(bench.make_scene("2048x2048").params, 4)
+        hbm_rows, hbm_slots = hbm_cuda.plan(bench.make_scene("2048x2048").params, 4)
         hbm_cuda.LAUNCHES = 0
         with temporal_impl("hbm"):
             hbm_dir, got = cli_run("2048x2048-hbm", *scenes["2048x2048"], "cuda")
         launches["K9"] = hbm_cuda.LAUNCHES
-        if got != "cuda-hbm" or launches["K9"] <= 0:
-            fail(f"LBM_TEMPORAL_IMPL=hbm at 2048x2048: variant {got}, K9 launches {launches['K9']}")
+        # One launch a sweep: the run's 500 and the warm-up's one
+        # (driver._Advance.warm: a sweep and a step).
+        if got != "cuda-hbm" or launches["K9"] != 2000 // 4 + 1:
+            fail(f"LBM_TEMPORAL_IMPL=hbm at 2048x2048: variant {got}, K9 launches "
+                 f"{launches['K9']} for {2000 // 4} sweeps and the warm-up's one")
         plan_cases.append((*scenes["2048x2048"], "cuda", (), {"LBM_TEMPORAL_IMPL": "hbm"}, got,
                            "K9"))
         if not same_final_state(hbm_dir, k1_dirs["2048x2048"]):
             fail("LBM_TEMPORAL_IMPL=hbm at 2048x2048: final_state.dat differs from K1's")
         print(f"[5k HBM-parts sweep] card: {card} | 2048x2048 channel x 2000 steps, "
-              f"LBM_TEMPORAL_IMPL=hbm: {got} (K=4, {2048 // hbm_rows} parts of {hbm_rows} rows), "
-              f"final_state.dat byte-identical to --temporal-k 1 (cuda-step) | launches K9 "
-              f"{launches['K9']} | {mlups['2048x2048-hbm cuda-hbm']:.1f} MLUPS{elapsed()}")
+              f"LBM_TEMPORAL_IMPL=hbm: {got} (K=4, R={hbm_rows}: {2048 // hbm_rows} parts in "
+              f"S={hbm_slots} slots, one launch a sweep), final_state.dat byte-identical to "
+              f"--temporal-k 1 (cuda-step) | launches K9 {launches['K9']} | "
+              f"{mlups['2048x2048-hbm cuda-hbm']:.1f} MLUPS{elapsed()}")
 
         # Phase 5e: the sharded CLI on the golden scene, 4 shards of the card.
         # The counts of the sharded kernels start from 0 here: the runs of
@@ -2001,11 +2040,11 @@ def main() -> int:
           + " ; ".join(kernel_times.format_shard(n, t) for n, t in shard_times.items()))
 
     # Phase 6e: the ca engines in turns on the shards of the 1024^2 and
-    # 4096^2 runs over 4, and K9 against K4 in turns at 2048^2.
+    # 4096^2 runs over 4, and K9 against K5, K4 and K1 in turns at 2048^2.
     ca_times = {(256, 1024): kernel_times.time_ca(256, 1024, dev, (4, 8), (1,), repeats=5),
                 (1024, 4096): kernel_times.time_ca(1024, 4096, dev, (4,), (4, 8), repeats=5)}
     hbm_times = kernel_times.time_hbm(2048, dev, (4,), repeats=5)
-    print(f"[6e ca engines and K9 in turns] card: {card} | "
+    print(f"[6e ca engines and K9 in turns with K5, K4, K1] card: {card} | "
           + " ; ".join(kernel_times.format_ca(n, nx, t) for (n, nx), t in ca_times.items())
           + " ; " + kernel_times.format_grid(2048, hbm_times))
 
@@ -2192,6 +2231,11 @@ def main() -> int:
                      ca_row("", "", "", key, (1024, 4096), 4, storage, plain_key)))]
 
     ca_src = "lbm_tpu_torch/csrc/"
+    # K9's slots: the plan's parts of 2048^2 at K = 4, the L2 rate at the
+    # working set of its S slots.
+    k9_rows, k9_slots = hbm_cuda.plan(bench.make_scene("2048x2048").params, 4)
+    k9_label, k9_rate = kernel_times.l2_rate_for(l2, k9_slots * 9 * (k9_rows + 8) * 2048 * 4)
+    k9_bounds = bounds(2048, 2048, 2046 ** 2, 4, "f32", "HBM")
     kernels += [
         ca_row("K4-slab ca slab sweep (ms per launch = 4 steps of one 1024x4096 shard of "
                "4096x4096, K=4; launches and times by shape under by_shard)",
@@ -2213,13 +2257,17 @@ def main() -> int:
                "shard of 1024x1024, K=8)", ca_src + "ca_inplace.cu",
                "lbm_tpu/ops/resident_pallas.py:1643", "K8-i16", (256, 1024), 8, "i16",
                "plain-i16 K=8"),
-        {"name": "K9 HBM-parts sweep (ms per launch = 4 steps of 2048x2048 as 8 parts of "
-                 "256 rows, K=4)",
-         "route": "cuda", "source": ca_src + "ca_inplace.cu",
+        {"name": f"K9 HBM-parts sweep (ms per launch = 4 steps of 2048x2048 as "
+                 f"{2048 // k9_rows} parts of {k9_rows} rows in {k9_slots} L2 slots, K=4, "
+                 "one launch a sweep; tier: its cell-steps' state traffic over the L2 copy's "
+                 "rate at its slots' working set, hbm_tier_bound_ms: the state once from HBM)",
+         "route": "cuda", "source": "lbm_tpu_torch/csrc/hbm.cu",
          "replaces": "lbm_tpu/ops/hbm_pallas.py:157", "launches": launches["K9"],
          "max_abs_err": k9_err, "ms": hbm_times["K9 K=4"][0] / 1e3 * 4,
          "plain_ms": sweeps[2048]["plain K=4"][0] / 1e3 * 4,
-         **bounds(2048, 2048, 2046 ** 2, 4, "f32", "HBM")},
+         **k9_bounds, "hbm_tier_bound_ms": k9_bounds["tier_bound_ms"],
+         "tier": f"L2 ({k9_label} copy: {k9_slots} slots of {k9_rows + 8}x2048)",
+         "tier_bound_ms": kernel_times.hbm_tier_ms(2048, 4, k9_rate)},
         {"name": f"K10 two-copy row-block kernel (ms per launch = {chunk} steps, 1024x1024, "
                  f"B={blocked_cuda.DEFAULT_BLOCK_ROWS}; its two copies, 72 MiB, stream from HBM)",
          "route": "cuda", "source": "lbm_tpu_torch/csrc/blocked.cu",

@@ -1,8 +1,8 @@
-// The AA in-place machinery shared by K3 (inplace.cu) and K8/K9
-// (ca_inplace.cu): the layouts' speed maps, the per-round cell work of a
+// The AA in-place machinery shared by K3 (inplace.cu), K8 (ca_inplace.cu)
+// and K9 (hbm.cu): the layouts' speed maps, the per-round cell work of a
 // thread, the band plan and the neighbour-only step synchronisation.  The
-// two-copy kernels K2 and K6 (two_copy.cuh) take its cell walk, band plan
-// and step end too, with counters a line apart.
+// two-copy kernels K2 and K6 (two_copy.cuh) and K9 take its cell walk, band
+// plan and step end too, with counters a line apart.
 //
 // Work map.  Every step's cells are split into one contiguous range per
 // block (a band of whole and part rows), evenly, by the host

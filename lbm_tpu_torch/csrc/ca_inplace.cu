@@ -1,6 +1,5 @@
-// K8: the in-place sweep of the exact communication-avoiding mode (ca), and
-// K9: the HBM-parts sweep that runs the same kernel on row parts of one
-// grid, for Hopper.
+// K8: the in-place sweep of the exact communication-avoiding mode (ca), for
+// Hopper.
 //
 // K8 replaces the TPU kernel lbm_tpu/ops/resident_pallas.py::_ca_inplace_kernel
 // (:1643, body _inplace_slab_sweep :1474, entry make_ca_inplace_runner
@@ -11,23 +10,12 @@
 // bitwise (int16: K sync-i16 steps, quantized every step as B10 does,
 // :1704-1709).
 //
-// K9 replaces lbm_tpu/ops/hbm_pallas.py::_hbm_sweep_kernel (:157, entries
-// make_sweep :272 and make_run_all :354), float32: K steps of the whole
-// grid as P row parts of R rows, each part's slab extended by K rows on
-// each side (periodic wrap: its windows are rows of the input state), swept
-// by K8's kernel in the scratch copy, its body rows written to the other
-// state buffer.  The parts run one after the other on one stream: B7's
-// triple-buffered DMA pipeline, which overlaps a part's load with the
-// previous part's compute, is not ported (a TMA/mbarrier pipeline is later
-// work).
-//
 // Bound: 9 reads + 9 writes of state per cell-step of the extended slab,
 // from L2 while its one copy stays there (the wrappers map a slab only
-// where it fits inplace_cuda.L2_INPLACE_BUDGET), plus the steps' waits;
-// K9 also reads each part's slab from device memory and writes its body
-// back once per sweep.  On the 256x1024 shard at K = 8 half of the parent
-// kernel's time was its step floor (the grid barrier and the block sum,
-// no cell: 3.95 of 7.83 us/step; PERF.md Findings PR 8).
+// where it fits inplace_cuda.L2_INPLACE_BUDGET), plus the steps' waits.
+// On the 256x1024 shard at K = 8 half of the parent kernel's time was its
+// step floor (the grid barrier and the block sum, no cell: 3.95 of 7.83
+// us/step; PERF.md Findings PR 8).
 //
 // Design: K3's AA access pattern (csrc/inplace.cu) on the extended slab, so
 // that every cell reads and writes only its own slots and all cells run in
@@ -61,8 +49,7 @@
 // L2 only (__ldcg).  |u|: per step each block sums its body cells in a fixed
 // order into its partial; after the last step, block b sums rows b,
 // b + grid, ... in a fixed order into tot_out, or adds them to it
-// (accumulate: K9's parts and ca's split sub-slabs, in part order).  No
-// float atomics.
+// (accumulate: ca's split sub-slabs, in part order).  No float atomics.
 
 #include <cooperative_groups.h>
 
@@ -264,44 +251,6 @@ int lbm_ca_inplace(const void* lo, long long ps_lo, const void* body, long long 
                        static_cast<const T*>(hi), ps_hi, K, n};
   return ca_inplace(in, static_cast<T*>(a), obst, gate, static_cast<T*>(out), ps_out, partials,
                     tot_out, p, drow, accumulate, grid, s);
-}
-
-// K9: one K-step sweep of the whole ny x nx float32 grid from fin into fout
-// (another buffer), as ny / R row parts of R rows (R divides ny, K <= R,
-// R + 2K <= ny), one K8 launch each, in order.  Part q reads rows
-// [qR - K, qR + R + K) mod ny of fin (three windows that never straddle the
-// wrap), sweeps them in the scratch `a` (9 x (R + 2K) x nx floats; gate
-// 2 x nx bytes) with obstacle slab obst_parts[q] ((R + 2K) x nx bytes each)
-// and writes its R body rows to fout.  partials is K8's, for an extended
-// slab of R + 2K rows (grid from lbm_ca_inplace_grid(R + 2K, nx, 0,
-// device)), shared by the parts; tot_out receives the K per-level sums, the
-// parts added in order.  Returns the first CUDA error, or 0.
-int lbm_hbm_sweep(const float* fin, float* fout, const uint8_t* obst_parts, float* a,
-                  uint8_t* gate, float* partials, float* tot_out, int ny, int nx, int R, int K,
-                  int accel_row, float omega, float w1, float w2, int grid, void* stream,
-                  int device) {
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (K < 1 || R < K || ny % R || R + 2 * K > ny || grid < 1 || nx < 1 ||
-      9LL * (R + 2 * K) * nx >= (1LL << 31)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const lbm::StepParams p{R + 2 * K, nx, accel_row, omega, w1, w2};
-  const long long plane = static_cast<long long>(ny) * nx;
-  const int ext = R + 2 * K;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int q = 0; q < ny / R; ++q) {
-    const int base = (q * R - K + ny) % ny;  // global row of extended row 0
-    const lbm::Ext<float> in{fin + static_cast<size_t>(base) * nx, plane,
-                             fin + static_cast<size_t>(q) * R * nx, plane,
-                             fin + static_cast<size_t>((q + 1) * R % ny) * nx, plane, K, R};
-    const int d = ((accel_row - base) % ny + ny) % ny;
-    const int rc = ca_inplace(in, a, obst_parts + static_cast<size_t>(q) * ext * nx, gate,
-                              fout + static_cast<size_t>(q) * R * nx, plane, partials, tot_out,
-                              p, d < ext ? d : -1, q > 0, grid, s);
-    if (rc != 0) return rc;
-  }
-  return 0;
 }
 
 }  // extern "C"

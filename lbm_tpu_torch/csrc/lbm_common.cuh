@@ -1,7 +1,7 @@
 // Shared per-cell D2Q9-BGK update for the CUDA kernels of lbm_tpu_torch.
 //
 // Every kernel (step.cu, resident.cu, inplace.cu, temporal.cu, skew.cu,
-// ghosted.cu, ca_resident.cu, ca_inplace.cu) loads state through
+// ghosted.cu, ca_resident.cu, ca_inplace.cu, hbm.cu) loads state through
 // lbm_load(), updates a cell with lbm_collide() and stores with
 // lbm_encode(), so they stay bitwise equal to each other and to the plain
 // torch step (ops/stencil_math.py, which this file follows op for op, in the
@@ -9,9 +9,10 @@
 // lbm_pull() (K1) and lbm_pull_slab() (K1-slab, the sharded modes' slab
 // step); the two-copy kernels K2 and K6 (two_copy.cuh) from their copies,
 // K6's rows next to a ghost with lbm_pull_slab(); the ca engines K7 and K8
-// from a ghost-extended slab (Ext) with lbm_pull_3rows(); inplace.cu and
-// ca_inplace.cu read them from their in-place layout; temporal.cu and
-// skew.cu pull from levels held in shared memory with lbm_pull_rows().
+// and K9's step 0 from a ghost-extended slab (Ext) with lbm_pull_3rows();
+// inplace.cu, ca_inplace.cu and hbm.cu read them from their in-place
+// layout; temporal.cu and skew.cu pull from levels held in shared memory
+// with lbm_pull_rows().
 //
 // Storage: the state is float32, or int16 fixed-point deviations from rest
 // (ops/quant.py).  lbm_load() dequantizes and lbm_encode() quantizes with

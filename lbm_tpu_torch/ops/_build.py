@@ -74,7 +74,8 @@ _SIGNATURES = {
     "lbm_ca_inplace_grid": [_I, _I, _I, _I],
     "lbm_ca_inplace": [_P, _L, _P, _L, _P, _L, _P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I,
                        _I, _F, _F, _F, _I, _P, _I, _P, _I],
-    "lbm_hbm_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _I],
+    "lbm_hbm_grid": [_I, _I, _I],
+    "lbm_hbm_run": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _I],
     "lbm_inplace_chunk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P, _I, _I, _I,
                           _I, _I, _P, _I],
     "lbm_skew_grid": [_I, _I, _I],

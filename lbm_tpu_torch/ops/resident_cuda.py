@@ -65,14 +65,17 @@ BAND_ALIGN = 32
 COUNTER_WORDS = 32
 
 
-def partials_buffer(plan: list, sum_steps: int, device) -> torch.Tensor:
+def partials_buffer(plan: list, sum_steps: int, device, counters: int | None = None
+                    ) -> torch.Tensor:
     """The partials buffer of the two-copy kernels K2, K6 and K7
     (csrc/two_copy.cuh), float32 words: the grid step counters
     :data:`COUNTER_WORDS` apart, zero; the band plan (steps x grid x 4
     int32: start, end, dep_lo, dep_n; one step for K2 and K6, whose every
-    step takes the same split, K for K7); then sum_steps x grid sums."""
+    step takes the same split, K for K7); then sum_steps x grid sums.
+    ``counters``: the number of counters when it is not the plan's grid
+    (K9: one more, its count of blocks done with a part)."""
     grid = len(plan[0])
-    head = COUNTER_WORDS * grid
+    head = COUNTER_WORDS * (counters or grid)
     words = 4 * len(plan) * grid
     buf = torch.zeros(head + words + sum_steps * grid, dtype=torch.float32)
     buf.view(torch.int32)[head:head + words] = torch.tensor(plan, dtype=torch.int32).flatten()

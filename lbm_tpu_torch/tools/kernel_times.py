@@ -27,8 +27,13 @@ ca engines K4-slab, K7 and K8 at each depth of ``--ca-depths``, f32 and
 int16 (K7 f32 only), each where it maps, K8 also split into sub-slabs
 (``--ca-parts``), in turns, with frozen ghosts; then the plain ca sweep.
 
-For each grid of ``--hbm``: K9 (the HBM-parts sweep) against K4 at each
-depth of ``--ca-depths``, in turns with K1.
+For each grid of ``--hbm``: K9 (the HBM-parts sweep) against K4 and K5 at
+each depth of ``--ca-depths``, in turns with K1, then K9's bounds (its
+launch's bytes or operations, and its L2 tier: its parts' cell-steps over
+the L2 copy's rate at its slots' working set); ``--hbm-parts 128x2,...``
+adds K9 on those part rows and slots (R x S), and ``--hbm-split`` the
+split of each K9 timed (no cell, the cells of step 0, of the middle steps,
+of the last step: ``SWEEP_SPLIT``).
 
 For each grid of ``--blocked``: K10 (the two-copy row-block kernel) at each
 row-block height of ``--blocked-rows``, in turns with K2 where it maps (to
@@ -51,8 +56,10 @@ K4-slab in ``--ca``; ``skew.cu`` K5 and K5-i16 in ``--sweeps``, beside the
 package's K5, K4 and K1 (on the variant's own strips and bands,
 ``skew_cuda.geometry``: the one-row walk, whose library lacks
 ``lbm_skew_grid``, on its strips of 64 columns and bands of 128 rows);
-``inplace.cu`` K3 and K3-i16 in ``--grids``, ``--sweeps`` and ``--policy``; ``ca_inplace.cu`` K8 and K8-i16 in ``--ca``
-and K9 in ``--hbm``; ``ca_resident.cu`` K7 in ``--ca``; ``blocked.cu`` K10
+``inplace.cu`` K3 and K3-i16 in ``--grids``, ``--sweeps`` and ``--policy``;
+``ca_inplace.cu`` K8 and K8-i16 in ``--ca`` (and, with the entry
+``lbm_hbm_sweep`` of PRs 5-13, that K9 in ``--hbm``); ``hbm.cu`` K9 in
+``--hbm``; ``ca_resident.cu`` K7 in ``--ca``; ``blocked.cu`` K10
 at each height of ``--blocked-rows`` in ``--blocked``.
 ``--k4-regions 48x64,...`` times K4 and K4-slab on compiled regions other
 than the table's at each depth (``K4[48x64] K=4``), the same way.
@@ -78,7 +85,8 @@ process, and the card's name and power limit::
     python -m lbm_tpu_torch.tools.kernel_times [--grids 128,256,512,1024,1536] \
         [--sweeps 1536,2048,4096] [--depths 2,4,8] [--shards 1024,4096] \
         [--ca 64x1024,256x1024,1024x4096] [--ca-depths 4,8] [--ca-parts 1,2,4,8,16] \
-        [--hbm 2048,4096] [--blocked 256,512,768,1024] [--blocked-rows 8] [--policy] \
+        [--hbm 2048,4096] [--hbm-parts 128x2,256x2] [--hbm-split] \
+        [--blocked 256,512,768,1024] [--blocked-rows 8] [--policy] \
         [--placements 5] [--l2] \
         [--variant parent=build/parent/step.cu] \
         [--k4-regions 48x64] [--repeats 7]
@@ -140,6 +148,7 @@ class Variant(NamedTuple):
     lib: object  # the library (ctypes.CDLL)
     tile: object  # K -> (tile rows, tile columns) of K4
     files: frozenset  # the package's sources it replaces
+    paths: tuple = ()  # (file name, path) of each
 
 
 def parse_variant(spec: str):
@@ -171,7 +180,8 @@ def load_variants(specs) -> dict:
         tile = temporal_cuda.tile
         if region is not None:
             tile = lambda K, rh=region[0], rw=region[1]: (rh - 2 * K, rw - 2 * K)  # noqa: E731
-        out[name] = Variant(_build.load_variant(replace), tile, frozenset(replace))
+        out[name] = Variant(_build.load_variant(replace), tile, frozenset(replace),
+                            tuple(replace.items()))
     return out
 
 
@@ -695,16 +705,113 @@ def _ca_runs(engines, variants, p, lo, a, b, hi, ob, off, ny, tots, steps, K, st
                (run, None, steps))
 
 
-def time_hbm(n: int, device, depths=(4, 8), repeats: int = 5,
-             variants=None) -> dict[str, tuple[float, float, float]]:
-    """us/step (median, q1, q3) of K1, and of K4 and K9 at each depth, in
-    turns, on an n x n closed box from rest; with ``variants``
-    (:func:`load_variants`) the K9 of each that replaces ``ca_inplace.cu``
-    (``K9@NAME K=4``) in the same turns."""
+# The split of K9 (``--hbm --hbm-split``), a sweep on K8's cell walk: the
+# kernel with the cells of some steps only, every wait, step sum, launch
+# and |u| pass kept.  ``floor`` (no cell) is what a sweep costs
+# beyond its cells; ``step0`` minus ``floor`` the first step's (the pull
+# from the input rows), ``middle`` minus ``floor`` the in-place steps',
+# ``last`` minus ``floor`` the last step's (the write of the body rows).
+SWEEP_SPLIT = {"floor": "false", "step0": "t == 0", "middle": "(t > 0 && t + 1 < K)",
+               "last": "t + 1 == K"}
+_CELL_LOOP = "for (int c0 = c_first; c0 < bd.end; c0 += kC * lbm::kThreads) {"
+
+
+def split_source(text: str, part: str) -> str:
+    """The source ``text`` of a sweep on K8's cell walk (``ca_inplace.cu``,
+    ``hbm.cu``) with the cells of the steps of :data:`SWEEP_SPLIT`'s
+    ``part`` only."""
+    if text.count(_CELL_LOOP) != 1:
+        raise ValueError("the source has no single cell loop of K8's walk to split")
+    return text.replace(_CELL_LOOP, _CELL_LOOP.replace(
+        "c0 < bd.end;", f"({SWEEP_SPLIT[part]}) && c0 < bd.end;"))
+
+
+def split_libs(name: str, path) -> dict:
+    """{part: library} of :data:`SWEEP_SPLIT`: the package's sources with
+    the file ``name`` replaced by :func:`split_source` of ``path``, written
+    under the ignored build directory."""
+    import hashlib
+    import pathlib
+
+    from lbm_tpu_torch.ops import _build
+
+    text = pathlib.Path(path).read_text()
+    tag = hashlib.sha256(text.encode()).hexdigest()[:12]
+    out = {}
+    for part in SWEEP_SPLIT:
+        d = _build.BUILD_ROOT / f"split-{tag}-{part}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / name).write_text(split_source(text, part))
+        out[part] = _build.load_variant({name: d / name})
+    return out
+
+
+# The entry point of the K9 of PRs 5-13 (csrc/ca_inplace.cu): one K8 launch
+# per part, parts of the largest R whose one extended slab fits
+# inplace_cuda.L2_INPLACE_BUDGET.
+PARTS_SWEEP_ARGTYPES = ("P" * 7) + ("I" * 5) + "FFF" + "IPI"
+
+
+def parts_sweep_run_all(p, obst, num_steps: int, K: int, lib):
+    """A runner of the K9 of PRs 5-13 from a library that has its entry
+    ``lbm_hbm_sweep`` (a variant with that version's ``ca_inplace.cu``):
+    ``f0 -> (f, tot)`` of whole sweeps (``num_steps`` a multiple of K), one
+    K8 launch per part; no plain fallback (card only)."""
+    import ctypes
+
+    import torch
+
+    from lbm_tpu_torch.ops import _build, ca_cuda, fused_torch, inplace_cuda
+
+    types = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}
+    lib.lbm_hbm_sweep.argtypes = [types[c] for c in PARTS_SWEEP_ARGTYPES]
+    lib.lbm_hbm_sweep.restype = ctypes.c_int
+    R = max(r for r in range(K, p.ny - 2 * K + 1) if p.ny % r == 0
+            and inplace_cuda.state_bytes(r + 2 * K, p.nx) <= inplace_cuda.L2_INPLACE_BUDGET)
+    ext, dev = R + 2 * K, obst.device
+    grid = lib.lbm_ca_inplace_grid(ext, p.nx, 0, dev.index)
+    fa = torch.empty((9, p.ny, p.nx), dtype=torch.float32, device=dev)
+    fb = torch.empty_like(fa)
+    scratch = torch.empty((9, ext, p.nx), dtype=torch.float32, device=dev)
+    gate = torch.empty((2, p.nx), dtype=torch.uint8, device=dev)
+    partials = inplace_cuda.partials_buffer(ca_cuda.sweep_plan(ext, p.nx, K, grid), K, dev)
+    rows = torch.arange(-K, R + K, device=dev)
+    obst_parts = obst[torch.remainder(torch.arange(0, p.ny, R, device=dev)[:, None] + rows,
+                                      p.ny)].to(torch.uint8).contiguous()
+    omega, w1, w2 = fused_torch.step_constants(p)
+
+    def run_all(f):
+        tot = torch.empty(num_steps, dtype=torch.float32, device=dev)
+        fa.copy_(f)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for s in range(num_steps // K):
+            src, dst = (fa, fb) if s % 2 == 0 else (fb, fa)
+            _build.check(lib.lbm_hbm_sweep(
+                src.data_ptr(), dst.data_ptr(), obst_parts.data_ptr(), scratch.data_ptr(),
+                gate.data_ptr(), partials.data_ptr(), tot.data_ptr() + 4 * s * K, p.ny, p.nx, R,
+                K, p.accel_row, omega, w1, w2, grid, stream, dev.index), "K9 of PRs 5-13")
+        return (fb if num_steps // K % 2 else fa), tot
+
+    return run_all
+
+
+def time_hbm(n: int, device, depths=(4, 8), repeats: int = 5, variants=None,
+             parts=(), split: bool = False,
+             only=None) -> dict[str, tuple[float, float, float]]:
+    """us/step (median, q1, q3) of K1, and of K4, K5 and K9 at each depth,
+    in turns, on an n x n closed box from rest.  ``parts`` ((R, S) pairs)
+    adds K9 on those part rows and slots (``K9 R=128 S=2 K=4``).  With
+    ``variants`` (:func:`load_variants`) the K9 of each that replaces
+    ``hbm.cu`` or a header it includes, or ``ca_inplace.cu`` with the
+    one-launch-per-part entry of PRs 5-13 (:func:`parts_sweep_run_all`),
+    runs in the same turns (``K9@NAME K=4``).  With ``split`` so does the
+    :data:`SWEEP_SPLIT` of the package's K9 and of each such variant
+    (``K9 floor K=4``, ``K9@NAME step0 K=4``, ...).  ``only`` (names such as
+    ``K9@parent``) times those K9s alone, beside K1, K4 and K5."""
     import torch
 
     from lbm_tpu_torch.core import lattice
-    from lbm_tpu_torch.ops import fused_cuda, hbm_cuda, temporal_cuda
+    from lbm_tpu_torch.ops import _build, fused_cuda, hbm_cuda, skew_cuda, temporal_cuda
     from lbm_tpu_torch.tools.bench import make_scene
 
     scene = make_scene(f"{n}x{n}")
@@ -712,15 +819,77 @@ def time_hbm(n: int, device, depths=(4, 8), repeats: int = 5,
     obst = torch.from_numpy(scene.obstacles).to(device)
     f0 = lattice.equilibrium_rest_device(p.density, n, n, device)
     steps = 8 * max(1, 2**27 // (n * n))
+
+    # name -> (lib, runner maker) of every K9 to time
+    k9 = {"K9": (None, hbm_cuda.make_run_all)}
+    for vname, v in replacing(variants, "hbm.cu").items():
+        k9[f"K9@{vname}"] = (v.lib, hbm_cuda.make_run_all)
+    for vname, v in replacing(variants, "ca_inplace.cu").items():
+        if hasattr(v.lib, "lbm_hbm_sweep") and f"K9@{vname}" not in k9:
+            k9[f"K9@{vname}"] = (v.lib, lambda *a, lib: parts_sweep_run_all(*a, lib=lib))
+    if only:
+        k9 = {key: k9[key] for key in only}
+    if split:
+        sources = {"K9": ("hbm.cu", _build.CSRC / "hbm.cu")} if "K9" in k9 else {}
+        for vname, v in (variants or {}).items():
+            for name in ("hbm.cu", "ca_inplace.cu"):
+                if name in v.files and f"K9@{vname}" in k9:
+                    sources[f"K9@{vname}"] = (name, dict(v.paths)[name])
+        for key, (name, path) in sources.items():
+            for part, lib in split_libs(name, path).items():
+                k9[f"{key} {part}"] = (lib, k9[key][1])
+
     runs = {"K1": (fused_cuda.make_run_all(p, obst, steps), f0, steps)}
     for K in depths:
         runs[f"K4 K={K}"] = (temporal_cuda.make_run_all(p, obst, steps, K), f0, steps)
-        if hbm_cuda.supports(p, K):
-            runs[f"K9 K={K}"] = (hbm_cuda.make_run_all(p, obst, steps, K), f0, steps)
-            for vname, v in replacing(variants, "ca_inplace.cu").items():
-                runs[f"K9@{vname} K={K}"] = (hbm_cuda.make_run_all(p, obst, steps, K, lib=v.lib),
-                                             f0, steps)
+        if skew_cuda.supports(p, K):
+            runs[f"K5 K={K}"] = (skew_cuda.make_run_all(p, obst, steps, K), f0, steps)
+        if not hbm_cuda.supports(p, K):
+            continue
+        for key, (lib, make) in k9.items():
+            name, _, part = key.partition(" ")
+            runs[f"{name} {part + ' ' if part else ''}K={K}"] = (
+                make(p, obst, steps, K, lib=lib), f0, steps)
+        for R, S in parts:
+            if hbm_cuda.parts_valid(n, K, R, S):
+                runs[f"K9 R={R} S={S} K={K}"] = (
+                    hbm_cuda.make_run_all(p, obst, steps, K, rows=R, slots=S), f0, steps)
     return time_in_turns(runs, repeats)
+
+
+def hbm_tier_ms(n: int, K: int, l2_gbps: float) -> float:
+    """K9's L2 tier bound, in ms, for one K-step sweep of an n x n grid on
+    ``hbm_cuda.plan``'s parts: the parts' cell-steps, P x (R + 2K) x n x K,
+    9 float32 values read and 9 written each, over ``l2_gbps`` (the L2
+    copy's rate at the working set of its slots)."""
+    from lbm_tpu_torch.ops import hbm_cuda
+    from lbm_tpu_torch.tools.bench import make_scene
+
+    R, _ = hbm_cuda.plan(make_scene(f"{n}x{n}").params, K)
+    return (n // R) * (R + 2 * K) * n * K * 2 * 9 * 4 / (l2_gbps * 1e9) * 1e3
+
+
+def format_hbm_bounds(n: int, depths, device, repeats: int = 5) -> str:
+    """K9's bounds on an n x n closed box at each depth: the launch's bound
+    (:func:`bound_ms`) and its L2 tier bound (:func:`hbm_tier_ms` at the L2
+    copy's rate, with a barrier a pass, measured here at the slots' working
+    set)."""
+    from lbm_tpu_torch.ops import hbm_cuda, inplace_cuda
+    from lbm_tpu_torch.tools.bench import make_scene
+
+    p = make_scene(f"{n}x{n}").params
+    out = []
+    for K in depths:
+        if not hbm_cuda.supports(p, K):
+            continue
+        R, S = hbm_cuda.plan(p, K)
+        slots = S * inplace_cuda.state_bytes(R + 2 * K, n)
+        rate = l2_copy_gbps(device, slots, True, repeats=repeats)[0]
+        b, by = bound_ms(n * n, (n - 2) ** 2, K)
+        out.append(f"K9 K={K} (R={R}, S={S}): bound {b * 1e3:.2f} us a launch ({by}), L2 tier "
+                   f"{hbm_tier_ms(n, K, rate) * 1e3:.1f} us at {rate:.1f} GB/s "
+                   f"({slots / 2**20:.1f} MiB)")
+    return f"{n}^2 K9 bounds: " + " | ".join(out)
 
 
 def time_blocked(n: int, device, repeats: int = 7, block_rows=(8,),
@@ -860,7 +1029,13 @@ def main(argv: list[str] | None = None) -> int:
                         "64x1024,256x1024,1024x4096 (rows x columns)")
     parser.add_argument("--ca-depths", default="4,8")
     parser.add_argument("--ca-parts", default="1,2,4,8,16")
-    parser.add_argument("--hbm", default="", help="grids to time K9 against K4 on")
+    parser.add_argument("--hbm", default="", help="grids to time K9 against K4 and K5 on")
+    parser.add_argument("--hbm-parts", default="",
+                        help="K9 part rows x slots to time beside the plan's, e.g. 128x2,256x1")
+    parser.add_argument("--hbm-split", action="store_true",
+                        help="time the split of each K9 (no cell; step 0; middle; last)")
+    parser.add_argument("--hbm-only", default="",
+                        help="time these K9s alone, e.g. K9@parent (default: every one)")
     parser.add_argument("--blocked", default="", help="grids to time K10 against the policy's "
                         "kernel on, e.g. 256,512,768,1024")
     parser.add_argument("--blocked-rows", default="8",
@@ -871,8 +1046,8 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--variant", action="append", default=[],
                         help="NAME=PATH[+PATH...]: time the kernels of other versions of "
                         "step.cu, resident.cu, ghosted.cu, temporal.cu, skew.cu, inplace.cu, "
-                        "ca_inplace.cu, ca_resident.cu or blocked.cu in turns with the "
-                        "package's own")
+                        "ca_inplace.cu, hbm.cu, ca_resident.cu or blocked.cu in turns with "
+                        "the package's own")
     parser.add_argument("--k4-regions", default="",
                         help="compiled regions of K4 and K4-slab to time beside the table's, "
                         "e.g. 48x64")
@@ -904,6 +1079,8 @@ def main(argv: list[str] | None = None) -> int:
         print(format_shard(n, time_shard(n, device, repeats=args.repeats, variants=variants))
               + f" | {card}")
     ca_depths = tuple(int(k) for k in args.ca_depths.split(","))
+    hbm_parts = tuple(tuple(int(v) for v in rs.split("x")) for rs in args.hbm_parts.split(",")
+                      if rs)
     ca_parts = tuple(int(k) for k in args.ca_parts.split(","))
     for shard in (s for s in args.ca.split(",") if s):
         nloc, nx = (int(v) for v in shard.split("x"))
@@ -911,8 +1088,11 @@ def main(argv: list[str] | None = None) -> int:
                                           variants=variants, regions=regions,
                                           placements=args.placements)) + f" | {card}")
     for n in (int(g) for g in args.hbm.split(",") if g):
-        print(format_grid(n, time_hbm(n, device, ca_depths, args.repeats, variants))
+        print(format_grid(n, time_hbm(n, device, ca_depths, args.repeats, variants, hbm_parts,
+                                      args.hbm_split,
+                                      [k for k in args.hbm_only.split(",") if k]))
               + f" | {card}")
+        print(format_hbm_bounds(n, ca_depths, device, args.repeats) + f" | {card}")
     rows = tuple(int(b) for b in args.blocked_rows.split(","))
     for n in (int(g) for g in args.blocked.split(",") if g):
         print("in turns " + format_grid(n, time_blocked(n, device, args.repeats, rows,

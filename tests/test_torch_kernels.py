@@ -391,6 +391,7 @@ def test_kernel_times_variants_and_l2_tiers():
         ("k3", {"inplace.cu"}), ("aa", {"aa_inplace.cuh"}), ("k4", {"temporal.cu"}))}
     assert set(kernel_times.replacing(v, "inplace.cu")) == {"k3", "aa"}
     assert set(kernel_times.replacing(v, "ca_inplace.cu")) == {"aa"}
+    assert set(kernel_times.replacing(v, "hbm.cu")) == {"aa"}  # through two_copy.cuh
     assert set(kernel_times.replacing(v, "temporal.cu")) == {"k4"}
     rates = {lb: {"barrier": (float(i + 1), 0.0, 0.0)}
              for i, lb in enumerate(kernel_times.L2_WORKING_SETS)}
@@ -401,6 +402,31 @@ def test_kernel_times_variants_and_l2_tiers():
     assert kernel_times.l2_rate_for(rates, 10 * sets["36 MiB"]) == ("36 MiB", 3.0)
     assert "36 MiB barrier 3.0" in kernel_times.format_l2(
         {lb: {"barrier": r["barrier"], "free": r["barrier"]} for lb, r in rates.items()})
+
+
+def test_kernel_times_sweep_split():
+    """``--hbm-split``: each part of the split keeps K8's cell loop once,
+    under its condition on the step (K9 of hbm.cu, and K8's walk in
+    ca_inplace.cu, which PRs 5-13's K9 ran on); a source without the loop
+    raises."""
+    for name in ("hbm.cu", "ca_inplace.cu"):
+        text = (_build.CSRC / name).read_text()
+        for part, cond in kernel_times.SWEEP_SPLIT.items():
+            out = kernel_times.split_source(text, part)
+            assert out.count(f"({cond}) && c0 < bd.end;") == 1
+            assert len(out) == len(text) + len(cond) + 6
+    with pytest.raises(ValueError, match="cell loop"):
+        kernel_times.split_source("int main() {}", "floor")
+    assert set(kernel_times.SWEEP_SPLIT) == {"floor", "step0", "middle", "last"}
+
+
+def test_kernel_times_hbm_tier():
+    """K9's L2 tier bound: the plan's parts' cell-steps, 72 bytes each, over
+    the rate given (2048^2, K = 4: 8 parts of 264 rows)."""
+    assert kernel_times.hbm_tier_ms(2048, 4, 1.0) == pytest.approx(
+        8 * 264 * 2048 * 4 * 72 / 1e9 * 1e3)
+    assert kernel_times.hbm_tier_ms(4096, 8, 2.0) == pytest.approx(
+        32 * 144 * 4096 * 8 * 72 / 2e9 * 1e3)
 
 
 def test_kernel_times_two_copy_variants():
@@ -566,12 +592,14 @@ def test_build_flags_and_sources(tmp_path, monkeypatch):
     assert "fast_math" not in flags and "fast-math" not in flags
     assert {s.name for s in _build.sources()} == {
         "step.cu", "resident.cu", "inplace.cu", "temporal.cu", "skew.cu", "ghosted.cu",
-        "ca_resident.cu", "ca_inplace.cu", "blocked.cu", "l2_copy.cu", "lbm_common.cuh",
-        "aa_inplace.cuh", "two_copy.cuh"}
+        "ca_resident.cu", "ca_inplace.cu", "hbm.cu", "blocked.cu", "l2_copy.cu",
+        "lbm_common.cuh", "aa_inplace.cuh", "two_copy.cuh"}
     assert {"lbm_inplace_grid", "lbm_inplace_chunk", "lbm_step_run", "lbm_trapezoid_run",
             "lbm_skew_run", "lbm_slab_step", "lbm_ghosted_chunk", "lbm_trapezoid_slab",
-            "lbm_ca_resident", "lbm_ca_inplace", "lbm_hbm_sweep", "lbm_blocked_grid",
-            "lbm_blocked_chunk", "lbm_l2_copy_grid", "lbm_l2_copy"} <= set(_build._SIGNATURES)
+            "lbm_ca_resident", "lbm_ca_inplace", "lbm_hbm_grid", "lbm_hbm_run",
+            "lbm_blocked_grid", "lbm_blocked_chunk", "lbm_l2_copy_grid",
+            "lbm_l2_copy"} <= set(_build._SIGNATURES)
+    assert "lbm_hbm_sweep" not in _build._SIGNATURES  # PRs 5-13's K9: kernel_times only
     d0 = _build.build_dir()
     assert d0.parent == _build.BUILD_ROOT and len(d0.name) == 16
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))

@@ -29,6 +29,7 @@ from lbm_tpu_torch.models import driver, program
 from lbm_tpu_torch.ops import (
     fused_cuda,
     fused_torch,
+    hbm_cuda,
     inplace_cuda,
     quant,
     resident_cuda,
@@ -351,9 +352,10 @@ def test_dispatch_order(monkeypatch):
     assert _build(mask, params).variant == "cuda-step"
     monkeypatch.setenv("LBM_TEMPORAL_IMPL", "hbm")
     monkeypatch.delenv("LBM_TEMPORAL_K")
-    with pytest.raises(ValueError, match="cannot map"):  # K9's parts share K3's budget, 0 here
+    monkeypatch.setattr(hbm_cuda, "L2_SLOTS_BUDGET", 0)
+    with pytest.raises(ValueError, match="cannot map"):  # K9's slots fit no budget of 0
         _build(mask, params)
-    monkeypatch.setattr(inplace_cuda, "L2_INPLACE_BUDGET", 2**20)
+    monkeypatch.setattr(hbm_cuda, "L2_SLOTS_BUDGET", 2**20)
     assert _build(mask, params, temporal_k=4).variant == "cuda-hbm"
     with pytest.raises(ValueError, match="cannot map"):
         _build(mask, params, temporal_k=8)
