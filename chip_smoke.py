@@ -178,6 +178,17 @@ power limit as nvidia-smi reports them):
    --host-devices 4`` x 2001 steps reads ``ca-8+sync-tail1`` and writes
    sync's final_state.dat (5e); the counts of the ca engines, zeroed just
    before, must have gone up, each in the runs that use it;
+5n. the multi-process form on the one card: ``run`` of the golden scene on
+   2 processes (tools/pod.py ``launch``; they share the card, so gloo,
+   the ghost rows through pinned host buffers) x 2 shards each: sync and
+   ca on auto (K7, K = 8) x 20000 steps, each final_state.dat
+   byte-identical to 5b's single-device f32 run and av_vels within rtol
+   1e-6; async-2 x 2000 passing ``check`` (1%) against 5e's sync run of that
+   length; rank 0 alone reports; every rank prints its K1-slab and K7
+   counts, which must show its launches; tools/dryrun.py on 2 processes x
+   4 shards (21 relations, ulp 0); ``LBM_DIST_BACKEND=nccl`` on the shared
+   card exits 1 with ``Error:``; each run's MLUPS and time per step on the
+   host's clock.  A rank that fails or outlives 300 s fails the script;
 5m. frames, debug and checkpoint/resume on the card: the golden scene
    through ``run_simulation`` with frames every 100 steps (200 frames of
    1024x1024 on the card) on cuda-inplace (K3) and cuda-blocked (K10), f
@@ -269,6 +280,18 @@ import tempfile
 import time
 
 GRID_SIZES = (128, 256, 512, 1024)
+# Phase 5n: each rank runs the CLI's ``run``, then prints its launch counts
+# (a fresh process: they start from 0).
+POD_CHILD = """
+import json, sys
+from lbm_tpu_torch import cli
+from lbm_tpu_torch.ops import ca_cuda, fused_cuda
+rc = cli.main(sys.argv[1:])
+print("LAUNCHES " + json.dumps({"K1-slab": fused_cuda.SLAB_LAUNCHES,
+                                "K7": ca_cuda.RESIDENT_LAUNCHES}), flush=True)
+sys.exit(rc)
+"""
+POD_TIMEOUT = 300  # seconds a 2-process launch of 5n may take
 SWEEP_GRIDS = (1536, 2048, 4096)
 SWEEP_DEPTHS = (2, 4, 8)
 # The forced int16 sweeps (--temporal-k 4: one quantization per 4 steps, as
@@ -854,7 +877,7 @@ def main() -> int:
         temporal_cuda,
     )
     from lbm_tpu_torch.params import LBMParams
-    from lbm_tpu_torch.tools import bench, dryrun, kernel_times, scenegen, verify_device
+    from lbm_tpu_torch.tools import bench, dryrun, kernel_times, pod, scenegen, verify_device
 
     dev = torch.device("cuda", 0)
     card = bench.card_line()
@@ -1666,6 +1689,81 @@ def main() -> int:
               "launches " + ", ".join(f"{k} {launches[k]}" for k in ca_names)
               + f" | {time.perf_counter() - t_start:.1f} s elapsed")
 
+        # Phase 5n: the multi-process form on the one card: 2 processes
+        # (tools/pod.py, gloo: they share the card) x 2 shards each, the
+        # golden scene; each rank is a fresh process whose launch counts
+        # start from 0 and which prints them after its run.
+        pod_rates = []
+        pod_launches = {"K1-slab": 0, "K7": 0}
+        card_env = {"CUDA_VISIBLE_DEVICES":
+                    os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]}
+
+        def pod_launch(tag, argv, env=None):
+            """``argv`` on 2 ranks; (launch code, each rank's output)."""
+            logs = [os.path.join(td, f"pod-{tag}-rank{r}.log") for r in range(2)]
+            rc = pod.launch(2, argv, timeout=POD_TIMEOUT, logs=logs,
+                            env={**card_env, **(env or {})})
+            return rc, [open(x).read() for x in logs]
+
+        def pod_run(tag, variant, want, uses, *extra):
+            """``run`` of the golden scene on 2 ranks x 2 shards, which must
+            report ``want`` on rank 0 alone and launch ``uses`` on both."""
+            out_dir = os.path.join(td, f"pod-{tag}")
+            rc, outs = pod_launch(tag, ["-c", POD_CHILD, "run", gp, go, "--variant", variant,
+                                        "--device", "cuda", "--host-devices", "2",
+                                        "--out-dir", out_dir, *extra])
+            if rc != 0:
+                fail(f"5n {tag}: the 2-process run exited {rc}:\n" + "\n".join(outs))
+            got = [ln.split()[-1] for ln in outs[0].splitlines() if ln.startswith("Variant:")]
+            if got != [want] or "==done==" in outs[1]:
+                fail(f"5n {tag}: rank 0 reported {got} (expected {want}), rank 1 "
+                     f"{'reported too' if '==done==' in outs[1] else 'nothing'}")
+            counts = [json.loads(ln.split(" ", 1)[1]) for text in outs
+                      for ln in text.splitlines() if ln.startswith("LAUNCHES ")]
+            if len(counts) != 2 or any(c[uses] <= 0 for c in counts):
+                fail(f"5n {tag}: the ranks' {uses} counts {counts}: a rank skipped it")
+            pod_launches[uses] += sum(c[uses] for c in counts)
+            rate = float([ln for ln in outs[0].splitlines()
+                          if ln.startswith("Compute rate:")][0].split()[-2])
+            mlups[f"golden1024 2 processes x 2 shards {want}"] = rate
+            pod_rates.append(f"{want} {rate:.1f} MLUPS, {1024 * 1024 / rate:.2f} us/step "
+                             f"host clock")
+            return out_dir
+
+        notes_5n = []
+        for variant, want, uses in (("sync", "sync", "K1-slab"), ("ca", "ca-8", "K7")):
+            d = pod_run(f"golden1024-{variant}", variant, want, uses)
+            if not same_final_state(d, single):
+                fail(f"5n {want} on 2 processes: final_state.dat differs from the single-device "
+                     "run")
+            rel = av_rel(d, single)
+            if rel > 1e-6:
+                fail(f"5n {want} on 2 processes: av_vels {rel:.3e} relative from single-device")
+            notes_5n.append(f"{want} ({uses}) x 20000 final_state.dat byte-identical to "
+                            f"cuda-inplace, av_vels max rel {rel:.2e}")
+        d = pod_run("golden1024-2000-async-k", "async-k", "async-2", "K1-slab", "--steps", "2000")
+        notes_5n.append("async-2 x 2000 vs sync " + ", ".join(cli_check(
+            os.path.join(sync_dirs[2000], "av_vels.dat"),
+            os.path.join(sync_dirs[2000], "final_state.dat"), d, "5n async-2 vs sync")))
+        rc, outs = pod_launch("dryrun", ["-m", "lbm_tpu_torch.tools.dryrun", "--devices", "8",
+                                         "--device", "cuda"])
+        rels = [ln for ln in outs[0].splitlines() if ln.startswith("dryrun ok:")]
+        if rc != 0 or len(rels) != 21:
+            fail(f"5n dryrun on 2 processes x 4 shards exited {rc} with {len(rels)} of 21 "
+                 "relations:\n" + "\n".join(outs))
+        notes_5n.append("dryrun on 2 processes x 4 shards: 21 relations hold, ulp 0")
+        rc, outs = pod_launch("nccl", ["-m", "lbm_tpu_torch.tools.dist_smoke", "--device",
+                                       "cuda", "--local-devices", "2"],
+                              env={"LBM_DIST_BACKEND": "nccl"})
+        if rc != 1 or "Error: LBM_DIST_BACKEND=nccl" not in "".join(outs):
+            fail(f"5n: NCCL asked for on ranks that share the card exited {rc}, not 1 with "
+                 "Error:\n" + "\n".join(outs))
+        notes_5n.append("LBM_DIST_BACKEND=nccl on the shared card exits 1 with Error")
+        print(f"[5n multi-process, golden 1024x1024 on 2 gloo processes x 2 shards of the card] "
+              f"card: {card} | {'; '.join(notes_5n)} | {'; '.join(pod_rates)} | launches of "
+              f"the ranks: " + ", ".join(f"{k} {n}" for k, n in pod_launches.items())
+              + elapsed())
+
         # Phase 5m: frames, debug and checkpoint/resume on the card.
         from lbm_tpu_torch.models.program import u_mag_fn
 
@@ -2171,7 +2269,8 @@ def main() -> int:
                     "sit in L2)",
             "route": "cuda", "source": "lbm_tpu_torch/csrc/step.cu",
             "replaces": "lbm_tpu/ops/fused_pallas.py:581", "launches": launches[key],
-            "max_abs_err": slab_err[key],
+            # and the two ranks' of 5n (the multi-process runs)
+            "launches_5n": pod_launches.get(key, 0), "max_abs_err": slab_err[key],
             **shard_row(1024, key, f"plain-slab{sfx}", 1, storage, "L2"),
             "by_shard": [{"shard": "1024x4096 of 4096x4096",
                           "launches_5f": slab_5f if storage == "f32" else 0,
@@ -2249,7 +2348,8 @@ def main() -> int:
                "plain-i16 K=4", by_shard=slab_shapes("K4-slab-i16", "i16", "plain-i16 K=4")),
         ca_row("K7 ca resident sweep (ms per launch = 8 steps of one 256x1024 shard of "
                "1024x1024, K=8, the f32 ca default there)", ca_src + "ca_resident.cu",
-               "lbm_tpu/ops/resident_pallas.py:1192", "K7", (256, 1024), 8, "f32", "plain K=8"),
+               "lbm_tpu/ops/resident_pallas.py:1192", "K7", (256, 1024), 8, "f32", "plain K=8",
+               launches_5n=pod_launches["K7"]),
         ca_row("K8 ca in-place sweep (ms per launch = 8 steps of one 256x1024 shard of "
                "1024x1024, K=8)", ca_src + "ca_inplace.cu",
                "lbm_tpu/ops/resident_pallas.py:1643", "K8", (256, 1024), 8, "f32", "plain K=8"),

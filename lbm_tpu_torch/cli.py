@@ -12,6 +12,11 @@ tools/divergence.py) as there.  ``check``, ``bench``, ``info``, ``scene``,
 ``golden``, ``viz``, ``animate`` and ``speedup`` are the other subcommands;
 the last three need matplotlib.
 
+Under a launcher (``WORLD_SIZE`` > 1: tools/pod.py, ``torchrun``) ``run``
+joins the ``torch.distributed`` group first and runs a sharded variant
+over every process's shards (``--host-devices N``: N a process); rank 0
+alone prints the report and writes the files.
+
 The device is named, never guessed: ``--device cuda`` (the default) needs a
 CUDA device and exits 1 with ``Error: no CUDA device`` without one;
 ``--device cpu`` runs the plain torch code.  ``lbm_tpu``'s ``--platform``
@@ -138,6 +143,25 @@ def _add_run_args(p: argparse.ArgumentParser) -> None:
 
 
 def cmd_run(args: argparse.Namespace) -> int:
+    """``run``; under a launcher (``WORLD_SIZE`` > 1, as tools/pod.py and
+    ``torchrun`` set it) it first joins the process group
+    (``mesh.join``), the counterpart of run_pod.sh's
+    ``jax.distributed.initialize()``, and leaves it at the end."""
+    from lbm_tpu_torch.parallel import mesh as mesh_lib
+
+    rank, world = mesh_lib.process_layout()
+    if world > 1 or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return _run(args, _device_of(args), rank, world)  # one process, or joined already
+    proc = mesh_lib.join(_device_of(args))
+    try:
+        return _run(args, str(proc.device), proc.rank, proc.world)
+    finally:
+        mesh_lib.leave()
+
+
+def _run(args: argparse.Namespace, device_arg: str, rank: int = 0, world: int = 1) -> int:
+    """The run on ``device_arg``, as rank ``rank`` of ``world`` processes:
+    rank 0 prints the report and writes the files, the others nothing."""
     from lbm_tpu_torch.io import load_scene, write_av_vels, write_final_state
     from lbm_tpu_torch.models.driver import (
         RunConfig,
@@ -146,10 +170,12 @@ def cmd_run(args: argparse.Namespace) -> int:
         run_simulation,
     )
 
-    device_arg = _device_of(args)
     device = resolve_device(device_arg)
     scene = load_scene(args.paramfile, args.obstaclefile)
     if args.divergence:
+        if world > 1:
+            raise ValueError("--divergence runs sync and async in one process; it is not "
+                             "supported across the processes of a multi-process run")
         return _divergence(args, scene, device_arg)
     config = RunConfig(
         variant=args.variant,
@@ -172,11 +198,16 @@ def cmd_run(args: argparse.Namespace) -> int:
     if args.plan:
         from lbm_tpu_torch.models.plan import describe_plan
 
-        print(describe_plan(scene, config))
+        plan = describe_plan(scene, config)
+        if rank == 0:
+            print(plan)
         return 0
-    print(f"lbm_tpu_torch: device={device} ({device_name(device)})")
+    if rank == 0:
+        print(f"lbm_tpu_torch: device={device} ({device_name(device)})")
 
     result = run_simulation(scene, config)
+    if rank:
+        return 0
 
     print("==done==")
     print(f"Variant:\t\t\t{result.variant}")

@@ -57,6 +57,13 @@ Chrome trace lands in ``profile_dir/trace.json`` and ``RunResult.profile``
 sums its kernel events (:func:`_profile_summary`).  The profiler changes no
 launch, so the outputs are those of the unprofiled run.
 
+In a process group (parallel/mesh.py ``join``; ``python -m lbm_tpu_torch
+run`` under a launcher) every process runs the same loop over its own
+shards, ``host_devices`` (default 1) each, and calls every collective
+(exchanges, the gathered sums, ``f_of``) in the same order; only rank 0
+writes checkpoints and prints the debug report (cli.py writes the files),
+and ``--profile`` and the single-device variants are refused.
+
 Launches are asynchronous, so the compute bracket ends with
 ``torch.cuda.synchronize()`` on every device of the run; without it the
 run would report the rate at which launches were queued.  Inside the loop
@@ -194,9 +201,10 @@ def pick_variant(variant: str, device: torch.device, storage: str = "f32") -> st
 
 def mesh_devices(config: RunConfig, device: torch.device) -> mesh_lib.RowMesh:
     """The row mesh of a sharded run: ``num_devices`` of the run's devices
-    (raises when more are asked for than exist)."""
-    return mesh_lib.make_row_mesh(config.num_devices,
-                                  mesh_lib.available_devices(device, config.host_devices))
+    (raises when more are asked for than exist); in a process group,
+    ``host_devices`` (default 1) shards on every process
+    (``mesh_lib.run_mesh``)."""
+    return mesh_lib.run_mesh(config.num_devices, device, config.host_devices)
 
 
 def ca_staleness(scene: Scene, config: RunConfig, n_dev: int) -> int:
@@ -209,7 +217,7 @@ def ca_staleness(scene: Scene, config: RunConfig, n_dev: int) -> int:
 
 def _n_devices(config: RunConfig, device: torch.device) -> int:
     return (config.num_devices if config.num_devices is not None
-            else len(mesh_lib.available_devices(device, config.host_devices)))
+            else mesh_devices(config, device).size)
 
 
 def _backend(config: RunConfig) -> str | None:
@@ -229,8 +237,14 @@ def choose_variant(scene: Scene, config: RunConfig, device: torch.device) -> str
     ``--debug`` or frames, can be observed per step
     (``modes.ca_decomposes_per_step``: int16 only on K8-i16), else the
     stale-row model's async where its deviation stays well inside the 1%
-    contract, else the exact overlap."""
+    contract, else the exact overlap.  In a process group only the sharded
+    variants run: a single-device one raises."""
     v = resolve_variant(config.variant)
+    world = mesh_lib.process_layout()[1]
+    if world > 1 and v != "auto" and v not in SHARDED:
+        raise ValueError(f"--variant {config.variant} runs on one device; {world} processes "
+                         "run a sharded variant (sync, overlap, async, async-k, chunked, ca "
+                         "or auto)")
     if v == "auto":
         n_dev = _n_devices(config, device)
         if n_dev > 1:
@@ -464,7 +478,7 @@ class _Advance:
 
 
 def _observers(config: RunConfig, program: StepProgram, num_steps: int, dev: torch.device,
-               tots: torch.Tensor, start_step: int, av_prefix: np.ndarray):
+               tots: torch.Tensor, start_step: int, av_prefix: np.ndarray, writer: bool = True):
     """The hook a run calls after each segment, ``(end, state)`` with
     ``end`` the run's steps so far, or None; and the buffers of frames and
     of per-step densities it fills (or None), allocated here on the device,
@@ -476,7 +490,10 @@ def _observers(config: RunConfig, program: StepProgram, num_steps: int, dev: tor
       segment's own);
     - checkpoints: the distributions (through ``f_of``), the step count and
       the av_vels so far into ``checkpoint_dir/ckpt_%08d.npz``, inside the
-      compute bracket: it is a cost of checkpointing (driver.py:739-754)."""
+      compute bracket: it is a cost of checkpointing (driver.py:739-754).
+
+    In a process group every process runs the hook (``f_of`` and
+    ``u_mag`` gather the shards); only the ``writer`` writes checkpoints."""
     interval, every = config.frame_interval, config.checkpoint_every
     frames = dens = None
     if interval is not None:
@@ -485,7 +502,8 @@ def _observers(config: RunConfig, program: StepProgram, num_steps: int, dev: tor
     if config.debug:
         dens = torch.zeros(num_steps, dtype=torch.float32, device=dev)
     if every is not None:
-        os.makedirs(config.checkpoint_dir, exist_ok=True)
+        if writer:
+            os.makedirs(config.checkpoint_dir, exist_ok=True)
     elif frames is None and dens is None:
         return None, None, None
 
@@ -497,12 +515,13 @@ def _observers(config: RunConfig, program: StepProgram, num_steps: int, dev: tor
             frames[(end - 1) // interval, :frame.shape[0], :frame.shape[1]] = frame
         if every is not None:
             step = start_step + end
-            av = (tots[:end].cpu().numpy().astype(np.float32, copy=False)
-                  / np.float32(program.tot_cells))
-            np.savez_compressed(
-                os.path.join(config.checkpoint_dir, f"ckpt_{step:08d}.npz"),
-                f=program.f_of(state).cpu().numpy().astype(np.float32, copy=False),
-                step=step, av_vels=np.concatenate([av_prefix, av]))
+            f = program.f_of(state).cpu().numpy().astype(np.float32, copy=False)
+            if writer:
+                av = (tots[:end].cpu().numpy().astype(np.float32, copy=False)
+                      / np.float32(program.tot_cells))
+                np.savez_compressed(
+                    os.path.join(config.checkpoint_dir, f"ckpt_{step:08d}.npz"),
+                    f=f, step=step, av_vels=np.concatenate([av_prefix, av]))
 
     return hook, frames, dens
 
@@ -604,6 +623,9 @@ def check_config(config: RunConfig, variant: str) -> None:
                              f"{config.checkpoint_every}")
         if observed:
             raise ValueError("frames/debug are not supported with checkpointing")
+    if config.profile_dir is not None and mesh_lib.process_layout()[1] > 1:
+        raise ValueError("--profile traces one process; it is not supported across the "
+                         "processes of a multi-process run")
     if variant == "serial":
         if config.resume_from or config.checkpoint_every:
             raise ValueError("checkpoint/resume is not supported with the serial oracle "
@@ -666,8 +688,9 @@ def run_simulation(
     state = program.init_state  # sums and frames live with the first shard
     dev = state.f[0].device if isinstance(state, modes.ShardedState) else device
     tots = torch.zeros(remaining, dtype=torch.float32, device=dev)
+    writer = mesh_lib.process_layout()[0] == 0  # the rank that writes and reports
     hook, frames, densities = _observers(config, program, remaining, dev, tots, start_step,
-                                         av_prefix)
+                                         av_prefix, writer)
     if device.type == "cuda":
         advance.warm()
         for d in devices:
@@ -701,7 +724,7 @@ def run_simulation(
 
     frame_steps = (start_step + np.arange(frames.shape[0]) * config.frame_interval
                    if frames is not None else None)
-    if densities is not None:
+    if densities is not None and writer:
         # The reference's DEBUG output, deferred out of the timed loop
         # (SerialCode/d2q9-bgk.c:175-179, lbm_tpu/models/driver.py:1046-1052).
         for tt in range(start_step, num_steps):

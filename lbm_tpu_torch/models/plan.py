@@ -20,7 +20,8 @@ choice, ``(auto-selected)`` for ``--variant auto``; lbm_tpu's name there is
 ``jnp`` for ``torch`` and ``pallas`` for ``cuda``); ``program`` (the
 ``Variant`` line the run prints, ``RunResult.variant``); ``kernel`` by its
 name in PERF.md's kernel table (K1-K10; ``-i16`` for int16 state); the
-sweep depth; for sharded runs the shards, the staleness or depth, and ca's
+sweep depth; for sharded runs the shards (under a launcher: the processes
+x local shards and the group's backend), the staleness or depth, and ca's
 engine and sub-slabs; the segments; the frames, debug, checkpoint and
 profile schedule.  No fold, VMEM limit or block table: those do not port.
 """
@@ -111,6 +112,11 @@ def _sharded(out, scene: Scene, config, device, variant, announce) -> list:
              else f"one device, {mesh.devices[0]}")
     out(f"shards: {mesh.size} x {sp.nloc} rows ({where})"
         + (f", {sp.ny - scene.params.ny} padding row(s)" if sp.ny != scene.params.ny else ""))
+    if mesh.world > 1:
+        import torch.distributed as dist
+
+        out(f"processes: {mesh.world} x {mesh.local} local shard(s), this rank {mesh.rank}; "
+            f"backend {dist.get_backend()} (ghost rows between processes as messages)")
     depth = sp.K if mode == "ca" else staleness
     out(f"discipline: {mode}: " + _DISCIPLINES[mode].format(k=depth))
     if mode in ("async", "chunked"):

@@ -50,6 +50,18 @@ is pending when its buffers could be freed.
 is the per-shard sums added in shard order (overlap's per shard as
 ``(interior + bottom) + top``, modes.py:1174).  No atomics.
 
+Processes (``lbm_tpu``'s multi-controller form over ``jax.distributed``,
+:1056, :1270): the mesh's shards may be spread over the processes of a
+``torch.distributed`` group (parallel/mesh.py), each process stepping its
+own.  Every move of an exchange whose two shards live in two processes is
+a message (parallel/exchange.py): the ring, ca's K rows and the open-seam
+pad refresh, whose shards (the first and the last) live in the first and
+the last process.  The schedules do not change: overlap's interiors and
+async's step are queued before the host waits for the messages.  The
+per-step sums are gathered once per call and added in shard order on every
+process, and ``f_of`` gathers the rows, so every process holds the
+one-process result bitwise.
+
 Seam padding (an ny that the shard count does not divide) is ``lbm_tpu``'s:
 walled seams get blocked rows at rest; open seams get live clones of the
 global first rows, refreshed after every step (frozen within a chunk), and
@@ -72,6 +84,7 @@ from lbm_tpu_torch.models.program import StepProgram, u_mag_fn
 from lbm_tpu_torch.ops import ca_cuda, fused_cuda, ghosted_cuda, quant, temporal_cuda
 from lbm_tpu_torch.params import LBMParams
 from lbm_tpu_torch.parallel import mesh as mesh_lib
+from lbm_tpu_torch.parallel.exchange import Exchange, gather
 
 # Per-variant staleness defaults (halo age / chunk length / ca exchange
 # depth), lbm_tpu's modes.py:47.
@@ -392,31 +405,55 @@ class _Layout:
         last = self.mesh.size - 1
         return self.nloc - self.open_pad - 1 if self.open_pad and r == last else self.nloc - 1
 
-    def edges(self, f):
-        """The ring exchange of shards ``f``: per shard (row below, row
-        above) as fresh (9, 1, nx) tensors on the shard's device."""
+    def at(self, shard: int, view):
+        """``view(l)`` for global shard ``shard`` when it is this process's
+        local shard l, else None (a view of another process's shard)."""
+        local = shard - self.mesh.first
+        return view(local) if 0 <= local < self.mesh.local else None
+
+    def ring_moves(self, src_rows, dst_lo, dst_hi):
+        """The moves of the one-row ring exchange (modes.py:1101-1120): each
+        shard's ``src_rows(l, row)`` to ``dst_lo(l)`` of the shard above
+        (the row below it) and ``dst_hi(l)`` of the shard below, forward
+        moves first, in global shard order."""
         fwd, bwd = mesh_lib.ring_perms(self.mesh.size)
-        lo, hi = [None] * self.mesh.size, [None] * self.mesh.size
+        moves = []
         for src, dst in fwd:
             row = self.lo_send_row(src)
-            lo[dst] = f[src][:, row:row + 1].to(self.mesh.devices[dst], copy=True)
+            moves.append((src, dst, self.at(src, lambda l: src_rows(l, row)),
+                          self.at(dst, dst_lo)))
         for src, dst in bwd:
-            hi[dst] = f[src][:, :1].to(self.mesh.devices[dst], copy=True)
+            moves.append((src, dst, self.at(src, lambda l: src_rows(l, 0)),
+                          self.at(dst, dst_hi)))
+        return moves
+
+    def edges(self, f):
+        """The ring exchange of this process's shards ``f``: per shard (row
+        below, row above) as fresh (9, 1, nx) tensors on the shard's
+        device."""
+        lo = [torch.empty((9, 1, self.nx), dtype=x.dtype, device=x.device) for x in f]
+        hi = [torch.empty_like(x) for x in lo]
+        Exchange(self.mesh, self.ring_moves(lambda l, row: f[l][:, row:row + 1],
+                                            lo.__getitem__, hi.__getitem__))()
         return list(zip(lo, hi))
 
 
 class _Runner:
     """Persistent buffers, bound launches and the schedule of one program
-    for ``num_steps`` steps.  ``kind`` is the program's mode, or ``inner``
-    (one frozen-ghost step) / ``exchange`` (the ghost exchange alone), the
-    chunked mode's two primitives.  ca's ghost buffers hold K rows per side
-    (``C[r][0]`` below the shard, ``C[r][1]`` above).  A call takes a :class:`ShardedState`
+    for ``num_steps`` steps, on this process's shards (indexed locally:
+    shard l is the mesh's global shard ``first + l``).  ``kind`` is the
+    program's mode, or ``inner`` (one frozen-ghost step) / ``exchange``
+    (the ghost exchange alone), the chunked mode's two primitives.  ca's
+    ghost buffers hold K rows per side (``C[l][0]`` below the shard,
+    ``C[l][1]`` above).  Every exchange is an :class:`Exchange`, bound once:
+    copies between this process's shards, messages to and from the other
+    processes' (parallel/exchange.py).  A call takes a :class:`ShardedState`
     (not modified) and returns (state, tot_us (num_steps,)); the returned
     state lives in the runner's buffers until its next call."""
 
     def __init__(self, lay: _Layout, num_steps: int, kind: str):
         self.lay, self.n, self.kind = lay, num_steps, kind
-        R, nloc, nx = lay.mesh.size, lay.nloc, lay.nx
+        nloc, nx = lay.nloc, lay.nx
         dtype = fused_cuda.STATE_DTYPES[lay.storage]
         devs = lay.mesh.devices
         self.slots = lay.queue + 1 if lay.mode == "async" else 1
@@ -434,98 +471,106 @@ class _Runner:
         self._bound: dict = {}
         self.p, self.h = 0, 0
 
-    # --- bound launches and copies, built at first use -------------------
+    # --- bound launches and exchanges, built at first use ----------------
 
     def _bind(self, key, make):
         if key not in self._bound:
             self._bound[key] = make()
         return self._bound[key]
 
-    def _slab(self, r, body, lo, hi, obst, out, tot_row, row_offset):
+    def _slab(self, l, body, lo, hi, obst, out, tot_row, row_offset):
         lay = self.lay
         bind = fused_cuda.bind_slab_step if lay.backend == "cuda" else fused_cuda.bind_slab_plain
-        return bind(lay.params, body, lo, hi, obst, out, self.T[r][tot_row], row_offset,
+        return bind(lay.params, body, lo, hi, obst, out, self.T[l][tot_row], row_offset,
                     lay.storage)
 
-    def _full(self, r, p, s):
-        """Shard r's whole-slab step from buffer p with ghost slot s."""
-        def make():
-            F, G = self.F[r], self.G[r]
-            return self._slab(r, F[p], G[s, 0], G[s, 1], self.lay.obst[r], F[1 - p], 0,
-                              r * self.lay.nloc)
-        return self._bind(("full", r, p, s), make)
+    def _offset(self, l):
+        """The first row of local shard l in the grid."""
+        return (self.lay.mesh.first + l) * self.lay.nloc
 
-    def _overlap_parts(self, r, p):
-        """Shard r's interior (rows 1..nloc-2, None for two-row shards),
+    def _full(self, l, p, s):
+        """Shard l's whole-slab step from buffer p with ghost slot s."""
+        def make():
+            F, G = self.F[l], self.G[l]
+            return self._slab(l, F[p], G[s, 0], G[s, 1], self.lay.obst[l], F[1 - p], 0,
+                              self._offset(l))
+        return self._bind(("full", l, p, s), make)
+
+    def _overlap_parts(self, l, p):
+        """Shard l's interior (rows 1..nloc-2, None for two-row shards),
         bottom and top sub-slab steps from buffer p (modes.py:1155-1174)."""
         def make():
-            F, G, ob = self.F[r], self.G[r], self.lay.obst[r]
-            src, dst, off = F[p], F[1 - p], r * self.lay.nloc
-            interior = (self._slab(r, src[:, 1:-1], src[:, :1], src[:, -1:], ob[1:-1],
+            F, G, ob = self.F[l], self.G[l], self.lay.obst[l]
+            src, dst, off = F[p], F[1 - p], self._offset(l)
+            interior = (self._slab(l, src[:, 1:-1], src[:, :1], src[:, -1:], ob[1:-1],
                                    dst[:, 1:-1], 0, off + 1) if self.lay.nloc > 2 else None)
-            bottom = self._slab(r, src[:, :1], G[0, 0], src[:, 1:2], ob[:3], dst[:, :1], 1, off)
-            top = self._slab(r, src[:, -1:], src[:, -2:-1], G[0, 1], ob[-3:], dst[:, -1:], 2,
+            bottom = self._slab(l, src[:, :1], G[0, 0], src[:, 1:2], ob[:3], dst[:, :1], 1, off)
+            top = self._slab(l, src[:, -1:], src[:, -2:-1], G[0, 1], ob[-3:], dst[:, -1:], 2,
                              off + self.lay.nloc - 1)
             return interior, bottom, top
-        return self._bind(("overlap", r, p), make)
+        return self._bind(("overlap", l, p), make)
 
-    def _k6(self, r, p):
+    def _k6(self, l, p):
         def make():
-            F, G = self.F[r], self.G[r]
+            F, G = self.F[l], self.G[l]
             return ghosted_cuda.bind_chunk(self.lay.params, F[p], G[0, 0], G[0, 1],
-                                           self.lay.obst[r], F[1 - p], self.T[r][0],
-                                           r * self.lay.nloc, self.lay.staleness)
-        return self._bind(("k6", r, p), make)
+                                           self.lay.obst[l], F[1 - p], self.T[l][0],
+                                           self._offset(l), self.lay.staleness)
+        return self._bind(("k6", l, p), make)
 
-    def _ca_sweep(self, r, p):
-        """Shard r's engine launches of one ca sweep from buffer p: one, or
+    def _ca_sweep(self, l, p):
+        """Shard l's engine launches of one ca sweep from buffer p: one, or
         one per sub-slab of the in-place engine (modes.py:1296-1331)."""
         def make():
             lay = self.lay
-            lo, hi = self.C[r]
-            return ca_cuda.bind_sweep(lay.engine, lay.params, lo, self.F[r][p], hi,
-                                      lay.ca_obst[r], self.F[r][1 - p], self.T[r][0],
-                                      r * lay.nloc, lay.ny, lay.storage, lay.parts)
-        return self._bind(("ca", r, p), make)
+            lo, hi = self.C[l]
+            return ca_cuda.bind_sweep(lay.engine, lay.params, lo, self.F[l][p], hi,
+                                      lay.ca_obst[l], self.F[l][1 - p], self.T[l][0],
+                                      self._offset(l), lay.ny, lay.storage, lay.parts)
+        return self._bind(("ca", l, p), make)
 
-    def _ca_exchange_pairs(self, p):
-        """(ghost buffer, source rows) copies of ca's exchange from buffer
-        p: each shard's last K rows to the shard above, its first K rows to
-        the shard below (modes.py:1284-1287), one copy each."""
+    def _ca_ring(self, p):
+        """ca's exchange from buffer p: each shard's last K rows to the
+        shard above, its first K rows to the shard below (modes.py:1284-1287),
+        one move each."""
         def make():
-            fwd, bwd = mesh_lib.ring_perms(self.lay.mesh.size)
-            K, nloc = self.lay.K, self.lay.nloc
-            return ([(self.C[dst][0], self.F[src][p][:, nloc - K:]) for src, dst in fwd]
-                    + [(self.C[dst][1], self.F[src][p][:, :K]) for src, dst in bwd])
+            lay = self.lay
+            fwd, bwd = mesh_lib.ring_perms(lay.mesh.size)
+            K, nloc = lay.K, lay.nloc
+            return Exchange(lay.mesh, [
+                (src, dst, lay.at(src, lambda l: self.F[l][p][:, nloc - K:]),
+                 lay.at(dst, lambda l: self.C[l][0])) for src, dst in fwd] + [
+                (src, dst, lay.at(src, lambda l: self.F[l][p][:, :K]),
+                 lay.at(dst, lambda l: self.C[l][1])) for src, dst in bwd])
         return self._bind(("ca-exchange", p), make)
 
-    def _exchange_pairs(self, p, s):
-        """(ghost buffer, source row) copies of the exchange from buffer p
-        into ghost slot s (modes.py:1101-1120)."""
+    def _ring(self, p, s):
+        """The exchange from buffer p into ghost slot s (modes.py:1101-1120)."""
         def make():
-            fwd, bwd = mesh_lib.ring_perms(self.lay.mesh.size)
-            pairs = []
-            for src, dst in fwd:
-                row = self.lay.lo_send_row(src)
-                pairs.append((self.G[dst][s, 0], self.F[src][p][:, row:row + 1]))
-            for src, dst in bwd:
-                pairs.append((self.G[dst][s, 1], self.F[src][p][:, :1]))
-            return pairs
+            return Exchange(self.lay.mesh, self.lay.ring_moves(
+                lambda l, row: self.F[l][p][:, row:row + 1],
+                lambda l: self.G[l][s, 0], lambda l: self.G[l][s, 1]))
         return self._bind(("exchange", p, s), make)
 
-    def _pad_pairs(self, p, what):
-        """Open-seam pad copies on buffer p: ``refresh`` clones the global
-        first rows into the last shard's pads (modes.py:1122-1137);
-        ``freeze`` copies the pads of buffer p over those of the other
+    def _pads(self, p, what):
+        """Open-seam pad moves on buffer p: ``refresh`` clones the global
+        first rows (shard 0's) into the last shard's pads (modes.py:1122-1137),
+        a message where the two shards live in two processes; ``freeze``
+        copies the last shard's pads of buffer p over those of the other
         buffer, keeping them at their chunk-start values (modes.py:1351)."""
         def make():
-            pad, last = self.lay.open_pad, self.lay.mesh.size - 1
+            lay = self.lay
+            pad, last = lay.open_pad, lay.mesh.size - 1
             if not pad:
-                return []
-            cut = self.lay.nloc - pad
+                return Exchange(lay.mesh, [])
+            cut = lay.nloc - pad
             if what == "refresh":
-                return [(self.F[last][p][:, cut:], self.F[0][p][:, :pad])]
-            return [(self.F[last][1 - p][:, cut:], self.F[last][p][:, cut:])]
+                move = (0, last, lay.at(0, lambda l: self.F[l][p][:, :pad]),
+                        lay.at(last, lambda l: self.F[l][p][:, cut:]))
+            else:
+                move = (last, last, lay.at(last, lambda l: self.F[l][p][:, cut:]),
+                        lay.at(last, lambda l: self.F[l][1 - p][:, cut:]))
+            return Exchange(lay.mesh, [move])
         return self._bind((what, p), make)
 
     # --- streams -----------------------------------------------------------
@@ -544,71 +589,72 @@ class _Runner:
             stack.enter_context(torch.cuda.stream(s))
         return stack
 
-    @staticmethod
-    def _copy(pairs):
-        for dst, src in pairs:
-            dst.copy_(src)
-
     # --- the schedules -------------------------------------------------------
 
     def _step_sync(self, t):
         p = self.p
-        self._copy(self._exchange_pairs(p, 0))
-        for r in range(self.lay.mesh.size):
-            self._full(r, p, 0)(t)
-        self._copy(self._pad_pairs(1 - p, "refresh"))
+        self._ring(p, 0)()
+        for l in range(self.lay.mesh.local):
+            self._full(l, p, 0)(t)
+        self._pads(1 - p, "refresh")()
         self.p = 1 - p
 
     def _step_overlap(self, t):
-        p, R = self.p, self.lay.mesh.size
+        p = self.p
+        ring = self._ring(p, 0)
         self._side_waits_main()
         with self._on_side():
-            self._copy(self._exchange_pairs(p, 0))
-        parts = [self._overlap_parts(r, p) for r in range(R)]
+            ring.start()
+        parts = [self._overlap_parts(l, p) for l in range(self.lay.mesh.local)]
         for interior, _, _ in parts:
             if interior is not None:
                 interior(t)
+        with self._on_side():
+            ring.finish()  # the messages, while the interiors run
         self._main_waits_side()
         for _, bottom, top in parts:
             bottom(t)
             top(t)
-        self._copy(self._pad_pairs(1 - p, "refresh"))
+        self._pads(1 - p, "refresh")()
         self.p = 1 - p
 
     def _step_async(self, t):
         p, h, S = self.p, self.h, self.slots
+        ring = self._ring(p, (h + S - 1) % S)
         self._main_waits_side()  # the ghosts issued at the previous step
         self._side_waits_main()  # the state they are cut from, and the slot's last reader
         with self._on_side():
-            self._copy(self._exchange_pairs(p, (h + S - 1) % S))
-        for r in range(self.lay.mesh.size):
-            self._full(r, p, h)(t)
-        self._copy(self._pad_pairs(1 - p, "refresh"))
+            ring.start()
+        for l in range(self.lay.mesh.local):
+            self._full(l, p, h)(t)
+        with self._on_side():
+            ring.finish()  # the messages, while the step runs
+        self._pads(1 - p, "refresh")()
         self.p, self.h = 1 - p, (h + 1) % S
 
     def _step_ca(self, t0):
         p = self.p
-        self._copy(self._ca_exchange_pairs(p))
-        for r in range(self.lay.mesh.size):
-            for launch in self._ca_sweep(r, p):
+        self._ca_ring(p)()
+        for l in range(self.lay.mesh.local):
+            for launch in self._ca_sweep(l, p):
                 launch(t0)
         self.p = 1 - p
 
     def _inner(self, t):
         p = self.p
-        for r in range(self.lay.mesh.size):
-            self._full(r, p, 0)(t)
-        self._copy(self._pad_pairs(p, "freeze"))
+        for l in range(self.lay.mesh.local):
+            self._full(l, p, 0)(t)
+        self._pads(p, "freeze")()
         self.p = 1 - p
 
     def _exchange(self):
-        self._copy(self._exchange_pairs(self.p, 0))
-        self._copy(self._pad_pairs(self.p, "refresh"))
+        self._ring(self.p, 0)()
+        self._pads(self.p, "refresh")()
 
     def _chunk(self, t0):
         if self.lay.k6:
-            for r in range(self.lay.mesh.size):
-                self._k6(r, self.p)(t0)
+            for l in range(self.lay.mesh.local):
+                self._k6(l, self.p)(t0)
             if self.lay.staleness % 2:  # K6 ends in F[1 - p] for an odd chunk, in F[p] else
                 self.p = 1 - self.p
         else:
@@ -619,11 +665,11 @@ class _Runner:
     # --- a call ---------------------------------------------------------------
 
     def _load(self, state: ShardedState):
-        for r, x in enumerate(state.f):
-            self.F[r][0].copy_(x)
+        for l, x in enumerate(state.f):
+            self.F[l][0].copy_(x)
         if self.lay.queue:
-            for r, g in enumerate(state.ghosts):
-                self.G[r][:self.lay.queue].copy_(g)
+            for l, g in enumerate(state.ghosts):
+                self.G[l][:self.lay.queue].copy_(g)
         self.p, self.h = 0, 0
 
     def _export(self) -> ShardedState:
@@ -636,12 +682,19 @@ class _Runner:
         return ShardedState(f, tuple(torch.cat([G[i:i + 1] for i in order]) for G in self.G))
 
     def _tots(self) -> torch.Tensor:
-        """Per-step totals: each shard's sum, then the shards in order."""
+        """Per-step totals: each shard's sum (overlap's three rows as
+        ``(interior + bottom) + top``), then the shards in global order,
+        ``((T_0 + T_1) + T_2) + ...``, on the first local device.  With
+        several processes one gather brings every shard's sums to every
+        process, which adds them in the same order: every rank holds the
+        one-process totals bitwise."""
         dev0, n = self.lay.mesh.devices[0], self.n
+        rows = [((T[0, :n] + T[1, :n]) + T[2, :n] if self.kind == "overlap" else T[0, :n]).to(dev0)
+                for T in self.T]
+        if self.lay.mesh.world > 1 and n:
+            rows = [v for block in gather(self.lay.mesh, torch.stack(rows)) for v in block]
         total = None
-        for T in self.T:
-            v = (T[0, :n] + T[1, :n]) + T[2, :n] if self.kind == "overlap" else T[0, :n]
-            v = v.to(dev0)
+        for v in rows:
             total = v.clone() if total is None else total + v
         return total
 
@@ -689,7 +742,13 @@ def build_sharded_program(
     ca, else ``torch`` (``jnp`` / ``pallas`` are accepted as lbm_tpu's
     names).  ``storage``: ``f32`` or ``i16`` (int16
     state, ghosts exchanged as int16; the cuda backend).  ``f0``: the
-    initial (9, ny, nx) distributions, default the rest state."""
+    initial (9, ny, nx) distributions, default the rest state.
+
+    With several processes (``mesh.world`` > 1) every process builds the
+    program with the same arguments: its state holds its own shards,
+    ``step`` and the runners exchange with the other processes, and
+    ``f_of`` and the per-step sums are gathered, so every process calls
+    them in the same order and gets the one-process result bitwise."""
     ny_orig, nx = obstacles.shape
     R = mesh.size
     dev0 = mesh.devices[0]
@@ -715,14 +774,15 @@ def build_sharded_program(
         )
 
     tot_cells = int(obstacles.size - np.count_nonzero(obstacles))
-    slabs = _extended_obstacle_slabs(obstacles, R)
-    obst = tuple(torch.from_numpy(np.ascontiguousarray(slabs[r])).to(d)
-                 for r, d in enumerate(mesh.devices))
+    mine = range(mesh.first, mesh.first + mesh.local)  # this process's shards
+
+    def per_shard(slabs):
+        return tuple(torch.from_numpy(np.ascontiguousarray(slabs[r])).to(d)
+                     for r, d in zip(mine, mesh.devices))
+
+    obst = per_shard(_extended_obstacle_slabs(obstacles, R))
     k6 = plan.k6
-    ca_obst = ()
-    if mode == "ca":
-        ca_obst = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(d) for x, d in
-                        zip(_extended_obstacle_slabs(obstacles, R, K), mesh.devices))
+    ca_obst = per_shard(_extended_obstacle_slabs(obstacles, R, K)) if mode == "ca" else ()
     lay = _Layout(params, mesh, mode, staleness, backend, storage, ny, nloc, nx, open_pad, obst,
                   k6, K, engine, parts, ca_obst)
 
@@ -731,7 +791,7 @@ def build_sharded_program(
                   for d in mesh.devices]
     else:
         f_init = [torch.from_numpy(np.ascontiguousarray(f0[:, r * nloc:(r + 1) * nloc]))
-                  .to(d) for r, d in enumerate(mesh.devices)]
+                  .to(d) for r, d in zip(mine, mesh.devices)]
     if storage == "i16":
         f_init = [quant.quantize(x, params.density) for x in f_init]
     ghosts = None
@@ -769,11 +829,17 @@ def build_sharded_program(
             return call_once("exchange", 0, state)[0]
 
     def f_of(state):
-        f = torch.cat([x.to(dev0) for x in state.f], dim=1)[:, :ny_orig]
+        f = torch.cat([x.to(dev0) for x in state.f], dim=1)
+        if mesh.world > 1:  # every process's rows, gathered in row order on each
+            if storage == "i16":
+                f = quant.dequantize(f, params.density)
+            return torch.cat(gather(mesh, f), dim=1)[:, :ny_orig]
+        f = f[:, :ny_orig]
         return quant.dequantize(f, params.density) if storage == "i16" else f
 
-    # The frame: the shards gathered in row order on the first device,
-    # dequantized for int16, seam padding dropped (modes.py:1550-1562).
+    # The frame: the shards gathered in row order on the first device (on
+    # every process), dequantized for int16, seam padding dropped
+    # (modes.py:1550-1562).
     mag = u_mag_fn(torch.from_numpy(np.ascontiguousarray(obstacles[:ny_orig])).to(dev0))
 
     return StepProgram(

@@ -30,6 +30,11 @@ relations ``lbm_tpu`` asserts:
     python -m lbm_tpu_torch.tools.dryrun [--devices 8] [--device cuda|cpu]
 
 Prints one line per relation and exits 0 when all hold; raises otherwise.
+Under a launcher (``WORLD_SIZE`` > 1; tools/pod.py ``launch``, ``torchrun``)
+every process joins the process group and holds ``--devices / WORLD_SIZE``
+of the shards: the sharded programs span the processes, the references
+are computed by each process alone, and every relation holds as on one
+process (rank 0 prints the lines).
 """
 
 from __future__ import annotations
@@ -127,8 +132,9 @@ def env(**values):
 
 
 def dryrun(n_devices: int, device: str = "cuda", ulp: float = 0.0) -> list[str]:
-    """Assert every relation on ``n_devices`` shards of ``device``; returns
-    the report lines."""
+    """Assert every relation on ``n_devices`` shards of ``device`` (in a
+    process group: spread evenly over its processes); returns the report
+    lines."""
     from lbm_tpu_torch.models import program as single
     from lbm_tpu_torch.parallel import mesh as mesh_lib
     from lbm_tpu_torch.parallel import modes
@@ -136,15 +142,20 @@ def dryrun(n_devices: int, device: str = "cuda", ulp: float = 0.0) -> list[str]:
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    mesh = mesh_lib.make_row_mesh(n_devices, mesh_lib.available_devices(dev, n_devices))
+    rank, world = mesh_lib.process_layout()
+    if n_devices % world:
+        raise ValueError(f"--devices {n_devices} does not spread over {world} processes")
+    mesh = mesh_lib.make_row_mesh(n_devices, [dev] * (n_devices // world), rank, world)
     scene = toy_scene(8 * n_devices, 128, STEPS)
     params, obst = scene.params, scene.obstacles
     lines = []
+    where = f"{dev.type}" + (f", {world} processes" if world > 1 else "")
 
     def report(mode, staleness, storage, relation, d):
         lines.append(f"dryrun ok: mode={mode} staleness={staleness} storage={storage} "
-                     f"devices={n_devices} ({dev.type})  {relation} (max|df|={d:.2e})")
-        print(lines[-1], flush=True)
+                     f"devices={n_devices} ({where})  {relation} (max|df|={d:.2e})")
+        if rank == 0:
+            print(lines[-1], flush=True)
 
     def build(mode, staleness, storage="f32", backend=None, scene=scene):
         with warnings.catch_warnings():
@@ -248,7 +259,16 @@ def main(argv: list[str] | None = None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         print("Error: no CUDA device", file=sys.stderr)
         return 1
-    dryrun(args.devices, args.device)
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        dryrun(args.devices, args.device)
+        return 0
+    from lbm_tpu_torch.parallel import mesh as mesh_lib
+
+    proc = mesh_lib.join(args.device)
+    try:
+        dryrun(args.devices, str(proc.device))
+    finally:
+        mesh_lib.leave()
     return 0
 
 

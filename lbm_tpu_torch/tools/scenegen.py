@@ -52,8 +52,10 @@ def write_scene(
     preset: str,
     params: LBMParams,
     name: str | None = None,
+    mask: np.ndarray | None = None,
 ) -> tuple[str, str]:
-    """Write ``input_<name>.params`` and ``obstacles_<name>.dat``."""
+    """Write ``input_<name>.params`` and ``obstacles_<name>.dat`` (the
+    preset's mask, or ``mask``)."""
     os.makedirs(out_dir, exist_ok=True)
     name = name or f"{params.nx}x{params.ny}_{preset}"
     pfile = os.path.join(out_dir, f"input_{name}.params")
@@ -64,7 +66,8 @@ def write_scene(
             f"{params.reynolds_dim}\n{params.density}\n{params.accel}\n"
             f"{params.omega}\n"
         )
-    mask = make_mask(preset, params.ny, params.nx)
+    if mask is None:
+        mask = make_mask(preset, params.ny, params.nx)
     with open(ofile, "w") as fp:
         ys, xs = np.nonzero(mask)
         fp.writelines(f"{x} {y} 1\n" for x, y in zip(xs, ys))
@@ -76,7 +79,9 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description="Generate a simulation scene")
     parser.add_argument("--grid", default="256x256", help="nx x ny, e.g. 512x512")
-    parser.add_argument("--preset", default="cavity", choices=PRESETS)
+    parser.add_argument("--preset", default="cavity", choices=(*PRESETS, "golden"),
+                        help="a geometry, or golden: the 1024x1024 reference scene of golden/ "
+                        "(its own grid and parameters)")
     parser.add_argument("--iters", type=int, default=20000)
     parser.add_argument("--reynolds-dim", type=int, default=10)
     parser.add_argument("--density", type=float, default=0.1)
@@ -86,6 +91,14 @@ def main(argv=None) -> int:
     parser.add_argument("--name", default=None)
     args = parser.parse_args(argv)
 
+    if args.preset == "golden":
+        from lbm_tpu_torch.tools.verify_device import golden_scene
+
+        scene = golden_scene()
+        pfile, ofile = write_scene(args.out_dir, "golden", scene.params, args.name,
+                                   scene.obstacles)
+        print(f"wrote {pfile} and {ofile}")
+        return 0
     nx, ny = (int(v) for v in args.grid.split("x"))
     params = LBMParams(
         nx=nx, ny=ny, max_iters=args.iters, reynolds_dim=args.reynolds_dim,

@@ -31,7 +31,7 @@ from lbm_tpu_torch.models.variants import resolve_variant
 from lbm_tpu_torch.ops import fused_cuda, fused_torch, ghosted_cuda, quant
 from lbm_tpu_torch.params import LBMParams
 from lbm_tpu_torch.parallel import mesh, modes
-from lbm_tpu_torch.tools import dryrun, scenegen
+from lbm_tpu_torch.tools import dryrun, pod, scenegen
 
 torch.set_num_threads(1)
 STEPS = 25
@@ -481,6 +481,30 @@ def test_shards_on_separate_cards_match_one_card(cuda_device, mode, k, storage):
         runs.append((prog.f_of(st).cpu(), tots.cpu()))
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,k,storage", [("sync", 1, "f32"), ("overlap", 1, "f32"),
+                                            ("async", 2, "f32"), ("chunked", 2, "f32"),
+                                            ("sync", 1, "i16"), ("ca", 4, "f32"),
+                                            ("ca", 8, "i16")])
+def test_nccl_processes_on_separate_cards_match_one_card(cuda_device, tmp_path, mode, k,
+                                                         storage):
+    """On a host with four cards, four processes (tools/pod.py), one shard
+    and one card each, NCCL between them: every rank's gathered fields and
+    sums equal one process's over four shards of one card, bitwise
+    (tools/dist_smoke.py)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    logs = [str(tmp_path / f"log{r}.txt") for r in range(4)]
+    rc = pod.launch(4, ["-m", "lbm_tpu_torch.tools.dist_smoke", "--device", "cuda",
+                        "--local-devices", "1", "--mode", mode, "--staleness", str(k),
+                        "--storage", storage, "--steps", "24"], timeout=240, logs=logs)
+    outs = [open(x).read() for x in logs]
+    assert rc == 0, "".join(outs)
+    for r, text in enumerate(outs):
+        assert f"DIST_SMOKE_OK process={r}/4 devices=4 mode={mode}" in text, text
+        assert "backend=nccl" in text
 
 
 @pytest.mark.cuda
