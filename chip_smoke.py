@@ -2,8 +2,8 @@
 """On-card smoke test of lbm_tpu_torch: builds the CUDA kernels, holds each
 against its plain PyTorch version, anchors the main path to the numpy
 oracle and to the 1024x1024 golden run, drives the CLI end to end (run,
---plan, --profile, --divergence, golden), writes the verify artifact, and
-times kernels and twin.
+sweep, --plan, --profile, --divergence, golden), writes the verify
+artifact, times kernels and twin, and runs the speed gate (perfcheck).
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -107,6 +107,18 @@ power limit as nvidia-smi reports them):
    one chunk at 128^2, fields and tot_u torch.equal (its tiles' rows split
    over 8 warps to 512^2 and over 2 at 1024^2); and vs K2 at 512^2 over
    256 steps (:func:`blocked_kernel_checks`);
+3j. the ensemble's kernels K1-batch and K2-batch vs the plain batched step
+   (:func:`ensemble_kernel_checks`): one instance of 128x128, three of
+   60x100, 37 of 128x128 (K2-batch in groups of 14 blocks), a geometry
+   batch of three 128x128 masks, eight of 256x256 and 600 of 64x64
+   (K1-batch alone: 5o's sweep, its shape on the main path), each with its
+   shared mask and with per-instance masks, omegas 0.6 to 1.95 and accels whose
+   injection guard splits the driven row's columns, K1-batch x 50 steps and
+   K2-batch x 1025 (four chunks and a step), each instance from its own
+   perturbed start; fields torch.equal, tot_u within rtol 1e-6; every
+   instance against a single run of its parameters (K1-batch: fields and
+   tot_u torch.equal to K1; K2-batch: fields to K2); a second run of each
+   bitwise equal;
 4. the cuda main path on a 128x128 scene for 120 steps vs core/oracle:
    fields atol 2e-7, av rtol 1e-4;
 5. ``lbm_tpu_torch run`` on 256x256 (4400 steps: K2, two segments) and
@@ -115,6 +127,16 @@ power limit as nvidia-smi reports them):
    --storage i16 (K3-i16), passing ``check`` against the f32 run; the K2,
    K3 and K3-i16 launch counters, zeroed just before the cuda runs, must
    have gone up;
+5o. ``sweep`` through the CLI (:func:`sweep_checks`): phase 5's 256x256
+   cylinder with ``--omega 1.3:1.85:8 --steps 4400 --av-vels`` (K2-batch;
+   its omega-1.85 instance's av_vels within rtol 1e-6 of phase 5's run), a
+   geometry sweep of that cylinder with scenegen's cavity and channel
+   (K2-batch; each instance within rtol 1e-6 of a single run of its mask),
+   and a 64x64 cylinder with ``--omega 1.0:1.85:600`` x 1000 steps
+   (K1-batch: 600 instances, more than K2-batch's groups can keep resident;
+   the last instance's final av within rtol 1e-6 of a single run); the
+   K1-batch and K2-batch counters, zeroed just before, must have gone up;
+   each sweep's MLUPS on the host clock of the whole command;
 5b. the golden run: the 1024x1024 reference scene rebuilt from golden/
    (obstacles from column 7 of the final state), ``run --variant cuda``
    for the full 20000 steps with --storage f32 (variant cuda-inplace),
@@ -215,8 +237,9 @@ power limit as nvidia-smi reports them):
 5g. the dryrun analog (tools/dryrun.py) on 8 shards of the card: every
    relation holds with ulp 0;
 a. the verify artifact (tools/verify_device.py ``run_verify``): one probe
-   per kernel form of the kernel table, 19, each its wrapper against the
-   twin on one recipe, every max |diff| 0, and the golden prefixes (f32
+   per kernel form of the kernel table, 21, each its wrapper against the
+   twin (K1-batch and K2-batch: the plain batched step) on one recipe,
+   every max |diff| 0, and the golden prefixes (f32
    and int16, 120 steps of the golden scene) under 1%; written into the
    temporary directory and printed as its JSON line;
 b. ``run --plan`` for every run of 5b, 5e, 5h, 5k and 5l, under the run's
@@ -248,7 +271,10 @@ e. ``golden --variant cuda`` on phase 5's 256x256 scene: both files
    and ca-4 at 4096^2/4 (K4-slab) with fields equal to sync's; (6e) the ca
    engines in turns on the 256x1024 (K = 4, 8) and 1024x4096 (K = 4; K8
    split) shards, and K9 against K5, K4 and K1 in turns at 2048^2; (6f) K10 in turns
-   with K3 and K4 (K = 4) at 1024^2;
+   with K3 and K4 (K = 4) at 1024^2; (6g) K1-batch and K2-batch at 5o's
+   shapes (8 x 256^2, both in turns; 600 x 64^2, K1-batch) beside the
+   plain batched step, and ``python -m lbm_tpu_torch.tools.perfcheck`` run
+   as a subprocess, which must exit 0 (its rows printed);
 7. one JSON line of kernel findings (one row per kernel, with the
    launches of the main path's run, its time per launch beside its plain
    version's and its bound, the least time of the launch's bytes over
@@ -257,7 +283,9 @@ e. ``golden --variant cuda`` on phase 5's 256x256 scene: both files
    for a state in L2 its cell-steps' bytes over the L2 copy's; K4,
    K5 and their int16 forms timed at 2048x2048, K=4, and at each grid and
    depth of 6c under "by_grid_and_depth"; K1-slab, K1-slab-i16 and K6 at
-   their card-paced time, the host-paced one beside it), then the last line
+   their card-paced time, the host-paced one beside it; K1-batch and
+   K2-batch at 5o's shapes, their bounds over all the instances), then the
+   last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no final line.  It
@@ -814,6 +842,211 @@ def blocked_kernel_checks(dev) -> tuple[float, int]:
     return worst, n_cases
 
 
+# Phase 3j's ensembles (ny, nx, B, geometry batch, kernels): one instance;
+# three with nx = 100 (rows not a multiple of a warp); 37 at 128^2 (the
+# most two-copy states the L2 budget takes there: K2-batch groups of 14
+# blocks); a geometry batch (box, cylinder, channel); 8 at 256^2 (the CLI
+# sweep's shape, K2-batch's on the main path); 600 at 64^2 (5o's sweep,
+# K1-batch's on the main path: more groups than K2-batch can keep
+# resident).  K2-batch runs each over 1025 steps (four chunks and a
+# step), K1-batch over 50.
+BOTH = ("K1-batch", "K2-batch")
+ENSEMBLES = ((128, 128, 1, False, BOTH), (60, 100, 3, False, BOTH),
+             (128, 128, 37, False, BOTH), (128, 128, 3, True, BOTH),
+             (256, 256, 8, False, BOTH), (64, 64, 600, False, ("K1-batch",)))
+ENSEMBLE_STEPS = {"K1-batch": 50, "K2-batch": 1025}
+
+
+def ensemble_case(ny: int, nx: int, B: int, geometry: bool, dev):
+    """(params, masks (B, ny, nx) bool on ``dev``, omegas, accels, f0_b) of
+    a phase 3j case: omegas 0.6 to 1.95; accels 0.005 and 0.002, and 1.0 on
+    every third instance, whose injection weights lie among the perturbed
+    start's values, so the driven row's guard is true on some columns of
+    that instance and false on others; each instance from its own seeded
+    10% perturbation of rest."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.core import lattice
+    from lbm_tpu_torch.tools import scenegen
+
+    p, m = box_scene(ny, nx)
+    masks = np.stack([m] * B)
+    if geometry:
+        masks[1] = scenegen.make_mask("cylinder", ny, nx)
+        masks[2] = scenegen.make_mask("channel", ny, nx)
+    omegas = np.linspace(0.6, 1.95, B, dtype=np.float32) if B > 1 else np.float32([1.85])
+    accels = np.asarray([(0.005, 1.0, 0.002)[b % 3] for b in range(B)], dtype=np.float32)
+    rng = np.random.default_rng(7)
+    rest = lattice.equilibrium_rest(p.density, ny, nx)
+    f0 = np.stack([rest * (np.float32(1.0) + rng.uniform(-0.1, 0.1, rest.shape).astype(
+        np.float32)) for _ in range(B)])
+    return (p, torch.from_numpy(masks).to(dev), omegas, accels,
+            torch.from_numpy(f0).to(dev))
+
+
+def ensemble_kernel_checks(dev) -> tuple[dict[tuple, float], int, str]:
+    """Phase 3j: K1-batch and K2-batch (ops/ensemble_cuda.py) against the
+    plain batched step on :data:`ENSEMBLES`, each case with its shared mask
+    and (where it is a geometry batch) its per-instance masks; fields
+    torch.equal, tot_u within rtol 1e-6.  Instance b against a single run
+    with b's omega, accel and mask: K1-batch against K1 (fields and tot_u
+    torch.equal), K2-batch against K2 (fields torch.equal).  A second run
+    of each kernel bitwise equal to the first.  Fails unless some instance
+    has the driven row's guard true on some columns and false on others at
+    the start.  Returns (largest |diff| by (kernel, ny, nx, B), cases,
+    notes)."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.ops import ensemble_cuda, fused_cuda, resident_cuda, stencil_math
+
+    errs = {}
+    n_cases, split = 0, False
+    for ny, nx, B, geometry, kernels in ENSEMBLES:
+        p, masks, omegas, accels, f0 = ensemble_case(ny, nx, B, geometry, dev)
+        w1s, w2s = (torch.from_numpy(w).to(dev)
+                    for w in ensemble_cuda.scalars(p, omegas, accels)[1:])
+        r = p.accel_row
+        ok = stencil_math.accel_planes(list(f0[:, :, r].transpose(0, 1)), ~masks[:, r], True,
+                                       w1s[:, None], w2s[:, None])[3] != f0[:, 3, r]
+        split = split or bool((ok.any(dim=1) & ~ok.all(dim=1)).any())
+        for obst, tag in ((masks[0], "shared mask"), (masks, "per-instance masks")):
+            if tag == "shared mask" and geometry:
+                continue
+            for kernel in kernels:
+                steps = ENSEMBLE_STEPS[kernel]
+                name = f"{kernel} {ny}x{nx} B={B} {tag} x {steps}"
+                run = ensemble_cuda.make_run_all(p, obst, omegas, accels, steps, kernel=kernel)
+                f_k, tot_k = (t.clone() for t in run(f0))
+                f_p, tot_p = ensemble_cuda.run_plain(f0, obst, p, omegas, accels, steps)
+                e, _ = compare(name, f_k, tot_k, f_p, tot_p)
+                key = (kernel, ny, nx, B)
+                errs[key] = max(errs.get(key, 0.0), e)
+                f_2, tot_2 = run(f0)
+                if not (torch.equal(f_2, f_k) and torch.equal(tot_2, tot_k)):
+                    fail(f"{name}: a second run differs from the first")
+                for b in range(B):
+                    pb = p.replace(omega=float(omegas[b]), accel=float(accels[b]))
+                    ob = obst if obst.dim() == 2 else obst[b].contiguous()
+                    if kernel == "K1-batch":
+                        f_1, tot_1 = fused_cuda.make_run_all(pb, ob, steps)(f0[b].contiguous())
+                        same = torch.equal(f_1, f_k[b]) and torch.equal(tot_1, tot_k[:, b])
+                    else:
+                        f_1, _ = resident_cuda.make_run_all(pb, ob, steps)(f0[b].contiguous())
+                        same = torch.equal(f_1, f_k[b])
+                    if not same:
+                        fail(f"{name}: instance {b} differs from a single "
+                             f"{'K1' if kernel == 'K1-batch' else 'K2'} run of its parameters")
+                n_cases += 1
+    if not split:
+        fail("no phase 3j instance has the driven row's guard split between columns")
+    notes = (", ".join(f"{ny}x{nx} B={B}{' geometry' if g else ''}"
+                       + ("" if ks == BOTH else f" ({', '.join(ks)})")
+                       for ny, nx, B, g, ks in ENSEMBLES)
+             + f"; K1-batch x {ENSEMBLE_STEPS['K1-batch']}, K2-batch x "
+               f"{ENSEMBLE_STEPS['K2-batch']} steps")
+    return errs, n_cases, notes
+
+
+def sweep_checks(td: str, scene256: tuple[str, str], single256: str, device: str = "cuda"):
+    """Phase 5o: ``sweep`` through the CLI, in the temporary directory
+    ``td``.  On phase 5's 256x256 cylinder (``scene256``: its params and
+    obstacle files; ``single256``: the directory of its single run):
+    ``--omega 1.3:1.85:8 --steps 4400 --av-vels`` (the scene's omega, 1.85,
+    is the last instance) and a geometry sweep of the cylinder with
+    scenegen's cavity and channel, both on K2-batch; on a 64x64 cylinder
+    ``--omega 1.0:1.85:600`` x 1000 steps, on K1-batch (600 instances: more
+    than K2-batch's groups can keep resident).  The instance with the
+    scene's parameters against the single run (av_vels within rtol 1e-6:
+    the same fields, |u| summed in another grouping); the geometry sweep's
+    instances against single runs of their masks.  Each ensemble kernel's
+    count is zeroed just before the sweeps that launch it, and must have
+    gone up.  Returns (launches by kernel, MLUPS by sweep on the host clock
+    of the whole command, notes)."""
+    import numpy as np
+
+    from lbm_tpu_torch import cli
+    from lbm_tpu_torch.io import load_scene, write_av_vels
+    from lbm_tpu_torch.io.writers import read_av_vels
+    from lbm_tpu_torch.models.driver import RunConfig, run_simulation
+    from lbm_tpu_torch.ops import ensemble_cuda
+    from lbm_tpu_torch.params import LBMParams
+    from lbm_tpu_torch.tools import scenegen
+
+    def cli_sweep(tag, pfile, ofile, *extra):
+        out_dir = os.path.join(td, f"sweep-{tag}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["sweep", pfile, ofile, "--device", device, "--out-dir", out_dir,
+                           *extra])
+        seconds = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"sweep {tag} exited {rc}:\n{buf.getvalue()}")
+        rows = [ln.split() for ln in open(os.path.join(out_dir, "sweep_summary.dat"))
+                if not ln.startswith("#")]
+        return out_dir, rows, seconds
+
+    def same_av(a_path, b_path, what):
+        a, b = read_av_vels(a_path), read_av_vels(b_path)
+        rel = float(np.max(np.abs(a - b) / np.abs(b)))
+        if a.shape != b.shape or rel > 1e-6:
+            fail(f"{what}: av_vels off the single run by {rel:.3e} relative (rtol 1e-6)")
+        return rel
+
+    launches, rates, notes = {}, {}, []
+    single_av = os.path.join(single256, "av_vels.dat")
+    p256 = load_scene(*scene256).params
+    ensemble_cuda.LAUNCHES_BATCH_RESIDENT = 0
+    sdir, rows, secs = cli_sweep("256", *scene256, "--omega", "1.3:1.85:8", "--steps", "4400",
+                                 "--av-vels")
+    launches["K2-batch"] = ensemble_cuda.LAUNCHES_BATCH_RESIDENT
+    if launches["K2-batch"] <= 0 or len(rows) != 8 or float(rows[-1][1]) != 1.85:
+        fail(f"sweep 256x256 x 8: K2-batch launches {launches['K2-batch']}, rows {rows}")
+    rel = same_av(os.path.join(sdir, "av_vels_007.dat"), single_av, "sweep 256x256 omega 1.85")
+    rates["sweep 256x256 x 8 (K2-batch)"] = 8 * 256 * 256 * 4400 / secs / 1e6
+    notes.append(f"256x256 cylinder x 4400 steps, --omega 1.3:1.85:8: K2-batch "
+                 f"{launches['K2-batch']} launches, {secs:.2f} s, instance 7 (omega 1.85) "
+                 f"av_vels rel {rel:.1e} of phase 5's run")
+    geo_files = [scenegen.write_scene(td, preset, p256)[1] for preset in ("cavity", "channel")]
+    before = ensemble_cuda.LAUNCHES_BATCH_RESIDENT
+    gdir, rows, secs = cli_sweep("256-geometry", *scene256, "--geometry", geo_files[0],
+                                 "--geometry", geo_files[1], "--steps", "4400", "--av-vels")
+    geo_launches = ensemble_cuda.LAUNCHES_BATCH_RESIDENT - before
+    launches["K2-batch"] += geo_launches
+    rels = [same_av(os.path.join(gdir, "av_vels_000.dat"), single_av, "geometry sweep: cylinder")]
+    for i, gfile in enumerate(geo_files, start=1):
+        single = run_simulation(load_scene(scene256[0], gfile),
+                                RunConfig(variant="cuda", device=device))
+        ref = os.path.join(td, f"geometry-{i}.av_vels.dat")
+        write_av_vels(ref, single.av_vels)
+        rels.append(same_av(os.path.join(gdir, f"av_vels_{i:03d}.dat"), ref,
+                            f"geometry sweep: instance {i} ({single.variant})"))
+    if geo_launches <= 0 or len(rows) != 3:
+        fail(f"geometry sweep: K2-batch launches {geo_launches}, rows {rows}")
+    notes.append(f"geometry sweep (cylinder, cavity, channel) x 4400 steps: K2-batch "
+                 f"{geo_launches} launches, av_vels max rel {max(rels):.1e} of single runs of "
+                 "each mask")
+    p64 = LBMParams(nx=64, ny=64, max_iters=1000, reynolds_dim=10, density=0.1, accel=0.005,
+                    omega=1.85)
+    files64 = scenegen.write_scene(td, "cylinder", p64)
+    ensemble_cuda.LAUNCHES_BATCH = 0
+    sdir, rows, secs = cli_sweep("64", *files64, "--omega", "1.0:1.85:600")
+    launches["K1-batch"] = ensemble_cuda.LAUNCHES_BATCH
+    single = run_simulation(load_scene(*files64), RunConfig(variant="cuda", device=device))
+    rel = abs(float(rows[-1][4]) - float(single.av_vels[-1])) / float(single.av_vels[-1])
+    if launches["K1-batch"] <= 0 or len(rows) != 600 or float(rows[-1][1]) != 1.85 \
+            or rel > 1e-6:
+        fail(f"sweep 64x64 x 600: K1-batch launches {launches['K1-batch']}, {len(rows)} rows, "
+             f"last {rows[-1]}, final av rel {rel:.3e} of {single.variant} (rtol 1e-6)")
+    rates["sweep 64x64 x 600 (K1-batch)"] = 600 * 64 * 64 * 1000 / secs / 1e6
+    notes.append(f"64x64 cylinder x 1000 steps, --omega 1.0:1.85:600: K1-batch "
+                 f"{launches['K1-batch']} launches, {secs:.2f} s, instance 599 (omega 1.85) final "
+                 f"av rel {rel:.1e} of a single {single.variant} run")
+    return launches, rates, notes
+
+
 def build_native_writer() -> str:
     """Build the C++ writer of final_state.dat (``make native``, into the
     gitignored native/build/), so that the large-grid CLI runs do not format
@@ -1208,6 +1441,14 @@ def main() -> int:
           "chunk) (7,4) (8,8) (5,5) (1024x1024: (7,4) (5,5)), rest and perturbed, and 128x128 "
           f"x 256 steps in one chunk: {k10_cases} cases, fields and tot_u equal, max |diff| "
           f"{k10_err:.1e} | K10 vs K2 512x512 x 256 steps: fields equal{elapsed()}")
+    ens_err, ens_cases, ens_notes = ensemble_kernel_checks(dev)
+    print(f"[3j K1-batch and K2-batch vs plain] card: {card} | {ens_notes}; shared masks and "
+          "per-instance masks, omegas 0.6-1.95, the driven row's guard split: "
+          f"{ens_cases} cases, fields equal to the plain batched step (max |diff| "
+          + ", ".join(f"{k} {max(e for (kk, *_), e in ens_err.items() if kk == k):.1e}"
+                      for k in BOTH)
+          + "), every instance equal to a single run of its parameters (K1-batch: fields "
+          f"and tot_u; K2-batch: fields), second runs bitwise{elapsed()}")
 
     # Phase 4: oracle anchor on the cuda main path.
     p128 = LBMParams(nx=128, ny=128, max_iters=120, reynolds_dim=10,
@@ -1310,6 +1551,12 @@ def main() -> int:
               f"(cuda-inplace-i16) vs f32, max deviation av_vels, final_state: "
               f"{', '.join(i16_256)} | launches K2 {launches['K2']}, K3 {k3_cli}, "
               f"K3-i16 {launches['K3-i16']}{elapsed()}")
+
+        # Phase 5o: sweep, the ensemble through the CLI (:func:`sweep_checks`).
+        sweep_launches, sweep_rates, sweep_notes = sweep_checks(td, runs[0][1:], f32_256)
+        launches.update(sweep_launches)
+        mlups.update(sweep_rates)
+        print(f"[5o sweep] card: {card} | {' | '.join(sweep_notes)}{elapsed()}")
 
         # Phase 5b: the 1024x1024 reference scene at full length against golden/.
         golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -1916,7 +2163,7 @@ def main() -> int:
             json.dump(report, fp, indent=1)
         print(json.dumps(report))
         probes = report["probes"]
-        if (not report["ok"] or set(probes) != set(verify_device.PROBES) or len(probes) != 19
+        if (not report["ok"] or set(probes) != set(verify_device.PROBES) or len(probes) != 21
                 or any(v["max_abs"] != 0.0 for v in probes.values())):
             fail(f"verify: ok {report['ok']}, probes "
                  + ", ".join(f"{k} {v['max_abs']:.3e}" for k, v in probes.items()))
@@ -2153,6 +2400,21 @@ def main() -> int:
     print(f"[6f K10 in turns] card: {card} | in turns "
           + kernel_times.format_grid(1024, blocked_times) + elapsed())
 
+    # Phase 6g: the ensemble's kernels at the shapes of 5o's sweeps, and
+    # the speed gate (tools/perfcheck.py) as a user runs it.
+    ens_times = {(256, 8): kernel_times.time_ensemble(256, 8, dev, repeats=5, singles=False),
+                 (64, 600): kernel_times.time_ensemble(64, 600, dev, repeats=5, singles=False)}
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", "lbm_tpu_torch.tools.perfcheck"], cwd=root,
+                          capture_output=True, text=True, timeout=900)
+    gate = [ln for ln in proc.stdout.splitlines() if ln.startswith(("OK", "FAIL"))]
+    if proc.returncode != 0:
+        fail(f"perfcheck exited {proc.returncode}:\n{proc.stdout}{proc.stderr}")
+    print(f"[6g ensemble kernels, perfcheck] card: {card} | in turns "
+          + " ; ".join(kernel_times.format_ensemble(n, B, t) for (n, B), t in ens_times.items())
+          + " | perfcheck exit 0: " + " | ".join(" ".join(ln.split()) for ln in gate)
+          + elapsed())
+
     # Phase 7: kernel findings, then the last line.  A launch of K1 is one
     # step; one of K2 or K3 is 256 steps; one of K4 or K5 is K steps; one of
     # K1-slab one step of one shard; one of K6 k steps of one shard.  Every
@@ -2176,17 +2438,21 @@ def main() -> int:
         label, rate = kernel_times.l2_rate_for(l2, copies * 9 * cells * vb)
         return cells * steps * 2 * 9 * vb / (rate * 1e9) * 1e3, label
 
-    def bounds(rows, nx, fluid, steps, storage, tier, ghosts=False, copies=1):
+    def bounds(rows, nx, fluid, steps, storage, tier, ghosts=False, copies=1, mask_cells=None):
         """bound_ms, bound_by, tier and tier_bound_ms of one launch on a
         rows x nx state (a shard: plus its two ghost rows), ``copies``
-        copies of it in L2."""
+        copies of it in L2, with an obstacle byte for each of
+        ``mask_cells`` cells (default every cell; an ensemble's shared
+        mask: one grid's)."""
         cells = rows * nx
+        mask_cells = cells if mask_cells is None else mask_cells
         extra = 2 * 9 * nx * (2 if storage == "i16" else 4) if ghosts else 0
-        b, by = kernel_times.bound_ms(cells, fluid, steps, storage, extra)
+        b, by = kernel_times.bound_ms(cells, fluid, steps, storage, extra, mask_cells)
         per_cell = (kernel_times.BYTES_PER_CELL_STEP_I16 if storage == "i16"
                     else kernel_times.BYTES_PER_CELL_STEP)
         if tier == "HBM":
-            tier_b, tier = cells * per_cell / (gbps[0] * 1e9) * 1e3, "HBM"
+            tier_b = (cells * (per_cell - 1) + mask_cells) / (gbps[0] * 1e9) * 1e3
+            tier = "HBM"
         else:
             tier_b, label = l2_tier_ms(cells, steps, storage, copies)
             tier = f"L2 ({label} copy)"
@@ -2380,6 +2646,27 @@ def main() -> int:
          "tier_bound_ms": chunk * 1024 * 1024 * kernel_times.BYTES_PER_CELL_STEP
          / (gbps[0] * 1e9) * 1e3},
     ]
+    # The ensemble's kernels (they replace no Pallas body: lbm_tpu's
+    # ensemble is the jnp step under jax.vmap): K2-batch a launch of 256
+    # steps of 5o's 8 instances of 256^2 (its 8 two-copy states, 36 MiB, in
+    # L2), K1-batch a launch of one step of 5o's 600 instances of 64^2
+    # (the states, 169 MiB, from HBM); bounds over all B instances, their
+    # one shared mask read once (72 x B x n^2 + n^2 bytes a step).
+    for key, (n, B), steps, tier, copies in (("K1-batch", (64, 600), 1, "HBM", 1),
+                                              ("K2-batch", (256, 8), chunk, "L2", 2)):
+        t = ens_times[(n, B)]
+        kernels.append({
+            "name": f"{key} batched {'one-step' if key == 'K1-batch' else 'multi-step'} kernel "
+                    f"of the ensemble (ms per launch = {steps} step{'s' if steps > 1 else ''} "
+                    f"of {B} instances of {n}x{n})",
+            "route": "cuda",
+            "source": f"lbm_tpu_torch/csrc/{'step.cu' if key == 'K1-batch' else 'resident.cu'}",
+            "replaces": "lbm_tpu/tools/ensemble.py:47 (_step_traced under jax.vmap :117; no "
+                        "pallas_call)",
+            "launches": launches[key], "max_abs_err": ens_err[(key, n, n, B)],
+            "ms": t[key][0] * B * steps / 1e3, "plain_ms": t["plain"][0] * B * steps / 1e3,
+            **bounds(B * n, n, B * (n - 2) ** 2, steps, "f32", tier, copies=copies,
+                     mask_cells=n * n)})
     print(f"[7 elapsed] card: {card} | {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

@@ -9,8 +9,10 @@ report (==done==, Reynolds number, phase timings), then writes
 execution plan, models/plan.py), ``--profile DIR`` (a torch.profiler trace
 of the compute bracket) and ``--divergence`` (sync against async,
 tools/divergence.py) as there.  ``check``, ``bench``, ``info``, ``scene``,
-``golden``, ``viz``, ``animate`` and ``speedup`` are the other subcommands;
-the last three need matplotlib.
+``golden``, ``sweep``, ``viz``, ``animate`` and ``speedup`` are the other
+subcommands; the last three, and ``sweep --plot``, need matplotlib.
+``sweep`` runs B variants of one scene at once (tools/ensemble.py: one
+launch a step or a chunk for all of them on the card).
 
 Under a launcher (``WORLD_SIZE`` > 1: tools/pod.py, ``torchrun``) ``run``
 joins the ``torch.distributed`` group first and runs a sharded variant
@@ -23,8 +25,8 @@ CUDA device and exits 1 with ``Error: no CUDA device`` without one;
 names the same choice: ``cpu`` is ``--device cpu`` (with ``--host-devices
 N``: N shards of the CPU), ``gpu`` or ``cuda`` is ``--device cuda``; ``tpu``,
 or a platform that contradicts ``--device``, exits 1.  What this package
-does not have (``sweep``, ``info --probe``) exits 1 with ``Error: ...``;
-nothing is silently ignored.
+does not have (``info --probe``) exits 1 with ``Error: ...``; nothing is
+silently ignored.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import json
 import os
 import sys
 
-_UNPORTED_COMMANDS = ("sweep",)
+_UNPORTED_COMMANDS: tuple[str, ...] = ()
 # lbm_tpu's --platform names -> the port's device.
 _PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
@@ -346,6 +348,82 @@ def cmd_golden(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_sweep(args: argparse.Namespace) -> int:
+    """Batched parameter sweep (lbm_tpu/cli.py:273-344): B variants of one
+    scene at once, on the run's one device (tools/ensemble.py)."""
+    import numpy as np
+
+    from lbm_tpu_torch.io import load_scene, write_av_vels
+    from lbm_tpu_torch.models.driver import resolve_device
+    from lbm_tpu_torch.tools.ensemble import parse_range, render_sweep, run_ensemble
+
+    device = _device_of(args)
+    resolve_device(device)
+    if args.plot:
+        _needs_matplotlib("sweep --plot")
+    scene = load_scene(args.paramfile, args.obstaclefile)
+    omegas = parse_range(args.omega or str(scene.params.omega))
+    accels = parse_range(args.accel) if args.accel else None
+
+    # Resolve the instance count FIRST (geometries fix it when present),
+    # then broadcast each parameter spec against it.
+    obstacles = scene.obstacles
+    if args.geometry:
+        # Geometry sweep: the base obstacle file plus each --geometry file
+        # becomes one instance (all on the base grid).
+        masks = [scene.obstacles]
+        for path in args.geometry:
+            masks.append(load_scene(args.paramfile, path).obstacles)
+        obstacles = np.stack(masks)
+        B = len(masks)
+    else:
+        B = max(omegas.size, accels.size if accels is not None else 1)
+
+    def fit(name, vals):
+        if vals.size == 1:
+            return np.repeat(vals, B)
+        if vals.size != B:
+            raise ValueError(
+                f"{name} has {vals.size} values but the sweep has {B} "
+                "instances; pass one value or one per instance"
+            )
+        return vals
+
+    omegas = fit("--omega", omegas)
+    if accels is not None:
+        accels = fit("--accel", accels)
+    res = run_ensemble(scene.params, obstacles, omegas, accels, num_steps=args.steps,
+                       device=device)
+    os.makedirs(args.out_dir, exist_ok=True)
+    summary = os.path.join(args.out_dir, "sweep_summary.dat")
+    final_av = (
+        res.av_vels[-1]
+        if res.av_vels.shape[0]
+        else np.full(res.omegas.size, np.nan, dtype=np.float32)
+    )
+    with open(summary, "w") as fh:
+        fh.write("# idx omega accel reynolds final_av_velocity\n")
+        for i in range(res.omegas.size):
+            fh.write(
+                f"{i:d} {res.omegas[i]:.6f} {res.accels[i]:.6f} "
+                f"{res.reynolds[i]:.12E} {final_av[i]:.12E}\n"
+            )
+    if args.av_vels:
+        for i in range(res.omegas.size):
+            write_av_vels(
+                os.path.join(args.out_dir, f"av_vels_{i:03d}.dat"),
+                np.ascontiguousarray(res.av_vels[:, i]),
+            )
+    if args.plot:
+        render_sweep(res, os.path.join(args.out_dir, "sweep.png"))
+    print(
+        f"swept {res.omegas.size} variants x {res.av_vels.shape[0]} steps "
+        f"in one compiled program; wrote {summary}"
+        + (" and sweep.png" if args.plot else "")
+    )
+    return 0
+
+
 def cmd_viz(args: argparse.Namespace) -> int:
     _needs_matplotlib("viz")
     from lbm_tpu_torch.tools.visualize import render_final_state
@@ -413,6 +491,42 @@ def main(argv: list[str] | None = None) -> int:
     p_gold.add_argument("--steps", type=int, default=None)
     _add_device_args(p_gold)
 
+    p_sweep = sub.add_parser(
+        "sweep", help="batched omega/accel parameter sweep (every instance in one launch "
+        "a step or a chunk on the card)"
+    )
+    p_sweep.add_argument("paramfile")
+    p_sweep.add_argument("obstaclefile")
+    p_sweep.add_argument(
+        "--omega", default=None,
+        help="relaxation values: a:b:n (linspace), a,b,c (list), or scalar",
+    )
+    p_sweep.add_argument(
+        "--accel", default=None,
+        help="acceleration values (same specs); broadcast against --omega",
+    )
+    p_sweep.add_argument(
+        "--geometry", action="append", default=None, metavar="OBSTACLEFILE",
+        help="additional obstacle files for a geometry sweep (the base "
+        "obstacle file is instance 0; repeatable)",
+    )
+    p_sweep.add_argument("--steps", type=int, default=None)
+    p_sweep.add_argument("--out-dir", default="sweep")
+    p_sweep.add_argument(
+        "--av-vels", action="store_true",
+        help="also write per-instance av_vels_XXX.dat series",
+    )
+    p_sweep.add_argument(
+        "--plot", action="store_true",
+        help="render sweep.png (av_vels families + final-value curve; needs matplotlib)",
+    )
+    _add_device_args(p_sweep)
+    p_sweep.add_argument(
+        "--host-devices", type=int, default=None,
+        help="accepted as lbm_tpu accepts it; the ensemble runs on the run's one device "
+        "(as lbm_tpu's vmap does), whatever N is",
+    )
+
     p_viz = sub.add_parser("viz", help="render 4-panel plots from final_state.dat")
     p_viz.add_argument("final_state")
     p_viz.add_argument("--output", default="final_state.png")
@@ -448,7 +562,8 @@ def main(argv: list[str] | None = None) -> int:
 
     args = parser.parse_args(argv)
     handler = {"run": cmd_run, "bench": cmd_bench, "info": cmd_info, "golden": cmd_golden,
-               "viz": cmd_viz, "animate": cmd_animate, "speedup": cmd_speedup}[args.command]
+               "sweep": cmd_sweep, "viz": cmd_viz, "animate": cmd_animate,
+               "speedup": cmd_speedup}[args.command]
     try:
         return handler(args)
     except (OSError, ValueError) as e:

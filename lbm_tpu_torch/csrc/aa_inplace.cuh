@@ -134,9 +134,13 @@ struct Band {
   int start, end, dep_lo, dep_n;
 };
 
-__device__ __forceinline__ Band band(const int* plan, int t, int grid) {
-  const int* e = plan + 4 * (t * grid + static_cast<int>(blockIdx.x));
+__device__ __forceinline__ Band band(const int* plan, int t, int grid, int block) {
+  const int* e = plan + 4 * (t * grid + block);
   return {e[0], e[1], e[2], e[3]};
+}
+
+__device__ __forceinline__ Band band(const int* plan, int t, int grid) {
+  return band(plan, t, grid, static_cast<int>(blockIdx.x));
 }
 
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* f) {

@@ -38,6 +38,22 @@
 // bytes of device memory per cell-step as K1.  One launch leaves a |u|
 // partial per block and a one-block launch sums them, in a fixed order, into
 // the slab's tot_u (int16: one launch, its last block sums them).
+//
+// K1-batch: K1's kernel (its kBatch instantiation) over B instances of one
+// grid in one launch, the ensemble's kernel where K2-batch would get fewer
+// than 3 blocks an instance (ops/ensemble_cuda.py).
+// It replaces no TPU kernel: lbm_tpu's ensemble runs the jnp step under
+// jax.vmap (lbm_tpu/tools/ensemble.py::_step_traced :47, vmap :117), which XLA
+// compiles into one program for all B; this is that program's step.
+// Instance b is blockIdx.z: its state and mask pointers are offset per
+// instance (the mask stride is 0 for a mask shared by every instance, ny x nx
+// for a geometry batch), and each block takes b's omega, w1 and w2 from a
+// device array (three uniform loads) into its own StepParams, so the cell
+// update (lbm_pull, lbm_collide) is K1's to the bit.  The |u| partials lie
+// [step][b][block] and each (step, b) row is summed by K1's reduce, so
+// instance b's tot_u is bitwise a single K1 run's.  Bound: 72 bytes of
+// device memory per instance-cell-step and the mask's byte per cell, once
+// for a shared mask, once per instance for a geometry batch.
 
 #include <algorithm>
 
@@ -48,11 +64,27 @@ namespace {
 constexpr int kBlockX = 32;
 constexpr int kBlockY = lbm::kThreads / kBlockX;  // 8
 
+// K1 (kBatch false) and K1-batch (kBatch true: instance blockIdx.z, its
+// scalars read from `scalars`, its state and mask offset, its partials a row
+// of their own).  K1's instantiation has none of the batch arithmetic.
+template <bool kBatch>
 __global__ void __launch_bounds__(lbm::kThreads)
     lbm_step_kernel(const float* __restrict__ fin, float* __restrict__ fout,
-                    const uint8_t* __restrict__ obst, float* __restrict__ partials,
+                    const uint8_t* __restrict__ obst, long long mask_stride,
+                    const float* __restrict__ scalars, float* __restrict__ partials,
                     lbm::StepParams p) {
   __shared__ float sh[lbm::kThreads];
+  const size_t plane = static_cast<size_t>(p.ny) * p.nx;
+  if constexpr (kBatch) {
+    const int b = blockIdx.z;
+    p.omega = __ldg(scalars + 3 * b);
+    p.w1 = __ldg(scalars + 3 * b + 1);
+    p.w2 = __ldg(scalars + 3 * b + 2);
+    fin += static_cast<size_t>(b) * 9 * plane;
+    fout += static_cast<size_t>(b) * 9 * plane;
+    obst += b * mask_stride;
+    partials += static_cast<size_t>(b) * gridDim.y * gridDim.x;
+  }
   const int i = blockIdx.x * kBlockX + threadIdx.x;
   const int j = blockIdx.y * kBlockY + threadIdx.y;
   float speed = 0.0f;
@@ -61,7 +93,6 @@ __global__ void __launch_bounds__(lbm::kThreads)
     lbm::lbm_pull(fin, obst, j, i, p, t);
     const size_t c = static_cast<size_t>(j) * p.nx + i;
     speed = lbm::lbm_collide(t, obst[c] != 0, p.omega, out);
-    const size_t plane = static_cast<size_t>(p.ny) * p.nx;
 #pragma unroll
     for (int k = 0; k < 9; ++k) fout[k * plane + c] = lbm::lbm_encode<float>(out[k], k, p);
   }
@@ -448,18 +479,19 @@ bool aligned4(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 3u) 
 }  // namespace i16
 
 // nsteps launches, launch(t, row) running step t into its row of partials
-// (nblocks floats); every `batch` steps, and after the last, one reduce
-// launch sums the filled rows into tot_out, a step each.
+// (nb instances of nblocks floats); every `batch` steps, and after the
+// last, one reduce launch sums each instance's nblocks of the filled rows
+// into tot_out, nb values a step.
 template <typename Launch>
 int step_loop(Launch launch, int nblocks, float* partials, float* tot_out, int nsteps,
-              int batch, cudaStream_t s) {
+              int batch, cudaStream_t s, int nb = 1) {
   int done = 0;  // steps whose tot_u has been reduced
   for (int t = 0; t < nsteps; ++t) {
     const int row = t - done;
-    launch(t, partials + static_cast<size_t>(row) * nblocks);
+    launch(t, partials + static_cast<size_t>(row) * nb * nblocks);
     if (row + 1 == batch || t + 1 == nsteps) {
-      lbm::lbm_reduce_kernel<0><<<row + 1, lbm::kThreads, 0, s>>>(partials, nblocks,
-                                                                  tot_out + done);
+      lbm::lbm_reduce_kernel<0><<<(row + 1) * nb, lbm::kThreads, 0, s>>>(
+          partials, nblocks, tot_out + static_cast<size_t>(done) * nb);
       done = t + 1;
     }
     const cudaError_t err = cudaGetLastError();
@@ -468,16 +500,21 @@ int step_loop(Launch launch, int nblocks, float* partials, float* tot_out, int n
   return static_cast<int>(cudaGetLastError());
 }
 
-int step_run(float* fa, float* fb, const uint8_t* obst, float* partials, float* tot_out,
-             const lbm::StepParams& p, int nsteps, int batch, cudaStream_t s) {
-  const dim3 grid = step_grid(p.ny, p.nx);
+// K1 where scalars is null (p's omega, w1, w2; nb = 1), else K1-batch over
+// nb instances.
+int step_run(float* fa, float* fb, const uint8_t* obst, long long mask_stride,
+             const float* scalars, float* partials, float* tot_out, const lbm::StepParams& p,
+             int nb, int nsteps, int batch, cudaStream_t s) {
+  const dim3 g = step_grid(p.ny, p.nx);
+  const dim3 grid(g.x, g.y, nb);
+  const auto kernel = scalars ? lbm_step_kernel<true> : lbm_step_kernel<false>;
   return step_loop(
       [&](int t, float* part) {
-        lbm_step_kernel<<<grid, dim3(kBlockX, kBlockY), 0, s>>>(t % 2 == 0 ? fa : fb,
-                                                                t % 2 == 0 ? fb : fa, obst,
-                                                                part, p);
+        kernel<<<grid, dim3(kBlockX, kBlockY), 0, s>>>(t % 2 == 0 ? fa : fb,
+                                                       t % 2 == 0 ? fb : fa, obst,
+                                                       mask_stride, scalars, part, p);
       },
-      static_cast<int>(grid.x * grid.y), partials, tot_out, nsteps, batch, s);
+      static_cast<int>(g.x * g.y), partials, tot_out, nsteps, batch, s, nb);
 }
 
 // The K1-i16 kernel for a layout: 32-bit accesses or 16-bit, int offsets
@@ -591,8 +628,29 @@ int lbm_step_run(void* fa, void* fb, const uint8_t* obst, float* partials,
     return step_run_i16(static_cast<int16_t*>(fa), static_cast<int16_t*>(fb), obst, partials,
                         tot_out, p, nsteps, batch, s);
   }
-  return step_run(static_cast<float*>(fa), static_cast<float*>(fb), obst, partials, tot_out,
-                  p, nsteps, batch, s);
+  return step_run(static_cast<float*>(fa), static_cast<float*>(fb), obst, 0, nullptr,
+                  partials, tot_out, p, 1, nsteps, batch, s);
+}
+
+// K1-batch: advance nb instances of an ny x nx float32 grid `nsteps` steps,
+// ping-ponging fa -> fb -> fa ... as lbm_step_run (instance b's state at
+// b * 9 * ny * nx of each buffer).  obst: instance b's mask at
+// b * mask_stride bytes (0: one mask for all).  scalars: nb x (omega, w1,
+// w2) float32 on the device.  partials holds `batch` rows of nb x
+// lbm_step_blocks() floats; tot_out receives nsteps x nb sums, step-major.
+// nb must not exceed 65535 (the grid's z extent).  On `stream`, no
+// synchronisation.  Returns cudaGetLastError().
+int lbm_step_batch_run(void* fa, void* fb, const uint8_t* obst, long long mask_stride,
+                       const float* scalars, float* partials, float* tot_out, int ny, int nx,
+                       int accel_row, int nb, int nsteps, int batch, void* stream,
+                       int device) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (nb < 1 || nb > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const lbm::StepParams p{ny, nx, accel_row, 0.0f, 0.0f, 0.0f};
+  if (scalars == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return step_run(static_cast<float*>(fa), static_cast<float*>(fb), obst, mask_stride, scalars,
+                  partials, tot_out, p, nb, nsteps, batch, static_cast<cudaStream_t>(stream));
 }
 
 // K1-slab: advance the n body rows of one shard one step into `out`.  body,

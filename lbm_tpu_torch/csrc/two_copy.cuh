@@ -60,6 +60,17 @@ using aa::Cell;
 // 32-bit words per step counter: one 128-byte line each.
 constexpr int kCounterWords = 32;
 
+// The blocks that run one state: the launch's whole grid (K2, K6, K7), or
+// one instance's group of `size` blocks of a batched launch (K2-batch,
+// resident.cu), `block` this block's index in it.  Its counters, plan, sums
+// and state are the group's own, so every wait stays inside the group;
+// tot_stride is the distance between the state's per-step sums in tot_out.
+struct Group {
+  int block;
+  int size;
+  int tot_stride;
+};
+
 // Wait until the n blocks from lo (cyclically, of `grid`) have each counted
 // at least `count` finished steps (aa::band_wait on counters a line apart);
 // then every thread of the block may read what they wrote.
@@ -285,28 +296,29 @@ __device__ __forceinline__ float step_cells(const float* a, float* d, int plane,
 }
 
 // `nsteps` steps of an nrows x nx state from fa, ping-ponging with fb (see
-// the note above).  wall: the obstacle bytes of the state's row 0, rows nx
-// apart; partials, in 32-bit words (ops/resident_cuda.py partials_buffer):
-// gridDim.x step counters kCounterWords apart, the band plan (gridDim.x x 4
-// int32, or nsteps x gridDim.x x 4 for Rows::kPerStep) and nsteps x
-// gridDim.x sums.
+// the note above), by the blocks of `g`.  wall: the obstacle bytes of the
+// state's row 0, rows nx apart; partials, in 32-bit words
+// (ops/resident_cuda.py partials_buffer): g.size step counters
+// kCounterWords apart, the band plan (g.size x 4 int32, or nsteps x g.size
+// x 4 for Rows::kPerStep) and nsteps x g.size sums; step t's sum goes to
+// tot_out[t * g.tot_stride].
 template <class Rows>
 __device__ __forceinline__ void run(float* fa, float* fb, const uint8_t* __restrict__ wall,
                                     float* partials, float* tot_out, const StepParams& p,
-                                    const Rows& rows, int nrows, int nsteps) {
+                                    const Rows& rows, int nrows, int nsteps, const Group& g) {
   __shared__ float sh[kThreads];
   __shared__ float wsum[kThreads / 32];
   const int nx = p.nx;
   const int plane = nrows * nx;
-  const int G = gridDim.x;
+  const int G = g.size;
   unsigned* counters = reinterpret_cast<unsigned*>(partials);
-  unsigned* counter = counters + blockIdx.x * kCounterWords;
+  unsigned* counter = counters + g.block * kCounterWords;
   const int* plan = reinterpret_cast<const int*>(partials + kCounterWords * G);
   float* sums = partials + (kCounterWords + 4 * (Rows::kPerStep ? nsteps : 1)) * G;
   const unsigned base = __ldcg(counter);
   // The move of kThreads cells, in rows and columns.
   const int dj = kThreads / nx, di = kThreads - dj * nx;
-  aa::Band bd = aa::band(plan, 0, G), next = bd;
+  aa::Band bd = aa::band(plan, 0, G, g.block), next = bd;
   // The thread's first cell of the step, in rows and columns.
   int c_first = bd.start + static_cast<int>(threadIdx.x);
   int j_first = c_first / nx, i_first = c_first - j_first * nx;
@@ -319,7 +331,7 @@ __device__ __forceinline__ void run(float* fa, float* fb, const uint8_t* __restr
         j_first = c_first / nx;
         i_first = c_first - j_first * nx;
       }
-      if (t + 1 < nsteps) next = aa::band(plan, t + 1, G);  // in flight during this step
+      if (t + 1 < nsteps) next = aa::band(plan, t + 1, G, g.block);  // in flight this step
     }
     const float* a = (t & 1) ? fb : fa;
     float* d = (t & 1) ? fa : fb;
@@ -335,12 +347,23 @@ __device__ __forceinline__ void run(float* fa, float* fb, const uint8_t* __restr
       acc = step_cells<false>(a, d, plane, wall, p, rows, c_first, bd.end, j_first, i_first, dj,
                               di, last);
     }
-    aa::step_end(acc, wsum, sums + t * G + blockIdx.x, counter, base + t + 1);
+    aa::step_end(acc, wsum, sums + t * G + g.block, counter, base + t + 1);
   }
-  if (static_cast<int>(blockIdx.x) < nsteps) {  // it sums a step: wait for every block's last
+  if (g.block < nsteps) {  // it sums a step: wait for every block's last
     wait_blocks(counters, 0, G, G, base + nsteps);
   }
-  for (int t = blockIdx.x; t < nsteps; t += G) lbm_reduce_row(sums, G, t, tot_out, sh);
+  for (int t = g.block; t < nsteps; t += G) {
+    lbm_reduce_row(sums + t * G, G, 0, tot_out + t * g.tot_stride, sh);
+  }
+}
+
+// run() by the launch's whole grid.
+template <class Rows>
+__device__ __forceinline__ void run(float* fa, float* fb, const uint8_t* __restrict__ wall,
+                                    float* partials, float* tot_out, const StepParams& p,
+                                    const Rows& rows, int nrows, int nsteps) {
+  run(fa, fb, wall, partials, tot_out, p, rows, nrows, nsteps,
+      Group{static_cast<int>(blockIdx.x), static_cast<int>(gridDim.x), 1});
 }
 
 // Blocks of one cooperative launch of `kernel` over `cells` cells: no more
@@ -362,6 +385,13 @@ int grid_blocks(Kernel kernel, long long cells, int device) {
   const long long want = (cells + kThreads - 1) / kThreads;
   const long long cap = static_cast<long long>(per_sm) * sms;
   return static_cast<int>(want < cap ? want : cap);
+}
+
+// Blocks of `kernel` that can be resident on the device at once (the most a
+// cooperative launch takes), or <= 0 on error.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int device) {
+  return grid_blocks(kernel, 1LL << 40, device);
 }
 
 // The launch of `kernel` with `args` on `grid` blocks, after the checks its

@@ -56,6 +56,10 @@ _SIGNATURES = {
     "lbm_step_run": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P, _I, _I, _P, _I],
     "lbm_slab_step": [_P, _L, _P, _L, _P, _L, _P, _P, _L, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                       _I, _P, _P, _I],
+    "lbm_step_batch_run": [_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I],
+    "lbm_resident_batch_blocks": [_I],
+    "lbm_resident_batch_chunk": [_P, _P, _P, _L, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P,
+                                 _I],
     "lbm_ghosted_grid": [_I, _I, _I],
     "lbm_ghosted_chunk": [_P, _P, _P, _L, _P, _L, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I,
                           _I, _P, _I],

@@ -29,6 +29,14 @@ row blocks over two copies, with its per-step |u| grouping
 periodic steps of a shard's ghost-extended slab (``fused_step_ext``),
 returning the body rows and the per-level |u| of the body; int16 is
 quantized once per sweep (K4-slab-i16) or once per step (K8-i16).
+
+``ensemble_step`` / ``run_ensemble_plain`` are the twin step over a
+leading instance dimension with omega and the accel weights per instance
+(``lbm_tpu``'s ``_step_traced`` under ``jax.vmap``,
+``lbm_tpu/tools/ensemble.py:47``, :117): the plain version of the batched
+kernels K1-batch and K2-batch (ops/ensemble_cuda.py), and the ensemble's
+CPU path.  Instance b is bitwise a :func:`run_steps` run with b's omega
+and accel.
 """
 
 from __future__ import annotations
@@ -326,3 +334,55 @@ def ca_sweep(lo: torch.Tensor, body: torch.Tensor, hi: torch.Tensor, obst_ext: t
         if quantize == "step" and t + 1 < K:
             x = decode(encode(x))
     return encode(x[:, K:K + n]), tot_us
+
+
+def ensemble_weights(density: float, accels) -> tuple[np.ndarray, np.ndarray]:
+    """Per-instance accel weights (w1s, w2s), float32 arrays, computed as
+    ``lbm_tpu``'s ensemble does (``lbm_tpu/tools/ensemble.py:110-111``):
+    the same float32 operations as ``lattice.accel_weights``, vectorized."""
+    accels = np.asarray(accels, dtype=np.float32)
+    return (np.float32(density) * accels / np.float32(9.0),
+            np.float32(density) * accels / np.float32(36.0))
+
+
+def ensemble_step(f_b: torch.Tensor, obstacles: torch.Tensor, omegas: torch.Tensor,
+                  w1s: torch.Tensor, w2s: torch.Tensor, accel_row: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One twin step of B instances: ``f_b`` (B, 9, ny, nx) float32,
+    ``obstacles`` (ny, nx) bool shared by every instance or (B, ny, nx) for
+    a geometry sweep, ``omegas``, ``w1s``, ``w2s`` (B,) float32 tensors on
+    ``f_b``'s device.  Returns (f_b', tot_u (B,)).
+
+    :func:`fused_step_single` op for op with the scalars broadcast as
+    (B, 1, 1) (or (B, 1) on the driven row) and the rolls over the last two
+    axes; each instance's tot_u is summed over its own contiguous (ny, nx)
+    plane, as the single step sums it, so instance b is bitwise a single
+    run.  ``f_b`` is not modified."""
+    B = f_b.shape[0]
+    om = omegas.reshape(B, 1, 1)
+    fluid = ~obstacles
+    jj = accel_row
+    f = f_b.clone()
+    planes = stencil_math.accel_planes([f[:, k, jj, :] for k in range(lattice.NSPEEDS)],
+                                       fluid[..., jj, :], True, w1s.reshape(B, 1),
+                                       w2s.reshape(B, 1))
+    f[:, :, jj, :] = torch.stack(planes, dim=1)
+    streamed = [torch.roll(f[:, k], shifts=(lattice.CY[k], lattice.CX[k]), dims=(1, 2))
+                for k in range(lattice.NSPEEDS)]
+    rho, u_x, u_y = stencil_math.moments(streamed)
+    u_sq = u_x * u_x + u_y * u_y
+    out = stencil_math.collide(streamed, obstacles, om, rho, u_x, u_y, u_sq)
+    speed = stencil_math.speeds(u_sq, fluid.expand(B, -1, -1))
+    tot = torch.stack([torch.sum(speed[b], dtype=torch.float32) for b in range(B)])
+    return torch.stack(out, dim=1), tot
+
+
+def run_ensemble_plain(f_b: torch.Tensor, obstacles: torch.Tensor, omegas: torch.Tensor,
+                       w1s: torch.Tensor, w2s: torch.Tensor, accel_row: int,
+                       num_steps: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``num_steps`` :func:`ensemble_step` steps: (f_b, tot (num_steps, B)),
+    the per-step sums written into one tensor on ``f_b``'s device."""
+    tot = torch.empty((num_steps, f_b.shape[0]), dtype=torch.float32, device=f_b.device)
+    for t in range(num_steps):
+        f_b, tot[t] = ensemble_step(f_b, obstacles, omegas, w1s, w2s, accel_row)
+    return f_b, tot

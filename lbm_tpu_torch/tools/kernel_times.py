@@ -64,6 +64,14 @@ at each height of ``--blocked-rows`` in ``--blocked``.
 ``--k4-regions 48x64,...`` times K4 and K4-slab on compiled regions other
 than the table's at each depth (``K4[48x64] K=4``), the same way.
 
+``--ensemble GRID:B[,GRID:B...]`` (n x n grids): the ensemble's kernels
+K1-batch and K2-batch (where B groups of blocks can be resident; beyond
+the L2 budget its states spill to HBM) on B instances of the closed box
+(omegas 1.3 to 1.9), in turns with B single runs of the default
+single-device kernel (``program.cuda_choice``, one runner per instance's
+parameters, run one after the other), in us per instance-step and MLUPS:
+the table behind ``ensemble_cuda.kernel_choice``.
+
 ``--l2`` times the L2 copy kernel (csrc/l2_copy.cu: one buffer read and
 written in place, pass after pass, in one persistent launch) at the working
 sets of K8's 272x1024 f32 slab (9.6 MiB), K3-i16 at 1024^2 (18 MiB) and K3
@@ -88,6 +96,7 @@ process, and the card's name and power limit::
         [--hbm 2048,4096] [--hbm-parts 128x2,256x2] [--hbm-split] \
         [--blocked 256,512,768,1024] [--blocked-rows 8] [--policy] \
         [--placements 5] [--l2] \
+        [--ensemble 128:16,128:37,256:8,1024:4] \
         [--variant parent=build/parent/step.cu] \
         [--k4-regions 48x64] [--repeats 7]
 
@@ -119,13 +128,16 @@ PEAK_OPS_PER_S = 67e12
 
 
 def bound_ms(cells: int, fluid: int, steps: int, storage: str = "f32",
-             extra_bytes: int = 0) -> tuple[float, str]:
+             extra_bytes: int = 0, mask_cells: int | None = None) -> tuple[float, str]:
     """(least ms, "bytes" or "operations") of a launch that reads a state of
-    ``cells`` cells once and writes it once, with its obstacle byte per cell
-    and ``extra_bytes`` more input (ghost rows), and advances its ``fluid``
-    fluid cells ``steps`` steps: the larger of the bytes over the published
-    memory rate and the operations over the published float32 rate."""
-    nbytes = cells * (BYTES_PER_CELL_STEP_I16 if storage == "i16" else BYTES_PER_CELL_STEP)
+    ``cells`` cells once and writes it once, with an obstacle byte for each
+    of ``mask_cells`` cells (default ``cells``; an ensemble's shared mask:
+    one grid's) and ``extra_bytes`` more input (ghost rows), and advances
+    its ``fluid`` fluid cells ``steps`` steps: the larger of the bytes over
+    the published memory rate and the operations over the published float32
+    rate."""
+    per_cell = BYTES_PER_CELL_STEP_I16 if storage == "i16" else BYTES_PER_CELL_STEP
+    nbytes = cells * (per_cell - 1) + (cells if mask_cells is None else mask_cells)
     ops = fluid * steps * (OPS_PER_CELL_STEP + (OPS_CODEC_I16 if storage == "i16" else 0))
     t_bytes = (nbytes + extra_bytes) / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
@@ -990,6 +1002,84 @@ def time_policy(device, repeats: int = 7, variants=None,
     return out
 
 
+def single_runner(p, obst, steps: int):
+    """The default single-device program's runner for ``p``
+    (``program.cuda_choice``): K2, K3, K4, K5, K9 or K1 (f32)."""
+    from lbm_tpu_torch.models import program
+    from lbm_tpu_torch.ops import (
+        fused_cuda,
+        hbm_cuda,
+        inplace_cuda,
+        resident_cuda,
+        skew_cuda,
+        temporal_cuda,
+    )
+
+    variant, K = program.cuda_choice(p)
+    if variant == "cuda-resident":
+        return resident_cuda.make_run_all(p, obst, steps), "K2"
+    if variant == "cuda-inplace":
+        return inplace_cuda.make_run_all(p, obst, steps), "K3"
+    sweeps = {"cuda-trapezoid": (temporal_cuda, "K4"), "cuda-skew": (skew_cuda, "K5"),
+              "cuda-hbm": (hbm_cuda, "K9")}
+    if variant in sweeps:
+        mod, name = sweeps[variant]
+        return mod.make_run_all(p, obst, steps, K), name
+    return fused_cuda.make_run_all(p, obst, steps), "K1"
+
+
+def time_ensemble(n: int, B: int, device, repeats: int = 7, singles: bool = True
+                  ) -> dict[str, tuple[float, float, float]]:
+    """us per instance-step (median, q1, q3) of K1-batch, K2-batch (where
+    B groups of blocks can be resident) and, with ``singles``, B single runs
+    of the default single-device kernel (``B x K2`` and so on), in turns, on
+    B instances of the n x n closed box with omegas 1.3 to 1.9, from rest;
+    then of the plain batched step (``plain``, 10 steps)."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.core import lattice
+    from lbm_tpu_torch.ops import _build, ensemble_cuda
+    from lbm_tpu_torch.tools.bench import make_scene
+
+    scene = make_scene(f"{n}x{n}")
+    p = scene.params
+    obst = torch.from_numpy(scene.obstacles).to(device)
+    omegas = np.linspace(1.3, 1.9, B, dtype=np.float32)
+    f0 = lattice.equilibrium_rest_device(p.density, n, n, device)
+    f0_b = f0.unsqueeze(0).expand(B, -1, -1, -1).contiguous()
+    steps = 4000 if n <= 256 else 1000
+    runs = {}
+    resident = _build.load().lbm_resident_batch_blocks(device.index)
+    for kernel in ensemble_cuda.KERNELS:
+        if kernel == "K2-batch" and ensemble_cuda.group_blocks(n, n, B, resident) < 1:
+            continue
+        runs[kernel] = (ensemble_cuda.make_run_all(p, obst, omegas, None, steps, kernel),
+                        f0_b, steps * B)
+    if singles:
+        one = [single_runner(p.replace(omega=float(o)), obst, steps) for o in omegas]
+
+        def run_singles(f):
+            for run, _ in one:
+                run(f)
+
+        runs[f"{B} x {one[0][1]}"] = (run_singles, f0, steps * B)
+    out = time_in_turns(runs, repeats)
+    del runs
+    plain_steps = 10
+    med, q1, q3 = _quartiles(_timed_ms(lambda: ensemble_cuda.run_plain(
+        f0_b, obst, p, omegas, None, plain_steps), max(1, min(repeats, 3))))
+    scale = 1e3 / (plain_steps * B)
+    out["plain"] = (med * scale, q1 * scale, q3 * scale)
+    return out
+
+
+def format_ensemble(n: int, B: int, times: dict[str, tuple[float, float, float]]) -> str:
+    return f"{n}^2 x {B} instances: " + " | ".join(
+        f"{name} {med:.4f} us/instance-step [{q1:.4f}, {q3:.4f}] {n * n / med:.0f} MLUPS"
+        for name, (med, q1, q3) in times.items())
+
+
 def format_grid(n: int, times: dict[str, tuple[float, float, float]]) -> str:
     parts = []
     for name, (med, q1, q3) in times.items():
@@ -1040,6 +1130,9 @@ def main(argv: list[str] | None = None) -> int:
                         "kernel on, e.g. 256,512,768,1024")
     parser.add_argument("--blocked-rows", default="8",
                         help="K10 row-block heights to time, e.g. 4,8,16")
+    parser.add_argument("--ensemble", default="",
+                        help="GRID:B pairs to time the ensemble's kernels on, e.g. "
+                        "128:16,256:8 (n x n grids, B instances)")
     parser.add_argument("--policy", action="store_true")
     parser.add_argument("--l2", action="store_true",
                         help="time the L2 copy kernel at K8's and K3's working sets")
@@ -1098,6 +1191,10 @@ def main(argv: list[str] | None = None) -> int:
         print("in turns " + format_grid(n, time_blocked(n, device, args.repeats, rows,
                                                         variants=variants,
                                                         placements=args.placements))
+              + f" | {card}")
+    for pair in (e for e in args.ensemble.split(",") if e):
+        n, B = (int(v) for v in pair.split(":"))
+        print("in turns " + format_ensemble(n, B, time_ensemble(n, B, device, args.repeats))
               + f" | {card}")
     if args.policy:
         for key, times in time_policy(device, args.repeats, variants,

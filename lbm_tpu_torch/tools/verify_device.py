@@ -4,8 +4,9 @@ The counterpart of ``lbm_tpu/tools/verify_device.py`` (``VERIFY_TPU.json``).
 It writes ``VERIFY_H100.json`` (or ``$LBM_VERIFY_OUT``) and prints the same
 report as one JSON line:
 
-- one probe per CUDA kernel form of PERF.md's kernel table (19: K1 to K10
-  with their int16, slab and ca forms), each holding the kernel's wrapper
+- one probe per CUDA kernel form of PERF.md's kernel table (21: K1 to K10
+  with their int16, slab and ca forms, and the ensemble's K1-batch and
+  K2-batch), each holding the kernel's wrapper
   against the twin (``ops/fused_torch.py``, the plain version every kernel
   is built to equal) on one recipe (:func:`_recipe`: a closed box with an
   interior block, a wall on the driven row, from a seeded perturbation of
@@ -16,7 +17,10 @@ report as one JSON line:
   from the same state, against those rows of the twin's run on the whole
   grid (one step for K1-slab, K steps for the ca engines, which are exact);
   K6 k steps with its ghost rows frozen, against k twin slab steps with the
-  same frozen ghosts.  Shapes are those the smoke test's kernel phases map
+  same frozen ghosts; K1-batch and K2-batch B instances of the recipe
+  (omegas 1.3 to 1.9, accels 0.01 and 0.005 in turn) against the plain
+  batched step (``ops/ensemble_cuda.run_plain``).  Shapes are those the
+  smoke test's kernel phases map
   (K9 where ``hbm_cuda.plan`` finds parts, K7 and K8 on the 256x1024 shard
   of 1024^2 over 4, K6 on the same shard);
 - a golden prefix, float32 and int16: the 1024^2 reference scene rebuilt
@@ -54,9 +58,10 @@ _REPO = pathlib.Path(__file__).resolve().parents[2]
 GOLDEN = _REPO / "golden"
 SHARDS = 4  # the slab and ca probes take the last shard of the grid over 4
 
-# The 19 kernel forms of PERF.md's kernel table, in its order.
+# The 21 kernel forms of PERF.md's kernel table, in its order.
 PROBES = ("K1", "K1-i16", "K1-slab", "K1-slab-i16", "K2", "K3", "K3-i16", "K4", "K4-i16",
-          "K4-slab", "K4-slab-i16", "K5", "K5-i16", "K6", "K7", "K8", "K8-i16", "K9", "K10")
+          "K4-slab", "K4-slab-i16", "K5", "K5-i16", "K6", "K7", "K8", "K8-i16", "K9", "K10",
+          "K1-batch", "K2-batch")
 
 # Tolerances on max |diff| (float32 fields; int16 fields in quantization
 # steps): the card's claim is bitwise; on the CPU the plain versions are
@@ -74,10 +79,12 @@ class Extents:
     small: int  # K2
     steps: int  # the persistent kernels (K2, K3, K10): more than one launch
     golden_steps: int
+    instances: int  # K1-batch (on ``grid``) and K2-batch (on ``small``)
 
 
-CARD = Extents(grid=1024, k1=1536, big=2048, small=256, steps=300, golden_steps=120)
-CPU = Extents(grid=64, k1=48, big=64, small=32, steps=20, golden_steps=8)
+CARD = Extents(grid=1024, k1=1536, big=2048, small=256, steps=300, golden_steps=120,
+               instances=4)
+CPU = Extents(grid=64, k1=48, big=64, small=32, steps=20, golden_steps=8, instances=3)
 
 
 def _recipe(n: int, dev: torch.device, accel: float = 0.01):
@@ -201,6 +208,21 @@ class _Probes:
                 "max_abs": _maxdiff(launch.result, ref),
                 "reference": f"twin, {chunk} slab steps with the ghosts frozen"}
 
+    def ensemble(self, kernel: str, n: int, steps: int):
+        """An ensemble kernel on ``instances`` instances of the n x n
+        recipe against the plain batched step."""
+        from lbm_tpu_torch.ops import ensemble_cuda
+
+        B = self.ext.instances
+        p, obst, f0 = self.recipe(n, "f32")
+        f0_b = f0.unsqueeze(0).expand(B, -1, -1, -1).contiguous()
+        omegas = np.linspace(1.3, 1.9, B, dtype=np.float32)
+        accels = np.asarray([(0.01, 0.005)[b % 2] for b in range(B)], dtype=np.float32)
+        out, _ = ensemble_cuda.make_run_all(p, obst, omegas, accels, steps, kernel=kernel)(f0_b)
+        ref, _ = ensemble_cuda.run_plain(f0_b, obst, p, omegas, accels, steps)
+        return {"shape": f"{B} x {n}x{n}", "steps": steps, "max_abs": _maxdiff(out, ref),
+                "reference": f"the plain batched step, {steps} steps"}
+
     def run(self, name: str) -> dict:
         from lbm_tpu_torch.ops import (
             blocked_cuda,
@@ -245,6 +267,10 @@ class _Probes:
         if name == "K10":
             return self.single(name, e.grid, "f32", e.steps,
                                lambda p, o: blocked_cuda.make_run_all(p, o, e.steps))
+        if name == "K1-batch":
+            return self.ensemble(name, e.grid, short)
+        if name == "K2-batch":
+            return self.ensemble(name, e.small, e.steps)
         raise ValueError(f"unknown probe {name!r}")
 
 

@@ -386,12 +386,6 @@ def test_cli_bench_i16(capsys):
     assert report["metric"] == "MLUPS 16x16 cuda-inplace-i16" and report["device"] == "cpu"
 
 
-@pytest.mark.parametrize("command", ["sweep"])
-def test_cli_unported_commands_exit_1(capsys, command):
-    assert cli.main([command, "x"]) == 1
-    assert "not yet ported to lbm_tpu_torch" in capsys.readouterr().err
-
-
 def test_cli_error_paths(tmp_path, scene_files, capsys):
     pfile, ofile = scene_files
     bad = tmp_path / "bad.dat"
@@ -439,6 +433,8 @@ def test_port_imports_neither_jax_nor_lbm_tpu():
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
         "import lbm_tpu_torch.cli, lbm_tpu_torch.models.driver\n"
+        "import lbm_tpu_torch.ops.ensemble_cuda, lbm_tpu_torch.tools.ensemble\n"
+        "import lbm_tpu_torch.tools.perfcheck\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lbm_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -24,7 +24,15 @@ import torch
 from lbm_tpu_torch.core import lattice
 from lbm_tpu_torch.io.scene import Scene
 from lbm_tpu_torch.models import driver, program
-from lbm_tpu_torch.ops import _build, fused_cuda, fused_torch, inplace_cuda, quant, resident_cuda
+from lbm_tpu_torch.ops import (
+    _build,
+    ensemble_cuda,
+    fused_cuda,
+    fused_torch,
+    inplace_cuda,
+    quant,
+    resident_cuda,
+)
 from lbm_tpu_torch.params import LBMParams
 from lbm_tpu_torch.tools import kernel_times
 
@@ -84,6 +92,58 @@ def test_k1_matches_plain_on_card(cuda_device, shape, kind):
     one, tot_one = fused_cuda.step(f0, obst, params)
     f_1, tot_1 = fused_cuda.step_plain(f0, obst, params)
     _assert_matches(one, tot_one.reshape(1), f_1, tot_1.reshape(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1-batch", "K2-batch"])
+@pytest.mark.parametrize("shape,B,geometry", [((60, 100), 3, False), ((7, 33), 5, False),
+                                              ((30, 129), 2, True)], ids=str)
+def test_ensemble_kernels_match_plain_on_card(cuda_device, shape, B, geometry, kernel):
+    """K1-batch (20 steps) and K2-batch (300: two chunks) against the plain
+    batched step, fields bitwise; every instance against a single K1 or K2
+    run of its omega, accel (1.0: the guard split on the driven row) and
+    mask; a second run bitwise."""
+    params, mask = _scene(*shape)
+    masks = np.stack([mask] * B)
+    if geometry:
+        masks[1, 2:4, 3:9] = True
+    obst = torch.from_numpy(masks if geometry else mask).to(cuda_device)
+    f0 = torch.stack([_state(params.replace(accel=0.01 * (b + 1)), "mixed", cuda_device)
+                      for b in range(B)]).contiguous()
+    omegas = np.linspace(0.7, 1.9, B, dtype=np.float32)
+    accels = np.asarray([(0.005, 1.0)[b % 2] for b in range(B)], dtype=np.float32)
+    steps = 300 if kernel == "K2-batch" else 20
+    counts = (ensemble_cuda.LAUNCHES_BATCH, ensemble_cuda.LAUNCHES_BATCH_RESIDENT)
+    run = ensemble_cuda.make_run_all(params, obst, omegas, accels, steps, kernel=kernel)
+    assert run.kernel == kernel
+    f_k, tot_k = (t.clone() for t in run(f0))
+    assert (ensemble_cuda.LAUNCHES_BATCH - counts[0],
+            ensemble_cuda.LAUNCHES_BATCH_RESIDENT - counts[1]) == (
+        (steps, 0) if kernel == "K1-batch" else (0, 2))
+    f_p, tot_p = ensemble_cuda.run_plain(f0, obst, params, omegas, accels, steps)
+    _assert_matches(f_k, tot_k, f_p, tot_p)
+    f_2, tot_2 = run(f0)
+    assert torch.equal(f_2, f_k) and torch.equal(tot_2, tot_k)
+    for b in range(B):
+        pb = params.replace(omega=float(omegas[b]), accel=float(accels[b]))
+        ob = obst[b].contiguous() if geometry else obst
+        if kernel == "K1-batch":
+            f_1, tot_1 = fused_cuda.make_run_all(pb, ob, steps)(f0[b].contiguous())
+            assert torch.equal(f_1, f_k[b]) and torch.equal(tot_1, tot_k[:, b])
+        else:
+            f_1, _ = resident_cuda.make_run_all(pb, ob, steps)(f0[b].contiguous())
+            assert torch.equal(f_1, f_k[b])
+
+
+def test_ensemble_runner_on_cpu_is_the_plain_batched_step():
+    params, mask = _scene(12, 20)
+    obst = torch.from_numpy(mask)
+    f0 = torch.stack([_state(params, "mixed", "cpu")] * 2).contiguous()
+    for kernel in (None, "K1-batch", "K2-batch"):
+        run = ensemble_cuda.make_run_all(params, obst, [1.2, 1.8], [0.005, 1.0], 5, kernel)
+        f_k, tot_k = run(f0)
+        f_p, tot_p = ensemble_cuda.run_plain(f0, obst, params, [1.2, 1.8], [0.005, 1.0], 5)
+        assert run.kernel == "plain" and torch.equal(f_k, f_p) and torch.equal(tot_k, tot_p)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,8 @@
 """The work map of the two-copy resident kernels, K2 (csrc/resident.cu, a
-periodic grid), K6 (csrc/ghosted.cu, a shard between two frozen ghost
-rows) and K7 (csrc/ca_resident.cu, a ca shard's ghost-extended slab), on
+periodic grid), K2-batch (the same file: B instances, a group of G blocks
+each, ops/ensemble_cuda.py), K6 (csrc/ghosted.cu, a shard between two
+frozen ghost rows) and K7 (csrc/ca_resident.cu, a ca shard's
+ghost-extended slab), on
 the CPU: the host band plan they run on (``resident_cuda.grid_plan``,
 ``ghosted_cuda.shard_plan`` and ``ca_cuda.resident_plan``, all
 ``inplace_cuda.band_plan``) and the partials buffer their wrappers build.
@@ -22,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from lbm_tpu_torch.ops import ca_cuda, ghosted_cuda, inplace_cuda, resident_cuda
+from lbm_tpu_torch.ops import ca_cuda, ensemble_cuda, ghosted_cuda, inplace_cuda, resident_cuda
 
 THREADS, CELLS = 256, 2  # csrc/lbm_common.cuh kThreads, csrc/aa_inplace.cuh kCells
 
@@ -133,6 +135,62 @@ def _check_hazards(prev, cur, rows, nx, grid, periodic):
 @pytest.mark.parametrize("ny,nx,grid", K2_CASES)
 def test_k2_plan_covers_both_hazards(ny, nx, grid):
     _check_plan(resident_cuda.grid_plan(ny, nx, grid), ny, nx, grid, periodic=True)
+
+
+# K2-batch: (ny, nx, B, resident blocks): 37 instances of 128^2 (groups
+# of 14), 16 of 128^2 (33), 8 of 256^2 (66), the 60x100 and 30x129 shapes
+# of the card checks, a geometry batch's 3 of 128^2 (64: K2's own grid),
+# and a group of one block.
+K2_BATCH_CASES = [(128, 128, 37, 528), (128, 128, 16, 528), (256, 256, 8, 528),
+                  (60, 100, 3, 528), (30, 129, 5, 40), (128, 128, 3, 528), (16, 32, 4, 4)]
+
+
+@pytest.mark.parametrize("ny,nx,B,resident", K2_BATCH_CASES)
+def test_k2_batch_groups_wait_inside_their_instance(ny, nx, B, resident):
+    """Each instance's group runs K2's plan of G blocks, which covers both
+    hazards of two copies over its own periodic rows ("within one row",
+    both ways); every wait of the launch stays inside the waiting block's
+    group (a cell of row 0 waits on the blocks of its own instance's row
+    ny - 1); the groups fit the resident blocks; and instance b's slice of
+    the partials is K2's buffer for G blocks."""
+    G = ensemble_cuda.group_blocks(ny, nx, B, resident)
+    assert 1 <= G and B * G <= resident
+    plan = resident_cuda.grid_plan(ny, nx, G)
+    _check_plan(plan, ny, nx, G, periodic=True)
+    waits = ensemble_cuda.batch_waits(plan, B)
+    assert len(waits) == B * G
+    for gb, ws in enumerate(waits):
+        b = gb // G
+        assert ws and all(b * G <= q < (b + 1) * G for q in ws), (gb, sorted(ws))
+    # The wrap: the blocks holding row 0 wait on those holding row ny - 1.
+    first = [gb for gb in range(G) if plan[0][gb][0] < nx]
+    last = {gb for gb in range(G) if plan[0][gb][1] > (ny - 1) * nx}
+    for b in range(B):
+        assert all({b * G + q for q in last} <= waits[b * G + gb] for gb in first)
+    buf, words = ensemble_cuda.batch_partials(ny, nx, B, G, 7)
+    one = resident_cuda.partials_buffer(plan, 7, "cpu")
+    assert words == one.numel() and buf.numel() == B * words
+    for b in range(B):
+        assert torch.equal(buf[b * words:(b + 1) * words], one)
+
+
+def test_k2_batch_group_blocks_and_kernel_choice():
+    """G is K2's one block per 256 cells capped at resident // B; the
+    ensemble takes K2-batch where G is at least 3 and 9 planes stay within
+    32-bit offsets (it beat K1-batch at every shape timed there, in L2 and
+    beyond, and won no more with one or two blocks an instance), else
+    K1-batch."""
+    assert ensemble_cuda.group_blocks(128, 128, 1, 528) == 64
+    assert ensemble_cuda.group_blocks(128, 128, 37, 528) == 14
+    assert ensemble_cuda.group_blocks(128, 128, 529, 528) == 0
+    assert ensemble_cuda.kernel_choice(128, 128, 37, 528) == "K2-batch"
+    assert ensemble_cuda.kernel_choice(1024, 1024, 4, 528) == "K2-batch"
+    assert ensemble_cuda.kernel_choice(64, 64, 176, 528) == "K2-batch"  # G = 3
+    assert ensemble_cuda.kernel_choice(64, 64, 177, 528) == "K1-batch"  # G = 2
+    assert ensemble_cuda.kernel_choice(64, 64, 528, 528) == "K1-batch"  # G = 1
+    assert ensemble_cuda.kernel_choice(256, 256, 400, 528) == "K1-batch"
+    assert ensemble_cuda.kernel_choice(64, 64, 600, 528) == "K1-batch"
+    assert ensemble_cuda.kernel_choice(16384, 14564, 1, 528) == "K1-batch"
 
 
 @pytest.mark.parametrize("n,nx,grid", K6_CASES)
