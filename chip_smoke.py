@@ -2,7 +2,8 @@
 """On-card smoke test of lbm_tpu_torch: builds the CUDA kernels, holds each
 against its plain PyTorch version, anchors the main path to the numpy
 oracle and to the 1024x1024 golden run, drives the CLI end to end (run,
-sweep, --plan, --profile, --divergence, golden), writes the verify
+sweep, --plan, --profile, --divergence, golden; in one process and in a
+process group), writes the verify
 artifact, times kernels and twin, and runs the speed gate (perfcheck).
 
 Run from the root of a checkout, on a machine with one CUDA card:
@@ -255,6 +256,14 @@ d. ``run --divergence`` on the golden scene over 4 shards, async-1 x 2000
    float32), the last field_rel_linf printed;
 e. ``golden --variant cuda`` on phase 5's 256x256 scene: both files
    byte-identical to that run's;
+f. the process group on the one card (2 gloo processes x 2 shards,
+   tools/pod.py as in 5n): ``run --profile`` of sync x 200 on the golden
+   scene, rank 0's files byte-identical to (c)'s one-process run over 4
+   shards, each rank's ``DIR/rank<r>/trace.json`` holding at least 400
+   ``lbm_slab_kernel`` events and no NCCL kernel, and per rank its busy
+   share, kernel and host us/step and the us/step of its c10d/gloo events;
+   ``run --divergence`` async-1 x 2000, rank 0's divergence.csv and summary
+   byte-identical to (d)'s, rank 1 writing and printing nothing;
 6. MLUPS of those runs, and K1 / K2 / K3 / K1-i16 / K3-i16 (in turns) /
    twin times at 128^2 .. 1024^2 and K1 / K1-i16 / K3-i16 / twin at 1536^2
    (tools/kernel_times.py) beside a 1 GiB device copy's bandwidth, the L2
@@ -2261,6 +2270,8 @@ def main() -> int:
         div_s = time.perf_counter() - t0
         if rc != 0:
             fail(f"run --divergence exited {rc}:\n{buf.getvalue()}")
+        div_summary = [ln for ln in buf.getvalue().splitlines()
+                       if ln.startswith("divergence over")]
         rows = np.loadtxt(os.path.join(div_dir, "divergence.csv"), delimiter=",", skiprows=1)
         av_sync = read_av_vels(os.path.join(sync_dirs[2000], "av_vels.dat"))
         if rows.shape != (2000, 6) or not np.array_equal(rows[:, 1].astype(np.float32),
@@ -2289,6 +2300,97 @@ def main() -> int:
         print(f"[e golden] card: {card} | golden --variant cuda on the {tag} cylinder x 4400 "
               f"steps ({buf.getvalue().strip().split('variant=')[-1].rstrip(')')}): both files "
               f"byte-identical to phase 5's run{elapsed()}")
+
+        # Phase (f): the process group's trace and divergence on the one
+        # card, 2 gloo ranks x 2 shards (5n's pod_launch; each rank a fresh
+        # process that prints its launch counts).  f1: --profile of sync x
+        # 200, every rank tracing its own bracket into DIR/rank<r>; rank 0's
+        # files = (c)'s one-process run over 4 shards.  f2: --divergence
+        # async-1 x 2000; rank 0's divergence.csv = (d)'s.
+        def pod_cli(tag, *flags):
+            """``run`` of the golden scene on 2 ranks x 2 shards; (out dir,
+            each rank's output, seconds).  Both ranks must launch K1-slab."""
+            out_dir = os.path.join(td, f"f-{tag}")
+            t0 = time.perf_counter()
+            rc, outs = pod_launch(f"f-{tag}", ["-c", POD_CHILD, "run", gp, go, "--device",
+                                               "cuda", "--host-devices", "2", "--out-dir",
+                                               out_dir, *flags])
+            secs = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"(f) {tag}: the 2-process run exited {rc}:\n" + "\n".join(outs))
+            counts = [json.loads(ln.split(" ", 1)[1]) for text in outs
+                      for ln in text.splitlines() if ln.startswith("LAUNCHES ")]
+            if len(counts) != 2 or any(c["K1-slab"] <= 0 for c in counts):
+                fail(f"(f) {tag}: the ranks' K1-slab counts {counts}: a rank skipped it")
+            f_launches["K1-slab"] += sum(c["K1-slab"] for c in counts)
+            return out_dir, outs, secs
+
+        def union_us(events):
+            """Microseconds covered by the union of the events' intervals."""
+            busy, end = 0.0, -float("inf")
+            for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+                if b > end:
+                    busy += b - max(a, end)
+                    end = b
+            return busy
+
+        f_launches = {"K1-slab": 0}
+        notes = []
+        f_steps = 200
+        trace_dir = os.path.join(td, "f-trace")
+        out_dir, outs, secs = pod_cli("profile", "--variant", "sync", "--steps", str(f_steps),
+                                      "--profile", trace_dir)
+        plain_dir = os.path.join(td, "prof-sync-plain")  # (c): one process, 4 shards
+        for name in ("final_state.dat", "av_vels.dat"):
+            if not filecmp.cmp(os.path.join(out_dir, name), os.path.join(plain_dir, name),
+                               shallow=False):
+                fail(f"(f) --profile on 2 processes: rank 0's {name} differs from (c)'s "
+                     "one-process run over 4 shards")
+        lines = [ln for ln in outs[0].splitlines() if ln.startswith("Profile:")]
+        if len(lines) != 2 or "==done==" in outs[1] or "Profile:" in outs[1]:
+            fail("(f) --profile: rank 0 must print a Profile: line per rank and rank 1 "
+                 "nothing:\n" + "\n".join(outs))
+        for r, line in enumerate(lines):
+            path = os.path.join(trace_dir, f"rank{r}", "trace.json")
+            compute_ms = re.search(r"of the compute phase \(([0-9.]+) ms\)", line)
+            if f"rank {r}:" not in line or not line.endswith(path) or compute_ms is None:
+                fail(f"(f) --profile: rank {r}'s line {line!r}")
+            with open(path) as fp:
+                events = [e for e in json.load(fp)["traceEvents"] if e.get("ph") == "X"]
+            kern = [e for e in events if e.get("cat") == "kernel"]
+            slab = [e for e in kern if "lbm_slab_kernel" in e["name"]]
+            nccl = [e for e in kern if "nccl" in e["name"].lower()]
+            if len(slab) < 2 * f_steps or nccl:
+                fail(f"(f) --profile: rank {r}'s trace holds {len(slab)} lbm_slab_kernel "
+                     f"events (at least {2 * f_steps}) and {len(nccl)} NCCL kernel events (none "
+                     "under gloo)")
+            comm = [e for e in events if e["name"].startswith(("c10d::", "gloo:"))]
+            busy_us, comm_us = union_us(kern), union_us(comm)
+            compute_us = float(compute_ms.group(1)) * 1e3
+            notes.append(
+                f"rank {r}: {len(kern)} kernel events ({len(slab)} lbm_slab_kernel, no NCCL), "
+                f"busy {100 * busy_us / compute_us:.2f}% of its bracket "
+                f"({compute_us / 1e3:.3f} ms), kernels {busy_us / f_steps:.2f} us/step, host "
+                f"{(compute_us - busy_us) / f_steps:.2f} us/step beyond the kernels, of which "
+                f"c10d/gloo events (the send/recv batches and their waits, the tot_u "
+                f"all-gather) {comm_us / f_steps:.2f} us/step ({len(comm)} events)")
+        notes.append(f"rank 0's files byte-identical to (c)'s one process over 4 shards; "
+                     f"{secs:.1f} s")
+        out_dir, outs, secs = pod_cli("divergence", "--divergence", "--staleness", "1",
+                                      "--steps", "2000")
+        if not filecmp.cmp(os.path.join(out_dir, "divergence.csv"),
+                           os.path.join(div_dir, "divergence.csv"), shallow=False):
+            fail("(f) --divergence on 2 processes: divergence.csv differs from (d)'s")
+        got = [ln for ln in outs[0].splitlines() if ln.startswith("divergence over")]
+        if got != div_summary or "wrote" in outs[1] or "divergence over" in outs[1]:
+            fail(f"(f) --divergence: rank 0's summary {got}, (d)'s {div_summary}; rank 1 must "
+                 "write and print nothing:\n" + "\n".join(outs))
+        notes.append(f"--divergence async-1 x 2000: divergence.csv and summary byte-identical to "
+                     f"(d)'s, rank 1 wrote nothing; {secs:.1f} s against (d)'s {div_s:.1f} s in "
+                     "one process")
+        print(f"[f process group, golden 1024x1024 on 2 gloo processes x 2 shards of the card] "
+              f"card: {card} | --profile sync x {f_steps}: " + " | ".join(notes)
+              + f" | launches of the ranks: K1-slab {f_launches['K1-slab']}{elapsed()}")
 
     # Phase 5f: large shards, 4096x4096 over 4 shards of 1024x4096.
     p4k = LBMParams(nx=4096, ny=4096, max_iters=200, reynolds_dim=10, density=0.1, accel=0.01,
@@ -2536,7 +2638,8 @@ def main() -> int:
             "route": "cuda", "source": "lbm_tpu_torch/csrc/step.cu",
             "replaces": "lbm_tpu/ops/fused_pallas.py:581", "launches": launches[key],
             # and the two ranks' of 5n (the multi-process runs)
-            "launches_5n": pod_launches.get(key, 0), "max_abs_err": slab_err[key],
+            "launches_5n": pod_launches.get(key, 0),
+            "launches_f": f_launches.get(key, 0), "max_abs_err": slab_err[key],
             **shard_row(1024, key, f"plain-slab{sfx}", 1, storage, "L2"),
             "by_shard": [{"shard": "1024x4096 of 4096x4096",
                           "launches_5f": slab_5f if storage == "f32" else 0,

@@ -17,7 +17,10 @@ launch a step or a chunk for all of them on the card).
 Under a launcher (``WORLD_SIZE`` > 1: tools/pod.py, ``torchrun``) ``run``
 joins the ``torch.distributed`` group first and runs a sharded variant
 over every process's shards (``--host-devices N``: N a process); rank 0
-alone prints the report and writes the files.
+alone prints the report and writes the files.  There ``--profile DIR``
+traces every rank into ``DIR/rank<r>/trace.json`` (rank 0 prints a
+``Profile:`` line per rank), and ``--divergence`` runs its two programs
+over the group's shards (rank 0 writes ``divergence.csv``).
 
 The device is named, never guessed: ``--device cuda`` (the default) needs a
 CUDA device and exits 1 with ``Error: no CUDA device`` without one;
@@ -137,7 +140,7 @@ def _add_run_args(p: argparse.ArgumentParser) -> None:
                    "segments) and exit without running")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the compute phase to "
-                   "DIR/trace.json")
+                   "DIR/trace.json (rank r of a process group: DIR/rank<r>/trace.json)")
     p.add_argument("--divergence", action="store_true",
                    help="run sync and async side by side and write the per-step deviation "
                    "(divergence.csv, and divergence.png with matplotlib, in --out-dir) instead "
@@ -175,10 +178,7 @@ def _run(args: argparse.Namespace, device_arg: str, rank: int = 0, world: int = 
     device = resolve_device(device_arg)
     scene = load_scene(args.paramfile, args.obstaclefile)
     if args.divergence:
-        if world > 1:
-            raise ValueError("--divergence runs sync and async in one process; it is not "
-                             "supported across the processes of a multi-process run")
-        return _divergence(args, scene, device_arg)
+        return _divergence(args, scene, device_arg, rank)
     config = RunConfig(
         variant=args.variant,
         device=device_arg,
@@ -217,12 +217,8 @@ def _run(args: argparse.Namespace, device_arg: str, rank: int = 0, world: int = 
     print(result.timer.report())
     print("Compute rate:\t\t\t%.1f MLUPS" % result.mlups)
     if result.profile is not None:
-        prof = result.profile
-        share = ("" if prof["busy_share"] is None else
-                 f", kernels busy {prof['busy_s'] * 1e3:.3f} ms, {100 * prof['busy_share']:.2f}% "
-                 "of the compute phase")
-        print(f"Profile:\t\t\t{prof['kernel_events']} CUDA kernel events{share}; "
-              f"trace {prof['trace']}")
+        for prof in result.profile["ranks"]:
+            print(_profile_line(prof, world))
 
     if not args.no_output:
         os.makedirs(args.out_dir, exist_ok=True)
@@ -241,8 +237,27 @@ def _run(args: argparse.Namespace, device_arg: str, rank: int = 0, world: int = 
     return 0
 
 
-def _divergence(args: argparse.Namespace, scene, device: str) -> int:
-    """``run --divergence``: lbm_tpu/cli.py:387-408."""
+def _profile_line(prof: dict, world: int) -> str:
+    """A rank's ``Profile:`` line: its kernel events, their busy time and
+    share of its compute bracket (NCCL's kernels apart where it ran any),
+    and its trace."""
+    share = ""
+    if prof["busy_share"] is not None:
+        share = (f", kernels busy {prof['busy_s'] * 1e3:.3f} ms, "
+                 f"{100 * prof['busy_share']:.2f}% of the compute phase "
+                 f"({prof['compute_s'] * 1e3:.3f} ms)")
+        if prof["nccl_busy_s"]:
+            share += (f" (LBM kernels {100 * prof['lbm_busy_s'] / prof['compute_s']:.2f}%, "
+                      f"NCCL {100 * prof['nccl_busy_s'] / prof['compute_s']:.2f}%)")
+    who = f"rank {prof['rank']}: " if world > 1 else ""
+    return (f"Profile:\t\t\t{who}{prof['kernel_events']} CUDA kernel events{share}; "
+            f"trace {prof['trace']}")
+
+
+def _divergence(args: argparse.Namespace, scene, device: str, rank: int = 0) -> int:
+    """``run --divergence``: lbm_tpu/cli.py:387-408.  In a process group
+    every rank runs both programs over its shards; rank 0 alone prints and
+    writes."""
     from lbm_tpu_torch.tools.divergence import run_divergence, write_csv, write_plot
 
     res = run_divergence(
@@ -254,6 +269,8 @@ def _divergence(args: argparse.Namespace, scene, device: str) -> int:
         device=device,
         host_devices=args.host_devices,
     )
+    if rank:
+        return 0
     os.makedirs(args.out_dir, exist_ok=True)
     csv_path = os.path.join(args.out_dir, "divergence.csv")
     write_csv(csv_path, res)

@@ -53,8 +53,11 @@ starts (every single-device kernel but the sweeps' K1 tails).
 
 With ``profile_dir`` the compute bracket, and only it, runs under
 ``torch.profiler`` (host and, on a card, CUPTI's kernel activity); its
-Chrome trace lands in ``profile_dir/trace.json`` and ``RunResult.profile``
-sums its kernel events (:func:`_profile_summary`).  The profiler changes no
+Chrome trace lands in ``profile_dir/trace.json`` (rank r of a process
+group: ``profile_dir/rank<r>/trace.json``, :func:`profile_dir_of`) and
+``RunResult.profile`` sums its kernel events (:func:`_profile_summary`),
+with one entry per rank under ``ranks`` (:func:`_gather_profiles`: one
+small gather after the bracket has closed).  The profiler changes no
 launch, so the outputs are those of the unprofiled run.
 
 In a process group (parallel/mesh.py ``join``; ``python -m lbm_tpu_torch
@@ -62,7 +65,7 @@ run`` under a launcher) every process runs the same loop over its own
 shards, ``host_devices`` (default 1) each, and calls every collective
 (exchanges, the gathered sums, ``f_of``) in the same order; only rank 0
 writes checkpoints and prints the debug report (cli.py writes the files),
-and ``--profile`` and the single-device variants are refused.
+and the single-device variants are refused.
 
 Launches are asynchronous, so the compute bracket ends with
 ``torch.cuda.synchronize()`` on every device of the run; without it the
@@ -91,6 +94,7 @@ from lbm_tpu_torch.io.state import load_reference_checkpoint
 from lbm_tpu_torch.models.program import StepProgram, build_single_program
 from lbm_tpu_torch.models.variants import SHARDED, resolve_variant
 from lbm_tpu_torch.ops import quant
+from lbm_tpu_torch.parallel import exchange
 from lbm_tpu_torch.parallel import mesh as mesh_lib
 from lbm_tpu_torch.parallel import modes
 from lbm_tpu_torch.utils.invariants import calc_reynolds
@@ -585,11 +589,25 @@ def _busy_seconds(intervals: list[tuple[float, float]]) -> float:
     return busy * 1e-6
 
 
+def profile_dir_of(profile_dir: str) -> str:
+    """The directory this process's trace goes into: ``profile_dir`` in one
+    process, ``profile_dir/rank<r>`` for rank r of a process group, so that
+    no two ranks write one file."""
+    rank, world = mesh_lib.process_layout()
+    return profile_dir if world == 1 else os.path.join(profile_dir, f"rank{rank}")
+
+
+def _is_nccl(name: str) -> bool:
+    return "nccl" in name.lower()
+
+
 def _profile_summary(prof, out_dir: str, device: torch.device, compute_s: float) -> dict:
     """Write the bracket's Chrome trace to ``out_dir/trace.json`` and read
     its kernel events back: their count, launches and microseconds per
     kernel name, and the busy share (the union of their intervals over the
-    compute bracket's seconds, which the profiler itself lengthens).  On a
+    compute bracket's seconds, which the profiler itself lengthens).  NCCL's
+    kernels spin while they wait for a peer, so the union of the others
+    (``lbm_busy_s``) and of NCCL's (``nccl_busy_s``) stand beside it.  On a
     CUDA run a trace without a kernel event raises: the card's activity was
     not recorded."""
     os.makedirs(out_dir, exist_ok=True)
@@ -601,14 +619,55 @@ def _profile_summary(prof, out_dir: str, device: torch.device, compute_s: float)
     if device.type == "cuda" and not kernels:
         raise ValueError(f"--profile: the trace {path} holds no CUDA kernel event; the "
                          "profiler could not record the card (CUPTI missing?)")
-    busy = _busy_seconds([(e["ts"], e["ts"] + e["dur"]) for e in kernels])
+
+    def busy(keep):
+        return _busy_seconds([(e["ts"], e["ts"] + e["dur"]) for e in kernels if keep(e)])
+
+    total = busy(lambda e: True)
     by_name: dict = {}
     for e in kernels:
         launches, us = by_name.get(e["name"], (0, 0.0))
         by_name[e["name"]] = (launches + 1, us + e["dur"])
     return {"trace": path, "kernel_events": len(kernels),
             "kernels": {k: {"launches": n, "us": us} for k, (n, us) in by_name.items()},
-            "busy_s": busy, "busy_share": busy / compute_s if kernels and compute_s > 0 else None}
+            "busy_s": total, "lbm_busy_s": busy(lambda e: not _is_nccl(e["name"])),
+            "nccl_busy_s": busy(lambda e: _is_nccl(e["name"])), "compute_s": compute_s,
+            "busy_share": total / compute_s if kernels and compute_s > 0 else None}
+
+
+# What each rank's summary carries to the others (float64, one row a rank).
+_PROFILE_ROW = ("kernel_events", "busy_s", "lbm_busy_s", "nccl_busy_s", "compute_s")
+
+
+def _gather_profiles(summary: dict | None, error: Exception | None, dev: torch.device,
+                     profile_dir: str) -> list[dict]:
+    """Every rank's summary, in rank order: one gather of a float64 row of
+    :data:`_PROFILE_ROW` and an ok flag, made after the traced bracket has
+    closed.  A rank whose summary failed (``error``) still takes part, so
+    that every rank raises together instead of waiting for it until the
+    group's timeout: that rank re-raises its error, the others name it."""
+    rank, world = mesh_lib.process_layout()
+    if world == 1:
+        if error is not None:
+            raise error
+        return [{"rank": 0, **summary}]
+    row = [float(summary[k]) for k in _PROFILE_ROW] + [1.0] if error is None else [0.0] * 6
+    rows = exchange.gather(mesh_lib.RowMesh((dev,), rank, world),
+                           torch.tensor(row, dtype=torch.float64, device=dev))
+    rows = [r.cpu().tolist() for r in rows]
+    if error is not None:
+        raise error
+    failed = [r for r, x in enumerate(rows) if not x[-1]]
+    if failed:
+        raise ValueError(f"--profile failed on rank(s) {failed} (each printed its error)")
+    out = []
+    for r, x in enumerate(rows):
+        got = dict(zip(_PROFILE_ROW, x[:-1]), kernel_events=int(x[0]))
+        got["busy_share"] = (got["busy_s"] / got["compute_s"]
+                             if got["kernel_events"] and got["compute_s"] > 0 else None)
+        out.append({"rank": r, "trace": os.path.join(profile_dir, f"rank{r}", "trace.json"),
+                    **got})
+    return out
 
 
 def check_config(config: RunConfig, variant: str) -> None:
@@ -623,9 +682,6 @@ def check_config(config: RunConfig, variant: str) -> None:
                              f"{config.checkpoint_every}")
         if observed:
             raise ValueError("frames/debug are not supported with checkpointing")
-    if config.profile_dir is not None and mesh_lib.process_layout()[1] > 1:
-        raise ValueError("--profile traces one process; it is not supported across the "
-                         "processes of a multi-process run")
     if variant == "serial":
         if config.resume_from or config.checkpoint_every:
             raise ValueError("checkpoint/resume is not supported with the serial oracle "
@@ -708,8 +764,16 @@ def run_simulation(
         for d in devices:
             _sync(d)
         timer.stop("compute")
-    profile = (_profile_summary(profiler, config.profile_dir, device,
-                                timer.elapsed["compute"]) if config.profile_dir else None)
+    profile = None
+    if config.profile_dir:
+        summary, error = None, None
+        try:
+            summary = _profile_summary(profiler, profile_dir_of(config.profile_dir), device,
+                                       timer.elapsed["compute"])
+        except Exception as e:  # raised on every rank by _gather_profiles
+            error = e
+        ranks = _gather_profiles(summary, error, dev, config.profile_dir)
+        profile = {**summary, "ranks": ranks}
 
     timer.start("collate")
     f = program.f_of(state).cpu().numpy().astype(np.float32, copy=False)

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 import warnings
 
 from lbm_tpu_torch.io.scene import Scene
@@ -220,4 +221,4 @@ def _describe(out, scene: Scene, config, device, num_steps: int) -> None:
             f"({remaining // config.checkpoint_every} of them)")
     if config.profile_dir is not None:
         out(f"profile: torch.profiler trace of the compute bracket into "
-            f"{config.profile_dir}/trace.json")
+            f"{os.path.join(driver.profile_dir_of(config.profile_dir), 'trace.json')}")

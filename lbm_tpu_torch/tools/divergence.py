@@ -5,8 +5,18 @@ stale-halo program run side by side on the run's shards
 (``modes.build_sharded_program``), and every step records the average
 velocity of each, the relative L-infinity norm of the field difference
 (max|f_s - f_a| / max|f_s|) and its RMS, so the accuracy cost of a
-staleness is observed directly rather than only at the end of a run.  The
-series stay on the device and reach the host once, after the last step.
+staleness is observed directly rather than only at the end of a run.
+
+The field is never gathered: every step each shard reduces its own real
+rows (the seam's padding rows left out, as ``f_of`` drops them) to three
+float32 partials, max|f_s - f_a|, max|f_s| and the sum of (f_s - f_a)^2.
+They stay on the device and reach the host once, after the last step,
+through one gather of every shard's series (``parallel/exchange.gather``;
+the processes of a group, rank order = shard order).  The shards then
+combine in global shard order: the maxima (exact in any order), and the
+sums as ((S_0 + S_1) + S_2) + ..., over 9 ny nx, then the square root.  So
+one process and a process group over the same global shards write the
+same series bitwise.
 
 Outputs: ``divergence.csv`` in ``lbm_tpu``'s columns (step, av_sync,
 av_async, av_rel_pct, field_rel_linf, field_rms), and ``divergence.png``
@@ -30,6 +40,7 @@ import torch
 from lbm_tpu_torch.io.scene import Scene
 from lbm_tpu_torch.parallel import mesh as mesh_lib
 from lbm_tpu_torch.parallel import modes
+from lbm_tpu_torch.parallel.exchange import gather
 
 
 @dataclasses.dataclass
@@ -68,34 +79,50 @@ def run_divergence(
     device: str | torch.device = "cuda",
     host_devices: int | None = None,
 ) -> DivergenceResult:
-    """Run sync and async side by side over ``num_devices`` of ``device``'s
-    devices (``host_devices``: the one device counted N times); returns the
-    per-step deviation.  ``backend`` None follows the device."""
+    """Run sync and async side by side over the run's row mesh
+    (``mesh.run_mesh``: ``num_devices`` of ``device``'s devices,
+    ``host_devices`` the one device counted N times; in a process group
+    ``host_devices`` shards on every process); returns the per-step
+    deviation, on every rank alike.  ``backend`` None follows the device."""
     params = scene.params
     steps = num_steps if num_steps is not None else params.max_iters
     if mode not in ("async",):
         raise ValueError(f"--divergence probes the stale-halo modes; got mode={mode!r}")
-    mesh = mesh_lib.make_row_mesh(num_devices, mesh_lib.available_devices(device, host_devices))
+    mesh = mesh_lib.run_mesh(num_devices, device, host_devices)
     sync_prog = modes.build_sharded_program(params, scene.obstacles, mesh, mode="sync",
                                             backend=backend)
     async_prog = modes.build_sharded_program(params, scene.obstacles, mesh, mode=mode,
                                              staleness=staleness, backend=backend)
     # One-step runners, each fed its own last state (the driver's --debug
-    # schedule); the series live on the first shard's device.
+    # schedule); every rank calls them in the same order, so their
+    # exchanges and sums pair up across the processes.
     run_sync, run_async = sync_prog.make_run_all(1), async_prog.make_run_all(1)
+    ny, nx = scene.obstacles.shape
+    nloc = sync_prog.global_shape[0] // mesh.size
+    # This process's shards' real rows (the last shards' padding rows out).
+    real = [min(max(ny - (mesh.first + l) * nloc, 0), nloc) for l in range(mesh.local)]
     dev0 = mesh.devices[0]
-    series = torch.zeros((4, steps), dtype=torch.float32, device=dev0)
+    tots = torch.zeros((2, steps), dtype=torch.float32, device=dev0)
+    parts = [torch.zeros((3, steps), dtype=torch.float32, device=d) for d in mesh.devices]
     ss, sa = sync_prog.init_state, async_prog.init_state
     for t in range(steps):
         ss, tu_s = run_sync(ss)
         sa, tu_a = run_async(sa)
-        fs = sync_prog.f_of(ss)
-        d = (fs - async_prog.f_of(sa)).abs()
-        series[0, t] = tu_s[0]
-        series[1, t] = tu_a[0]
-        series[2, t] = d.max() / fs.abs().max()
-        series[3, t] = torch.sqrt(torch.mean(d * d))
-    tu_s, tu_a, rel_linf, rms = series.cpu().numpy()
+        tots[0, t] = tu_s[0]
+        tots[1, t] = tu_a[0]
+        for part, rows, xs, xa in zip(parts, real, ss.f, sa.f):
+            if rows:
+                fs = xs[:, :rows]
+                d = (fs - xa[:, :rows]).abs()
+                part[:, t] = torch.stack((d.max(), fs.abs().max(), torch.sum(d * d)))
+    local = torch.stack([p.to(dev0) for p in parts])
+    shards = torch.cat(gather(mesh, local)).cpu().numpy()  # (R, 3, steps), shard order
+    sq = shards[0, 2].copy()
+    for s in shards[1:, 2]:
+        sq += s
+    rms = np.sqrt(sq / np.float32(9 * ny * nx))
+    rel_linf = shards[:, 0].max(axis=0) / shards[:, 1].max(axis=0)
+    tu_s, tu_a = tots.cpu().numpy()
     cells = np.float32(sync_prog.tot_cells)
     return DivergenceResult(
         av_sync=tu_s / cells,

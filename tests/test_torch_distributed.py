@@ -7,21 +7,25 @@ worker: every case below builds its program on the mesh of the two
 processes and on one process's mesh of the same global shards, runs both
 and records whether fields and per-step tot_u agree bitwise; then the
 ``run`` CLI under the group (plain, frames with debug, checkpoints and a
-resume, ``--plan``, and the refused ``--profile`` and ``--divergence``),
-each rank into its own directory.  The tests read the ranks' records and
-hold rank 0's files byte for byte against one-process runs of the same
-global shards made here; rank 1 writes nothing.  Card tests: the same
+resume, ``--plan``, ``--profile`` (every rank's trace, and a summary that
+fails on rank 1) and ``--divergence``), each rank into its own directory.
+The tests read the ranks' records and hold rank 0's files byte for byte
+against one-process runs of the same global shards made here; rank 1
+writes nothing.  Card tests: the same
 programs on one card shared by two gloo processes, and four NCCL
 processes on four cards (``-k cards``):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_distributed.py
 """
 
+import contextlib
 import filecmp
+import io
 import json
 import os
 import pathlib
 import sys
+import time
 import warnings
 
 import numpy as np
@@ -33,6 +37,7 @@ if str(REPO) not in sys.path:  # the worker runs this file as a script
     sys.path.insert(0, str(REPO))
 
 from lbm_tpu_torch import cli  # noqa: E402
+from lbm_tpu_torch.models import driver  # noqa: E402
 from lbm_tpu_torch.params import LBMParams  # noqa: E402
 from lbm_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from lbm_tpu_torch.parallel import modes  # noqa: E402
@@ -114,13 +119,15 @@ def _build(mesh, case):
         return modes.build_sharded_program(p, obst, mesh, mode, k, storage=storage)
 
 
+def _failing_summary(*args, **kwargs):
+    raise ValueError("the trace summary failed (injected on rank 1)")
+
+
 def worker(out: str) -> int:
     """One rank: every case, then the CLI runs; records into
     ``out/rank<r>.json``."""
-    import contextlib
-    import io
-
     out = pathlib.Path(out)
+    summary = driver._profile_summary
     proc = mesh_lib.join("cpu", timeout_s=120)
     record = {"cases": {}, "runs": {}}
     try:
@@ -145,11 +152,20 @@ def worker(out: str) -> int:
                 rc = cli.main(_run_args(out, name, d))
             record["runs"][name] = {"rc": rc, "stdout": buf.getvalue()}
         for name, extra in (("plan", ["--plan"]), ("profile", ["--profile", str(out / "tr")]),
-                            ("divergence", ["--divergence"])):
+                            ("divergence", ["--divergence"]),
+                            ("profile-fail", ["--profile", str(out / "tr-fail")])):
             buf, err = io.StringIO(), io.StringIO()
-            with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
-                rc = cli.main(_run_args(out, "plain", out / f"{name}-rank{proc.rank}", extra))
-            record["runs"][name] = {"rc": rc, "stdout": buf.getvalue(), "stderr": err.getvalue()}
+            if name == "profile-fail" and proc.rank == 1:
+                driver._profile_summary = _failing_summary
+            t0 = time.monotonic()
+            try:
+                with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+                    rc = cli.main(_run_args(out, "plain", out / f"{name}-rank{proc.rank}",
+                                            extra))
+            finally:
+                driver._profile_summary = summary
+            record["runs"][name] = {"rc": rc, "stdout": buf.getvalue(), "stderr": err.getvalue(),
+                                    "seconds": time.monotonic() - t0}
     finally:
         mesh_lib.leave()
     (out / f"rank{proc.rank}.json").write_text(json.dumps(record))
@@ -178,14 +194,18 @@ def one_process(ranks, tmp_path_factory):
     for name in RUNS:
         args = _run_args(out, name, ref / f"{name}-rank0")
         args[args.index("--host-devices") + 1] = "4"
-        import contextlib
-        import io
-
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf), warnings.catch_warnings():
             warnings.simplefilter("ignore", UserWarning)
             assert cli.main(args) == 0
         texts[name] = buf.getvalue()
+    args = _run_args(out, "plain", ref / "divergence-rank0", ["--divergence"])
+    args[args.index("--host-devices") + 1] = "4"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        assert cli.main(args) == 0
+    texts["divergence"] = buf.getvalue()
     return ref, texts
 
 
@@ -243,12 +263,64 @@ def test_plan_names_the_processes(ranks):
     assert "shards: 4 x 8 rows" in plan["stdout"] and "program: async" in plan["stdout"]
 
 
-@pytest.mark.parametrize("name", ["profile", "divergence"])
-def test_profile_and_divergence_refused_on_every_rank(ranks, name):
-    records, _ = ranks
-    for rec in records:
-        run = rec["runs"][name]
-        assert run["rc"] == 1 and "Error:" in run["stderr"] and "multi-process" in run["stderr"]
+def test_profile_traces_every_rank(ranks):
+    """``run --profile DIR`` under the group: each rank writes its own
+    trace, ``DIR/rank<r>/trace.json``, a Chrome trace of its compute
+    bracket; no rank writes ``DIR/trace.json``."""
+    records, out = ranks
+    for r, rec in enumerate(records):
+        assert rec["runs"]["profile"]["rc"] == 0, rec["runs"]["profile"]
+        trace = json.loads((out / "tr" / f"rank{r}" / "trace.json").read_text())
+        names = {e.get("name") for e in trace["traceEvents"]}
+        assert "c10d::send" in names and "c10d::allgather_" in names  # the rank's messages
+    assert not (out / "tr" / "trace.json").exists()
+
+
+def test_profile_rank0_files_and_report(ranks, one_process):
+    """Rank 0's files equal the unprofiled one-process run's over the same
+    4 shards byte for byte; its report has one ``Profile:`` line per rank,
+    in rank order, each naming that rank's trace; rank 1 writes and prints
+    nothing."""
+    records, out = ranks
+    ref, _ = one_process
+    for f in ("final_state.dat", "av_vels.dat"):
+        assert filecmp.cmp(out / "profile-rank0" / f, ref / "plain-rank0" / f, shallow=False), f
+    lines = [ln for ln in records[0]["runs"]["profile"]["stdout"].splitlines()
+             if ln.startswith("Profile:")]
+    assert len(lines) == 2
+    for r, ln in enumerate(lines):
+        assert f"rank {r}: 0 CUDA kernel events" in ln
+        assert ln.endswith(f"trace {out / 'tr' / f'rank{r}' / 'trace.json'}")
+    assert records[1]["runs"]["profile"]["stdout"] == ""
+    assert not (out / "profile-rank1").exists()
+
+
+def test_profile_failure_on_one_rank_stops_every_rank(ranks):
+    """A summary that raises on rank 1 makes both ranks exit 1 with
+    ``Error:`` at once, through the gather's ok flag, not after the
+    group's timeout: rank 1 says why, rank 0 names rank 1."""
+    records, out = ranks
+    fail = [rec["runs"]["profile-fail"] for rec in records]
+    assert all(run["rc"] == 1 and run["seconds"] < 60 for run in fail), fail
+    assert "Error: the trace summary failed (injected on rank 1)" in fail[1]["stderr"]
+    assert "Error: --profile failed on rank(s) [1]" in fail[0]["stderr"]
+    assert not (out / "profile-fail-rank0").exists()
+
+
+def test_divergence_rank0_matches_one_process(ranks, one_process):
+    """``run --divergence`` under the group: rank 0's divergence.csv is
+    byte-identical to one process's over the same 4 global shards and its
+    summary line the same; rank 1 writes and prints nothing."""
+    records, out = ranks
+    ref, texts = one_process
+    runs = [rec["runs"]["divergence"] for rec in records]
+    assert [run["rc"] for run in runs] == [0, 0], runs
+    assert filecmp.cmp(out / "divergence-rank0" / "divergence.csv",
+                       ref / "divergence-rank0" / "divergence.csv", shallow=False)
+    summary = [ln for ln in texts["divergence"].splitlines() if ln.startswith("divergence over")]
+    assert len(summary) == 1 and "(async, staleness=1, 4 shards)" in summary[0]
+    assert summary[0] in runs[0]["stdout"].splitlines()
+    assert runs[1]["stdout"] == "" and not (out / "divergence-rank1").exists()
 
 
 # The modes of tests/test_torch_parallel.py's cards test: (mode, staleness, storage).

@@ -9,6 +9,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 from lbm_tpu.io.scene import Scene as JScene
 from lbm_tpu.params import LBMParams as JParams
@@ -16,6 +17,8 @@ from lbm_tpu.tools import divergence as jdivergence
 from lbm_tpu_torch import cli
 from lbm_tpu_torch.io.scene import Scene
 from lbm_tpu_torch.params import LBMParams
+from lbm_tpu_torch.parallel import mesh as mesh_lib
+from lbm_tpu_torch.parallel import modes
 from lbm_tpu_torch.tools import divergence, scenegen
 
 
@@ -56,6 +59,42 @@ def test_divergence_matches_lbm_tpu():
     assert res.field_rel_linf[-1] > 0  # the stale halos did move the field
     with pytest.raises(ValueError, match="stale-halo"):
         divergence.run_divergence(scene, mode="sync", device="cpu")
+
+
+def test_divergence_series_equal_the_formula_on_the_gathered_fields():
+    """The series combined from per-shard partials in shard order equal the
+    direct formula on ``f_of``'s fields (max|d| / max|f_s| and
+    sqrt(mean(d^2)) over the real grid): the max-based column exactly, the
+    rms at rtol 1e-6.  The scene has open seams and ny = 30 over 4 shards,
+    so the last shard carries 2 padding rows, which a partial must leave
+    out (counted, the rms moves by far more than 1e-6)."""
+    ny, nx, steps = 30, 40, 12
+    params = LBMParams(nx=nx, ny=ny, max_iters=steps, reynolds_dim=10,
+                       density=0.1, accel=0.005, omega=1.85)
+    mask = np.zeros((ny, nx), dtype=bool)
+    mask[:, 0] = mask[:, -1] = True
+    mask[12:15, 18:21] = True
+    scene = Scene(params, mask)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the stale-row warning
+        res = divergence.run_divergence(scene, staleness=2, device="cpu", host_devices=4)
+        mesh = mesh_lib.run_mesh(None, "cpu", 4)
+        assert modes.open_seam_pad(mask, mesh.size) == 2
+        progs = [modes.build_sharded_program(params, mask, mesh, mode=m, staleness=k)
+                 for m, k in (("sync", 1), ("async", 2))]
+    runs = [p.make_run_all(1) for p in progs]
+    states = [p.init_state for p in progs]
+    linf, rms = [], []
+    for _ in range(steps):
+        states = [run(st)[0] for run, st in zip(runs, states)]
+        fs, fa = (p.f_of(st) for p, st in zip(progs, states))
+        assert fs.shape == (9, ny, nx)
+        d = (fs - fa).abs()
+        linf.append(float(d.max() / fs.abs().max()))
+        rms.append(float(torch.sqrt(torch.mean(d * d))))
+    assert res.field_rel_linf[-1] > 0
+    np.testing.assert_array_equal(res.field_rel_linf, np.float32(linf))
+    np.testing.assert_allclose(res.field_rms, np.float32(rms), rtol=1e-6, atol=0)
 
 
 def test_cli_divergence_csv(tmp_path, capsys):
