@@ -108,18 +108,23 @@ power limit as nvidia-smi reports them):
    one chunk at 128^2, fields and tot_u torch.equal (its tiles' rows split
    over 8 warps to 512^2 and over 2 at 1024^2); and vs K2 at 512^2 over
    256 steps (:func:`blocked_kernel_checks`);
-3j. the ensemble's kernels K1-batch and K2-batch vs the plain batched step
-   (:func:`ensemble_kernel_checks`): one instance of 128x128, three of
+3j. the ensemble's kernels K1-batch, K2-batch and K11 vs the plain batched
+   step (:func:`ensemble_kernel_checks`): one instance of 128x128, three of
    60x100, 37 of 128x128 (K2-batch in groups of 14 blocks), a geometry
-   batch of three 128x128 masks, eight of 256x256 and 600 of 64x64
-   (K1-batch alone: 5o's sweep, its shape on the main path), each with its
-   shared mask and with per-instance masks, omegas 0.6 to 1.95 and accels whose
-   injection guard splits the driven row's columns, K1-batch x 50 steps and
-   K2-batch x 1025 (four chunks and a step), each instance from its own
-   perturbed start; fields torch.equal, tot_u within rtol 1e-6; every
-   instance against a single run of its parameters (K1-batch: fields and
-   tot_u torch.equal to K1; K2-batch: fields to K2); a second run of each
-   bitwise equal;
+   batch of three 128x128 masks, eight of 256x256, 600 of 64x64 (K1-batch;
+   K11 at C = 1 on a box open across the wrap), 149 of 64x64 and 16 of
+   128x128 (K11 alone), 200 of 512x512 (K1-batch x 100 steps, 5o's
+   sweep), K11 on the second, fourth, fifth and the 64x64 and 16 x 128x128
+   shapes, each with its shared mask and with per-instance masks (K11:
+   those of the geometry batch), omegas 0.6 to 1.95 and accels whose
+   injection guard splits the driven row's columns, K1-batch x 50 steps,
+   K2-batch and K11 x 1025 (four chunks and a step), each instance from its
+   own perturbed start; K11's cases move the driven row onto a band's first
+   or last row of the card's plan (it fails unless a band's first and last
+   row with C >= 2 and row 0 at C = 1 occur); fields torch.equal, tot_u
+   within rtol 1e-6; every instance against a single run of its parameters
+   (K1-batch: fields and tot_u torch.equal to K1; K2-batch and K11: fields
+   to K2); a second run of each bitwise equal;
 4. the cuda main path on a 128x128 scene for 120 steps vs core/oracle:
    fields atol 2e-7, av rtol 1e-4;
 5. ``lbm_tpu_torch run`` on 256x256 (4400 steps: K2, two segments) and
@@ -129,15 +134,18 @@ power limit as nvidia-smi reports them):
    K3 and K3-i16 launch counters, zeroed just before the cuda runs, must
    have gone up;
 5o. ``sweep`` through the CLI (:func:`sweep_checks`): phase 5's 256x256
-   cylinder with ``--omega 1.3:1.85:8 --steps 4400 --av-vels`` (K2-batch;
-   its omega-1.85 instance's av_vels within rtol 1e-6 of phase 5's run), a
+   cylinder with ``--omega 1.3:1.85:8 --steps 4400 --av-vels`` (its
+   omega-1.85 instance's av_vels within rtol 1e-6 of phase 5's run), a
    geometry sweep of that cylinder with scenegen's cavity and channel
-   (K2-batch; each instance within rtol 1e-6 of a single run of its mask),
-   and a 64x64 cylinder with ``--omega 1.0:1.85:600`` x 1000 steps
-   (K1-batch: 600 instances, more than K2-batch's groups can keep resident;
-   the last instance's final av within rtol 1e-6 of a single run); the
-   K1-batch and K2-batch counters, zeroed just before, must have gone up;
-   each sweep's MLUPS on the host clock of the whole command;
+   (each instance within rtol 1e-6 of a single run of its mask), a 64x64
+   cylinder with ``--omega 1.0:1.85:600`` x 1000 steps (the last
+   instance's final av within rtol 1e-6 of a single run), each on the
+   kernel the policy gives it and the CLI names; 512x512 sweeps for a
+   kernel those left idle (8 x 400 steps: K2-batch; 200 x 100: K1-batch);
+   every ensemble counter zeroed just before each sweep, the named
+   kernel's must have gone up and the others' stayed 0, and every ensemble
+   kernel must have launched; each sweep's MLUPS on the host clock of the
+   whole command;
 5b. the golden run: the 1024x1024 reference scene rebuilt from golden/
    (obstacles from column 7 of the final state), ``run --variant cuda``
    for the full 20000 steps with --storage f32 (variant cuda-inplace),
@@ -238,8 +246,8 @@ power limit as nvidia-smi reports them):
 5g. the dryrun analog (tools/dryrun.py) on 8 shards of the card: every
    relation holds with ulp 0;
 a. the verify artifact (tools/verify_device.py ``run_verify``): one probe
-   per kernel form of the kernel table, 21, each its wrapper against the
-   twin (K1-batch and K2-batch: the plain batched step) on one recipe,
+   per kernel form of the kernel table, 22, each its wrapper against the
+   twin (K1-batch, K2-batch and K11: the plain batched step) on one recipe,
    every max |diff| 0, and the golden prefixes (f32
    and int16, 120 steps of the golden scene) under 1%; written into the
    temporary directory and printed as its JSON line;
@@ -280,10 +288,12 @@ f. the process group on the one card (2 gloo processes x 2 shards,
    and ca-4 at 4096^2/4 (K4-slab) with fields equal to sync's; (6e) the ca
    engines in turns on the 256x1024 (K = 4, 8) and 1024x4096 (K = 4; K8
    split) shards, and K9 against K5, K4 and K1 in turns at 2048^2; (6f) K10 in turns
-   with K3 and K4 (K = 4) at 1024^2; (6g) K1-batch and K2-batch at 5o's
-   shapes (8 x 256^2, both in turns; 600 x 64^2, K1-batch) beside the
-   plain batched step, and ``python -m lbm_tpu_torch.tools.perfcheck`` run
-   as a subprocess, which must exit 0 (its rows printed);
+   with K3 and K4 (K = 4) at 1024^2; (6g) K1-batch, K2-batch and K11 at
+   5o's shapes (8 x 256^2, all three in turns; 600 x 64^2, K11; 200 x
+   512^2, K1-batch) beside the plain batched step, the shared-memory copy's rate
+   (csrc/smem_copy.cu, K11's tier), and ``python -m
+   lbm_tpu_torch.tools.perfcheck`` run as a subprocess, which must exit 0
+   (its rows printed);
 7. one JSON line of kernel findings (one row per kernel, with the
    launches of the main path's run, its time per launch beside its plain
    version's and its bound, the least time of the launch's bytes over
@@ -292,8 +302,10 @@ f. the process group on the one card (2 gloo processes x 2 shards,
    for a state in L2 its cell-steps' bytes over the L2 copy's; K4,
    K5 and their int16 forms timed at 2048x2048, K=4, and at each grid and
    depth of 6c under "by_grid_and_depth"; K1-slab, K1-slab-i16 and K6 at
-   their card-paced time, the host-paced one beside it; K1-batch and
-   K2-batch at 5o's shapes, their bounds over all the instances), then the
+   their card-paced time, the host-paced one beside it; K1-batch,
+   K2-batch and K11 at 5o's shapes (K11 at 8 x 256^2 and 600 x 64^2),
+   their bounds over all the instances, K11's tier shared memory), then
+   the
    last line
    ``{"ok": true, "device": {...}}``.
 
@@ -314,6 +326,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+from typing import NamedTuple
 import time
 
 GRID_SIZES = (128, 256, 512, 1024)
@@ -851,28 +864,57 @@ def blocked_kernel_checks(dev) -> tuple[float, int]:
     return worst, n_cases
 
 
-# Phase 3j's ensembles (ny, nx, B, geometry batch, kernels): one instance;
-# three with nx = 100 (rows not a multiple of a warp); 37 at 128^2 (the
-# most two-copy states the L2 budget takes there: K2-batch groups of 14
-# blocks); a geometry batch (box, cylinder, channel); 8 at 256^2 (the CLI
-# sweep's shape, K2-batch's on the main path); 600 at 64^2 (5o's sweep,
-# K1-batch's on the main path: more groups than K2-batch can keep
-# resident).  K2-batch runs each over 1025 steps (four chunks and a
-# step), K1-batch over 50.
+class Ensemble(NamedTuple):
+    """A phase 3j case: B instances of ny x nx, a geometry batch or not, the
+    kernels it runs; ``where`` K11 puts the driven row ("first": rank 1's
+    first row, or row 0 at C = 1; "last": rank 0's last row); ``open_rows``
+    clears the box's wall rows 0 and ny - 1, so the flow crosses the
+    periodic wrap; ``steps`` overrides :data:`ENSEMBLE_STEPS`."""
+    ny: int
+    nx: int
+    B: int
+    geometry: bool
+    kernels: tuple[str, ...]
+    where: str | None = None
+    open_rows: bool = False
+    steps: int | None = None
+
+
+# Phase 3j's ensembles: one instance; three with nx = 100 (rows not a
+# multiple of a warp); 37 at 128^2 (the most two-copy states the L2 budget
+# takes there: K2-batch groups of 14 blocks); a geometry batch (box,
+# cylinder, channel); 8 at 256^2 (the CLI sweep's shape); 600 at 64^2
+# (5o's sweep: more groups than K2-batch can keep resident; K11 at C = 1,
+# one block an instance in five waves, its own edge rows pushed into its
+# own shared memory for the wrap, the driven row on row 0 of an open box);
+# 149 at 64^2 and 16 at 128^2 (K11 in three waves of C = 2, and in one of
+# clusters of 4); 200 at 512^2 over 100 steps (5o's K1-batch sweep); K11
+# takes the per-instance masks of the geometry batch only.  K2-batch and
+# K11 run each over 1025 steps (four chunks and a step), K1-batch over 50.
+# 64^2 x 149 puts the driven row on rank 1's first row (32): on rank 0's
+# last (31) its omega-1.95 instance driven at accel 1.0 leaves the finite
+# range in the plain step itself before step 1025.
 BOTH = ("K1-batch", "K2-batch")
-ENSEMBLES = ((128, 128, 1, False, BOTH), (60, 100, 3, False, BOTH),
-             (128, 128, 37, False, BOTH), (128, 128, 3, True, BOTH),
-             (256, 256, 8, False, BOTH), (64, 64, 600, False, ("K1-batch",)))
-ENSEMBLE_STEPS = {"K1-batch": 50, "K2-batch": 1025}
+ALL = ("K1-batch", "K2-batch", "K11")
+ENSEMBLES = (Ensemble(128, 128, 1, False, BOTH), Ensemble(60, 100, 3, False, ALL, "first"),
+             Ensemble(128, 128, 37, False, BOTH), Ensemble(128, 128, 3, True, ALL, "last"),
+             Ensemble(256, 256, 8, False, ALL, "first"),
+             Ensemble(64, 64, 600, False, ("K1-batch",)),
+             Ensemble(64, 64, 600, False, ("K11",), "first", open_rows=True),
+             Ensemble(64, 64, 149, False, ("K11",), "first"),
+             Ensemble(128, 128, 16, False, ("K11",), "last"),
+             Ensemble(512, 512, 200, False, ("K1-batch",), steps=100))
+ENSEMBLE_STEPS = {"K1-batch": 50, "K2-batch": 1025, "K11": 1025}
 
 
-def ensemble_case(ny: int, nx: int, B: int, geometry: bool, dev):
+def ensemble_case(ny: int, nx: int, B: int, geometry: bool, dev, open_rows: bool = False):
     """(params, masks (B, ny, nx) bool on ``dev``, omegas, accels, f0_b) of
     a phase 3j case: omegas 0.6 to 1.95; accels 0.005 and 0.002, and 1.0 on
     every third instance, whose injection weights lie among the perturbed
     start's values, so the driven row's guard is true on some columns of
     that instance and false on others; each instance from its own seeded
-    10% perturbation of rest."""
+    10% perturbation of rest.  ``open_rows``: the box without its wall rows
+    0 and ny - 1."""
     import numpy as np
     import torch
 
@@ -880,6 +922,8 @@ def ensemble_case(ny: int, nx: int, B: int, geometry: bool, dev):
     from lbm_tpu_torch.tools import scenegen
 
     p, m = box_scene(ny, nx)
+    if open_rows:
+        m[0], m[-1] = False, False
     masks = np.stack([m] * B)
     if geometry:
         masks[1] = scenegen.make_mask("cylinder", ny, nx)
@@ -895,25 +939,35 @@ def ensemble_case(ny: int, nx: int, B: int, geometry: bool, dev):
 
 
 def ensemble_kernel_checks(dev) -> tuple[dict[tuple, float], int, str]:
-    """Phase 3j: K1-batch and K2-batch (ops/ensemble_cuda.py) against the
-    plain batched step on :data:`ENSEMBLES`, each case with its shared mask
-    and (where it is a geometry batch) its per-instance masks; fields
+    """Phase 3j: K1-batch, K2-batch and K11 (ops/ensemble_cuda.py) against
+    the plain batched step on :data:`ENSEMBLES`, each case with its shared
+    mask and (where it is a geometry batch) its per-instance masks; fields
     torch.equal, tot_u within rtol 1e-6.  Instance b against a single run
     with b's omega, accel and mask: K1-batch against K1 (fields and tot_u
-    torch.equal), K2-batch against K2 (fields torch.equal).  A second run
-    of each kernel bitwise equal to the first.  Fails unless some instance
-    has the driven row's guard true on some columns and false on others at
-    the start.  Returns (largest |diff| by (kernel, ny, nx, B), cases,
-    notes)."""
+    torch.equal), K2-batch and K11 against K2 (fields torch.equal).  A
+    second run of each kernel bitwise equal to the first.  Fails unless
+    some instance has the driven row's guard true on some columns and false
+    on others at the start, and unless K11's cases put the driven row on a
+    band's first row and on a band's last row.  Returns (largest |diff| by
+    (kernel, ny, nx, B), cases, notes)."""
     import numpy as np
     import torch
 
-    from lbm_tpu_torch.ops import ensemble_cuda, fused_cuda, resident_cuda, stencil_math
+    from lbm_tpu_torch.ops import (
+        _build,
+        ensemble_cuda,
+        fused_cuda,
+        resident_cuda,
+        stencil_math,
+    )
+    from lbm_tpu_torch.params import with_driven_row
 
     errs = {}
-    n_cases, split = 0, False
-    for ny, nx, B, geometry, kernels in ENSEMBLES:
-        p, masks, omegas, accels, f0 = ensemble_case(ny, nx, B, geometry, dev)
+    n_cases, split, k11_edges = 0, False, set()
+    clusters = ensemble_cuda.card_clusters(_build.load(), dev.index)
+    for case in ENSEMBLES:
+        ny, nx, B, geometry, where = case.ny, case.nx, case.B, case.geometry, case.where
+        p, masks, omegas, accels, f0 = ensemble_case(ny, nx, B, geometry, dev, case.open_rows)
         w1s, w2s = (torch.from_numpy(w).to(dev)
                     for w in ensemble_cuda.scalars(p, omegas, accels)[1:])
         r = p.accel_row
@@ -923,12 +977,21 @@ def ensemble_kernel_checks(dev) -> tuple[dict[tuple, float], int, str]:
         for obst, tag in ((masks[0], "shared mask"), (masks, "per-instance masks")):
             if tag == "shared mask" and geometry:
                 continue
-            for kernel in kernels:
-                steps = ENSEMBLE_STEPS[kernel]
+            for kernel in case.kernels:
+                if kernel == "K11" and tag == "per-instance masks" and not geometry:
+                    continue  # K11 reads per-instance masks in the geometry case
+                steps = case.steps or ENSEMBLE_STEPS[kernel]
+                pk = p
                 name = f"{kernel} {ny}x{nx} B={B} {tag} x {steps}"
-                run = ensemble_cuda.make_run_all(p, obst, omegas, accels, steps, kernel=kernel)
+                if kernel == "K11" and where is not None:
+                    bands = ensemble_cuda.cluster_plan(ny, nx, B, clusters).bands
+                    drow = bands[1 % len(bands)][0] if where == "first" else bands[0][1] - 1
+                    k11_edges.add((where, min(len(bands), 2)))
+                    pk = with_driven_row(p, drow)
+                    name += f" (C = {len(bands)}, driven row {drow}: a band's {where} row)"
+                run = ensemble_cuda.make_run_all(pk, obst, omegas, accels, steps, kernel=kernel)
                 f_k, tot_k = (t.clone() for t in run(f0))
-                f_p, tot_p = ensemble_cuda.run_plain(f0, obst, p, omegas, accels, steps)
+                f_p, tot_p = ensemble_cuda.run_plain(f0, obst, pk, omegas, accels, steps)
                 e, _ = compare(name, f_k, tot_k, f_p, tot_p)
                 key = (kernel, ny, nx, B)
                 errs[key] = max(errs.get(key, 0.0), e)
@@ -936,7 +999,7 @@ def ensemble_kernel_checks(dev) -> tuple[dict[tuple, float], int, str]:
                 if not (torch.equal(f_2, f_k) and torch.equal(tot_2, tot_k)):
                     fail(f"{name}: a second run differs from the first")
                 for b in range(B):
-                    pb = p.replace(omega=float(omegas[b]), accel=float(accels[b]))
+                    pb = pk.replace(omega=float(omegas[b]), accel=float(accels[b]))
                     ob = obst if obst.dim() == 2 else obst[b].contiguous()
                     if kernel == "K1-batch":
                         f_1, tot_1 = fused_cuda.make_run_all(pb, ob, steps)(f0[b].contiguous())
@@ -950,12 +1013,18 @@ def ensemble_kernel_checks(dev) -> tuple[dict[tuple, float], int, str]:
                 n_cases += 1
     if not split:
         fail("no phase 3j instance has the driven row's guard split between columns")
-    notes = (", ".join(f"{ny}x{nx} B={B}{' geometry' if g else ''}"
-                       + ("" if ks == BOTH else f" ({', '.join(ks)})")
-                       for ny, nx, B, g, ks in ENSEMBLES)
-             + f"; K1-batch x {ENSEMBLE_STEPS['K1-batch']}, K2-batch x "
-               f"{ENSEMBLE_STEPS['K2-batch']} steps")
+    if not {("first", 2), ("last", 2), ("first", 1)} <= k11_edges:
+        fail(f"K11's cases put the driven row on a band's (row, C) {k11_edges} only")
+    notes = (", ".join(f"{c.ny}x{c.nx} B={c.B}{' geometry' if c.geometry else ''}"
+                       f"{' open rows' if c.open_rows else ''} ({', '.join(c.kernels)}"
+                       f"{f' x {c.steps} steps' if c.steps else ''})" for c in ENSEMBLES)
+             + "; " + ", ".join(f"{k} x {n}" for k, n in ENSEMBLE_STEPS.items()) + " steps")
     return errs, n_cases, notes
+
+
+# The counter each ensemble kernel raises where it launches.
+ENSEMBLE_COUNTERS = {"K1-batch": "LAUNCHES_BATCH", "K2-batch": "LAUNCHES_BATCH_RESIDENT",
+                     "K11": "LAUNCHES_BATCH_CLUSTER"}
 
 
 def sweep_checks(td: str, scene256: tuple[str, str], single256: str, device: str = "cuda"):
@@ -964,15 +1033,19 @@ def sweep_checks(td: str, scene256: tuple[str, str], single256: str, device: str
     obstacle files; ``single256``: the directory of its single run):
     ``--omega 1.3:1.85:8 --steps 4400 --av-vels`` (the scene's omega, 1.85,
     is the last instance) and a geometry sweep of the cylinder with
-    scenegen's cavity and channel, both on K2-batch; on a 64x64 cylinder
-    ``--omega 1.0:1.85:600`` x 1000 steps, on K1-batch (600 instances: more
-    than K2-batch's groups can keep resident).  The instance with the
+    scenegen's cavity and channel; on a 64x64 cylinder ``--omega
+    1.0:1.85:600`` x 1000 steps.  Each runs the kernel the policy gives it
+    (``ensemble_cuda.kernel_choice`` on the card), which the CLI names on
+    stderr.  Where those leave K2-batch or K1-batch without a launch, a
+    512x512 cylinder sweep reaches it: 8 omegas x 400 steps (K2-batch) and
+    200 x 100 (K1-batch: two blocks an instance).  The instance with the
     scene's parameters against the single run (av_vels within rtol 1e-6:
-    the same fields, |u| summed in another grouping); the geometry sweep's
-    instances against single runs of their masks.  Each ensemble kernel's
-    count is zeroed just before the sweeps that launch it, and must have
-    gone up.  Returns (launches by kernel, MLUPS by sweep on the host clock
-    of the whole command, notes)."""
+    the same fields, |u| summed in another grouping; the final av where
+    only the summary is written); the geometry sweep's instances against
+    single runs of their masks.  Every ensemble kernel's count is zeroed
+    just before each sweep; the named kernel's must have gone up and the
+    others' stayed 0.  Returns (launches by kernel, MLUPS by sweep on the
+    host clock of the whole command, notes)."""
     import numpy as np
 
     from lbm_tpu_torch import cli
@@ -983,19 +1056,31 @@ def sweep_checks(td: str, scene256: tuple[str, str], single256: str, device: str
     from lbm_tpu_torch.params import LBMParams
     from lbm_tpu_torch.tools import scenegen
 
+    launches = {k: 0 for k in ENSEMBLE_COUNTERS}
+
     def cli_sweep(tag, pfile, ofile, *extra):
+        """(out dir, summary rows, seconds, kernel, its launches)."""
         out_dir = os.path.join(td, f"sweep-{tag}")
-        buf = io.StringIO()
+        buf, err = io.StringIO(), io.StringIO()
+        for name in ENSEMBLE_COUNTERS.values():
+            setattr(ensemble_cuda, name, 0)
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
             rc = cli.main(["sweep", pfile, ofile, "--device", device, "--out-dir", out_dir,
                            *extra])
         seconds = time.perf_counter() - t0
         if rc != 0:
-            fail(f"sweep {tag} exited {rc}:\n{buf.getvalue()}")
+            fail(f"sweep {tag} exited {rc}:\n{buf.getvalue()}{err.getvalue()}")
+        named = [ln.split(": ", 1)[1] for ln in err.getvalue().splitlines()
+                 if ln.startswith("Kernel: ")]
+        counts = {k: getattr(ensemble_cuda, name) for k, name in ENSEMBLE_COUNTERS.items()}
+        if len(named) != 1 or named[0] not in counts or counts[named[0]] <= 0 \
+                or any(n for k, n in counts.items() if k != named[0]):
+            fail(f"sweep {tag}: the CLI named {named}, the counters read {counts}")
+        launches[named[0]] += counts[named[0]]
         rows = [ln.split() for ln in open(os.path.join(out_dir, "sweep_summary.dat"))
                 if not ln.startswith("#")]
-        return out_dir, rows, seconds
+        return out_dir, rows, seconds, named[0], counts[named[0]]
 
     def same_av(a_path, b_path, what):
         a, b = read_av_vels(a_path), read_av_vels(b_path)
@@ -1004,26 +1089,28 @@ def sweep_checks(td: str, scene256: tuple[str, str], single256: str, device: str
             fail(f"{what}: av_vels off the single run by {rel:.3e} relative (rtol 1e-6)")
         return rel
 
-    launches, rates, notes = {}, {}, []
+    def final_av(rows, pfiles, what):
+        single = run_simulation(load_scene(*pfiles), RunConfig(variant="cuda", device=device))
+        rel = abs(float(rows[-1][4]) - float(single.av_vels[-1])) / float(single.av_vels[-1])
+        if rel > 1e-6:
+            fail(f"{what}: final av rel {rel:.3e} of a single {single.variant} run (rtol 1e-6)")
+        return rel, single.variant
+
+    rates, notes = {}, []
     single_av = os.path.join(single256, "av_vels.dat")
     p256 = load_scene(*scene256).params
-    ensemble_cuda.LAUNCHES_BATCH_RESIDENT = 0
-    sdir, rows, secs = cli_sweep("256", *scene256, "--omega", "1.3:1.85:8", "--steps", "4400",
-                                 "--av-vels")
-    launches["K2-batch"] = ensemble_cuda.LAUNCHES_BATCH_RESIDENT
-    if launches["K2-batch"] <= 0 or len(rows) != 8 or float(rows[-1][1]) != 1.85:
-        fail(f"sweep 256x256 x 8: K2-batch launches {launches['K2-batch']}, rows {rows}")
+    sdir, rows, secs, kern, n = cli_sweep("256", *scene256, "--omega", "1.3:1.85:8", "--steps",
+                                          "4400", "--av-vels")
+    if len(rows) != 8 or float(rows[-1][1]) != 1.85:
+        fail(f"sweep 256x256 x 8: rows {rows}")
     rel = same_av(os.path.join(sdir, "av_vels_007.dat"), single_av, "sweep 256x256 omega 1.85")
-    rates["sweep 256x256 x 8 (K2-batch)"] = 8 * 256 * 256 * 4400 / secs / 1e6
-    notes.append(f"256x256 cylinder x 4400 steps, --omega 1.3:1.85:8: K2-batch "
-                 f"{launches['K2-batch']} launches, {secs:.2f} s, instance 7 (omega 1.85) "
-                 f"av_vels rel {rel:.1e} of phase 5's run")
+    rates[f"sweep 256x256 x 8 ({kern})"] = 8 * 256 * 256 * 4400 / secs / 1e6
+    notes.append(f"256x256 cylinder x 4400 steps, --omega 1.3:1.85:8: {kern} {n} launches, "
+                 f"{secs:.2f} s, instance 7 (omega 1.85) av_vels rel {rel:.1e} of phase 5's run")
     geo_files = [scenegen.write_scene(td, preset, p256)[1] for preset in ("cavity", "channel")]
-    before = ensemble_cuda.LAUNCHES_BATCH_RESIDENT
-    gdir, rows, secs = cli_sweep("256-geometry", *scene256, "--geometry", geo_files[0],
-                                 "--geometry", geo_files[1], "--steps", "4400", "--av-vels")
-    geo_launches = ensemble_cuda.LAUNCHES_BATCH_RESIDENT - before
-    launches["K2-batch"] += geo_launches
+    gdir, rows, secs, kern, n = cli_sweep("256-geometry", *scene256, "--geometry", geo_files[0],
+                                          "--geometry", geo_files[1], "--steps", "4400",
+                                          "--av-vels")
     rels = [same_av(os.path.join(gdir, "av_vels_000.dat"), single_av, "geometry sweep: cylinder")]
     for i, gfile in enumerate(geo_files, start=1):
         single = run_simulation(load_scene(scene256[0], gfile),
@@ -1032,27 +1119,41 @@ def sweep_checks(td: str, scene256: tuple[str, str], single256: str, device: str
         write_av_vels(ref, single.av_vels)
         rels.append(same_av(os.path.join(gdir, f"av_vels_{i:03d}.dat"), ref,
                             f"geometry sweep: instance {i} ({single.variant})"))
-    if geo_launches <= 0 or len(rows) != 3:
-        fail(f"geometry sweep: K2-batch launches {geo_launches}, rows {rows}")
-    notes.append(f"geometry sweep (cylinder, cavity, channel) x 4400 steps: K2-batch "
-                 f"{geo_launches} launches, av_vels max rel {max(rels):.1e} of single runs of "
-                 "each mask")
+    if len(rows) != 3:
+        fail(f"geometry sweep: rows {rows}")
+    notes.append(f"geometry sweep (cylinder, cavity, channel) x 4400 steps: {kern} {n} "
+                 f"launches, av_vels max rel {max(rels):.1e} of single runs of each mask")
     p64 = LBMParams(nx=64, ny=64, max_iters=1000, reynolds_dim=10, density=0.1, accel=0.005,
                     omega=1.85)
     files64 = scenegen.write_scene(td, "cylinder", p64)
-    ensemble_cuda.LAUNCHES_BATCH = 0
-    sdir, rows, secs = cli_sweep("64", *files64, "--omega", "1.0:1.85:600")
-    launches["K1-batch"] = ensemble_cuda.LAUNCHES_BATCH
-    single = run_simulation(load_scene(*files64), RunConfig(variant="cuda", device=device))
-    rel = abs(float(rows[-1][4]) - float(single.av_vels[-1])) / float(single.av_vels[-1])
-    if launches["K1-batch"] <= 0 or len(rows) != 600 or float(rows[-1][1]) != 1.85 \
-            or rel > 1e-6:
-        fail(f"sweep 64x64 x 600: K1-batch launches {launches['K1-batch']}, {len(rows)} rows, "
-             f"last {rows[-1]}, final av rel {rel:.3e} of {single.variant} (rtol 1e-6)")
-    rates["sweep 64x64 x 600 (K1-batch)"] = 600 * 64 * 64 * 1000 / secs / 1e6
-    notes.append(f"64x64 cylinder x 1000 steps, --omega 1.0:1.85:600: K1-batch "
-                 f"{launches['K1-batch']} launches, {secs:.2f} s, instance 599 (omega 1.85) final "
-                 f"av rel {rel:.1e} of a single {single.variant} run")
+    sdir, rows, secs, kern, n = cli_sweep("64", *files64, "--omega", "1.0:1.85:600")
+    if len(rows) != 600 or float(rows[-1][1]) != 1.85:
+        fail(f"sweep 64x64 x 600: {len(rows)} rows, last {rows[-1]}")
+    rel, variant = final_av(rows, files64, "sweep 64x64 x 600")
+    rates[f"sweep 64x64 x 600 ({kern})"] = 600 * 64 * 64 * 1000 / secs / 1e6
+    notes.append(f"64x64 cylinder x 1000 steps, --omega 1.0:1.85:600: {kern} {n} launches, "
+                 f"{secs:.2f} s, instance 599 (omega 1.85) final av rel {rel:.1e} of a single "
+                 f"{variant} run")
+    # The 512x512 sweeps reach the kernels the sweeps above left idle: no
+    # cluster holds a 512^2 instance, so K2-batch takes 8 of them and
+    # K1-batch 200 (two blocks an instance).
+    for kern_want, B, steps in (("K2-batch", 8, 400), ("K1-batch", 200, 100)):
+        if launches[kern_want]:
+            continue
+        p512 = LBMParams(nx=512, ny=512, max_iters=steps, reynolds_dim=10, density=0.1,
+                         accel=0.005, omega=1.85)
+        files512 = scenegen.write_scene(os.path.join(td, f"s512-{B}"), "cylinder", p512)
+        sdir, rows, secs, kern, n = cli_sweep(f"512-{B}", *files512, "--omega",
+                                              f"1.0:1.85:{B}")
+        if kern != kern_want or len(rows) != B or float(rows[-1][1]) != 1.85:
+            fail(f"sweep 512x512 x {B}: ran {kern} (wanted {kern_want}), {len(rows)} rows")
+        rel, variant = final_av(rows, files512, f"sweep 512x512 x {B}")
+        rates[f"sweep 512x512 x {B} ({kern})"] = B * 512 * 512 * steps / secs / 1e6
+        notes.append(f"512x512 cylinder x {steps} steps, --omega 1.0:1.85:{B}: {kern} {n} "
+                     f"launches, {secs:.2f} s, instance {B - 1} final av rel {rel:.1e} of a "
+                     f"single {variant} run")
+    if not all(launches.values()):
+        fail(f"phase 5o launched an ensemble kernel no time: {launches}")
     return launches, rates, notes
 
 
@@ -1451,13 +1552,14 @@ def main() -> int:
           f"x 256 steps in one chunk: {k10_cases} cases, fields and tot_u equal, max |diff| "
           f"{k10_err:.1e} | K10 vs K2 512x512 x 256 steps: fields equal{elapsed()}")
     ens_err, ens_cases, ens_notes = ensemble_kernel_checks(dev)
-    print(f"[3j K1-batch and K2-batch vs plain] card: {card} | {ens_notes}; shared masks and "
-          "per-instance masks, omegas 0.6-1.95, the driven row's guard split: "
-          f"{ens_cases} cases, fields equal to the plain batched step (max |diff| "
+    print(f"[3j K1-batch, K2-batch and K11 vs plain] card: {card} | {ens_notes}; shared masks "
+          "and per-instance masks, omegas 0.6-1.95, the driven row's guard split, K11's on a "
+          f"band's first and last row: {ens_cases} cases, fields equal to the plain batched "
+          "step (max |diff| "
           + ", ".join(f"{k} {max(e for (kk, *_), e in ens_err.items() if kk == k):.1e}"
-                      for k in BOTH)
+                      for k in ALL)
           + "), every instance equal to a single run of its parameters (K1-batch: fields "
-          f"and tot_u; K2-batch: fields), second runs bitwise{elapsed()}")
+          f"and tot_u; K2-batch and K11: fields), second runs bitwise{elapsed()}")
 
     # Phase 4: oracle anchor on the cuda main path.
     p128 = LBMParams(nx=128, ny=128, max_iters=120, reynolds_dim=10,
@@ -2172,7 +2274,7 @@ def main() -> int:
             json.dump(report, fp, indent=1)
         print(json.dumps(report))
         probes = report["probes"]
-        if (not report["ok"] or set(probes) != set(verify_device.PROBES) or len(probes) != 21
+        if (not report["ok"] or set(probes) != set(verify_device.PROBES) or len(probes) != 22
                 or any(v["max_abs"] != 0.0 for v in probes.values())):
             fail(f"verify: ok {report['ok']}, probes "
                  + ", ".join(f"{k} {v['max_abs']:.3e}" for k, v in probes.items()))
@@ -2502,10 +2604,16 @@ def main() -> int:
     print(f"[6f K10 in turns] card: {card} | in turns "
           + kernel_times.format_grid(1024, blocked_times) + elapsed())
 
-    # Phase 6g: the ensemble's kernels at the shapes of 5o's sweeps, and
-    # the speed gate (tools/perfcheck.py) as a user runs it.
+    # Phase 6g: the ensemble's kernels at the shapes of 5o's sweeps (all
+    # three at 8 x 256^2; 600 x 64^2 K11's; 200 x 512^2 K1-batch's, 20 steps
+    # a run), and the speed gate (tools/perfcheck.py) as a user runs it.
     ens_times = {(256, 8): kernel_times.time_ensemble(256, 8, dev, repeats=5, singles=False),
-                 (64, 600): kernel_times.time_ensemble(64, 600, dev, repeats=5, singles=False)}
+                 (64, 600): kernel_times.time_ensemble(64, 600, dev, repeats=5, singles=False,
+                                                       kernels=("K11",)),
+                 (512, 200): kernel_times.time_ensemble(512, 200, dev, repeats=5,
+                                                        singles=False, kernels=("K1-batch",),
+                                                        steps=20)}
+    smem_rate = kernel_times.smem_copy_gbps(dev, repeats=5)
     root = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.run([sys.executable, "-m", "lbm_tpu_torch.tools.perfcheck"], cwd=root,
                           capture_output=True, text=True, timeout=900)
@@ -2514,6 +2622,8 @@ def main() -> int:
         fail(f"perfcheck exited {proc.returncode}:\n{proc.stdout}{proc.stderr}")
     print(f"[6g ensemble kernels, perfcheck] card: {card} | in turns "
           + " ; ".join(kernel_times.format_ensemble(n, B, t) for (n, B), t in ens_times.items())
+          + f" | shared-memory copy {smem_rate[0]:.1f} GB/s [{smem_rate[1]:.1f}, "
+            f"{smem_rate[2]:.1f}]"
           + " | perfcheck exit 0: " + " | ".join(" ".join(ln.split()) for ln in gate)
           + elapsed())
 
@@ -2750,12 +2860,13 @@ def main() -> int:
          / (gbps[0] * 1e9) * 1e3},
     ]
     # The ensemble's kernels (they replace no Pallas body: lbm_tpu's
-    # ensemble is the jnp step under jax.vmap): K2-batch a launch of 256
-    # steps of 5o's 8 instances of 256^2 (its 8 two-copy states, 36 MiB, in
-    # L2), K1-batch a launch of one step of 5o's 600 instances of 64^2
-    # (the states, 169 MiB, from HBM); bounds over all B instances, their
-    # one shared mask read once (72 x B x n^2 + n^2 bytes a step).
-    for key, (n, B), steps, tier, copies in (("K1-batch", (64, 600), 1, "HBM", 1),
+    # ensemble is the jnp step under jax.vmap), each at the shape of 5o's
+    # sweep that launches it: K2-batch a launch of 256 steps of 5o's 8
+    # instances of 256^2 (its 8 two-copy states, 36 MiB, in L2), K1-batch a
+    # launch of one step of 5o's 200 instances of 512^2 (the states, 1.8
+    # GiB, from HBM); bounds over all B instances, their one shared mask
+    # read once (72 x B x n^2 + n^2 bytes a step).
+    for key, (n, B), steps, tier, copies in (("K1-batch", (512, 200), 1, "HBM", 1),
                                               ("K2-batch", (256, 8), chunk, "L2", 2)):
         t = ens_times[(n, B)]
         kernels.append({
@@ -2770,6 +2881,35 @@ def main() -> int:
             "ms": t[key][0] * B * steps / 1e3, "plain_ms": t["plain"][0] * B * steps / 1e3,
             **bounds(B * n, n, B * (n - 2) ** 2, steps, "f32", tier, copies=copies,
                      mask_cells=n * n)})
+    # K11 (it replaces no Pallas body either): a launch of 256 steps of
+    # 5o's 8 instances of 256^2 and of its 600 instances of 64^2 (the
+    # shape whose sweep launches it), clusters of the card's plan; its tier
+    # is shared memory (the cell-steps' 72 B of shared traffic over 6g's
+    # shared-memory copy rate), K2-batch's L2 tier beside it.  The launches
+    # are the main path's, on 600 x 64^2.
+    from lbm_tpu_torch.ops import ensemble_cuda
+
+    card_q = ensemble_cuda.card_clusters(_build.load(), dev.index)
+    for n, B in ((256, 8), (64, 600)):
+        k11_plan = ensemble_cuda.cluster_plan(n, n, B, card_q)
+        t = ens_times[(n, B)]
+        k11_bound, k11_by = kernel_times.bound_ms(B * n * n, B * (n - 2) ** 2, chunk, "f32",
+                                                  mask_cells=n * n)
+        kernels.append({
+            "name": f"K11 cluster-resident kernel of the ensemble (ms per launch = {chunk} steps "
+                    f"of {B} instances of {n}x{n}, clusters of {k11_plan.C} blocks in "
+                    f"{k11_plan.waves} waves; tier: its cell-steps' 72 B of shared-memory "
+                    "traffic over the shared-memory copy's rate; l2_tier_bound_ms: the same "
+                    "traffic over the L2 copy's, K2-batch's tier)",
+            "route": "cuda", "source": "lbm_tpu_torch/csrc/cluster.cu",
+            "replaces": "lbm_tpu/tools/ensemble.py:47 (_step_traced under jax.vmap :117; no "
+                        "pallas_call)",
+            "launches": launches["K11"], "max_abs_err": ens_err[("K11", n, n, B)],
+            "ms": t["K11"][0] * B * chunk / 1e3, "plain_ms": t["plain"][0] * B * chunk / 1e3,
+            "bound_ms": k11_bound, "bound_by": k11_by, "library_ms": None,
+            "tier": "shared memory", "tier_bound_ms": (B * n * n * chunk * 2 * 9 * 4
+                                                       / (smem_rate[0] * 1e9) * 1e3),
+            "l2_tier_bound_ms": l2_tier_ms(B * n * n, chunk, "f32", 2)[0]})
     print(f"[7 elapsed] card: {card} | {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

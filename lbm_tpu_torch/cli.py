@@ -438,6 +438,8 @@ def cmd_sweep(args: argparse.Namespace) -> int:
         f"in one compiled program; wrote {summary}"
         + (" and sweep.png" if args.plot else "")
     )
+    # stdout stays lbm_tpu's line; the kernel that ran goes to stderr.
+    print(f"Kernel: {res.kernel}", file=sys.stderr)
     return 0
 
 

@@ -17,28 +17,40 @@ instances in one launch:
   group on its own instance with K2's plan of G blocks
   (``resident_cuda.grid_plan``), the B two-copy states in L2 where they
   fit it.  It maps where B x G blocks can be resident at once.  Bound: as
-  K2's, B times over.  The ensemble's default wherever each instance gets
-  at least ``MIN_GROUP`` blocks (:func:`kernel_choice`).
+  K2's, B times over.  The ensemble's kernel wherever each instance gets
+  at least ``MIN_GROUP`` blocks and K11 does not take it
+  (:func:`kernel_choice`).
+- **K11** (``csrc/cluster.cu``): the same 256-step chunk with instance b
+  run by one thread-block cluster of C blocks, its state held in the
+  blocks' shared memory for the whole chunk (one copy, updated in place,
+  band edges through distributed shared memory).  It maps where one
+  instance fits one cluster (:func:`cluster_plan`), in waves where the B
+  clusters cannot all be resident.  Bound: 92 operations a fluid
+  cell-step; its tier is shared memory.
 
 Each block reads its instance's omega, w1 and w2 from a device array into
 the same ``StepParams`` fields the single kernels take, so instance b is
-bitwise a single K1 (K1-batch: fields and tot_u) or K2 (K2-batch: fields;
-its tot_u groups the cells by its own G) run with b's parameters.
+bitwise a single K1 (K1-batch: fields and tot_u) or K2 (K2-batch and K11:
+fields; their tot_u groups the cells by their own blocks) run with b's
+parameters.
 
 Beside the kernels:
 
 - the plain version, :func:`run_plain` (``fused_torch.run_ensemble_plain``):
   the twin step over a leading instance dimension, the CPU path and the
   card's yardstick;
-- ``LAUNCHES_BATCH`` (K1-batch step launches) and
-  ``LAUNCHES_BATCH_RESIDENT`` (K2-batch chunk launches), raised only where
-  a kernel launches.
+- ``LAUNCHES_BATCH`` (K1-batch step launches),
+  ``LAUNCHES_BATCH_RESIDENT`` (K2-batch chunk launches) and
+  ``LAUNCHES_BATCH_CLUSTER`` (K11 chunk launches), raised only where a
+  kernel launches.
 
 A runner takes the plain version only for a mask on the CPU.  For a CUDA
 mask it launches a kernel or raises; it never falls back.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,11 +60,32 @@ from lbm_tpu_torch.params import LBMParams
 
 LAUNCHES_BATCH = 0
 LAUNCHES_BATCH_RESIDENT = 0
+LAUNCHES_BATCH_CLUSTER = 0
 
-KERNELS = ("K1-batch", "K2-batch")
+KERNELS = ("K1-batch", "K2-batch", "K11")
 MAX_INSTANCES = 65535  # K1-batch: the launch grid's z extent
 PARTIALS_WORDS = 2**24  # cap on K1-batch's partials buffer (64 MiB)
 MIN_GROUP = 3  # K2-batch's fewest blocks an instance in the policy
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # K11's blocks an instance (16: non-portable)
+SMEM_MAX = 232448  # dynamic shared memory a block may take on Hopper, bytes
+TILE_CELLS = 2048  # K11's tile: 2 cells a thread of 1024 (csrc/cluster.cu kTile)
+SUM_FLOATS = 320  # K11's warp sums by parity and a sum a step, a block
+# The step models kernel_choice weighs (us a step of the whole launch),
+# fitted to the 35 shapes of 64^2 to 256^2 x 1 to 500 that K11 and
+# K2-batch were timed at in turns (tools/kernel_times.py --ensemble;
+# NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 5).  K11 (least
+# squares): waves x (a fixed part, the barriers, carries and sums, + a part
+# per cell of a block's band, one block an SM).  K2-batch: the larger of a
+# latency regime (a fixed part + a part per instance-cell, while its
+# groups leave the card idle) and a throughput regime (the instance-cells
+# at its tier's rate: 18.5 ps is 72 B at 3.9 TB/s, L2, with the B two-copy
+# states within ``L2_STATE_BUDGET``; 25.5 ps is 2.8 TB/s, HBM, beyond it).
+K11_STEP_US = 0.91
+K11_CELL_US = 1.27e-3
+K2B_STEP_US = 1.9
+K2B_CELL_US = 13e-6
+K2B_L2_CELL_US = 18.5e-6
+K2B_HBM_CELL_US = 25.5e-6
 
 
 def scalars(params: LBMParams, omegas, accels=None) -> tuple[np.ndarray, np.ndarray,
@@ -109,15 +142,95 @@ def batch_waits(plan, B: int) -> list[set[int]]:
             for b in range(B) for _, _, lo, n in steps]
 
 
-def kernel_choice(ny: int, nx: int, B: int, resident: int) -> str:
-    """The kernel an ensemble of B (9, ny, nx) float32 states runs on:
-    K2-batch where each instance gets at least ``MIN_GROUP`` blocks (G of
-    :func:`group_blocks`, with ``resident`` blocks resident at once) and 9
-    planes stay within 32-bit offsets, else K1-batch.
+class ClusterPlan(NamedTuple):
+    C: int  # blocks of an instance's cluster
+    bands: list[tuple[int, int]]  # (first row, rows) of each rank's band
+    smem: int  # dynamic shared memory a block, bytes
+    resident: int  # clusters the card holds at once
+    waves: int  # sets of resident clusters the card runs one after another
+    us: float  # the launch's modelled step, us (K11_STEP_US, K11_CELL_US)
 
-    In turns (``tools/kernel_times.py --ensemble``; NVIDIA H100 80GB HBM3,
-    700.00 W; PERF.md section 5), K2-batch took 27-38% less time than
-    K1-batch where the B two-copy states fit the L2 budget
+
+def cluster_bands(ny: int, C: int) -> list[tuple[int, int]]:
+    """K11's bands (first row, rows) of ranks 0 .. C - 1: ny // C rows each,
+    the first ny mod C one more, in order (csrc/cluster.cu)."""
+    base, rem = divmod(ny, C)
+    return [(r * base + min(r, rem), base + (r < rem)) for r in range(C)]
+
+
+def cluster_smem(hmax: int, nx: int) -> int:
+    """K11's dynamic shared memory a block, bytes: hmax band rows, the rows
+    below and above the band by parity and 2 carry rows, each 9 x nx
+    floats, the sums, (hmax + 2) x nx mask bytes (csrc/cluster.cu
+    smem_needed)."""
+    return 4 * ((hmax + 6) * 9 * nx + SUM_FLOATS) + (hmax + 2) * nx
+
+
+def cluster_plan(ny: int, nx: int, B: int, max_clusters=None) -> ClusterPlan | None:
+    """K11's plan for B instances of ny x nx, or None where one instance
+    fits no cluster (a band of ceil(ny / C) rows, its pushed rows, carries
+    and mask rows above ``SMEM_MAX`` at every C; a row wider than a tile).
+
+    ``max_clusters(C, smem)`` gives the clusters of C blocks of ``smem``
+    bytes the card holds at once (``lbm_cluster_batch_max_clusters``; None:
+    all B at once; 0: none of that size).  Of the sizes that fit, the plan
+    takes the one with the least modelled step: waves x (``K11_STEP_US`` +
+    ``K11_CELL_US`` x the band's cells).  On 64^2 x 149 and x 500 and
+    128^2 x 37 and x 16 it ranked the sizes as the card's times with the
+    size pinned did (PERF.md section 5); the smaller C wins a tie."""
+    best, best_cost = None, None
+    for C in CLUSTER_SIZES:
+        if C > ny or nx > TILE_CELLS:
+            continue
+        hmax = -(-ny // C)
+        smem = cluster_smem(hmax, nx)
+        if smem > SMEM_MAX:
+            continue
+        resident = B if max_clusters is None else max_clusters(C, smem)
+        if resident < 1:
+            continue
+        waves = -(-B // resident)
+        cost = waves * (K11_STEP_US + K11_CELL_US * hmax * nx)
+        if best_cost is None or cost < best_cost:
+            best_cost = cost
+            best = ClusterPlan(C, cluster_bands(ny, C), smem, resident, waves, cost)
+    return best
+
+
+def k2_batch_us(ny: int, nx: int, B: int) -> float:
+    """K2-batch's modelled step of B instances of ny x nx, us: the larger of
+    ``K2B_STEP_US`` + the instance-cells x ``K2B_CELL_US`` and the
+    instance-cells x ``K2B_L2_CELL_US`` (two copies of the B states within
+    ``resident_cuda.L2_STATE_BUDGET``) or ``K2B_HBM_CELL_US``."""
+    cells = B * ny * nx
+    in_l2 = 2 * 9 * 4 * cells <= resident_cuda.L2_STATE_BUDGET
+    return max(K2B_STEP_US + cells * K2B_CELL_US,
+               cells * (K2B_L2_CELL_US if in_l2 else K2B_HBM_CELL_US))
+
+
+def kernel_choice(ny: int, nx: int, B: int, resident: int, max_clusters=None) -> str:
+    """The kernel an ensemble of B (9, ny, nx) float32 states runs on: K11
+    where :func:`cluster_plan` maps it with ``max_clusters`` (the card's
+    query; None: K11 is not considered) and its modelled step is shorter
+    than K2-batch's (:func:`k2_batch_us`); else K2-batch where each
+    instance gets at least ``MIN_GROUP`` blocks (G of :func:`group_blocks`,
+    with ``resident`` blocks resident at once) and 9 planes stay within
+    32-bit offsets; else K1-batch.
+
+    K11 against K2-batch, in turns (``tools/kernel_times.py --ensemble``;
+    NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 5): of 35 shapes from
+    64^2 to 256^2 and 1 to 500 instances, K11 took less time at 25 and
+    more at 10: 256^2 x 1, 2, 4, 8 and 9 (one wave holding 4 of the 7
+    clusters of 16 the card holds, two waves of 14 places for 8 or 9),
+    128^2 x 1, 16 and 33 (16 of 30 clusters of 4; 3 waves of 15 clusters
+    of 8) and 64^2 x 70.  The two models put every one of the 35 on the
+    side it was measured on; the closest calls were 256^2 x 5 (K11 1.5%
+    faster), 64^2 x 80 (4%) and 64^2 x 70 (K2-batch 5%).  Where K1-batch
+    runs instead of K2-batch (G under 3: B from 177), K11 is held to the
+    same model, which K1-batch's times lie within 5% of there (64^2 x 500).
+
+    K2-batch against K1-batch (the earlier turns): K2-batch took 27-38% less
+    time than K1-batch where the B two-copy states fit the L2 budget
     (``resident_cuda.L2_STATE_BUDGET``) and 11-19% less beyond it, at every
     shape timed with G from 3 (64^2 x 149) to 132 (2048^2 x 4).  With one
     or two blocks an instance it won no more: 128^2 x 250 (G = 2) tied,
@@ -125,9 +238,30 @@ def kernel_choice(ny: int, nx: int, B: int, resident: int) -> str:
     3.5% more at 64^2 x 500 (G = 1).  So K1-batch runs from G = 2 down,
     where B exceeds the resident blocks (528 on the H100), and where a grid
     exceeds the offsets."""
+    if max_clusters is not None:
+        plan = cluster_plan(ny, nx, B, max_clusters)
+        if plan is not None and plan.us < k2_batch_us(ny, nx, B):
+            return "K11"
     if group_blocks(ny, nx, B, resident) >= MIN_GROUP and 9 * ny * nx < 2**31:
         return "K2-batch"
     return "K1-batch"
+
+
+def card_clusters(lib, device: int):
+    """``max_clusters(C, smem)`` of the card (``lbm_cluster_batch_max_clusters``),
+    asked once per size; raises on a failed query."""
+    known = {}
+
+    def max_clusters(C: int, smem: int) -> int:
+        if (C, smem) not in known:
+            n = lib.lbm_cluster_batch_max_clusters(C, smem, device)
+            if n < 0:
+                raise RuntimeError(f"K11: the card refused the occupancy query of clusters "
+                                   f"of {C} blocks with {smem} bytes of shared memory")
+            known[C, smem] = n
+        return known[C, smem]
+
+    return max_clusters
 
 
 def _check_mask(obstacles: torch.Tensor, params: LBMParams, B: int) -> None:
@@ -146,9 +280,9 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, omegas, accels=None
     ``params.accel``), ``obstacles`` (ny, nx) bool shared by every instance
     or (B, ny, nx) for a geometry batch, ``f0_b`` (B, 9, ny, nx) float32.
 
-    On a CPU mask: the plain version.  On a CUDA mask: K1-batch or K2-batch
-    (:func:`kernel_choice`; ``kernel`` forces one, and raises where it
-    cannot map), buffers allocated here, once; the returned state is one
+    On a CPU mask: the plain version.  On a CUDA mask: K11, K2-batch or
+    K1-batch (:func:`kernel_choice`; ``kernel`` forces one, and raises where
+    it cannot map), buffers allocated here, once; the returned state is one
     of the runner's buffers and stays valid until its next call.  ``f0_b``
     is not modified.  ``run_all.kernel`` names what runs (``plain`` on the
     CPU).  ``lib`` is the kernel library (``_build.load()`` by default)."""
@@ -192,7 +326,13 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, omegas, accels=None
     if resident <= 0:
         raise RuntimeError(f"K2-batch cannot be launched cooperatively on "
                            f"{torch.cuda.get_device_name(dev)}")
-    chosen = kernel or kernel_choice(ny, nx, B, resident)
+    clusters = card_clusters(lib, dev.index)
+    chosen = kernel or kernel_choice(ny, nx, B, resident, clusters)
+    if chosen == "K11":
+        plan = cluster_plan(ny, nx, B, clusters)
+        if plan is None:
+            raise ValueError(f"K11 cannot map {ny}x{nx}: one instance fits no cluster of at "
+                             f"most {CLUSTER_SIZES[-1]} blocks")
     if chosen == "K2-batch":
         if group_blocks(ny, nx, B, resident) < 1:
             raise ValueError(f"K2-batch cannot map {B} instances: at most {resident} blocks "
@@ -207,14 +347,16 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, omegas, accels=None
         nblocks = lib.lbm_step_blocks(ny, nx)
         batch = max(1, min(fused_cuda.TOT_BATCH, num_steps, PARTIALS_WORDS // (B * nblocks)))
         partials = torch.empty((batch, B, nblocks), dtype=torch.float32, device=dev)
-    else:
+    elif chosen == "K2-batch":
         G = group_blocks(ny, nx, B, resident)
         chunk = max(1, min(resident_cuda.DEFAULT_CHUNK, num_steps))
         partials, words = batch_partials(ny, nx, B, G, chunk)
         partials = partials.to(dev)
+    else:
+        chunk = resident_cuda.DEFAULT_CHUNK
 
     def run_all(f_b):
-        global LAUNCHES_BATCH, LAUNCHES_BATCH_RESIDENT
+        global LAUNCHES_BATCH, LAUNCHES_BATCH_RESIDENT, LAUNCHES_BATCH_CLUSTER
         check(f_b)
         tot = torch.empty((num_steps, B), dtype=torch.float32, device=dev)
         if num_steps == 0:
@@ -232,6 +374,18 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, omegas, accels=None
         src, dst, done = fa, fb, 0
         while done < num_steps:
             n = min(chunk, num_steps - done)
+            if chosen == "K11":
+                # The state ends in dst for an odd n, in src for an even one.
+                rc = lib.lbm_cluster_batch_chunk(
+                    src.data_ptr(), (dst if n % 2 else src).data_ptr(), obstacles.data_ptr(),
+                    mask_stride, sc.data_ptr(), tot.data_ptr() + 4 * done * B, ny, nx,
+                    params.accel_row, n, plan.C, B, plan.smem, stream, dev.index)
+                _build.check(rc, "K11 cluster kernel")
+                LAUNCHES_BATCH_CLUSTER += 1
+                if n % 2:
+                    src, dst = dst, src
+                done += n
+                continue
             rc = lib.lbm_resident_batch_chunk(
                 src.data_ptr(), dst.data_ptr(), obstacles.data_ptr(), mask_stride,
                 sc.data_ptr(), partials.data_ptr(), words, tot.data_ptr() + 4 * done * B, ny,

@@ -5,7 +5,7 @@ parameter studies (relaxation/acceleration sensitivity, README.md:104-123)
 run the binary once per setting; ``lbm_tpu`` runs the B settings as one
 compiled program (``jax.vmap`` over a leading instance axis).  Here the B
 instances run on the card in one launch per step (K1-batch) or per
-256-step chunk (K2-batch), ops/ensemble_cuda.py, and on the CPU through the
+256-step chunk (K11 or K2-batch), ops/ensemble_cuda.py, and on the CPU through the
 plain batched twin step (``fused_torch.ensemble_step``); every instance's
 av_vels series comes back to the host in one copy at the end.
 
@@ -38,6 +38,7 @@ class EnsembleResult:
     av_vels: np.ndarray  # (num_steps, B)
     f: np.ndarray  # (B, 9, ny, nx) final distributions
     reynolds: np.ndarray  # (B,)
+    kernel: str = "plain"  # what ran: K11, K2-batch, K1-batch, or plain on the CPU
 
 
 def prepare(params: LBMParams, obstacles: np.ndarray, omegas, accels=None):
@@ -121,6 +122,7 @@ def run_ensemble(
         av_vels=av,
         f=f_final.cpu().numpy(),
         reynolds=reyn,
+        kernel=run_all.kernel,
     )
 
 

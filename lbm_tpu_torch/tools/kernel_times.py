@@ -65,12 +65,20 @@ at each height of ``--blocked-rows`` in ``--blocked``.
 than the table's at each depth (``K4[48x64] K=4``), the same way.
 
 ``--ensemble GRID:B[,GRID:B...]`` (n x n grids): the ensemble's kernels
-K1-batch and K2-batch (where B groups of blocks can be resident; beyond
-the L2 budget its states spill to HBM) on B instances of the closed box
+K1-batch, K2-batch (where B groups of blocks can be resident; beyond the
+L2 budget its states spill to HBM) and K11 (where one instance fits a
+cluster) on B instances of the closed box
 (omegas 1.3 to 1.9), in turns with B single runs of the default
 single-device kernel (``program.cuda_choice``, one runner per instance's
 parameters, run one after the other), in us per instance-step and MLUPS:
 the table behind ``ensemble_cuda.kernel_choice``.
+
+``--cluster-split GRID:B[:C]`` times K11's split in turns, us a 256-step
+launch: whole, the band's loads and stores alone, and those with every
+step's barriers, carries and sums but no cell (C pins the cluster size).
+``--clusters`` prints the card's resident clusters of each size at the
+``--ensemble`` grids' shared memory, and the shared-memory copy's rate
+(csrc/smem_copy.cu): K11's tier.
 
 ``--l2`` times the L2 copy kernel (csrc/l2_copy.cu: one buffer read and
 written in place, pass after pass, in one persistent launch) at the working
@@ -96,7 +104,8 @@ process, and the card's name and power limit::
         [--hbm 2048,4096] [--hbm-parts 128x2,256x2] [--hbm-split] \
         [--blocked 256,512,768,1024] [--blocked-rows 8] [--policy] \
         [--placements 5] [--l2] \
-        [--ensemble 128:16,128:37,256:8,1024:4] \
+        [--ensemble 128:16,128:37,256:8,1024:4] [--cluster-split 256:8,128:16:4] \
+        [--clusters] \
         [--variant parent=build/parent/step.cu] \
         [--k4-regions 48x64] [--repeats 7]
 
@@ -1028,13 +1037,17 @@ def single_runner(p, obst, steps: int):
     return fused_cuda.make_run_all(p, obst, steps), "K1"
 
 
-def time_ensemble(n: int, B: int, device, repeats: int = 7, singles: bool = True
+def time_ensemble(n: int, B: int, device, repeats: int = 7, singles: bool = True,
+                  kernels=None, steps: int | None = None
                   ) -> dict[str, tuple[float, float, float]]:
     """us per instance-step (median, q1, q3) of K1-batch, K2-batch (where
-    B groups of blocks can be resident) and, with ``singles``, B single runs
+    B groups of blocks can be resident), K11 (where one instance fits a
+    cluster) and, with ``singles``, B single runs
     of the default single-device kernel (``B x K2`` and so on), in turns, on
-    B instances of the n x n closed box with omegas 1.3 to 1.9, from rest;
-    then of the plain batched step (``plain``, 10 steps)."""
+    B instances of the n x n closed box with omegas 1.3 to 1.9, from rest,
+    ``steps`` a run (default 4000 to 256^2, else 1000); ``kernels`` limits
+    the ensemble kernels timed; then of the plain batched step (``plain``,
+    10 steps)."""
     import numpy as np
     import torch
 
@@ -1048,11 +1061,15 @@ def time_ensemble(n: int, B: int, device, repeats: int = 7, singles: bool = True
     omegas = np.linspace(1.3, 1.9, B, dtype=np.float32)
     f0 = lattice.equilibrium_rest_device(p.density, n, n, device)
     f0_b = f0.unsqueeze(0).expand(B, -1, -1, -1).contiguous()
-    steps = 4000 if n <= 256 else 1000
+    steps = steps or (4000 if n <= 256 else 1000)
     runs = {}
-    resident = _build.load().lbm_resident_batch_blocks(device.index)
-    for kernel in ensemble_cuda.KERNELS:
+    lib = _build.load()
+    resident = lib.lbm_resident_batch_blocks(device.index)
+    clusters = ensemble_cuda.card_clusters(lib, device.index)
+    for kernel in kernels or ensemble_cuda.KERNELS:
         if kernel == "K2-batch" and ensemble_cuda.group_blocks(n, n, B, resident) < 1:
+            continue
+        if kernel == "K11" and ensemble_cuda.cluster_plan(n, n, B, clusters) is None:
             continue
         runs[kernel] = (ensemble_cuda.make_run_all(p, obst, omegas, None, steps, kernel),
                         f0_b, steps * B)
@@ -1074,10 +1091,130 @@ def time_ensemble(n: int, B: int, device, repeats: int = 7, singles: bool = True
     return out
 
 
+CLUSTER_PARTS = {"whole": 0, "floor": 1, "barrier": 2}
+
+
+def cluster_part_lib(part: int):
+    """The kernel library with K11 built as the split's form ``part``
+    (csrc/cluster.cu's LBM_CLUSTER_PART defined ahead of it; 0: the
+    package's own library), the variant written under the ignored build
+    directory."""
+    from lbm_tpu_torch.ops import _build
+
+    if part == 0:
+        return _build.load()
+    d = _build.BUILD_ROOT / f"cluster-part-{part}"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "cluster.cu").write_text(f"#define LBM_CLUSTER_PART {part}\n"
+                                  + (_build.CSRC / "cluster.cu").read_text())
+    return _build.load_variant({"cluster.cu": d / "cluster.cu"})
+
+
+def time_cluster_split(n: int, B: int, device, repeats: int = 7, sizes=None
+                       ) -> tuple[dict[str, tuple[float, float, float]], "ClusterPlan"]:
+    """us per launch (median, q1, q3) of K11's split on B instances of the
+    n x n closed box, one 256-step chunk a launch, in turns: ``whole``;
+    ``floor``, the band and mask loads and the store alone (no step);
+    ``barrier``, the floor with every step's barriers, carries and sums
+    but no cell (the forms of :func:`cluster_part_lib`).  ``sizes`` pins
+    the cluster sizes the plan may take.  Returns (times, the plan)."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.core import lattice
+    from lbm_tpu_torch.ops import _build, ensemble_cuda, resident_cuda
+    from lbm_tpu_torch.tools.bench import make_scene
+
+    libs = {name: cluster_part_lib(part) for name, part in CLUSTER_PARTS.items()}
+    scene = make_scene(f"{n}x{n}")
+    p = scene.params
+    clusters = ensemble_cuda.card_clusters(libs["whole"], device.index)
+    plan = ensemble_cuda.cluster_plan(
+        n, n, B, lambda C, smem: clusters(C, smem) if sizes is None or C in sizes else 0)
+    if plan is None:
+        raise ValueError(f"K11 cannot map {B} x {n}x{n} at cluster sizes {sizes}")
+    obst = torch.from_numpy(scene.obstacles).to(device)
+    om, w1, w2 = ensemble_cuda.scalars(p, np.linspace(1.3, 1.9, B, dtype=np.float32))
+    sc = torch.from_numpy(np.stack([om, w1, w2], axis=1).copy()).to(device)
+    f0 = lattice.equilibrium_rest_device(p.density, n, n, device)
+    fa = f0.unsqueeze(0).expand(B, -1, -1, -1).contiguous()
+    chunk = resident_cuda.DEFAULT_CHUNK
+    tot = torch.empty((chunk, B), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def launcher(lib):
+        def run(_=None):
+            _build.check(lib.lbm_cluster_batch_chunk(
+                fa.data_ptr(), fa.data_ptr(), obst.data_ptr(), 0, sc.data_ptr(),
+                tot.data_ptr(), n, n, p.accel_row, chunk, plan.C, B, plan.smem, stream,
+                device.index), "K11 split")
+        return run
+
+    runs = {name: (launcher(lib), None, 1) for name, lib in libs.items()}
+    return time_in_turns(runs, repeats), plan
+
+
+def smem_copy_gbps(device, nbytes: int = 192 * 1024, passes: int = 256, repeats: int = 7
+                   ) -> tuple[float, float, float]:
+    """(median, q1, q3) GB/s of the shared-memory copy kernel
+    (csrc/smem_copy.cu): ``passes`` in-place passes over ``nbytes`` of
+    shared memory in every block the card holds at once, a block barrier
+    after each, read + write counted: the rate K11's tier bound divides
+    by."""
+    import torch
+
+    from lbm_tpu_torch.ops import _build
+
+    lib = _build.load()
+    n4 = nbytes // 16
+    grid = lib.lbm_smem_copy_grid(n4, device.index)
+    if grid <= 0:
+        raise RuntimeError(f"the shared-memory copy of {nbytes} bytes a block cannot launch")
+    out = torch.empty(grid * 256, dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def run():
+        _build.check(lib.lbm_smem_copy(out.data_ptr(), n4, passes, grid, stream,
+                                       device.index), "shared-memory copy")
+
+    med, q1, q3 = _quartiles(_timed_ms(run, repeats))
+    moved = 2 * 16 * n4 * passes * grid
+    return moved / med / 1e6, moved / q3 / 1e6, moved / q1 / 1e6
+
+
+def format_split(n: int, B: int, times: dict[str, tuple[float, float, float]], plan) -> str:
+    return (f"K11 split {B} x {n}^2 (C = {plan.C}, {plan.smem} B a block, {plan.waves} "
+            "wave(s)), us a 256-step launch: " + " | ".join(
+                f"{name} {med:.2f} [{q1:.2f}, {q3:.2f}]" for name, (med, q1, q3) in times.items()))
+
+
 def format_ensemble(n: int, B: int, times: dict[str, tuple[float, float, float]]) -> str:
     return f"{n}^2 x {B} instances: " + " | ".join(
         f"{name} {med:.4f} us/instance-step [{q1:.4f}, {q3:.4f}] {n * n / med:.0f} MLUPS"
         for name, (med, q1, q3) in times.items())
+
+
+def format_clusters(device, shapes) -> str:
+    """The card's resident clusters (``lbm_cluster_batch_max_clusters``) of
+    each size at the shared memory K11 takes for each n x n shape of
+    ``shapes`` ((n, B) pairs), and the shared-memory copy's rate."""
+    from lbm_tpu_torch.ops import _build, ensemble_cuda
+
+    lib = _build.load()
+    parts = []
+    for n in sorted({s[0] for s in shapes}):
+        sizes = []
+        for C in ensemble_cuda.CLUSTER_SIZES:
+            if C > n:
+                continue
+            smem = ensemble_cuda.cluster_smem(-(-n // C), n)
+            got = (lib.lbm_cluster_batch_max_clusters(C, smem, device.index)
+                   if smem <= ensemble_cuda.SMEM_MAX else "-")
+            sizes.append(f"C={C} {smem} B: {got}")
+        parts.append(f"{n}^2: " + ", ".join(sizes))
+    med, q1, q3 = smem_copy_gbps(device)
+    return ("K11 resident clusters: " + " ; ".join(parts)
+            + f" | shared-memory copy {med:.1f} GB/s [{q1:.1f}, {q3:.1f}]")
 
 
 def format_grid(n: int, times: dict[str, tuple[float, float, float]]) -> str:
@@ -1133,6 +1270,12 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--ensemble", default="",
                         help="GRID:B pairs to time the ensemble's kernels on, e.g. "
                         "128:16,256:8 (n x n grids, B instances)")
+    parser.add_argument("--cluster-split", default="",
+                        help="GRID:B[:C] triples to time K11's split on (whole, loads and "
+                        "stores, barriers), e.g. 256:8,128:16:4 (C pins the cluster size)")
+    parser.add_argument("--clusters", action="store_true",
+                        help="print the card's resident clusters of each size at the "
+                        "--ensemble shapes' shared memory, and the shared-memory copy rate")
     parser.add_argument("--policy", action="store_true")
     parser.add_argument("--l2", action="store_true",
                         help="time the L2 copy kernel at K8's and K3's working sets")
@@ -1195,6 +1338,14 @@ def main(argv: list[str] | None = None) -> int:
     for pair in (e for e in args.ensemble.split(",") if e):
         n, B = (int(v) for v in pair.split(":"))
         print("in turns " + format_ensemble(n, B, time_ensemble(n, B, device, args.repeats))
+              + f" | {card}")
+    for triple in (e for e in args.cluster_split.split(",") if e):
+        n, B, *C = (int(v) for v in triple.split(":"))
+        times, plan = time_cluster_split(n, B, device, args.repeats, tuple(C) or None)
+        print("in turns " + format_split(n, B, times, plan) + f" | {card}")
+    if args.clusters:
+        print(format_clusters(device, [tuple(int(v) for v in e.split(":"))
+                                       for e in args.ensemble.split(",") if e])
               + f" | {card}")
     if args.policy:
         for key, times in time_policy(device, args.repeats, variants,

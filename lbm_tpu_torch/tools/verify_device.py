@@ -4,9 +4,9 @@ The counterpart of ``lbm_tpu/tools/verify_device.py`` (``VERIFY_TPU.json``).
 It writes ``VERIFY_H100.json`` (or ``$LBM_VERIFY_OUT``) and prints the same
 report as one JSON line:
 
-- one probe per CUDA kernel form of PERF.md's kernel table (21: K1 to K10
-  with their int16, slab and ca forms, and the ensemble's K1-batch and
-  K2-batch), each holding the kernel's wrapper
+- one probe per CUDA kernel form of PERF.md's kernel table (22: K1 to K10
+  with their int16, slab and ca forms, and the ensemble's K1-batch,
+  K2-batch and K11), each holding the kernel's wrapper
   against the twin (``ops/fused_torch.py``, the plain version every kernel
   is built to equal) on one recipe (:func:`_recipe`: a closed box with an
   interior block, a wall on the driven row, from a seeded perturbation of
@@ -17,7 +17,7 @@ report as one JSON line:
   from the same state, against those rows of the twin's run on the whole
   grid (one step for K1-slab, K steps for the ca engines, which are exact);
   K6 k steps with its ghost rows frozen, against k twin slab steps with the
-  same frozen ghosts; K1-batch and K2-batch B instances of the recipe
+  same frozen ghosts; K1-batch, K2-batch and K11 B instances of the recipe
   (omegas 1.3 to 1.9, accels 0.01 and 0.005 in turn) against the plain
   batched step (``ops/ensemble_cuda.run_plain``).  Shapes are those the
   smoke test's kernel phases map
@@ -58,10 +58,10 @@ _REPO = pathlib.Path(__file__).resolve().parents[2]
 GOLDEN = _REPO / "golden"
 SHARDS = 4  # the slab and ca probes take the last shard of the grid over 4
 
-# The 21 kernel forms of PERF.md's kernel table, in its order.
+# The 22 kernel forms of PERF.md's kernel table, in its order.
 PROBES = ("K1", "K1-i16", "K1-slab", "K1-slab-i16", "K2", "K3", "K3-i16", "K4", "K4-i16",
           "K4-slab", "K4-slab-i16", "K5", "K5-i16", "K6", "K7", "K8", "K8-i16", "K9", "K10",
-          "K1-batch", "K2-batch")
+          "K1-batch", "K2-batch", "K11")
 
 # Tolerances on max |diff| (float32 fields; int16 fields in quantization
 # steps): the card's claim is bitwise; on the CPU the plain versions are
@@ -79,7 +79,7 @@ class Extents:
     small: int  # K2
     steps: int  # the persistent kernels (K2, K3, K10): more than one launch
     golden_steps: int
-    instances: int  # K1-batch (on ``grid``) and K2-batch (on ``small``)
+    instances: int  # K1-batch (on ``grid``), K2-batch and K11 (on ``small``)
 
 
 CARD = Extents(grid=1024, k1=1536, big=2048, small=256, steps=300, golden_steps=120,
@@ -269,7 +269,7 @@ class _Probes:
                                lambda p, o: blocked_cuda.make_run_all(p, o, e.steps))
         if name == "K1-batch":
             return self.ensemble(name, e.grid, short)
-        if name == "K2-batch":
+        if name in ("K2-batch", "K11"):
             return self.ensemble(name, e.small, e.steps)
         raise ValueError(f"unknown probe {name!r}")
 

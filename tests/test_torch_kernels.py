@@ -95,14 +95,16 @@ def test_k1_matches_plain_on_card(cuda_device, shape, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["K1-batch", "K2-batch"])
+@pytest.mark.parametrize("kernel", ["K1-batch", "K2-batch", "K11"])
 @pytest.mark.parametrize("shape,B,geometry", [((60, 100), 3, False), ((7, 33), 5, False),
-                                              ((30, 129), 2, True)], ids=str)
+                                              ((30, 129), 2, True), ((7, 33), 200, False)],
+                         ids=str)
 def test_ensemble_kernels_match_plain_on_card(cuda_device, shape, B, geometry, kernel):
-    """K1-batch (20 steps) and K2-batch (300: two chunks) against the plain
-    batched step, fields bitwise; every instance against a single K1 or K2
-    run of its omega, accel (1.0: the guard split on the driven row) and
-    mask; a second run bitwise."""
+    """K1-batch (20 steps), K2-batch and K11 (300: two chunks) against the
+    plain batched step, fields bitwise; every instance against a single K1
+    or K2 run of its omega, accel (1.0: the guard split on the driven row)
+    and mask; a second run bitwise.  200 x 7x33 puts K11 at C = 1 (one
+    block an instance, in two waves on the H100)."""
     params, mask = _scene(*shape)
     masks = np.stack([mask] * B)
     if geometry:
@@ -112,14 +114,16 @@ def test_ensemble_kernels_match_plain_on_card(cuda_device, shape, B, geometry, k
                       for b in range(B)]).contiguous()
     omegas = np.linspace(0.7, 1.9, B, dtype=np.float32)
     accels = np.asarray([(0.005, 1.0)[b % 2] for b in range(B)], dtype=np.float32)
-    steps = 300 if kernel == "K2-batch" else 20
-    counts = (ensemble_cuda.LAUNCHES_BATCH, ensemble_cuda.LAUNCHES_BATCH_RESIDENT)
+    steps = 20 if kernel == "K1-batch" else 300
+    counts = (ensemble_cuda.LAUNCHES_BATCH, ensemble_cuda.LAUNCHES_BATCH_RESIDENT,
+              ensemble_cuda.LAUNCHES_BATCH_CLUSTER)
     run = ensemble_cuda.make_run_all(params, obst, omegas, accels, steps, kernel=kernel)
     assert run.kernel == kernel
     f_k, tot_k = (t.clone() for t in run(f0))
     assert (ensemble_cuda.LAUNCHES_BATCH - counts[0],
-            ensemble_cuda.LAUNCHES_BATCH_RESIDENT - counts[1]) == (
-        (steps, 0) if kernel == "K1-batch" else (0, 2))
+            ensemble_cuda.LAUNCHES_BATCH_RESIDENT - counts[1],
+            ensemble_cuda.LAUNCHES_BATCH_CLUSTER - counts[2]) == {
+        "K1-batch": (steps, 0, 0), "K2-batch": (0, 2, 0), "K11": (0, 0, 2)}[kernel]
     f_p, tot_p = ensemble_cuda.run_plain(f0, obst, params, omegas, accels, steps)
     _assert_matches(f_k, tot_k, f_p, tot_p)
     f_2, tot_2 = run(f0)
@@ -135,11 +139,23 @@ def test_ensemble_kernels_match_plain_on_card(cuda_device, shape, B, geometry, k
             assert torch.equal(f_1, f_k[b])
 
 
+@pytest.mark.cuda
+def test_k11_forced_where_no_cluster_holds_an_instance_raises(cuda_device):
+    """512^2: a band of 32 rows at C = 16 needs more than a block's shared
+    memory, so a forced K11 raises before any launch, and the policy runs
+    K2-batch there."""
+    params, mask = _scene(512, 512)
+    obst = torch.from_numpy(mask).to(cuda_device)
+    with pytest.raises(ValueError, match="K11 cannot map 512x512"):
+        ensemble_cuda.make_run_all(params, obst, [1.2, 1.8], None, 10, kernel="K11")
+    assert ensemble_cuda.make_run_all(params, obst, [1.2, 1.8], None, 10).kernel == "K2-batch"
+
+
 def test_ensemble_runner_on_cpu_is_the_plain_batched_step():
     params, mask = _scene(12, 20)
     obst = torch.from_numpy(mask)
     f0 = torch.stack([_state(params, "mixed", "cpu")] * 2).contiguous()
-    for kernel in (None, "K1-batch", "K2-batch"):
+    for kernel in (None, "K1-batch", "K2-batch", "K11"):
         run = ensemble_cuda.make_run_all(params, obst, [1.2, 1.8], [0.005, 1.0], 5, kernel)
         f_k, tot_k = run(f0)
         f_p, tot_p = ensemble_cuda.run_plain(f0, obst, params, [1.2, 1.8], [0.005, 1.0], 5)
@@ -653,7 +669,7 @@ def test_build_flags_and_sources(tmp_path, monkeypatch):
     assert {s.name for s in _build.sources()} == {
         "step.cu", "resident.cu", "inplace.cu", "temporal.cu", "skew.cu", "ghosted.cu",
         "ca_resident.cu", "ca_inplace.cu", "hbm.cu", "blocked.cu", "l2_copy.cu",
-        "lbm_common.cuh", "aa_inplace.cuh", "two_copy.cuh"}
+        "cluster.cu", "smem_copy.cu", "lbm_common.cuh", "aa_inplace.cuh", "two_copy.cuh"}
     assert {"lbm_inplace_grid", "lbm_inplace_chunk", "lbm_step_run", "lbm_trapezoid_run",
             "lbm_skew_run", "lbm_slab_step", "lbm_ghosted_chunk", "lbm_trapezoid_slab",
             "lbm_ca_resident", "lbm_ca_inplace", "lbm_hbm_grid", "lbm_hbm_run",

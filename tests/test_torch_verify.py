@@ -12,10 +12,10 @@ import pytest
 from lbm_tpu_torch.tools import verify_device
 
 # The kernel forms of PERF.md's kernel table: B1-B10 as CUDA kernels, and
-# the ensemble's batched K1 and K2.
+# the ensemble's batched K1 and K2 and its cluster kernel K11.
 KERNEL_FORMS = {"K1", "K1-i16", "K1-slab", "K1-slab-i16", "K2", "K3", "K3-i16", "K4", "K4-i16",
                 "K4-slab", "K4-slab-i16", "K5", "K5-i16", "K6", "K7", "K8", "K8-i16", "K9",
-                "K10", "K1-batch", "K2-batch"}
+                "K10", "K1-batch", "K2-batch", "K11"}
 
 
 @pytest.fixture(scope="module")
