@@ -12,7 +12,8 @@ tools/divergence.py) as there.  ``check``, ``bench``, ``info``, ``scene``,
 ``golden``, ``sweep``, ``viz``, ``animate`` and ``speedup`` are the other
 subcommands; the last three, and ``sweep --plot``, need matplotlib.
 ``sweep`` runs B variants of one scene at once (tools/ensemble.py: one
-launch a step or a chunk for all of them on the card).
+launch a step or a chunk for all of them on the card) and prints the kernel
+that ran and its phase timings on stderr.
 
 Under a launcher (``WORLD_SIZE`` > 1: tools/pod.py, ``torchrun``) ``run``
 joins the ``torch.distributed`` group first and runs a sharded variant
@@ -438,8 +439,9 @@ def cmd_sweep(args: argparse.Namespace) -> int:
         f"in one compiled program; wrote {summary}"
         + (" and sweep.png" if args.plot else "")
     )
-    # stdout stays lbm_tpu's line; the kernel that ran goes to stderr.
+    # stdout stays lbm_tpu's line; the kernel that ran and the phases go to stderr.
     print(f"Kernel: {res.kernel}", file=sys.stderr)
+    print(res.timer.report(), file=sys.stderr)
     return 0
 
 

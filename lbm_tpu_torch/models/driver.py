@@ -58,7 +58,10 @@ group: ``profile_dir/rank<r>/trace.json``, :func:`profile_dir_of`) and
 ``RunResult.profile`` sums its kernel events (:func:`_profile_summary`),
 with one entry per rank under ``ranks`` (:func:`_gather_profiles`: one
 small gather after the bracket has closed).  The profiler changes no
-launch, so the outputs are those of the unprofiled run.
+launch, so the outputs are those of the unprofiled run.  The trace holds
+the bracket's ``lbm.compute`` range; under a profiler that spans the whole
+call, each phase is a range (``lbm.init``, ``lbm.compute``,
+``lbm.collate``, inside ``lbm.run_simulation``: utils/timing.py).
 
 In a process group (parallel/mesh.py ``join``; ``python -m lbm_tpu_torch
 run`` under a launcher) every process runs the same loop over its own
@@ -98,7 +101,7 @@ from lbm_tpu_torch.parallel import exchange
 from lbm_tpu_torch.parallel import mesh as mesh_lib
 from lbm_tpu_torch.parallel import modes
 from lbm_tpu_torch.utils.invariants import calc_reynolds
-from lbm_tpu_torch.utils.timing import PhaseTimer
+from lbm_tpu_torch.utils.timing import PhaseTimer, span
 
 # Default segment length for long runs (lbm_tpu/models/driver.py:665): 4000
 # divides every reference scene's maxIters.  A segment is one runner call;
@@ -691,6 +694,7 @@ def check_config(config: RunConfig, variant: str) -> None:
                              "variant; use the torch or cuda variant")
 
 
+@span("run_simulation")
 def run_simulation(
     scene: Scene,
     config: RunConfig | None = None,

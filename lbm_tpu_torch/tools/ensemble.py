@@ -14,6 +14,10 @@ reproduces a single run with b's parameters bitwise (tested).  The obstacle
 mask is either shared (parameter sweep) or a (B, ny, nx) batch (geometry
 sweep, the reference's obstacle-file studies); the grid shape is common to
 all instances either way.  float32 only, as ``lbm_tpu``'s.
+
+``run_ensemble`` times the driver's phases (``EnsembleResult.timer``), and
+under a torch profiler they are ranges inside ``lbm.run_ensemble``
+(utils/timing.py).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from lbm_tpu_torch.models.driver import resolve_device
 from lbm_tpu_torch.ops import ensemble_cuda
 from lbm_tpu_torch.params import LBMParams
 from lbm_tpu_torch.utils.invariants import calc_reynolds
+from lbm_tpu_torch.utils.timing import PhaseTimer, span
 
 
 @dataclasses.dataclass
@@ -39,6 +44,10 @@ class EnsembleResult:
     f: np.ndarray  # (B, 9, ny, nx) final distributions
     reynolds: np.ndarray  # (B,)
     kernel: str = "plain"  # what ran: K11, K2-batch, K1-batch, or plain on the CPU
+    # init (validation, the masks' upload, the rest state, the plan), compute
+    # (the run, ended by a synchronize on a card), collate (the copies to the
+    # host, av_vels, the Reynolds numbers)
+    timer: PhaseTimer = dataclasses.field(default_factory=PhaseTimer)
 
 
 def prepare(params: LBMParams, obstacles: np.ndarray, omegas, accels=None):
@@ -82,6 +91,7 @@ def make_runner(params: LBMParams, obstacles: np.ndarray, omegas, accels, num_st
     return ensemble_cuda.make_run_all(params, obst, omegas, accels, num_steps, kernel), f0_b
 
 
+@span("run_ensemble")
 def run_ensemble(
     params: LBMParams,
     obstacles: np.ndarray,
@@ -102,27 +112,35 @@ def run_ensemble(
         value broadcast over a geometry batch).
       accels: optional (B,) accelerations (default: params.accel for all).
     """
-    obstacles, omegas, accels, fluid_counts = prepare(params, obstacles, omegas, accels)
-    steps = num_steps if num_steps is not None else params.max_iters
-    B = omegas.size
-    run_all, f0_b = make_runner(params, obstacles, omegas, accels, steps, device)
-    f_final, tots = run_all(f0_b)
-    av = tots.cpu().numpy().astype(np.float32) / fluid_counts[None, :]
-    final_av = av[-1] if steps else np.zeros(B, dtype=np.float32)
-    reyn = np.asarray(
-        [
-            calc_reynolds(params.replace(omega=float(o)), float(a))
-            for o, a in zip(omegas, final_av)
-        ],
-        dtype=np.float32,
-    )
+    timer = PhaseTimer()
+    with timer.section("init"):
+        obstacles, omegas, accels, fluid_counts = prepare(params, obstacles, omegas, accels)
+        steps = num_steps if num_steps is not None else params.max_iters
+        B = omegas.size
+        run_all, f0_b = make_runner(params, obstacles, omegas, accels, steps, device)
+    with timer.section("compute"):
+        f_final, tots = run_all(f0_b)
+        if f_final.device.type == "cuda":
+            torch.cuda.synchronize(f_final.device)
+    with timer.section("collate"):
+        av = tots.cpu().numpy().astype(np.float32) / fluid_counts[None, :]
+        final_av = av[-1] if steps else np.zeros(B, dtype=np.float32)
+        reyn = np.asarray(
+            [
+                calc_reynolds(params.replace(omega=float(o)), float(a))
+                for o, a in zip(omegas, final_av)
+            ],
+            dtype=np.float32,
+        )
+        f = f_final.cpu().numpy()
     return EnsembleResult(
         omegas=omegas,
         accels=accels,
         av_vels=av,
-        f=f_final.cpu().numpy(),
+        f=f,
         reynolds=reyn,
         kernel=run_all.kernel,
+        timer=timer,
     )
 
 

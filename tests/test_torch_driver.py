@@ -232,8 +232,9 @@ def test_cli_platform_is_the_device(tmp_path, scene_files, capsys):
 
 
 def test_cli_profile_writes_a_trace_and_the_same_files(tmp_path, scene_files, capsys):
-    """``--profile DIR`` writes a Chrome trace of the compute bracket and
-    leaves the outputs byte-identical to the unprofiled run's."""
+    """``--profile DIR`` writes a Chrome trace of the compute bracket, its
+    ``lbm.compute`` range included, and leaves the outputs byte-identical
+    to the unprofiled run's."""
     pfile, ofile = scene_files
     base = ["run", pfile, ofile, "--device", "cpu", "--variant", "cuda", "--steps", "6"]
     assert cli.main(base + ["--out-dir", str(tmp_path / "plain")]) == 0
@@ -243,6 +244,8 @@ def test_cli_profile_writes_a_trace_and_the_same_files(tmp_path, scene_files, ca
     assert f"trace {tmp_path / 'trace' / 'trace.json'}" in out
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert trace["traceEvents"]
+    assert "lbm.compute" in {e["name"] for e in trace["traceEvents"]
+                             if e.get("cat") == "user_annotation"}
     for name in ("final_state.dat", "av_vels.dat"):
         assert filecmp.cmp(tmp_path / "plain" / name, tmp_path / "prof" / name, shallow=False)
     res = driver.run_simulation(_scene(16, 16, steps=4), _cpu(
