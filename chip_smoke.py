@@ -112,8 +112,12 @@ power limit as nvidia-smi reports them):
    step (:func:`ensemble_kernel_checks`): one instance of 128x128, three of
    60x100, 37 of 128x128 (K2-batch in groups of 14 blocks), a geometry
    batch of three 128x128 masks, eight of 256x256, 600 of 64x64 (K1-batch;
-   K11 at C = 1 on a box open across the wrap), 149 of 64x64 and 16 of
-   128x128 (K11 alone), 200 of 512x512 (K1-batch x 100 steps, 5o's
+   K11 on a box open across the wrap), 400 of 40x64 (K11 at C = 1 on a
+   box open across the wrap), 149 of 64x64 and 16 of
+   128x128 (K11 alone), 64 of 128x128 (K11 alone x 300 steps, a chunk and
+   a remainder: the benchmark's sweep, where the plan takes blocks of 512
+   threads, two an SM; it fails unless K11's cases run both block shapes),
+   200 of 512x512 (K1-batch x 100 steps, 5o's
    sweep), K11 on the second, fourth, fifth and the 64x64 and 16 x 128x128
    shapes, each with its shared mask and with per-instance masks (K11:
    those of the geometry batch), omegas 0.6 to 1.95 and accels whose
@@ -138,9 +142,13 @@ power limit as nvidia-smi reports them):
    omega-1.85 instance's av_vels within rtol 1e-6 of phase 5's run), a
    geometry sweep of that cylinder with scenegen's cavity and channel
    (each instance within rtol 1e-6 of a single run of its mask), a 64x64
-   cylinder with ``--omega 1.0:1.85:600`` x 1000 steps (the last
-   instance's final av within rtol 1e-6 of a single run), each on the
-   kernel the policy gives it and the CLI names; 512x512 sweeps for a
+   cylinder with ``--omega 1.0:1.85:600`` x 1000 steps and a 128x128
+   cylinder with ``--omega 1.0:1.85:64`` x 300 steps (the benchmark's
+   sweep shape over a chunk and a remainder; each last instance's final av
+   within rtol 1e-6 of a single run), each on the kernel the policy gives
+   it and the CLI names, K11's launches all of the form (threads, C) the
+   CLI names (``LAUNCHES_CLUSTER_FORMS``; 128x128 x 64: only 512 threads
+   at C = 8, else the phase fails); 512x512 sweeps for a
    kernel those left idle (8 x 400 steps: K2-batch; 200 x 100: K1-batch);
    every ensemble counter zeroed just before each sweep, the named
    kernel's must have gone up and the others' stayed 0, and every ensemble
@@ -290,7 +298,8 @@ f. the process group on the one card (2 gloo processes x 2 shards,
    split) shards, and K9 against K5, K4 and K1 in turns at 2048^2; (6f) K10 in turns
    with K3 and K4 (K = 4) at 1024^2; (6g) K1-batch, K2-batch and K11 at
    5o's shapes (8 x 256^2, all three in turns; 600 x 64^2, K11; 200 x
-   512^2, K1-batch) beside the plain batched step, the shared-memory copy's rate
+   512^2, K1-batch) and K11 at 64 x 128^2 (the benchmark's sweep, blocks
+   of 512 threads) beside the plain batched step, the shared-memory copy's rate
    (csrc/smem_copy.cu, K11's tier), and ``python -m
    lbm_tpu_torch.tools.perfcheck`` run as a subprocess, which must exit 0
    (its rows printed);
@@ -884,11 +893,15 @@ class Ensemble(NamedTuple):
 # multiple of a warp); 37 at 128^2 (the most two-copy states the L2 budget
 # takes there: K2-batch groups of 14 blocks); a geometry batch (box,
 # cylinder, channel); 8 at 256^2 (the CLI sweep's shape); 600 at 64^2
-# (5o's sweep: more groups than K2-batch can keep resident; K11 at C = 1,
-# one block an instance in five waves, its own edge rows pushed into its
-# own shared memory for the wrap, the driven row on row 0 of an open box);
-# 149 at 64^2 and 16 at 128^2 (K11 in three waves of C = 2, and in one of
-# clusters of 4); 200 at 512^2 over 100 steps (5o's K1-batch sweep); K11
+# (5o's sweep: more groups than K2-batch can keep resident; K11 in five
+# waves of 132 clusters of two 512-thread blocks, the driven row on rank
+# 1's first row of an open box); 400 at 40x64 (K11 at C = 1, two blocks
+# of 512 threads an SM, each instance's own edge rows pushed into its own
+# shared memory for the wrap, the driven row on row 0 of an open box);
+# 149 at 64^2 and 16 at 128^2 (K11 in three waves of C = 4 and two of
+# C = 16, blocks of 512 threads); 64 at 128^2 over a chunk and 44 steps (the benchmark's
+# sweep: K11's blocks of 512 threads, two an SM, C = 8, a band of two
+# tiles); 200 at 512^2 over 100 steps (5o's K1-batch sweep); K11
 # takes the per-instance masks of the geometry batch only.  K2-batch and
 # K11 run each over 1025 steps (four chunks and a step), K1-batch over 50.
 # 64^2 x 149 puts the driven row on rank 1's first row (32): on rank 0's
@@ -901,8 +914,10 @@ ENSEMBLES = (Ensemble(128, 128, 1, False, BOTH), Ensemble(60, 100, 3, False, ALL
              Ensemble(256, 256, 8, False, ALL, "first"),
              Ensemble(64, 64, 600, False, ("K1-batch",)),
              Ensemble(64, 64, 600, False, ("K11",), "first", open_rows=True),
+             Ensemble(40, 64, 400, False, ("K11",), "first", open_rows=True),
              Ensemble(64, 64, 149, False, ("K11",), "first"),
              Ensemble(128, 128, 16, False, ("K11",), "last"),
+             Ensemble(128, 128, 64, False, ("K11",), "first", steps=300),
              Ensemble(512, 512, 200, False, ("K1-batch",), steps=100))
 ENSEMBLE_STEPS = {"K1-batch": 50, "K2-batch": 1025, "K11": 1025}
 
@@ -963,7 +978,7 @@ def ensemble_kernel_checks(dev) -> tuple[dict[tuple, float], int, str]:
     from lbm_tpu_torch.params import with_driven_row
 
     errs = {}
-    n_cases, split, k11_edges = 0, False, set()
+    n_cases, split, k11_edges, k11_plans = 0, False, set(), {}
     clusters = ensemble_cuda.card_clusters(_build.load(), dev.index)
     for case in ENSEMBLES:
         ny, nx, B, geometry, where = case.ny, case.nx, case.B, case.geometry, case.where
@@ -990,6 +1005,9 @@ def ensemble_kernel_checks(dev) -> tuple[dict[tuple, float], int, str]:
                     pk = with_driven_row(p, drow)
                     name += f" (C = {len(bands)}, driven row {drow}: a band's {where} row)"
                 run = ensemble_cuda.make_run_all(pk, obst, omegas, accels, steps, kernel=kernel)
+                if run.plan is not None:
+                    name += f" [{run.plan.label()}]"
+                    k11_plans[f"{ny}x{nx} B={B}"] = run.plan
                 f_k, tot_k = (t.clone() for t in run(f0))
                 f_p, tot_p = ensemble_cuda.run_plain(f0, obst, pk, omegas, accels, steps)
                 e, _ = compare(name, f_k, tot_k, f_p, tot_p)
@@ -1015,10 +1033,15 @@ def ensemble_kernel_checks(dev) -> tuple[dict[tuple, float], int, str]:
         fail("no phase 3j instance has the driven row's guard split between columns")
     if not {("first", 2), ("last", 2), ("first", 1)} <= k11_edges:
         fail(f"K11's cases put the driven row on a band's (row, C) {k11_edges} only")
+    k11_forms = {plan.threads for plan in k11_plans.values()}
+    if k11_forms != set(ensemble_cuda.CLUSTER_THREADS):
+        fail(f"K11's cases ran blocks of {sorted(k11_forms)} threads only")
     notes = (", ".join(f"{c.ny}x{c.nx} B={c.B}{' geometry' if c.geometry else ''}"
                        f"{' open rows' if c.open_rows else ''} ({', '.join(c.kernels)}"
                        f"{f' x {c.steps} steps' if c.steps else ''})" for c in ENSEMBLES)
-             + "; " + ", ".join(f"{k} x {n}" for k, n in ENSEMBLE_STEPS.items()) + " steps")
+             + "; " + ", ".join(f"{k} x {n}" for k, n in ENSEMBLE_STEPS.items()) + " steps"
+             + "; K11's plans: " + ", ".join(f"{shape} ({plan.label()})"
+                                             for shape, plan in k11_plans.items()))
     return errs, n_cases, notes
 
 
@@ -1034,9 +1057,12 @@ def sweep_checks(td: str, scene256: tuple[str, str], single256: str, device: str
     ``--omega 1.3:1.85:8 --steps 4400 --av-vels`` (the scene's omega, 1.85,
     is the last instance) and a geometry sweep of the cylinder with
     scenegen's cavity and channel; on a 64x64 cylinder ``--omega
-    1.0:1.85:600`` x 1000 steps.  Each runs the kernel the policy gives it
+    1.0:1.85:600`` x 1000 steps; on a 128x128 cylinder ``--omega
+    1.0:1.85:64`` x 300 steps (the benchmark's sweep shape, a chunk and a
+    remainder: K11 in blocks of 512 threads, clusters of 8, and no other
+    form).  Each runs the kernel the policy gives it
     (``ensemble_cuda.kernel_choice`` on the card), which the CLI names on
-    stderr.  Where those leave K2-batch or K1-batch without a launch, a
+    stderr with K11's plan.  Where those leave K2-batch or K1-batch without a launch, a
     512x512 cylinder sweep reaches it: 8 omegas x 400 steps (K2-batch) and
     200 x 100 (K1-batch: two blocks an instance).  The instance with the
     scene's parameters against the single run (av_vels within rtol 1e-6:
@@ -1044,8 +1070,9 @@ def sweep_checks(td: str, scene256: tuple[str, str], single256: str, device: str
     only the summary is written); the geometry sweep's instances against
     single runs of their masks.  Every ensemble kernel's count is zeroed
     just before each sweep; the named kernel's must have gone up and the
-    others' stayed 0.  Returns (launches by kernel, MLUPS by sweep on the
-    host clock of the whole command, notes)."""
+    others' stayed 0.  Returns (launches by kernel, and K11's at each
+    shape it ran, as "K11 <ny>x<nx> x <B>"; MLUPS by sweep on the host
+    clock of the whole command; notes)."""
     import numpy as np
 
     from lbm_tpu_torch import cli
@@ -1059,11 +1086,14 @@ def sweep_checks(td: str, scene256: tuple[str, str], single256: str, device: str
     launches = {k: 0 for k in ENSEMBLE_COUNTERS}
 
     def cli_sweep(tag, pfile, ofile, *extra):
-        """(out dir, summary rows, seconds, kernel, its launches)."""
+        """(out dir, summary rows, seconds, kernel, its launches).  A K11
+        sweep's launches must all be of the form (threads, C) the CLI
+        named (``LAUNCHES_CLUSTER_FORMS``, zeroed with the counters)."""
         out_dir = os.path.join(td, f"sweep-{tag}")
         buf, err = io.StringIO(), io.StringIO()
         for name in ENSEMBLE_COUNTERS.values():
             setattr(ensemble_cuda, name, 0)
+        ensemble_cuda.LAUNCHES_CLUSTER_FORMS.clear()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
             rc = cli.main(["sweep", pfile, ofile, "--device", device, "--out-dir", out_dir,
@@ -1071,12 +1101,23 @@ def sweep_checks(td: str, scene256: tuple[str, str], single256: str, device: str
         seconds = time.perf_counter() - t0
         if rc != 0:
             fail(f"sweep {tag} exited {rc}:\n{buf.getvalue()}{err.getvalue()}")
-        named = [ln.split(": ", 1)[1] for ln in err.getvalue().splitlines()
+        # "Kernel: K11 (C=1, 1024 threads, 5 waves)": the kernel, then its plan.
+        lines = [ln.split(": ", 1)[1] for ln in err.getvalue().splitlines()
                  if ln.startswith("Kernel: ")]
+        named = [ln.split(" (")[0] for ln in lines]
         counts = {k: getattr(ensemble_cuda, name) for k, name in ENSEMBLE_COUNTERS.items()}
         if len(named) != 1 or named[0] not in counts or counts[named[0]] <= 0 \
                 or any(n for k, n in counts.items() if k != named[0]):
             fail(f"sweep {tag}: the CLI named {named}, the counters read {counts}")
+        forms = dict(ensemble_cuda.LAUNCHES_CLUSTER_FORMS)
+        if named[0] == "K11":
+            C, threads = (int(v) for v in re.search(r"C=(\d+), (\d+) threads",
+                                                     lines[0]).groups())
+            if forms != {(threads, C): counts["K11"]}:
+                fail(f"sweep {tag}: the CLI named {lines[0]}, K11's launches by (threads, C) "
+                     f"read {forms} of {counts['K11']}")
+        elif forms:
+            fail(f"sweep {tag} ran {named[0]}, K11's forms counted {forms}")
         launches[named[0]] += counts[named[0]]
         rows = [ln.split() for ln in open(os.path.join(out_dir, "sweep_summary.dat"))
                 if not ln.startswith("#")]
@@ -1134,6 +1175,25 @@ def sweep_checks(td: str, scene256: tuple[str, str], single256: str, device: str
     notes.append(f"64x64 cylinder x 1000 steps, --omega 1.0:1.85:600: {kern} {n} launches, "
                  f"{secs:.2f} s, instance 599 (omega 1.85) final av rel {rel:.1e} of a single "
                  f"{variant} run")
+    launches[f"{kern} 64x64 x 600"] = n
+    # The benchmark's sweep shape, 64 instances of 128^2, over a chunk and a
+    # remainder: the plan's blocks of 512 threads, two an SM, clusters of 8,
+    # and no other form.
+    p128 = LBMParams(nx=128, ny=128, max_iters=300, reynolds_dim=10, density=0.1,
+                     accel=0.005, omega=1.85)
+    files128 = scenegen.write_scene(os.path.join(td, "s128"), "cylinder", p128)
+    sdir, rows, secs, kern, n = cli_sweep("128", *files128, "--omega", "1.0:1.85:64")
+    if kern != "K11" or n != 2 or len(rows) != 64 or float(rows[-1][1]) != 1.85:
+        fail(f"sweep 128x128 x 64: ran {kern} with {n} launches, {len(rows)} rows")
+    form = dict(ensemble_cuda.LAUNCHES_CLUSTER_FORMS)
+    if form != {(512, 8): n}:
+        fail(f"sweep 128x128 x 64: K11's launches by (threads, C) read {form}, not only "
+             "(512, 8)")
+    rel, variant = final_av(rows, files128, "sweep 128x128 x 64")
+    notes.append(f"128x128 cylinder x 300 steps, --omega 1.0:1.85:64: {kern} {n} launches, "
+                 f"all of 512 threads at C = 8, instance 63 (omega 1.85) final av rel "
+                 f"{rel:.1e} of a single {variant} run")
+    launches[f"{kern} 128x128 x 64"] = n
     # The 512x512 sweeps reach the kernels the sweeps above left idle: no
     # cluster holds a 512^2 instance, so K2-batch takes 8 of them and
     # K1-batch 200 (two blocks an instance).
@@ -2606,9 +2666,12 @@ def main() -> int:
 
     # Phase 6g: the ensemble's kernels at the shapes of 5o's sweeps (all
     # three at 8 x 256^2; 600 x 64^2 K11's; 200 x 512^2 K1-batch's, 20 steps
-    # a run), and the speed gate (tools/perfcheck.py) as a user runs it.
+    # a run), K11 at the benchmark's sweep (64 x 128^2, blocks of 512
+    # threads), and the speed gate (tools/perfcheck.py) as a user runs it.
     ens_times = {(256, 8): kernel_times.time_ensemble(256, 8, dev, repeats=5, singles=False),
                  (64, 600): kernel_times.time_ensemble(64, 600, dev, repeats=5, singles=False,
+                                                       kernels=("K11",)),
+                 (128, 64): kernel_times.time_ensemble(128, 64, dev, repeats=5, singles=False,
                                                        kernels=("K11",)),
                  (512, 200): kernel_times.time_ensemble(512, 200, dev, repeats=5,
                                                         singles=False, kernels=("K1-batch",),
@@ -2882,29 +2945,33 @@ def main() -> int:
             **bounds(B * n, n, B * (n - 2) ** 2, steps, "f32", tier, copies=copies,
                      mask_cells=n * n)})
     # K11 (it replaces no Pallas body either): a launch of 256 steps of
-    # 5o's 8 instances of 256^2 and of its 600 instances of 64^2 (the
-    # shape whose sweep launches it), clusters of the card's plan; its tier
+    # 5o's 8 instances of 256^2, and of the shapes of 5o's two K11 sweeps:
+    # 600 instances of 64^2 and the benchmark's 64 of 128^2; clusters and
+    # blocks of the card's plan; its tier
     # is shared memory (the cell-steps' 72 B of shared traffic over 6g's
     # shared-memory copy rate), K2-batch's L2 tier beside it.  The launches
-    # are the main path's, on 600 x 64^2.
+    # are the main path's at each shape, 5o's sweeps through the CLI (none
+    # at 8 x 256^2, which the policy gives K2-batch), each of the one form
+    # the row names.
     from lbm_tpu_torch.ops import ensemble_cuda
 
     card_q = ensemble_cuda.card_clusters(_build.load(), dev.index)
-    for n, B in ((256, 8), (64, 600)):
+    for n, B in ((256, 8), (64, 600), (128, 64)):
         k11_plan = ensemble_cuda.cluster_plan(n, n, B, card_q)
         t = ens_times[(n, B)]
         k11_bound, k11_by = kernel_times.bound_ms(B * n * n, B * (n - 2) ** 2, chunk, "f32",
                                                   mask_cells=n * n)
         kernels.append({
             "name": f"K11 cluster-resident kernel of the ensemble (ms per launch = {chunk} steps "
-                    f"of {B} instances of {n}x{n}, clusters of {k11_plan.C} blocks in "
-                    f"{k11_plan.waves} waves; tier: its cell-steps' 72 B of shared-memory "
-                    "traffic over the shared-memory copy's rate; l2_tier_bound_ms: the same "
+                    f"of {B} instances of {n}x{n}, {k11_plan.label()}; tier: its cell-steps' 72 "
+                    "B of shared-memory traffic over the shared-memory copy's rate; "
+                    "l2_tier_bound_ms: the same "
                     "traffic over the L2 copy's, K2-batch's tier)",
             "route": "cuda", "source": "lbm_tpu_torch/csrc/cluster.cu",
             "replaces": "lbm_tpu/tools/ensemble.py:47 (_step_traced under jax.vmap :117; no "
                         "pallas_call)",
-            "launches": launches["K11"], "max_abs_err": ens_err[("K11", n, n, B)],
+            "launches": launches.get(f"K11 {n}x{n} x {B}", 0),
+            "max_abs_err": ens_err[("K11", n, n, B)],
             "ms": t["K11"][0] * B * chunk / 1e3, "plain_ms": t["plain"][0] * B * chunk / 1e3,
             "bound_ms": k11_bound, "bound_by": k11_by, "library_ms": None,
             "tier": "shared memory", "tier_bound_ms": (B * n * n * chunk * 2 * 9 * 4

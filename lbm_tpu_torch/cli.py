@@ -440,7 +440,7 @@ def cmd_sweep(args: argparse.Namespace) -> int:
         + (" and sweep.png" if args.plot else "")
     )
     # stdout stays lbm_tpu's line; the kernel that ran and the phases go to stderr.
-    print(f"Kernel: {res.kernel}", file=sys.stderr)
+    print(f"Kernel: {res.kernel}" + (f" ({res.plan})" if res.plan else ""), file=sys.stderr)
     print(res.timer.report(), file=sys.stderr)
     return 0
 

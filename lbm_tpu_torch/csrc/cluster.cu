@@ -13,7 +13,8 @@
 // whole chunk:
 //
 // - Work map.  Instance b is run by cluster b of C blocks (C = 1, 2, 4, 8
-//   or 16, chosen by the host: ops/ensemble_cuda.py::cluster_plan).  Block
+//   or 16, and the block's threads, chosen by the host:
+//   ops/ensemble_cuda.py::cluster_plan).  Block
 //   r of the cluster owns the band of rows [r0, r0 + h): ny / C rows, the
 //   first ny mod C bands one more.  It loads its band (9 planes a row) and
 //   the band's mask rows with one above and one below into dynamic shared
@@ -25,7 +26,8 @@
 //   blocks cannot all be resident.
 // - One copy, updated in place.  Two copies of 256^2 do not fit 16 blocks,
 //   so a block walks its band top to bottom in tiles of kTile cells (whole
-//   rows; a thread takes kCells cells of a tile, kNT apart).  A tile pulls
+//   rows; a thread takes kCells cells of a tile, kNT apart; a row is at
+//   most a tile).  A tile pulls
 //   and collides all its cells into registers, saves its last old row into
 //   a carry row (the next tile's row below), waits at one block barrier,
 //   and writes its cells in place.  Carries alternate between two buffers,
@@ -66,7 +68,8 @@
 // Shared memory of a block (f32, hmax = ceil(ny / C) rows): hmax x 9 x nx
 // floats of band, 4 pushed rows and 2 carry rows of 9 x nx floats, 320
 // floats of sums, (hmax + 2) x nx mask bytes: at most 232,448 B (the
-// host's cluster_smem).  256^2 at C = 16 takes 208,640 B, one block an SM.
+// host's cluster_smem), the same in both forms.  256^2 at C = 16 takes
+// 208,640 B, one block an SM.
 // C = 16 needs the non-portable cluster size.
 //
 // Bound: 92 operations a fluid cell-step (the arithmetic alone; the
@@ -74,14 +77,34 @@
 // memory, 72 B of shared traffic a cell-step over the card's measured
 // shared-memory rate (csrc/smem_copy.cu, 30.3 TB/s).  What holds it (8 x
 // 256^2, PERF.md section 5): the cells, about 2.3 clocks a cell on an SM,
-// and a step's barriers, carries and sums, 1.3 us a step.  ptxas (sm_90a,
-// nvcc -Xptxas -v; build/lbm_tpu_torch/<hash>/nvcc.log): 56 registers, no
-// spill (the split's variants, kPart 1 and 2: 48 and 64), so one block an
-// SM: its 1024 threads take 57,344 of the SM's 65,536 registers; the
-// dynamic shared memory is the launch's (cluster_smem).  Blocks of 256 threads with 4 cells a
-// thread (128 registers, 8 warps an SM) took 50% more time at 256^2 x 7
-// than 1024 threads with 2 cells, in the design before the pushed rows
-// (PERF.md, Findings).
+// and a step's barriers, carries and sums, 1.3 us a step, which nothing
+// else on a block's SM covers.
+//
+// Two forms, one source: the kernel is a template on kNT, its threads a
+// block, with kCells = 2 cells a thread, so a tile is 2048 or 1024 cells
+// (tiles, carries, pushed rows, the barriers and the cell order are the
+// same; only the tile's height and the warps summed change).  ptxas
+// (sm_90a, nvcc -Xptxas -v; build/lbm_tpu_torch/<hash>/nvcc.log): 56
+// registers and no spill in both (the split's variants, kPart 1 and 2: 48
+// and 64 in the 1024 form).
+// - kNT = 1024, __launch_bounds__(1024, 1): one block an SM, 57,344 of its
+//   65,536 registers; up to 232,448 B of shared memory a block.
+// - kNT = 512, __launch_bounds__(512, 2): two blocks an SM, of two
+//   clusters, 2 x 512 x 56 = 57,344 registers, where two blocks' shared
+//   memory fits the SM's 233,472 B with the card's 1 KB a block (at most
+//   115,712 B a block: 128^2 at C = 8 takes 104,960 B).  While one block
+//   waits at its cluster barrier the other works, so the SM's step costs
+//   less than two of one block; and the card holds twice the clusters, so
+//   a launch takes fewer waves (128^2 x 64 at C = 8: 3, not 5).
+// The host's plan (ops/ensemble_cuda.py::cluster_plan) takes the form and
+// C together, by a modelled step fitted to both forms' times pinned: 512
+// threads only where its blocks share SMs (two fit, and the first wave
+// holds more clusters than the card holds one block an SM), so never at
+// 256^2 (one block of C = 16 an SM), nor for a few instances, where a
+// block of 512 alone does a 1024-thread block's work with half the warps.
+// Blocks of 256 threads with 4 cells a thread (128 registers, 8 warps an
+// SM) took 50% more time at 256^2 x 7 than 1024 threads with 2 cells, in
+// the design before the pushed rows (PERF.md, Findings).
 //
 // kPart, the form built: 0 (the package's) the whole chunk.  The split
 // tools/kernel_times.py times is built as variants of this file with
@@ -102,12 +125,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kNT = 1024;            // threads of a block
-constexpr int kCells = 2;            // cells of a thread per tile
-constexpr int kTile = kCells * kNT;  // cells of a tile (at most)
-constexpr int kWarps = kNT / 32;
-constexpr int kMaxChunk = 256;                       // steps of a launch (at most)
-constexpr int kSumFloats = 2 * 32 + kMaxChunk;  // warp sums by parity, a sum a step
+constexpr int kCells = 2;      // cells of a thread per tile
+constexpr int kMaxWarps = 32;  // warps of the larger form's block
+constexpr int kMaxChunk = 256;                         // steps of a launch (at most)
+constexpr int kSumFloats = 2 * kMaxWarps + kMaxChunk;  // warp sums by parity, a sum a step
 constexpr int kMaxSmem = 232448;
 constexpr int kPart = LBM_CLUSTER_PART;
 
@@ -157,10 +178,15 @@ __device__ __forceinline__ void pull(const float* sm, int os, int oj, int on, co
   }
 }
 
-__global__ void __launch_bounds__(kNT, 1)
+// kNT threads a block (1024: one block an SM; 512: two, of two clusters,
+// where their shared memory fits the SM), a tile of kCells x kNT cells.
+template <int kNT>
+__global__ void __launch_bounds__(kNT, 1024 / kNT)
     lbm_cluster_batch_kernel(const float* fin, float* fout, const uint8_t* __restrict__ obst,
                              long long mask_stride, const float* __restrict__ scalars,
                              float* tot_out, lbm::StepParams p, int chunk) {
+  constexpr int kTile = kCells * kNT;  // cells of a tile (at most)
+  constexpr int kWarps = kNT / 32;
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
@@ -182,7 +208,7 @@ __global__ void __launch_bounds__(kNT, 1)
   float* sm = reinterpret_cast<float*>(smem4);
   const int lo_at = hmax * R9, hi_at = lo_at + 2 * R9, carry_at = hi_at + 2 * R9;
   float* wsum = sm + carry_at + 2 * R9;  // [parity][warp]
-  float* psums = wsum + 2 * kWarps;      // the block's |u| sum of each step
+  float* psums = wsum + 2 * kMaxWarps;   // the block's |u| sum of each step
   uint8_t* wall = reinterpret_cast<uint8_t*>(psums + kMaxChunk);  // rows r0 - 1 .. r0 + h
   const size_t plane = static_cast<size_t>(ny) * nx;
   const float* src = fin + static_cast<size_t>(b) * 9 * plane;
@@ -323,61 +349,81 @@ __global__ void __launch_bounds__(kNT, 1)
   cluster.sync();  // no block leaves while rank 0 may read its sums
 }
 
-// The attributes every launch needs, set once per device: up to kMaxSmem
-// bytes of dynamic shared memory, clusters of 16.
+// The attributes every launch needs, set once per device for both forms:
+// up to kMaxSmem bytes of dynamic shared memory, clusters of 16.
+template <int kNT>
+cudaError_t allow() {
+  cudaError_t err = cudaFuncSetAttribute(lbm_cluster_batch_kernel<kNT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(lbm_cluster_batch_kernel<kNT>,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
 cudaError_t prepare(int device) {
   static std::mutex lock;
   static bool done[64] = {};
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> guard(lock);
   if (done[device]) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(lbm_cluster_batch_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  cudaError_t err = allow<1024>();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(lbm_cluster_batch_kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
+  if ((err = allow<512>()) != cudaSuccess) return err;
   done[device] = true;
   return cudaSuccess;
 }
 
 bool valid_cluster(int C) { return C == 1 || C == 2 || C == 4 || C == 8 || C == 16; }
 
+bool valid_threads(int threads) { return threads == 1024 || threads == 512; }
+
 // Bytes of dynamic shared memory a block needs (hmax band rows, nx columns).
 long long smem_needed(int hmax, int nx) {
   return 4LL * ((hmax + 6LL) * 9 * nx + kSumFloats) + (hmax + 2LL) * nx;
+}
+
+// A launch of nb clusters of C blocks of `threads` threads, `smem` bytes of
+// dynamic shared memory each (its attribute storage is the caller's).
+cudaLaunchConfig_t cluster_config(int C, int nb, int threads, int smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(nb * C));
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Clusters of C blocks with `smem` bytes of dynamic shared memory each that
-// can be resident on the device at once (cudaOccupancyMaxActiveClusters).
-// Returns <= 0 on error (-1 for an invalid C or size).
-int lbm_cluster_batch_max_clusters(int C, int smem, int device) {
-  if (!valid_cluster(C) || smem < 0 || smem > kMaxSmem) return -1;
+// Clusters of C blocks of `threads` threads (1024 or 512) with `smem` bytes
+// of dynamic shared memory each that can be resident on the device at once
+// (cudaOccupancyMaxActiveClusters).  Returns <= 0 on error (-1 for an
+// invalid C, size or block).
+int lbm_cluster_batch_max_clusters(int C, int smem, int threads, int device) {
+  if (!valid_cluster(C) || !valid_threads(threads) || smem < 0 || smem > kMaxSmem) return -1;
   if (cudaSetDevice(device) != cudaSuccess) return -1;
   if (prepare(device) != cudaSuccess) return -1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C);
-  cfg.blockDim = dim3(kNT);
-  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(C, 1, threads, smem, nullptr, &attr);
   int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, lbm_cluster_batch_kernel, &cfg) != cudaSuccess)
-    return -1;
-  return n;
+  const cudaError_t err =
+      threads == 1024 ? cudaOccupancyMaxActiveClusters(&n, lbm_cluster_batch_kernel<1024>, &cfg)
+                      : cudaOccupancyMaxActiveClusters(&n, lbm_cluster_batch_kernel<512>, &cfg);
+  return err == cudaSuccess ? n : -1;
 }
 
 // K11: `chunk` steps of nb instances of an ny x nx float32 grid in one
-// launch of nb clusters of C blocks, `smem` bytes of dynamic shared memory a
+// launch of nb clusters of C blocks of `threads` threads (1024 or 512; a
+// row at most 2 x threads cells), `smem` bytes of dynamic shared memory a
 // block (at least the layout's need for ceil(ny / C) rows).  Instance b's
 // state is read at b * 9 * ny * nx of fin and written there in fout (fout
 // may be fin); its mask at b * mask_stride bytes of obst (0: one mask for
@@ -386,30 +432,24 @@ int lbm_cluster_batch_max_clusters(int C, int smem, int device) {
 // code (a refused cluster launch included), or cudaGetLastError().
 int lbm_cluster_batch_chunk(const float* fin, float* fout, const uint8_t* obst,
                             long long mask_stride, const float* scalars, float* tot_out, int ny,
-                            int nx, int accel_row, int chunk, int C, int nb, int smem, void* stream,
-                            int device) {
+                            int nx, int accel_row, int chunk, int C, int nb, int smem,
+                            int threads, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!valid_cluster(C) || chunk < 1 || chunk > kMaxChunk || nb < 1 || ny < C || nx < 1 ||
-      nx > kTile || smem > kMaxSmem || smem < smem_needed((ny + C - 1) / C, nx) ||
-      static_cast<long long>(nb) * C >= (1LL << 31))
+  if (!valid_cluster(C) || !valid_threads(threads) || chunk < 1 || chunk > kMaxChunk ||
+      nb < 1 || ny < C || nx < 1 || nx > kCells * threads || smem > kMaxSmem ||
+      smem < smem_needed((ny + C - 1) / C, nx) || static_cast<long long>(nb) * C >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((err = prepare(device)) != cudaSuccess) return static_cast<int>(err);
   lbm::StepParams p{ny, nx, accel_row, 0.0f, 0.0f, 0.0f};
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(nb * C));
-  cfg.blockDim = dim3(kNT);
-  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, lbm_cluster_batch_kernel, fin, fout, obst, mask_stride, scalars,
-                           tot_out, p, chunk);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(C, nb, threads, smem, static_cast<cudaStream_t>(stream), &attr);
+  err = threads == 1024
+            ? cudaLaunchKernelEx(&cfg, lbm_cluster_batch_kernel<1024>, fin, fout, obst,
+                                 mask_stride, scalars, tot_out, p, chunk)
+            : cudaLaunchKernelEx(&cfg, lbm_cluster_batch_kernel<512>, fin, fout, obst,
+                                 mask_stride, scalars, tot_out, p, chunk);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -60,8 +60,9 @@ _SIGNATURES = {
     "lbm_resident_batch_blocks": [_I],
     "lbm_resident_batch_chunk": [_P, _P, _P, _L, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P,
                                  _I],
-    "lbm_cluster_batch_max_clusters": [_I, _I, _I],
-    "lbm_cluster_batch_chunk": [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I],
+    "lbm_cluster_batch_max_clusters": [_I, _I, _I, _I],
+    "lbm_cluster_batch_chunk": [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                                _I],
     "lbm_smem_copy_grid": [_I, _I],
     "lbm_smem_copy": [_P, _I, _I, _I, _P, _I],
     "lbm_ghosted_grid": [_I, _I, _I],

@@ -25,7 +25,9 @@ instances in one launch:
   blocks' shared memory for the whole chunk (one copy, updated in place,
   band edges through distributed shared memory).  It maps where one
   instance fits one cluster (:func:`cluster_plan`), in waves where the B
-  clusters cannot all be resident.  Bound: 92 operations a fluid
+  clusters cannot all be resident, in blocks of 1024 threads (one an SM)
+  or of 512 (two an SM, where two blocks' shared memory fits it), the
+  block shape and C picked together.  Bound: 92 operations a fluid
   cell-step; its tier is shared memory.
 
 Each block reads its instance's omega, w1 and w2 from a device array into
@@ -41,8 +43,8 @@ Beside the kernels:
   card's yardstick;
 - ``LAUNCHES_BATCH`` (K1-batch step launches),
   ``LAUNCHES_BATCH_RESIDENT`` (K2-batch chunk launches) and
-  ``LAUNCHES_BATCH_CLUSTER`` (K11 chunk launches), raised only where a
-  kernel launches.
+  ``LAUNCHES_BATCH_CLUSTER`` (K11 chunk launches; by (threads, C) in
+  ``LAUNCHES_CLUSTER_FORMS``), raised only where a kernel launches.
 
 A runner takes the plain version only for a mask on the CPU.  For a CUDA
 mask it launches a kernel or raises; it never falls back.
@@ -50,6 +52,7 @@ mask it launches a kernel or raises; it never falls back.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
@@ -61,6 +64,7 @@ from lbm_tpu_torch.params import LBMParams
 LAUNCHES_BATCH = 0
 LAUNCHES_BATCH_RESIDENT = 0
 LAUNCHES_BATCH_CLUSTER = 0
+LAUNCHES_CLUSTER_FORMS: Counter = Counter()  # K11 chunk launches by (threads, C)
 
 KERNELS = ("K1-batch", "K2-batch", "K11")
 MAX_INSTANCES = 65535  # K1-batch: the launch grid's z extent
@@ -68,24 +72,34 @@ PARTIALS_WORDS = 2**24  # cap on K1-batch's partials buffer (64 MiB)
 MIN_GROUP = 3  # K2-batch's fewest blocks an instance in the policy
 CLUSTER_SIZES = (1, 2, 4, 8, 16)  # K11's blocks an instance (16: non-portable)
 SMEM_MAX = 232448  # dynamic shared memory a block may take on Hopper, bytes
-TILE_CELLS = 2048  # K11's tile: 2 cells a thread of 1024 (csrc/cluster.cu kTile)
+CLUSTER_THREADS = (1024, 512)  # K11's block shapes: one block an SM, or two
+CELLS_A_THREAD = 2  # K11's tile: 2 cells a thread (csrc/cluster.cu kCells)
 SUM_FLOATS = 320  # K11's warp sums by parity and a sum a step, a block
 # The step models kernel_choice weighs (us a step of the whole launch),
-# fitted to the 35 shapes of 64^2 to 256^2 x 1 to 500 that K11 and
-# K2-batch were timed at in turns (tools/kernel_times.py --ensemble;
-# NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 5).  K11 (least
-# squares): waves x (a fixed part, the barriers, carries and sums, + a part
-# per cell of a block's band, one block an SM).  K2-batch: the larger of a
-# latency regime (a fixed part + a part per instance-cell, while its
-# groups leave the card idle) and a throughput regime (the instance-cells
-# at its tier's rate: 18.5 ps is 72 B at 3.9 TB/s, L2, with the B two-copy
-# states within ``L2_STATE_BUDGET``; 25.5 ps is 2.8 TB/s, HBM, beyond it).
-K11_STEP_US = 0.91
-K11_CELL_US = 1.27e-3
-K2B_STEP_US = 1.9
+# fitted to the 40 shapes of 64^2 to 256^2 x 1 to 600 at which K11, in
+# every block shape and cluster size pinned, and K2-batch were timed in
+# turns (tools/kernel_times.py --cluster-forms; NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md section 5).  K11 (least squares, each block shape on
+# the forms the plan may take): its waves x a fixed part, the barriers,
+# carries and sums, + a part per cell of an SM's bands (cluster_form).
+# The two shapes cost about the same per cell of an SM; 512 threads pay
+# less for a step's barriers, because the other block of the SM works
+# through them.  K2-batch: the larger of a latency regime (a fixed part +
+# a part per instance-cell, while its groups leave the card idle) and a
+# throughput regime (the instance-cells at its tier's rate: 18.5 ps is
+# 72 B at 3.9 TB/s, L2, with the B two-copy states within
+# ``L2_STATE_BUDGET``; 25 ps is 2.9 TB/s, HBM, beyond it); its constants
+# are the grid point of least squared log error among those that put
+# every timed shape on the side it was measured on.  Five shapes held out
+# of the fit and timed after it (64^2 x 200 and x 300, 128^2 x 48 and x
+# 100, 256^2 x 24): the plan's form was within 2% of the fastest form at
+# each (1.7% at 128^2 x 48), and K11 beat K2-batch at all five.
+K11_STEP_US = {1024: 1.29, 512: 1.09}
+K11_CELL_US = {1024: 1.10e-3, 512: 1.13e-3}
+K2B_STEP_US = 2.1
 K2B_CELL_US = 13e-6
 K2B_L2_CELL_US = 18.5e-6
-K2B_HBM_CELL_US = 25.5e-6
+K2B_HBM_CELL_US = 25.0e-6
 
 
 def scalars(params: LBMParams, omegas, accels=None) -> tuple[np.ndarray, np.ndarray,
@@ -149,6 +163,11 @@ class ClusterPlan(NamedTuple):
     resident: int  # clusters the card holds at once
     waves: int  # sets of resident clusters the card runs one after another
     us: float  # the launch's modelled step, us (K11_STEP_US, K11_CELL_US)
+    threads: int  # threads a block: 1024 (one block an SM) or 512 (two)
+
+    def label(self) -> str:
+        return (f"C={self.C}, {self.threads} threads, {self.waves} "
+                f"wave{'s' if self.waves > 1 else ''}")
 
 
 def cluster_bands(ny: int, C: int) -> list[tuple[int, int]]:
@@ -171,30 +190,66 @@ def cluster_plan(ny: int, nx: int, B: int, max_clusters=None) -> ClusterPlan | N
     fits no cluster (a band of ceil(ny / C) rows, its pushed rows, carries
     and mask rows above ``SMEM_MAX`` at every C; a row wider than a tile).
 
-    ``max_clusters(C, smem)`` gives the clusters of C blocks of ``smem``
-    bytes the card holds at once (``lbm_cluster_batch_max_clusters``; None:
-    all B at once; 0: none of that size).  Of the sizes that fit, the plan
-    takes the one with the least modelled step: waves x (``K11_STEP_US`` +
-    ``K11_CELL_US`` x the band's cells).  On 64^2 x 149 and x 500 and
-    128^2 x 37 and x 16 it ranked the sizes as the card's times with the
-    size pinned did (PERF.md section 5); the smaller C wins a tie."""
-    best, best_cost = None, None
-    for C in CLUSTER_SIZES:
-        if C > ny or nx > TILE_CELLS:
-            continue
-        hmax = -(-ny // C)
-        smem = cluster_smem(hmax, nx)
-        if smem > SMEM_MAX:
-            continue
-        resident = B if max_clusters is None else max_clusters(C, smem)
-        if resident < 1:
-            continue
-        waves = -(-B // resident)
-        cost = waves * (K11_STEP_US + K11_CELL_US * hmax * nx)
-        if best_cost is None or cost < best_cost:
-            best_cost = cost
-            best = ClusterPlan(C, cluster_bands(ny, C), smem, resident, waves, cost)
+    ``max_clusters(C, smem, threads)`` gives the clusters of C blocks of
+    ``threads`` threads and ``smem`` bytes the card holds at once
+    (``lbm_cluster_batch_max_clusters``; None: all B at once; 0: none of
+    that size).  Of the block shapes (``CLUSTER_THREADS``) and sizes that
+    fit, the plan takes the pair with the least modelled step
+    (:func:`cluster_form`).  512 threads are taken only where two blocks
+    share an SM: the first wave holds more clusters than the card holds of
+    1024 threads, one block an SM (where two blocks' shared memory does not
+    fit an SM, the card holds no more); alone on an SM a block of 512 does
+    the work of one of 1024 with half the warps.  The smaller C, then the
+    larger block, wins a tie."""
+    best = None
+    for threads in CLUSTER_THREADS:
+        for C in CLUSTER_SIZES:
+            plan = cluster_form(ny, nx, B, C, threads, max_clusters)
+            if plan is None or threads == 512 and min(B, plan.resident) <= alone(
+                    C, plan.smem, B, max_clusters):
+                continue
+            if best is None or plan.us < best.us or (plan.us == best.us and C < best.C):
+                best = plan
     return best
+
+
+def alone(C: int, smem: int, B: int, max_clusters=None) -> int:
+    """The clusters of C blocks of ``smem`` bytes the card holds one block
+    an SM: those of 1024 threads (all B without the card's query)."""
+    return B if max_clusters is None else max_clusters(C, smem, 1024)
+
+
+def cluster_form(ny: int, nx: int, B: int, C: int, threads: int, max_clusters=None
+                 ) -> ClusterPlan | None:
+    """K11's plan for B instances of ny x nx pinned to clusters of C blocks
+    of ``threads`` threads (:func:`cluster_plan`'s candidate, whether its
+    blocks share SMs or not), or None where the band does not fit a block
+    or the card holds no such cluster.
+
+    Its modelled step (``us``): the waves of ``resident`` clusters, each
+    ``K11_STEP_US`` (the barriers, carries and sums) + ``K11_CELL_US`` x
+    the cells of its fullest SM, each shape with its own constants.  A
+    block of 1024 threads has an SM to itself, so an SM's cells are its
+    band; a wave of 512-thread blocks puts two bands on an SM where it
+    holds more clusters than the card holds one block an SM
+    (:func:`alone`), one band where it holds no more (the last wave of a
+    launch, or the only one)."""
+    if C > ny or nx > CELLS_A_THREAD * threads:
+        return None
+    hmax = -(-ny // C)
+    smem = cluster_smem(hmax, nx)
+    if smem > SMEM_MAX:
+        return None
+    resident = B if max_clusters is None else max_clusters(C, smem, threads)
+    if resident < 1:
+        return None
+    waves = -(-B // resident)
+    bands = 0  # bands on the fullest SM, summed over the waves
+    for w in range(waves):
+        held = min(resident, B - w * resident)
+        bands += 2 if threads == 512 and held > alone(C, smem, B, max_clusters) else 1
+    cost = waves * K11_STEP_US[threads] + K11_CELL_US[threads] * bands * hmax * nx
+    return ClusterPlan(C, cluster_bands(ny, C), smem, resident, waves, cost, threads)
 
 
 def k2_batch_us(ny: int, nx: int, B: int) -> float:
@@ -217,17 +272,19 @@ def kernel_choice(ny: int, nx: int, B: int, resident: int, max_clusters=None) ->
     with ``resident`` blocks resident at once) and 9 planes stay within
     32-bit offsets; else K1-batch.
 
-    K11 against K2-batch, in turns (``tools/kernel_times.py --ensemble``;
-    NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 5): of 35 shapes from
-    64^2 to 256^2 and 1 to 500 instances, K11 took less time at 25 and
-    more at 10: 256^2 x 1, 2, 4, 8 and 9 (one wave holding 4 of the 7
-    clusters of 16 the card holds, two waves of 14 places for 8 or 9),
-    128^2 x 1, 16 and 33 (16 of 30 clusters of 4; 3 waves of 15 clusters
-    of 8) and 64^2 x 70.  The two models put every one of the 35 on the
-    side it was measured on; the closest calls were 256^2 x 5 (K11 1.5%
-    faster), 64^2 x 80 (4%) and 64^2 x 70 (K2-batch 5%).  Where K1-batch
-    runs instead of K2-batch (G under 3: B from 177), K11 is held to the
-    same model, which K1-batch's times lie within 5% of there (64^2 x 500).
+    K11 against K2-batch, in turns (``tools/kernel_times.py
+    --cluster-forms``; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section
+    5): of 39 shapes from 64^2 to 256^2 and 1 to 500 instances, K11 in the
+    form its plan takes took less time at 32 and more at 7: 256^2 x 1, 2,
+    4, 8 and 9 (one wave holding 1-4 of the 7 clusters of 16 the card
+    holds; two waves of 14 places for 8 or 9 instances), 128^2 x 1 (one
+    cluster of 16) and x 16 (two waves of clusters of 16, 512 threads).
+    The two models put every one of the 39 on the side it was measured
+    on; the closest calls were 128^2 x 1 and x 16 (K2-batch 1.7% and 2.1%
+    faster), 256^2 x 5 and 128^2 x 33 (K11 4.6% and 4.9%).  Where
+    K1-batch runs instead of K2-batch (G under 3: B from 177), K11 is held
+    to the same model, which K1-batch's times lay within 5% of there
+    (64^2 x 500, in the earlier turns).
 
     K2-batch against K1-batch (the earlier turns): K2-batch took 27-38% less
     time than K1-batch where the B two-copy states fit the L2 budget
@@ -247,20 +304,29 @@ def kernel_choice(ny: int, nx: int, B: int, resident: int, max_clusters=None) ->
     return "K1-batch"
 
 
+_CARD_CLUSTERS: dict = {}  # card_clusters' queries by (library, device)
+
+
 def card_clusters(lib, device: int):
-    """``max_clusters(C, smem)`` of the card (``lbm_cluster_batch_max_clusters``),
-    asked once per size; raises on a failed query."""
+    """``max_clusters(C, smem, threads)`` of the card
+    (``lbm_cluster_batch_max_clusters``), asked once a process per size,
+    shared size and shape for each library and device; raises on a failed
+    query."""
+    if (lib, device) in _CARD_CLUSTERS:
+        return _CARD_CLUSTERS[lib, device]
     known = {}
 
-    def max_clusters(C: int, smem: int) -> int:
-        if (C, smem) not in known:
-            n = lib.lbm_cluster_batch_max_clusters(C, smem, device)
+    def max_clusters(C: int, smem: int, threads: int) -> int:
+        if (C, smem, threads) not in known:
+            n = lib.lbm_cluster_batch_max_clusters(C, smem, threads, device)
             if n < 0:
                 raise RuntimeError(f"K11: the card refused the occupancy query of clusters "
-                                   f"of {C} blocks with {smem} bytes of shared memory")
-            known[C, smem] = n
-        return known[C, smem]
+                                   f"of {C} blocks of {threads} threads with {smem} bytes of "
+                                   "shared memory")
+            known[C, smem, threads] = n
+        return known[C, smem, threads]
 
+    _CARD_CLUSTERS[lib, device] = max_clusters
     return max_clusters
 
 
@@ -285,7 +351,9 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, omegas, accels=None
     it cannot map), buffers allocated here, once; the returned state is one
     of the runner's buffers and stays valid until its next call.  ``f0_b``
     is not modified.  ``run_all.kernel`` names what runs (``plain`` on the
-    CPU).  ``lib`` is the kernel library (``_build.load()`` by default)."""
+    CPU), ``run_all.plan`` K11's :class:`ClusterPlan` (None for the other
+    kernels).  ``lib`` is the kernel library (``_build.load()`` by
+    default)."""
     om, w1, w2 = scalars(params, omegas, accels)
     B = om.size
     if kernel is not None and kernel not in KERNELS:
@@ -309,6 +377,7 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, omegas, accels=None
                                                   num_steps)
 
         run_all_plain.kernel = "plain"
+        run_all_plain.plan = None
         return run_all_plain
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}; use cuda or cpu")
@@ -328,8 +397,8 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, omegas, accels=None
                            f"{torch.cuda.get_device_name(dev)}")
     clusters = card_clusters(lib, dev.index)
     chosen = kernel or kernel_choice(ny, nx, B, resident, clusters)
+    plan = cluster_plan(ny, nx, B, clusters) if chosen == "K11" else None
     if chosen == "K11":
-        plan = cluster_plan(ny, nx, B, clusters)
         if plan is None:
             raise ValueError(f"K11 cannot map {ny}x{nx}: one instance fits no cluster of at "
                              f"most {CLUSTER_SIZES[-1]} blocks")
@@ -379,9 +448,11 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, omegas, accels=None
                 rc = lib.lbm_cluster_batch_chunk(
                     src.data_ptr(), (dst if n % 2 else src).data_ptr(), obstacles.data_ptr(),
                     mask_stride, sc.data_ptr(), tot.data_ptr() + 4 * done * B, ny, nx,
-                    params.accel_row, n, plan.C, B, plan.smem, stream, dev.index)
+                    params.accel_row, n, plan.C, B, plan.smem, plan.threads, stream,
+                    dev.index)
                 _build.check(rc, "K11 cluster kernel")
                 LAUNCHES_BATCH_CLUSTER += 1
+                LAUNCHES_CLUSTER_FORMS[plan.threads, plan.C] += 1
                 if n % 2:
                     src, dst = dst, src
                 done += n
@@ -398,4 +469,5 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, omegas, accels=None
         return src, tot
 
     run_all.kernel = chosen
+    run_all.plan = plan
     return run_all

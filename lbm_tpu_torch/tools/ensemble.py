@@ -44,6 +44,7 @@ class EnsembleResult:
     f: np.ndarray  # (B, 9, ny, nx) final distributions
     reynolds: np.ndarray  # (B,)
     kernel: str = "plain"  # what ran: K11, K2-batch, K1-batch, or plain on the CPU
+    plan: str = ""  # K11's plan ("C=8, 512 threads, 3 waves"); empty for the others
     # init (validation, the masks' upload, the rest state, the plan), compute
     # (the run, ended by a synchronize on a card), collate (the copies to the
     # host, av_vels, the Reynolds numbers)
@@ -140,6 +141,7 @@ def run_ensemble(
         f=f,
         reynolds=reyn,
         kernel=run_all.kernel,
+        plan=run_all.plan.label() if run_all.plan else "",
         timer=timer,
     )
 

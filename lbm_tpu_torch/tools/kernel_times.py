@@ -73,9 +73,15 @@ single-device kernel (``program.cuda_choice``, one runner per instance's
 parameters, run one after the other), in us per instance-step and MLUPS:
 the table behind ``ensemble_cuda.kernel_choice``.
 
-``--cluster-split GRID:B[:C]`` times K11's split in turns, us a 256-step
-launch: whole, the band's loads and stores alone, and those with every
-step's barriers, carries and sums but no cell (C pins the cluster size).
+``--cluster-forms GRID:B[,GRID:B...]`` times K11 pinned to every block
+shape (1024 or 512 threads) and cluster size that maps, in turns with
+K2-batch, us per instance-step, beside each form's resident clusters,
+waves and modelled step and the plan's pick: the table behind
+``ensemble_cuda.cluster_plan``'s constants.
+``--cluster-split GRID:B[:C[:THREADS]]`` times K11's split in turns, us a
+256-step launch: whole, the band's loads and stores alone, and those with
+every step's barriers, carries and sums but no cell (C pins the cluster
+size, THREADS the block shape).
 ``--clusters`` prints the card's resident clusters of each size at the
 ``--ensemble`` grids' shared memory, and the shared-memory copy's rate
 (csrc/smem_copy.cu): K11's tier.
@@ -105,7 +111,7 @@ process, and the card's name and power limit::
         [--blocked 256,512,768,1024] [--blocked-rows 8] [--policy] \
         [--placements 5] [--l2] \
         [--ensemble 128:16,128:37,256:8,1024:4] [--cluster-split 256:8,128:16:4] \
-        [--clusters] \
+        [--cluster-forms 128:64] [--clusters] \
         [--variant parent=build/parent/step.cu] \
         [--k4-regions 48x64] [--repeats 7]
 
@@ -1110,14 +1116,15 @@ def cluster_part_lib(part: int):
     return _build.load_variant({"cluster.cu": d / "cluster.cu"})
 
 
-def time_cluster_split(n: int, B: int, device, repeats: int = 7, sizes=None
+def time_cluster_split(n: int, B: int, device, repeats: int = 7, sizes=None, threads=None
                        ) -> tuple[dict[str, tuple[float, float, float]], "ClusterPlan"]:
     """us per launch (median, q1, q3) of K11's split on B instances of the
     n x n closed box, one 256-step chunk a launch, in turns: ``whole``;
     ``floor``, the band and mask loads and the store alone (no step);
     ``barrier``, the floor with every step's barriers, carries and sums
     but no cell (the forms of :func:`cluster_part_lib`).  ``sizes`` pins
-    the cluster sizes the plan may take.  Returns (times, the plan)."""
+    the cluster sizes the plan may take, ``threads`` its block shape (the
+    plan's own choice where None).  Returns (times, the plan)."""
     import numpy as np
     import torch
 
@@ -1129,8 +1136,13 @@ def time_cluster_split(n: int, B: int, device, repeats: int = 7, sizes=None
     scene = make_scene(f"{n}x{n}")
     p = scene.params
     clusters = ensemble_cuda.card_clusters(libs["whole"], device.index)
-    plan = ensemble_cuda.cluster_plan(
-        n, n, B, lambda C, smem: clusters(C, smem) if sizes is None or C in sizes else 0)
+    if threads is None:
+        plan = ensemble_cuda.cluster_plan(
+            n, n, B, lambda C, smem, t: clusters(C, smem, t) if sizes is None or C in sizes else 0)
+    else:
+        forms = (ensemble_cuda.cluster_form(n, n, B, C, threads, clusters)
+                 for C in sizes or ensemble_cuda.CLUSTER_SIZES)
+        plan = min((form for form in forms if form), key=lambda form: form.us, default=None)
     if plan is None:
         raise ValueError(f"K11 cannot map {B} x {n}x{n} at cluster sizes {sizes}")
     obst = torch.from_numpy(scene.obstacles).to(device)
@@ -1146,12 +1158,80 @@ def time_cluster_split(n: int, B: int, device, repeats: int = 7, sizes=None
         def run(_=None):
             _build.check(lib.lbm_cluster_batch_chunk(
                 fa.data_ptr(), fa.data_ptr(), obst.data_ptr(), 0, sc.data_ptr(),
-                tot.data_ptr(), n, n, p.accel_row, chunk, plan.C, B, plan.smem, stream,
-                device.index), "K11 split")
+                tot.data_ptr(), n, n, p.accel_row, chunk, plan.C, B, plan.smem, plan.threads,
+                stream, device.index), "K11 split")
         return run
 
     runs = {name: (launcher(lib), None, 1) for name, lib in libs.items()}
     return time_in_turns(runs, repeats), plan
+
+
+def time_cluster_forms(n: int, B: int, device, repeats: int = 5, steps: int = 1024
+                       ) -> tuple[dict[str, tuple[float, float, float]], dict]:
+    """us per instance-step (median, q1, q3) on B instances of the n x n
+    closed box (omegas 1.3 to 1.9, from rest, ``steps`` a run in 256-step
+    chunks), in turns: K11 pinned to every block shape and cluster size
+    whose band fits a block and that the card holds (``K11 512x8``: blocks
+    of 512 threads, C = 8; ``ensemble_cuda.cluster_form``), whichever the
+    plan would take, and K2-batch where its groups can be resident.
+    Returns (times, {name: the pinned plan})."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.core import lattice
+    from lbm_tpu_torch.ops import _build, ensemble_cuda, resident_cuda
+    from lbm_tpu_torch.tools.bench import make_scene
+
+    scene = make_scene(f"{n}x{n}")
+    p = scene.params
+    lib = _build.load()
+    clusters = ensemble_cuda.card_clusters(lib, device.index)
+    obst = torch.from_numpy(scene.obstacles).to(device)
+    omegas = np.linspace(1.3, 1.9, B, dtype=np.float32)
+    om, w1, w2 = ensemble_cuda.scalars(p, omegas)
+    sc = torch.from_numpy(np.stack([om, w1, w2], axis=1).copy()).to(device)
+    f0 = lattice.equilibrium_rest_device(p.density, n, n, device)
+    fa = f0.unsqueeze(0).expand(B, -1, -1, -1).contiguous()
+    tot = torch.empty((steps, B), dtype=torch.float32, device=device)
+    chunk = resident_cuda.DEFAULT_CHUNK
+    stream = torch.cuda.current_stream(device).cuda_stream
+    plans, runs = {}, {}
+
+    def pinned(plan):
+        def run(_=None):
+            for done in range(0, steps, chunk):
+                _build.check(lib.lbm_cluster_batch_chunk(
+                    fa.data_ptr(), fa.data_ptr(), obst.data_ptr(), 0, sc.data_ptr(),
+                    tot.data_ptr() + 4 * done * B, n, n, p.accel_row, min(chunk, steps - done),
+                    plan.C, B, plan.smem, plan.threads, stream, device.index), "K11 pinned")
+        return run
+
+    for threads in ensemble_cuda.CLUSTER_THREADS:
+        for C in ensemble_cuda.CLUSTER_SIZES:
+            plan = ensemble_cuda.cluster_form(n, n, B, C, threads, clusters)
+            if plan is not None:
+                name = f"K11 {threads}x{C}"
+                plans[name] = plan
+                runs[name] = (pinned(plan), None, steps * B)
+    if ensemble_cuda.group_blocks(n, n, B, lib.lbm_resident_batch_blocks(device.index)) >= 1:
+        runs["K2-batch"] = (ensemble_cuda.make_run_all(p, obst, omegas, None, steps, "K2-batch"),
+                            fa.clone(), steps * B)
+    return time_in_turns(runs, repeats), plans
+
+
+def format_forms(n: int, B: int, times: dict[str, tuple[float, float, float]], plans: dict,
+                 pick) -> str:
+    """One line of :func:`time_cluster_forms`: each pinned form's resident
+    clusters, waves and modelled step beside its time; ``pick`` the plan's
+    (``cluster_plan`` on the card's counts)."""
+    parts = []
+    for name, (med, q1, q3) in times.items():
+        plan = plans.get(name)
+        about = (f" ({plan.resident} resident, {plan.waves} waves, model {plan.us:.3f} us)"
+                 if plan else "")
+        parts.append(f"{name}{about} {med:.4f} [{q1:.4f}, {q3:.4f}]")
+    chosen = f"K11 {pick.threads}x{pick.C}" if pick else "none"
+    return (f"K11 forms {n}^2 x {B}, us/instance-step, plan {chosen}: " + " | ".join(parts))
 
 
 def smem_copy_gbps(device, nbytes: int = 192 * 1024, passes: int = 256, repeats: int = 7
@@ -1183,8 +1263,8 @@ def smem_copy_gbps(device, nbytes: int = 192 * 1024, passes: int = 256, repeats:
 
 
 def format_split(n: int, B: int, times: dict[str, tuple[float, float, float]], plan) -> str:
-    return (f"K11 split {B} x {n}^2 (C = {plan.C}, {plan.smem} B a block, {plan.waves} "
-            "wave(s)), us a 256-step launch: " + " | ".join(
+    return (f"K11 split {B} x {n}^2 ({plan.label()}, {plan.smem} B a block), us a 256-step "
+            "launch: " + " | ".join(
                 f"{name} {med:.2f} [{q1:.2f}, {q3:.2f}]" for name, (med, q1, q3) in times.items()))
 
 
@@ -1197,7 +1277,8 @@ def format_ensemble(n: int, B: int, times: dict[str, tuple[float, float, float]]
 def format_clusters(device, shapes) -> str:
     """The card's resident clusters (``lbm_cluster_batch_max_clusters``) of
     each size at the shared memory K11 takes for each n x n shape of
-    ``shapes`` ((n, B) pairs), and the shared-memory copy's rate."""
+    ``shapes`` ((n, B) pairs), blocks of 1024 / 512 threads, and the
+    shared-memory copy's rate."""
     from lbm_tpu_torch.ops import _build, ensemble_cuda
 
     lib = _build.load()
@@ -1208,12 +1289,14 @@ def format_clusters(device, shapes) -> str:
             if C > n:
                 continue
             smem = ensemble_cuda.cluster_smem(-(-n // C), n)
-            got = (lib.lbm_cluster_batch_max_clusters(C, smem, device.index)
-                   if smem <= ensemble_cuda.SMEM_MAX else "-")
+            got = " / ".join(
+                str(lib.lbm_cluster_batch_max_clusters(C, smem, threads, device.index))
+                for threads in ensemble_cuda.CLUSTER_THREADS
+            ) if smem <= ensemble_cuda.SMEM_MAX else "-"
             sizes.append(f"C={C} {smem} B: {got}")
         parts.append(f"{n}^2: " + ", ".join(sizes))
     med, q1, q3 = smem_copy_gbps(device)
-    return ("K11 resident clusters: " + " ; ".join(parts)
+    return ("K11 resident clusters (1024 / 512 threads): " + " ; ".join(parts)
             + f" | shared-memory copy {med:.1f} GB/s [{q1:.1f}, {q3:.1f}]")
 
 
@@ -1271,8 +1354,12 @@ def main(argv: list[str] | None = None) -> int:
                         help="GRID:B pairs to time the ensemble's kernels on, e.g. "
                         "128:16,256:8 (n x n grids, B instances)")
     parser.add_argument("--cluster-split", default="",
-                        help="GRID:B[:C] triples to time K11's split on (whole, loads and "
-                        "stores, barriers), e.g. 256:8,128:16:4 (C pins the cluster size)")
+                        help="GRID:B[:C[:THREADS]] to time K11's split on (whole, loads and "
+                        "stores, barriers), e.g. 256:8,128:64:8:512 (C pins the cluster size, "
+                        "THREADS the block shape)")
+    parser.add_argument("--cluster-forms", default="",
+                        help="GRID:B pairs to time K11 on in every block shape and cluster "
+                        "size, pinned, in turns with K2-batch, e.g. 128:64")
     parser.add_argument("--clusters", action="store_true",
                         help="print the card's resident clusters of each size at the "
                         "--ensemble shapes' shared memory, and the shared-memory copy rate")
@@ -1341,8 +1428,17 @@ def main(argv: list[str] | None = None) -> int:
               + f" | {card}")
     for triple in (e for e in args.cluster_split.split(",") if e):
         n, B, *C = (int(v) for v in triple.split(":"))
-        times, plan = time_cluster_split(n, B, device, args.repeats, tuple(C) or None)
+        times, plan = time_cluster_split(n, B, device, args.repeats, tuple(C[:1]) or None,
+                                         C[1] if len(C) > 1 else None)
         print("in turns " + format_split(n, B, times, plan) + f" | {card}")
+    for pair in (e for e in args.cluster_forms.split(",") if e):
+        from lbm_tpu_torch.ops import _build, ensemble_cuda
+
+        n, B = (int(v) for v in pair.split(":"))
+        times, plans = time_cluster_forms(n, B, device, args.repeats)
+        pick = ensemble_cuda.cluster_plan(
+            n, n, B, ensemble_cuda.card_clusters(_build.load(), device.index))
+        print("in turns " + format_forms(n, B, times, plans, pick) + f" | {card}", flush=True)
     if args.clusters:
         print(format_clusters(device, [tuple(int(v) for v in e.split(":"))
                                        for e in args.ensemble.split(",") if e])

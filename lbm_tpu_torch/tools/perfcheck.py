@@ -70,8 +70,9 @@ CHECKS = [
     # time than K2-batch, as its step model says.
     Check("128x128", "f32", 4000, 49862.0, "K2-batch", "ensemble of 16 on K2-batch",
           instances=16),
-    # K11 takes 600 x 64^2 (one block an instance, 5 waves of 132);
-    # K1-batch ran it before K11 existed (36799 MLUPS).
+    # K11 takes 600 x 64^2 (one block an instance in 5 waves of 132 until
+    # its blocks of 512 threads: 2 an instance, 5 waves of 132, two blocks
+    # an SM); K1-batch ran it before K11 existed (36799 MLUPS).
     # 81634.5 and 81373.5 MLUPS (ensemble_mlups x 1000).
     Check("64x64", "f32", 1000, 81373.5, "K11", "ensemble of 600 on K11", instances=600),
     # K1-batch runs where K2-batch's groups would get two blocks an instance

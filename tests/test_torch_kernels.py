@@ -104,7 +104,8 @@ def test_ensemble_kernels_match_plain_on_card(cuda_device, shape, B, geometry, k
     plain batched step, fields bitwise; every instance against a single K1
     or K2 run of its omega, accel (1.0: the guard split on the driven row)
     and mask; a second run bitwise.  200 x 7x33 puts K11 at C = 1 (one
-    block an instance, in two waves on the H100)."""
+    block an instance; on the H100 in one wave of 512-thread blocks, two an
+    SM).  K11's launches are also counted by its plan's block shape and C."""
     params, mask = _scene(*shape)
     masks = np.stack([mask] * B)
     if geometry:
@@ -117,13 +118,17 @@ def test_ensemble_kernels_match_plain_on_card(cuda_device, shape, B, geometry, k
     steps = 20 if kernel == "K1-batch" else 300
     counts = (ensemble_cuda.LAUNCHES_BATCH, ensemble_cuda.LAUNCHES_BATCH_RESIDENT,
               ensemble_cuda.LAUNCHES_BATCH_CLUSTER)
+    forms = dict(ensemble_cuda.LAUNCHES_CLUSTER_FORMS)
     run = ensemble_cuda.make_run_all(params, obst, omegas, accels, steps, kernel=kernel)
-    assert run.kernel == kernel
+    assert run.kernel == kernel and (run.plan is not None) == (kernel == "K11")
     f_k, tot_k = (t.clone() for t in run(f0))
     assert (ensemble_cuda.LAUNCHES_BATCH - counts[0],
             ensemble_cuda.LAUNCHES_BATCH_RESIDENT - counts[1],
             ensemble_cuda.LAUNCHES_BATCH_CLUSTER - counts[2]) == {
         "K1-batch": (steps, 0, 0), "K2-batch": (0, 2, 0), "K11": (0, 0, 2)}[kernel]
+    if run.plan is not None:
+        form = (run.plan.threads, run.plan.C)
+        assert ensemble_cuda.LAUNCHES_CLUSTER_FORMS[form] - forms.get(form, 0) == 2
     f_p, tot_p = ensemble_cuda.run_plain(f0, obst, params, omegas, accels, steps)
     _assert_matches(f_k, tot_k, f_p, tot_p)
     f_2, tot_2 = run(f0)

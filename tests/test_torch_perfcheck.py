@@ -12,15 +12,13 @@ from lbm_tpu_torch.models.plan import describe_plan
 from lbm_tpu_torch.ops import ensemble_cuda
 from lbm_tpu_torch.tools import perfcheck
 from lbm_tpu_torch.tools.bench import make_scene
+from test_torch_cluster import h100_clusters  # the H100's answers to K11's query
 
 # What the default policy launches: the single-device programs of
 # program.cuda_choice, the sharded ones of lbm_tpu's rule on 4 shards
 # (ca where it maps), and the ensemble's three kernels.
 DEFAULT_PROGRAMS = {"cuda-resident", "cuda-inplace", "cuda-skew", "cuda-inplace-i16",
                     "cuda-step-i16", "ca-8", "ca-8-i16", "ca-4", "K1-batch", "K2-batch", "K11"}
-# The H100's resident K11 clusters of C blocks (cudaOccupancyMaxActiveClusters,
-# the same at every shared size measured; PERF.md section 5).
-H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
 
 
 def _plan_program(check):
@@ -41,7 +39,7 @@ def test_each_row_is_half_its_cited_rate_and_names_its_program(check):
     else:
         n = int(check.grid.split("x")[0])
         assert ensemble_cuda.kernel_choice(n, n, check.instances, 528,  # H100
-                                           lambda C, smem: H100_CLUSTERS[C]) == check.program
+                                           h100_clusters) == check.program
 
 
 def test_every_default_path_has_a_row():
