@@ -214,6 +214,9 @@ def _run(args: argparse.Namespace, device_arg: str, rank: int = 0, world: int = 
 
     print("==done==")
     print(f"Variant:\t\t\t{result.variant}")
+    if result.sweep_k > 1:  # the temporal sweeps' counters
+        print(f"Sweeps: K={result.sweep_k}, {result.sweeps} sweeps, {result.tail_steps} tail "
+              "steps", file=sys.stderr)
     print("Reynolds number:\t\t%.12E" % result.reynolds)
     print(result.timer.report())
     print("Compute rate:\t\t\t%.1f MLUPS" % result.mlups)

@@ -4,7 +4,8 @@ The counterpart of ``lbm_tpu/models/driver.py`` for single-device and
 row-sharded runs with f32 or i16 storage: the init / compute / collate
 phases of the reference's ``main()`` (SerialCode/d2q9-bgk.c:132-205), long
 runs cut into 4000-step segments (``_segment_lengths``; on the temporal
-path a segment is whole K-step sweeps, the run's last one with a K1 tail;
+path a segment is whole K-step sweeps, the run's last one with a K1 tail,
+counted in ``RunResult.sweep_k``, ``sweeps`` and ``tail_steps``;
 on the chunked path whole chunks), the first launch of each kernel and the
 kernel build billed to init, av = tot_u / fluid cells in float32, and the
 output state taken through the program's ``f_of`` (dequantized for i16,
@@ -158,6 +159,11 @@ class RunResult:
     steps_computed: int | None = None
     # profile_dir runs: what the trace holds (:func:`_profile_summary`).
     profile: dict | None = None
+    # The temporal sweeps: steps a sweep (1 off the sweep path), the sweeps
+    # this run's compute phase launched and the steps it ran on K1 after them.
+    sweep_k: int = 1
+    sweeps: int = 0
+    tail_steps: int = 0
 
     @property
     def mlups(self) -> float:
@@ -804,5 +810,9 @@ def run_simulation(
     # A plain run's last segment is its tail (checkpointed runs have none).
     tail = 0 if observed else remaining % program.steps_per_call
     label = program.variant + (f"+sync-tail{tail}" if tail else "")
+    K = program.sweep_k  # each segment's runner: n // K sweeps, then n % K K1 steps
+    sweeps = sum(n // K for _, n in segments) if K > 1 else 0
+    tail_steps = sum(n % K for _, n in segments) if K > 1 else 0
     return RunResult(f, av_vels, reynolds, timer, label, device_name(device), frames=frames,
-                     frame_steps=frame_steps, steps_computed=remaining, profile=profile)
+                     frame_steps=frame_steps, steps_computed=remaining, profile=profile,
+                     sweep_k=K, sweeps=sweeps, tail_steps=tail_steps)

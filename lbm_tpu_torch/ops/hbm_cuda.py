@@ -64,8 +64,10 @@ from lbm_tpu_torch.ops import (
     inplace_cuda,
     quant,
     resident_cuda,
+    temporal_cuda,
 )
 from lbm_tpu_torch.params import LBMParams
+from lbm_tpu_torch.utils.timing import span
 
 LAUNCHES = 0
 
@@ -179,10 +181,11 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, num_steps: int, K: 
                  slots: int | None = None):
     """Build ``f0 -> (f_final, tot_us (num_steps,))``: K9 sweeps, one launch
     each, then K1 steps for ``num_steps mod K`` (the signature of
-    ``hbm_pallas.make_run_all``).  Both state buffers, the slots, the
-    per-part obstacle slabs and guard bytes and the partials (the band plan,
-    the blocks' step counters a line apart, parts x K x blocks sums) are
-    allocated here, once.  ``f0`` is not modified; on the card the returned
+    ``hbm_pallas.make_run_all``), inside the ranges ``lbm.sweeps.k<K>`` and
+    ``lbm.tail`` (``temporal_cuda.plain_runner`` on the CPU).  Both state
+    buffers, the slots, the per-part obstacle slabs and guard bytes and the
+    partials (the band plan, the blocks' step counters a line apart, parts x
+    K x blocks sums) are allocated here, once.  ``f0`` is not modified; on the card the returned
     state is one of the runner's buffers and stays valid until its next
     call.  ``lib`` as in ``inplace_cuda.make_run_all``; ``rows`` and
     ``slots`` pin R and S in place of :func:`plan`'s (for timing)."""
@@ -196,13 +199,7 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, num_steps: int, K: 
                          f"at K={K}")
     n_sweeps, rem = divmod(num_steps, K)
     if obstacles.device.type == "cpu":
-
-        def run_all_plain(f):
-            if not fused_cuda.is_plain(f):
-                raise ValueError(f"state on {f.device} but obstacle mask on the CPU")
-            return run_plain(f, obstacles, params, num_steps, K)
-
-        return run_all_plain
+        return temporal_cuda.plain_runner(params, obstacles, num_steps, K)
 
     fused_cuda.check_mask(obstacles, params)
     lib = lib or _build.load()
@@ -233,18 +230,20 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, num_steps: int, K: 
         stream = torch.cuda.current_stream(dev).cuda_stream
         if n_sweeps:
             fa.copy_(f)
-            for s in range(n_sweeps):
-                src, dst = (fa, fb) if s % 2 == 0 else (fb, fa)
-                rc = lib.lbm_hbm_run(
-                    src.data_ptr(), dst.data_ptr(), obst_parts.data_ptr(), scratch.data_ptr(),
-                    gates.data_ptr(), partials.data_ptr(), tot.data_ptr() + 4 * s * K,
-                    params.ny, params.nx, R, K, S, params.accel_row, omega, w1, w2, grid,
-                    stream, dev.index)
-                _build.check(rc, "K9 HBM-parts sweep")
-                LAUNCHES += 1
+            with span(f"sweeps.k{K}"):
+                for s in range(n_sweeps):
+                    src, dst = (fa, fb) if s % 2 == 0 else (fb, fa)
+                    rc = lib.lbm_hbm_run(
+                        src.data_ptr(), dst.data_ptr(), obst_parts.data_ptr(),
+                        scratch.data_ptr(), gates.data_ptr(), partials.data_ptr(),
+                        tot.data_ptr() + 4 * s * K, params.ny, params.nx, R, K, S,
+                        params.accel_row, omega, w1, w2, grid, stream, dev.index)
+                    _build.check(rc, "K9 HBM-parts sweep")
+                    LAUNCHES += 1
             f = fb if n_sweeps % 2 else fa
         if rem:
-            f, tot_rem = tail(f)
+            with span("tail"):
+                f, tot_rem = tail(f)
             tot[n_sweeps * K:] = tot_rem
         return f, tot
 

@@ -30,12 +30,17 @@ Beside the kernel:
 
 Also here: :func:`pick_k`, the depth policy (``temporal_pallas.pick_k``
 :608), and :func:`sweep_runner`, the runner K4 and K5 (ops/skew_cuda.py)
-share.  A wrapper takes the plain version only for a tensor on the CPU.  For
+share.  While a torch profiler records, a runner call marks its whole
+sweeps with the range ``lbm.sweeps.k<K>`` and its K1 remainder with
+``lbm.tail`` (``utils/timing.span``; K9's runner, ops/hbm_cuda.py, too):
+the sweeps stay one library call, with no synchronize and no range a
+sweep.  A wrapper takes the plain version only for a tensor on the CPU.  For
 a CUDA tensor it launches the kernel or raises; it never falls back.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Callable
 
@@ -43,6 +48,7 @@ import torch
 
 from lbm_tpu_torch.ops import _build, fused_cuda, fused_torch, quant
 from lbm_tpu_torch.params import LBMParams
+from lbm_tpu_torch.utils.timing import span
 
 LAUNCHES = 0
 LAUNCHES_I16 = 0
@@ -184,6 +190,28 @@ def run_plain(f: torch.Tensor, obstacles: torch.Tensor, params: LBMParams, num_s
     return fused_torch.run_sweeps(f, obstacles, params, num_steps, K, storage)
 
 
+def plain_runner(params: LBMParams, obstacles: torch.Tensor, num_steps: int, K: int,
+                 storage: str = "f32"):
+    """Build ``f0 -> (f_final, tot_us (num_steps,))`` on CPU tensors:
+    :func:`run_plain`, its whole sweeps inside ``lbm.sweeps.k<K>`` and its
+    remainder's single steps inside ``lbm.tail``, as the card's runners mark
+    theirs."""
+    n_sweeps, rem = divmod(num_steps, K)
+
+    def run_all_plain(f):
+        if not fused_cuda.is_plain(f):
+            raise ValueError(f"state on {f.device} but obstacle mask on the CPU")
+        with span(f"sweeps.k{K}") if n_sweeps else contextlib.nullcontext():
+            f, tot = run_plain(f, obstacles, params, n_sweeps * K, K, storage)
+        if rem:
+            with span("tail"):
+                f, tot_rem = fused_torch.run_steps(f, obstacles, params, rem, storage)
+            tot = torch.cat([tot, tot_rem])
+        return f, tot
+
+    return run_all_plain
+
+
 def sweep_runner(
     what: str,
     kind: str,
@@ -209,13 +237,7 @@ def sweep_runner(
     quant.check_storage(storage)
     n_sweeps, rem = divmod(num_steps, K)
     if obstacles.device.type == "cpu":
-
-        def run_all_plain(f):
-            if not fused_cuda.is_plain(f):
-                raise ValueError(f"state on {f.device} but obstacle mask on the CPU")
-            return run_plain(f, obstacles, params, num_steps, K, storage)
-
-        return run_all_plain
+        return plain_runner(params, obstacles, num_steps, K, storage)
 
     fused_cuda.check_mask(obstacles, params)
     lib = lib or _build.load()
@@ -238,17 +260,19 @@ def sweep_runner(
         tot = torch.empty(num_steps, dtype=torch.float32, device=dev)
         if n_sweeps:
             fa.copy_(f)
-            rc = run(
-                fa.data_ptr(), fb.data_ptr(), obstacles.data_ptr(), partials.data_ptr(),
-                tot.data_ptr(), params.ny, params.nx, params.accel_row, omega, w1, w2,
-                i16, fused_cuda.codec_ptr(codec), K, *geometry, n_sweeps, batch,
-                torch.cuda.current_stream(dev).cuda_stream, dev.index,
-            )
+            with span(f"sweeps.k{K}"):
+                rc = run(
+                    fa.data_ptr(), fb.data_ptr(), obstacles.data_ptr(), partials.data_ptr(),
+                    tot.data_ptr(), params.ny, params.nx, params.accel_row, omega, w1, w2,
+                    i16, fused_cuda.codec_ptr(codec), K, *geometry, n_sweeps, batch,
+                    torch.cuda.current_stream(dev).cuda_stream, dev.index,
+                )
             _build.check(rc, what)
             count(bool(i16), n_sweeps)
             f = fb if n_sweeps % 2 else fa
         if rem:
-            f, tot_rem = tail(f)
+            with span("tail"):
+                f, tot_rem = tail(f)
             tot[n_sweeps * K:] = tot_rem
         return f, tot
 
