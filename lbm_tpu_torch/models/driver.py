@@ -9,7 +9,10 @@ counted in ``RunResult.sweep_k``, ``sweeps`` and ``tail_steps``;
 on the chunked path whole chunks), the first launch of each kernel and the
 kernel build billed to init, av = tot_u / fluid cells in float32, and the
 output state taken through the program's ``f_of`` (dequantized for i16,
-lbm_tpu/models/driver.py:759).
+lbm_tpu/models/driver.py:759).  The outputs reach host memory through
+utils/hostcopy.py: their host arrays are prepared before the compute
+bracket's synchronize, under the card's queued steps, and filled in the
+collate through a reused page-locked ring.
 
 The sharded variants (sync, overlap, async, async-k, chunked, ca) run on a
 row mesh (parallel/mesh.py, parallel/modes.py): ``num_devices`` shards over
@@ -101,6 +104,7 @@ from lbm_tpu_torch.ops import quant
 from lbm_tpu_torch.parallel import exchange
 from lbm_tpu_torch.parallel import mesh as mesh_lib
 from lbm_tpu_torch.parallel import modes
+from lbm_tpu_torch.utils import hostcopy
 from lbm_tpu_torch.utils.invariants import calc_reynolds
 from lbm_tpu_torch.utils.timing import PhaseTimer, span
 
@@ -771,6 +775,9 @@ def run_simulation(
             tots[start:start + n] = tot_us
             if hook is not None:
                 hook(start + n, state)
+        # The outputs' host arrays, faulted in while the card runs the queued steps.
+        host_f = hostcopy.prepare((9, params.ny, params.nx), torch.float32, dev)
+        host_tots = hostcopy.prepare(tots.shape, tots.dtype, dev)
         for d in devices:
             _sync(d)
         timer.stop("compute")
@@ -786,8 +793,8 @@ def run_simulation(
         profile = {**summary, "ranks": ranks}
 
     timer.start("collate")
-    f = program.f_of(state).cpu().numpy().astype(np.float32, copy=False)
-    av_vels = tots.cpu().numpy() / np.float32(program.tot_cells)
+    f = hostcopy.fetch(program.f_of(state), host_f).astype(np.float32, copy=False)
+    av_vels = hostcopy.fetch(tots, host_tots) / np.float32(program.tot_cells)
     if start_step:
         av_vels = np.concatenate([av_prefix, av_vels])
     if frames is not None:

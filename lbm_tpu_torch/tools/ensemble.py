@@ -7,7 +7,8 @@ compiled program (``jax.vmap`` over a leading instance axis).  Here the B
 instances run on the card in one launch per step (K1-batch) or per
 256-step chunk (K11 or K2-batch), ops/ensemble_cuda.py, and on the CPU through the
 plain batched twin step (``fused_torch.ensemble_step``); every instance's
-av_vels series comes back to the host in one copy at the end.
+av_vels series and final state come back to the host at the end, into host
+arrays prepared while the card runs (utils/hostcopy.py).
 
 omega and the accel weights are per-instance float32 values, so instance b
 reproduces a single run with b's parameters bitwise (tested).  The obstacle
@@ -32,6 +33,7 @@ from lbm_tpu_torch.core import lattice
 from lbm_tpu_torch.models.driver import resolve_device
 from lbm_tpu_torch.ops import ensemble_cuda
 from lbm_tpu_torch.params import LBMParams
+from lbm_tpu_torch.utils import hostcopy
 from lbm_tpu_torch.utils.invariants import calc_reynolds
 from lbm_tpu_torch.utils.timing import PhaseTimer, span
 
@@ -121,10 +123,13 @@ def run_ensemble(
         run_all, f0_b = make_runner(params, obstacles, omegas, accels, steps, device)
     with timer.section("compute"):
         f_final, tots = run_all(f0_b)
+        # The outputs' host arrays, faulted in while the card runs the study.
+        host_f = hostcopy.prepare(f_final.shape, f_final.dtype, f_final.device)
+        host_tots = hostcopy.prepare(tots.shape, tots.dtype, tots.device)
         if f_final.device.type == "cuda":
             torch.cuda.synchronize(f_final.device)
     with timer.section("collate"):
-        av = tots.cpu().numpy().astype(np.float32) / fluid_counts[None, :]
+        av = hostcopy.fetch(tots, host_tots).astype(np.float32) / fluid_counts[None, :]
         final_av = av[-1] if steps else np.zeros(B, dtype=np.float32)
         reyn = np.asarray(
             [
@@ -133,7 +138,7 @@ def run_ensemble(
             ],
             dtype=np.float32,
         )
-        f = f_final.cpu().numpy()
+        f = hostcopy.fetch(f_final, host_f)
     return EnsembleResult(
         omegas=omegas,
         accels=accels,

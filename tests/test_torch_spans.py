@@ -5,7 +5,9 @@ each leave one ``lbm.run_simulation`` / ``lbm.run_ensemble`` range in its
 Chrome trace, and inside it one ``lbm.init``, ``lbm.compute`` and
 ``lbm.collate``, in that order, each as long as the timer's phase.  With
 none recording, no range is opened and the timer reads as before; the
-profiler changes no output."""
+profiler changes no output.  On a card (``cuda``) the outputs' host copies
+add ``lbm.host_prepare`` inside ``lbm.compute`` and ``lbm.fetch`` inside
+``lbm.collate`` (utils/hostcopy.py); on the CPU they open none."""
 
 import json
 
@@ -122,3 +124,47 @@ def test_a_range_outlives_the_profiler_that_opened_it(tmp_path):
     names = [e["name"] for e in json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
              if e.get("cat") == "user_annotation"]
     assert "lbm.init" not in names
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _card_simulate():
+    res = driver.run_simulation(Scene(_params(300).replace(nx=256, ny=256), _box(256)),
+                                driver.RunConfig(device="cuda", num_devices=1))
+    return res, res.f, res.av_vels
+
+
+def _card_ensemble():
+    res = ensemble.run_ensemble(_params(300).replace(nx=128, ny=128), _box(128),
+                                np.linspace(1.3, 1.9, 16, dtype=np.float32), device="cuda")
+    return res, res.f, res.av_vels
+
+
+def _box(n):
+    mask = np.zeros((n, n), dtype=bool)
+    mask[0, :] = mask[-1, :] = mask[:, 0] = mask[:, -1] = True
+    return mask
+
+
+CARD_ENTRIES = {"run_simulation": _card_simulate, "run_ensemble": _card_ensemble}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", sorted(CARD_ENTRIES))
+def test_host_copy_ranges_nest_in_their_phases_on_card(entry, cuda_device, tmp_path):
+    """On a card the outputs' host arrays are prepared inside ``lbm.compute``
+    (``lbm.host_prepare``, one an output) and copied inside ``lbm.collate``
+    (``lbm.fetch``, one an output): utils/hostcopy.py."""
+    _, spans = _traced(CARD_ENTRIES[entry], tmp_path / "trace.json")
+    by_name = {}
+    for s in spans:
+        by_name.setdefault(s["name"], []).append((s["ts"], s["ts"] + s["dur"]))
+    for inner, outer in (("lbm.host_prepare", "lbm.compute"), ("lbm.fetch", "lbm.collate")):
+        assert len(by_name[inner]) == 2 and len(by_name[outer]) == 1
+        (lo, hi), = by_name[outer]
+        assert all(lo <= a and b <= hi for a, b in by_name[inner]), inner
