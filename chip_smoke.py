@@ -146,14 +146,13 @@ power limit as nvidia-smi reports them):
    cylinder with ``--omega 1.0:1.85:64`` x 300 steps (the benchmark's
    sweep shape over a chunk and a remainder; each last instance's final av
    within rtol 1e-6 of a single run), each on the kernel the policy gives
-   it and the CLI names, K11's launches all of the form (threads, C) the
-   CLI names (``LAUNCHES_CLUSTER_FORMS``; 128x128 x 64: only 512 threads
-   at C = 8, else the phase fails); 512x512 sweeps for a
+   it and the CLI names, K11's form (threads, C) as the CLI names it the
+   card's plan for the shape (128x128 x 64: 512 threads at C = 8, else the
+   phase fails); 512x512 sweeps for a
    kernel those left idle (8 x 400 steps: K2-batch; 200 x 100: K1-batch);
-   every ensemble counter zeroed just before each sweep, the named
-   kernel's must have gone up and the others' stayed 0, and every ensemble
-   kernel must have launched; each sweep's MLUPS on the host clock of the
-   whole command;
+   each sweep's ensemble launches (``_build.LAUNCHES``, before and after)
+   only of the named kernel, and every ensemble kernel must have launched;
+   each sweep's MLUPS on the host clock of the whole command;
 5b. the golden run: the 1024x1024 reference scene rebuilt from golden/
    (obstacles from column 7 of the final state), ``run --variant cuda``
    for the full 20000 steps with --storage f32 (variant cuda-inplace),
@@ -340,14 +339,13 @@ import time
 
 GRID_SIZES = (128, 256, 512, 1024)
 # Phase 5n: each rank runs the CLI's ``run``, then prints its launch counts
-# (a fresh process: they start from 0).
+# by kernel (a fresh process: they start from 0).
 POD_CHILD = """
 import json, sys
 from lbm_tpu_torch import cli
-from lbm_tpu_torch.ops import ca_cuda, fused_cuda
+from lbm_tpu_torch.ops import _build
 rc = cli.main(sys.argv[1:])
-print("LAUNCHES " + json.dumps({"K1-slab": fused_cuda.SLAB_LAUNCHES,
-                                "K7": ca_cuda.RESIDENT_LAUNCHES}), flush=True)
+print("LAUNCHES " + json.dumps(dict(_build.LAUNCHES)), flush=True)
 sys.exit(rc)
 """
 POD_TIMEOUT = 300  # seconds a 2-process launch of 5n may take
@@ -766,7 +764,7 @@ def hbm_kernel_checks(dev) -> tuple[float, int]:
     import torch
 
     from lbm_tpu_torch.core import lattice
-    from lbm_tpu_torch.ops import fused_cuda, hbm_cuda
+    from lbm_tpu_torch.ops import _build, fused_cuda, hbm_cuda
     from lbm_tpu_torch.params import with_driven_row
 
     worst, n_cases = 0.0, 0
@@ -793,10 +791,10 @@ def hbm_kernel_checks(dev) -> tuple[float, int]:
             steps = 2 * K + 1
             what = f"K9 {ny}x{nx} R={R} S={S} K={K} driven row {row}"
             run = hbm_cuda.make_run_all(p, obst, steps, K, rows=R, slots=S)
-            before = hbm_cuda.LAUNCHES
+            before = _build.LAUNCHES["K9"]
             f_k, tot_k = (t.clone() for t in run(f0))
-            if hbm_cuda.LAUNCHES != before + 2:
-                fail(f"{what}: {hbm_cuda.LAUNCHES - before} launches for 2 sweeps")
+            if _build.LAUNCHES["K9"] != before + 2:
+                fail(f"{what}: {_build.LAUNCHES['K9'] - before} launches for 2 sweeps")
             f_p, tot_p = hbm_cuda.run_plain(f0, obst, p, steps, K)
             e, _ = compare(what, f_k, tot_k, f_p, tot_p)
             f_2, tot_2 = run(f0)
@@ -1045,11 +1043,6 @@ def ensemble_kernel_checks(dev) -> tuple[dict[tuple, float], int, str]:
     return errs, n_cases, notes
 
 
-# The counter each ensemble kernel raises where it launches.
-ENSEMBLE_COUNTERS = {"K1-batch": "LAUNCHES_BATCH", "K2-batch": "LAUNCHES_BATCH_RESIDENT",
-                     "K11": "LAUNCHES_BATCH_CLUSTER"}
-
-
 def sweep_checks(td: str, scene256: tuple[str, str], single256: str, device: str = "cuda"):
     """Phase 5o: ``sweep`` through the CLI, in the temporary directory
     ``td``.  On phase 5's 256x256 cylinder (``scene256``: its params and
@@ -1059,8 +1052,8 @@ def sweep_checks(td: str, scene256: tuple[str, str], single256: str, device: str
     scenegen's cavity and channel; on a 64x64 cylinder ``--omega
     1.0:1.85:600`` x 1000 steps; on a 128x128 cylinder ``--omega
     1.0:1.85:64`` x 300 steps (the benchmark's sweep shape, a chunk and a
-    remainder: K11 in blocks of 512 threads, clusters of 8, and no other
-    form).  Each runs the kernel the policy gives it
+    remainder: K11 in blocks of 512 threads, clusters of 8).  Each runs
+    the kernel the policy gives it
     (``ensemble_cuda.kernel_choice`` on the card), which the CLI names on
     stderr with K11's plan.  Where those leave K2-batch or K1-batch without a launch, a
     512x512 cylinder sweep reaches it: 8 omegas x 400 steps (K2-batch) and
@@ -1068,32 +1061,33 @@ def sweep_checks(td: str, scene256: tuple[str, str], single256: str, device: str
     scene's parameters against the single run (av_vels within rtol 1e-6:
     the same fields, |u| summed in another grouping; the final av where
     only the summary is written); the geometry sweep's instances against
-    single runs of their masks.  Every ensemble kernel's count is zeroed
-    just before each sweep; the named kernel's must have gone up and the
-    others' stayed 0.  Returns (launches by kernel, and K11's at each
-    shape it ran, as "K11 <ny>x<nx> x <B>"; MLUPS by sweep on the host
-    clock of the whole command; notes)."""
+    single runs of their masks.  Each sweep's ensemble launches
+    (``_build.LAUNCHES`` before and after it) must be the named kernel's
+    alone; a K11 sweep's form, as the CLI names it, must be the card's
+    ``cluster_plan`` for its shape.  Returns (launches by kernel, and
+    K11's at each shape it ran, as "K11 <ny>x<nx> x <B>"; MLUPS by sweep on
+    the host clock of the whole command; notes)."""
     import numpy as np
+    import torch
 
     from lbm_tpu_torch import cli
     from lbm_tpu_torch.io import load_scene, write_av_vels
     from lbm_tpu_torch.io.writers import read_av_vels
     from lbm_tpu_torch.models.driver import RunConfig, run_simulation
-    from lbm_tpu_torch.ops import ensemble_cuda
+    from lbm_tpu_torch.ops import _build, ensemble_cuda
     from lbm_tpu_torch.params import LBMParams
     from lbm_tpu_torch.tools import scenegen
 
-    launches = {k: 0 for k in ENSEMBLE_COUNTERS}
+    launches = {k: 0 for k in ensemble_cuda.KERNELS}
+    k11_forms = {}  # (threads, C) of each K11 sweep, by tag
 
     def cli_sweep(tag, pfile, ofile, *extra):
         """(out dir, summary rows, seconds, kernel, its launches).  A K11
-        sweep's launches must all be of the form (threads, C) the CLI
-        named (``LAUNCHES_CLUSTER_FORMS``, zeroed with the counters)."""
+        sweep's form (threads, C), as the CLI names it, must be the card's
+        plan for the sweep's shape (``k11_forms[tag]``)."""
         out_dir = os.path.join(td, f"sweep-{tag}")
         buf, err = io.StringIO(), io.StringIO()
-        for name in ENSEMBLE_COUNTERS.values():
-            setattr(ensemble_cuda, name, 0)
-        ensemble_cuda.LAUNCHES_CLUSTER_FORMS.clear()
+        before = {k: _build.LAUNCHES[k] for k in ensemble_cuda.KERNELS}
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
             rc = cli.main(["sweep", pfile, ofile, "--device", device, "--out-dir", out_dir,
@@ -1105,22 +1099,23 @@ def sweep_checks(td: str, scene256: tuple[str, str], single256: str, device: str
         lines = [ln.split(": ", 1)[1] for ln in err.getvalue().splitlines()
                  if ln.startswith("Kernel: ")]
         named = [ln.split(" (")[0] for ln in lines]
-        counts = {k: getattr(ensemble_cuda, name) for k, name in ENSEMBLE_COUNTERS.items()}
+        counts = {k: _build.LAUNCHES[k] - before[k] for k in ensemble_cuda.KERNELS}
         if len(named) != 1 or named[0] not in counts or counts[named[0]] <= 0 \
                 or any(n for k, n in counts.items() if k != named[0]):
-            fail(f"sweep {tag}: the CLI named {named}, the counters read {counts}")
-        forms = dict(ensemble_cuda.LAUNCHES_CLUSTER_FORMS)
-        if named[0] == "K11":
-            C, threads = (int(v) for v in re.search(r"C=(\d+), (\d+) threads",
-                                                     lines[0]).groups())
-            if forms != {(threads, C): counts["K11"]}:
-                fail(f"sweep {tag}: the CLI named {lines[0]}, K11's launches by (threads, C) "
-                     f"read {forms} of {counts['K11']}")
-        elif forms:
-            fail(f"sweep {tag} ran {named[0]}, K11's forms counted {forms}")
+            fail(f"sweep {tag}: the CLI named {named}, the launches read {counts}")
         launches[named[0]] += counts[named[0]]
         rows = [ln.split() for ln in open(os.path.join(out_dir, "sweep_summary.dat"))
                 if not ln.startswith("#")]
+        if named[0] == "K11":
+            C, threads = (int(v) for v in re.search(r"C=(\d+), (\d+) threads",
+                                                     lines[0]).groups())
+            p = load_scene(pfile, ofile).params
+            plan = ensemble_cuda.cluster_plan(p.ny, p.nx, len(rows), ensemble_cuda.card_clusters(
+                _build.load(), torch.cuda.current_device()))
+            if plan is None or (plan.threads, plan.C) != (threads, C):
+                fail(f"sweep {tag}: the CLI named {lines[0]}, the card's plan for "
+                     f"{p.ny}x{p.nx} x {len(rows)} is {plan and plan.label()}")
+            k11_forms[tag] = (threads, C)
         return out_dir, rows, seconds, named[0], counts[named[0]]
 
     def same_av(a_path, b_path, what):
@@ -1185,10 +1180,9 @@ def sweep_checks(td: str, scene256: tuple[str, str], single256: str, device: str
     sdir, rows, secs, kern, n = cli_sweep("128", *files128, "--omega", "1.0:1.85:64")
     if kern != "K11" or n != 2 or len(rows) != 64 or float(rows[-1][1]) != 1.85:
         fail(f"sweep 128x128 x 64: ran {kern} with {n} launches, {len(rows)} rows")
-    form = dict(ensemble_cuda.LAUNCHES_CLUSTER_FORMS)
-    if form != {(512, 8): n}:
-        fail(f"sweep 128x128 x 64: K11's launches by (threads, C) read {form}, not only "
-             "(512, 8)")
+    if k11_forms.get("128") != (512, 8):
+        fail(f"sweep 128x128 x 64: K11 ran in the form (threads, C) {k11_forms.get('128')}, "
+             "not (512, 8)")
     rel, variant = final_av(rows, files128, "sweep 128x128 x 64")
     notes.append(f"128x128 cylinder x 300 steps, --omega 1.0:1.85:64: {kern} {n} launches, "
                  f"all of 512 threads at C = 8, instance 63 (omega 1.85) final av rel "
@@ -1269,9 +1263,7 @@ def main() -> int:
     from lbm_tpu_torch.ops import (
         _build,
         blocked_cuda,
-        ca_cuda,
         fused_cuda,
-        ghosted_cuda,
         hbm_cuda,
         inplace_cuda,
         quant,
@@ -1635,7 +1627,7 @@ def main() -> int:
           f"max |df| {f_dev:.3e} <= 2e-7, av max rel {av_rel:.3e} <= 1e-4")
 
     # Phase 5: end to end through the CLI, in this process so the launch
-    # counters of the main path can be read.
+    # counts of the main path (``_build.LAUNCHES``) can be read.
     mlups: dict[str, float] = {}
     launches: dict[str, int] = {}
     # Phase 5's runs that phase (b) plans again: (params, obstacles,
@@ -1687,13 +1679,11 @@ def main() -> int:
 
         runs = [("256x256", *scene_files(256, 4400, "cylinder", 0.005)),
                 ("1024x1024", *scene_files(1024, 2000, "channel", 0.01))]
-        resident_cuda.LAUNCHES = 0
-        inplace_cuda.LAUNCHES = 0
-        inplace_cuda.LAUNCHES_I16 = 0
+        _build.LAUNCHES.clear()
         cuda_runs = {tag: cli_run(tag, pf, of, "cuda") for tag, pf, of in runs}
         i16_dir, i16_variant = cli_run("256x256", *runs[0][1:], "cuda", "--storage", "i16")
-        launches["K2"], k3_cli = resident_cuda.LAUNCHES, inplace_cuda.LAUNCHES
-        launches["K3-i16"] = inplace_cuda.LAUNCHES_I16
+        launches["K2"], k3_cli = _build.LAUNCHES["K2"], _build.LAUNCHES["K3"]
+        launches["K3-i16"] = _build.LAUNCHES["K3-i16"]
         if launches["K2"] <= 0 or k3_cli <= 0 or launches["K3-i16"] <= 0:
             fail(f"main path skipped a kernel: K2 launches {launches['K2']}, K3 {k3_cli}, "
                  f"K3-i16 {launches['K3-i16']}")
@@ -1744,9 +1734,7 @@ def main() -> int:
         with open(go, "w") as fp:
             fp.writelines(f"{x} {y} 1\n" for x, y, _ in walls)
         golden_dev, golden_dirs = {}, {}
-        inplace_cuda.LAUNCHES = 0
-        k3i_before = inplace_cuda.LAUNCHES_I16
-        temporal_cuda.LAUNCHES_I16 = 0
+        _build.LAUNCHES.clear()
         for storage, extra, want in (("f32", (), "cuda-inplace"), ("i16", (), "cuda-inplace-i16"),
                                      ("i16", ("--temporal-k", "4"), "cuda-trapezoid-i16")):
             out_dir, got = cli_run("golden1024", gp, go, "cuda", "--storage", storage, *extra)
@@ -1758,9 +1746,9 @@ def main() -> int:
             plan_cases.append((gp, go, "cuda", ("--storage", storage, *extra), {}, got,
                                {"cuda-inplace": "K3", "cuda-inplace-i16": "K3-i16",
                                 "cuda-trapezoid-i16": "K4-i16"}[want]))
-        launches["K3"] = inplace_cuda.LAUNCHES
-        golden_k3i = inplace_cuda.LAUNCHES_I16 - k3i_before
-        golden_k4i = temporal_cuda.LAUNCHES_I16
+        launches["K3"] = _build.LAUNCHES["K3"]
+        golden_k3i = _build.LAUNCHES["K3-i16"]
+        golden_k4i = _build.LAUNCHES["K4-i16"]
         launches["K3-i16"] += golden_k3i
         if min(launches["K3"], golden_k3i, golden_k4i) <= 0:
             fail(f"golden runs skipped a kernel: K3 {launches['K3']}, K3-i16 {golden_k3i}, "
@@ -1774,10 +1762,10 @@ def main() -> int:
 
         # Phase 5l: K10 at full length on the golden scene (its main path:
         # its count starts from 0 here), and the other forced kinds.
-        blocked_cuda.LAUNCHES = 0
+        _build.LAUNCHES.clear()
         with dryrun.env(LBM_RESIDENT_KIND="blocked"):
             blocked_dir, got = cli_run("golden1024-blocked", gp, go, "cuda")
-        launches["K10"] = blocked_cuda.LAUNCHES
+        launches["K10"] = _build.LAUNCHES["K10"]
         if got != "cuda-blocked" or launches["K10"] <= 0:
             fail(f"LBM_RESIDENT_KIND=blocked golden run: variant {got}, K10 launches "
                  f"{launches['K10']}")
@@ -1796,10 +1784,9 @@ def main() -> int:
                 ("mono", "cuda-resident", runs[0], cuda_runs["256x256"][0]),
                 ("inplace", "cuda-inplace", runs[0], cuda_runs["256x256"][0])):
             with dryrun.env(LBM_RESIDENT_KIND=forced_kind):
-                before = resident_cuda.LAUNCHES, inplace_cuda.LAUNCHES
+                before = dict(_build.LAUNCHES)
                 d, got = cli_run(f"{tag}-{forced_kind}", pf, of, "cuda")
-                moved = [k for k, b, a in zip(("K2", "K3"), before, (
-                    resident_cuda.LAUNCHES, inplace_cuda.LAUNCHES)) if a > b]
+                moved = [k for k in ("K2", "K3") if _build.LAUNCHES[k] > before.get(k, 0)]
             plan_cases.append((pf, of, "cuda", (), {"LBM_RESIDENT_KIND": forced_kind}, got,
                                moved[0] if len(moved) == 1 else f"counters moved: {moved}"))
             if got != want or not same_final_state(d, ref_dir):
@@ -1821,8 +1808,7 @@ def main() -> int:
 
         # Phase 5c: large grids, f32 cuda against torch and i16 against f32.
         big = [(f"{n}x{n}", *scene_files(n, 2000, "channel", 0.01)) for n in (1536, 2048)]
-        fused_cuda.LAUNCHES = 0
-        fused_cuda.LAUNCHES_I16 = 0
+        _build.LAUNCHES.clear()
         f32_dev, i16_dev = [], []
         torch_big, k1_dirs = {}, {}
         for tag, pf, of in big:
@@ -1844,7 +1830,7 @@ def main() -> int:
                                 os.path.join(ref_dir, "final_state.dat"), out_dir,
                                 f"{tag} i16 vs f32")
             i16_dev.append(f"{tag} {', '.join(dev_pct)}")
-        launches["K1"], launches["K1-i16"] = fused_cuda.LAUNCHES, fused_cuda.LAUNCHES_I16
+        launches["K1"], launches["K1-i16"] = _build.LAUNCHES["K1"], _build.LAUNCHES["K1-i16"]
         if launches["K1"] <= 0 or launches["K1-i16"] <= 0:
             fail(f"main path skipped a kernel: K1 {launches['K1']}, K1-i16 {launches['K1-i16']}")
         print(f"[5c CLI large grids] card: {card} | channel x 2000 steps (max deviation "
@@ -1856,9 +1842,7 @@ def main() -> int:
 
         # Phase 5d: the temporal path through the CLI, under the default
         # policy and with a forced depth under each LBM_TEMPORAL_IMPL.
-        for mod in (temporal_cuda, skew_cuda):
-            mod.LAUNCHES = 0
-            mod.LAUNCHES_I16 = 0
+        _build.LAUNCHES.clear()
         policies = (("default", None, ()), ("trapezoid", "trapezoid", ("--temporal-k", "4")),
                     ("skew", "skew", ("--temporal-k", "4")))
         scenes = {tag: (pf, of) for tag, pf, of in big}
@@ -1937,8 +1921,8 @@ def main() -> int:
         if rc != 0 or report["variant"] != DEFAULT_VARIANTS[("2048x2048", "f32")]:
             fail(f"bench --grid 2048x2048 exited {rc}: {report}")
         notes.append(f"bench --grid 2048x2048: {report['variant']} {report['value']} MLUPS")
-        for key, mod in (("K4", temporal_cuda), ("K5", skew_cuda)):
-            launches[key], launches[key + "-i16"] = mod.LAUNCHES, mod.LAUNCHES_I16
+        for key in ("K4", "K4-i16", "K5", "K5-i16"):
+            launches[key] = _build.LAUNCHES[key]
         if min(launches[k] for k in ("K4", "K4-i16", "K5", "K5-i16")) <= 0:
             fail(f"temporal CLI runs skipped a kernel: {launches}")
         print(f"[5d CLI temporal path] card: {card} | channel, 2000 steps (4096x4096: 400); "
@@ -1951,10 +1935,10 @@ def main() -> int:
         # lbm_tpu), at 2048x2048 against 5c's K1 run.  Its count starts from
         # 0 here: this run is K9's main path.
         hbm_rows, hbm_slots = hbm_cuda.plan(bench.make_scene("2048x2048").params, 4)
-        hbm_cuda.LAUNCHES = 0
+        _build.LAUNCHES.clear()
         with temporal_impl("hbm"):
             hbm_dir, got = cli_run("2048x2048-hbm", *scenes["2048x2048"], "cuda")
-        launches["K9"] = hbm_cuda.LAUNCHES
+        launches["K9"] = _build.LAUNCHES["K9"]
         # One launch a sweep: the run's 500 and the warm-up's one
         # (driver._Advance.warm: a sweep and a step).
         if got != "cuda-hbm" or launches["K9"] != 2000 // 4 + 1:
@@ -1973,13 +1957,11 @@ def main() -> int:
         # Phase 5e: the sharded CLI on the golden scene, 4 shards of the card.
         # The counts of the sharded kernels start from 0 here: the runs of
         # this phase are the sharded main path.
-        fused_cuda.SLAB_LAUNCHES = 0
-        fused_cuda.SLAB_LAUNCHES_I16 = 0
-        ghosted_cuda.LAUNCHES = 0
+        _build.LAUNCHES.clear()
         names = ("K1-slab", "K1-slab-i16", "K6")
 
         def counts():
-            return fused_cuda.SLAB_LAUNCHES, fused_cuda.SLAB_LAUNCHES_I16, ghosted_cuda.LAUNCHES
+            return tuple(_build.LAUNCHES[k] for k in names)
 
         def sharded_run(tag, variant, want, uses, *extra):
             """``run --host-devices 4`` of the golden scene, which must report
@@ -2046,15 +2028,11 @@ def main() -> int:
         # auto on 4 shards; a step count that ends in a sync tail.  The
         # counts of the ca engines start from 0 here: these runs are their
         # main path.
-        temporal_cuda.SLAB_LAUNCHES = temporal_cuda.SLAB_LAUNCHES_I16 = 0
-        ca_cuda.RESIDENT_LAUNCHES = 0
-        ca_cuda.INPLACE_LAUNCHES = ca_cuda.INPLACE_LAUNCHES_I16 = 0
+        _build.LAUNCHES.clear()
         ca_names = ("K4-slab", "K4-slab-i16", "K7", "K8", "K8-i16")
 
         def ca_counts():
-            return (temporal_cuda.SLAB_LAUNCHES, temporal_cuda.SLAB_LAUNCHES_I16,
-                    ca_cuda.RESIDENT_LAUNCHES, ca_cuda.INPLACE_LAUNCHES,
-                    ca_cuda.INPLACE_LAUNCHES_I16)
+            return tuple(_build.LAUNCHES[k] for k in ca_names)
 
         def ca_run(tag, variant, want, use, engine, *extra):
             """``run --host-devices 4`` of the golden scene with
@@ -2138,8 +2116,8 @@ def main() -> int:
                      f"{'reported too' if '==done==' in outs[1] else 'nothing'}")
             counts = [json.loads(ln.split(" ", 1)[1]) for text in outs
                       for ln in text.splitlines() if ln.startswith("LAUNCHES ")]
-            if len(counts) != 2 or any(c[uses] <= 0 for c in counts):
-                fail(f"5n {tag}: the ranks' {uses} counts {counts}: a rank skipped it")
+            if len(counts) != 2 or any(c.get(uses, 0) <= 0 for c in counts):
+                fail(f"5n {tag}: the ranks' counts {counts}: a rank skipped {uses}")
             pod_launches[uses] += sum(c[uses] for c in counts)
             rate = float([ln for ln in outs[0].splitlines()
                           if ln.startswith("Compute rate:")][0].split()[-2])
@@ -2482,8 +2460,8 @@ def main() -> int:
                 fail(f"(f) {tag}: the 2-process run exited {rc}:\n" + "\n".join(outs))
             counts = [json.loads(ln.split(" ", 1)[1]) for text in outs
                       for ln in text.splitlines() if ln.startswith("LAUNCHES ")]
-            if len(counts) != 2 or any(c["K1-slab"] <= 0 for c in counts):
-                fail(f"(f) {tag}: the ranks' K1-slab counts {counts}: a rank skipped it")
+            if len(counts) != 2 or any(c.get("K1-slab", 0) <= 0 for c in counts):
+                fail(f"(f) {tag}: the ranks' counts {counts}: a rank skipped K1-slab")
             f_launches["K1-slab"] += sum(c["K1-slab"] for c in counts)
             return out_dir, outs, secs
 
@@ -2559,22 +2537,22 @@ def main() -> int:
                     omega=1.85)
     scene4k = Scene(p4k, scenegen.make_mask("channel", 4096, 4096))
     r_k1 = run_simulation(scene4k, RunConfig(variant="cuda", device="cuda", temporal_k=1))
-    slab_5f = fused_cuda.SLAB_LAUNCHES
+    slab_5f = _build.LAUNCHES["K1-slab"]
     r_sync = run_simulation(scene4k, RunConfig(variant="sync", device="cuda", host_devices=4))
     if r_k1.variant != "cuda-step" or not np.array_equal(r_sync.f, r_k1.f):
         fail(f"4096x4096 sync over 4 shards differs from single-device {r_k1.variant}")
     sync_rel = float(np.max(np.abs(r_sync.av_vels - r_k1.av_vels) / np.abs(r_k1.av_vels)))
     if sync_rel > 1e-6:
         fail(f"4096x4096 sync av {sync_rel:.3e} relative from K1")
-    k6_before = ghosted_cuda.LAUNCHES
-    slab_before = fused_cuda.SLAB_LAUNCHES
+    k6_before = _build.LAUNCHES["K6"]
+    slab_before = _build.LAUNCHES["K1-slab"]
     r_ch = run_simulation(scene4k, RunConfig(variant="chunked", device="cuda", host_devices=4))
     ch_rel = float(np.max(np.abs(r_ch.av_vels - r_sync.av_vels) / np.abs(r_sync.av_vels)))
-    if (r_ch.variant != "chunked-2" or ghosted_cuda.LAUNCHES != k6_before
-            or fused_cuda.SLAB_LAUNCHES <= slab_before or ch_rel > 0.01):
-        fail(f"4096x4096 chunked: {r_ch.variant}, K6 {k6_before} -> {ghosted_cuda.LAUNCHES}, "
+    if (r_ch.variant != "chunked-2" or _build.LAUNCHES["K6"] != k6_before
+            or _build.LAUNCHES["K1-slab"] <= slab_before or ch_rel > 0.01):
+        fail(f"4096x4096 chunked: {r_ch.variant}, K6 {k6_before} -> {_build.LAUNCHES['K6']}, "
              f"av {ch_rel:.3e} from sync")
-    slab_5f = fused_cuda.SLAB_LAUNCHES - slab_5f
+    slab_5f = _build.LAUNCHES["K1-slab"] - slab_5f
     print(f"[5f large shards 4096x4096 over 4 shards of 1024x4096] card: {card} | channel, 200 "
           f"steps | sync fields equal to cuda-step (K1), av max rel {sync_rel:.2e} | chunked-2 "
           f"on the K1-slab loop (K6 not launched), av max rel {ch_rel:.2e} from sync | MLUPS "
@@ -2606,14 +2584,14 @@ def main() -> int:
     shard_times = {n: kernel_times.time_shard(n, dev, repeats=5) for n in (1024, 4096)}
     scene_b = bench.make_scene("4096x4096")
     rates4k, fields4k = {}, {}
-    slab_6d = temporal_cuda.SLAB_LAUNCHES
+    slab_6d = _build.LAUNCHES["K4-slab"]
     for variant in ("cuda", "sync", "overlap", "async", "async-k", "chunked", "ca"):
         res = run_simulation(scene_b, RunConfig(variant=variant, device="cuda", num_steps=400,
                                                 host_devices=None if variant == "cuda" else 4))
         rates4k[res.variant] = res.mlups
         if variant in ("sync", "ca"):
             fields4k[res.variant] = res.f
-    slab_6d = temporal_cuda.SLAB_LAUNCHES - slab_6d
+    slab_6d = _build.LAUNCHES["K4-slab"] - slab_6d
     if set(fields4k) != {"sync", "ca-4"} or not np.array_equal(fields4k["ca-4"],
                                                                fields4k["sync"]):
         fail(f"4096x4096 over 4 shards x 400 steps: ca ({sorted(fields4k)}) differs from sync")
@@ -2622,14 +2600,14 @@ def main() -> int:
     # The card-bound int16 sharded run: sync-i16 on K1-slab-i16, against the
     # single-device int16 default (cuda-step-i16, K1-i16).
     fields4k = {}
-    slab_i16_6d = fused_cuda.SLAB_LAUNCHES_I16
+    slab_i16_6d = _build.LAUNCHES["K1-slab-i16"]
     for variant in ("cuda", "sync"):
         res = run_simulation(scene_b, RunConfig(variant=variant, device="cuda", num_steps=400,
                                                 storage="i16",
                                                 host_devices=None if variant == "cuda" else 4))
         rates4k[res.variant] = res.mlups
         fields4k[res.variant] = res.f
-    slab_i16_6d = fused_cuda.SLAB_LAUNCHES_I16 - slab_i16_6d
+    slab_i16_6d = _build.LAUNCHES["K1-slab-i16"] - slab_i16_6d
     if set(fields4k) != {"cuda-step-i16", "sync-i16"} or not np.array_equal(
             fields4k["sync-i16"], fields4k["cuda-step-i16"]):
         fail(f"4096x4096 int16 over 4 shards x 400 steps: sync-i16 ({sorted(fields4k)}) differs "

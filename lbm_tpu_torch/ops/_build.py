@@ -15,11 +15,17 @@ Flags: ``--fmad=false`` keeps every ``a*b+c`` as a multiply and an add
 ``-prec-div=true -prec-sqrt=true`` keep ``/`` and ``sqrt`` correctly
 rounded; ``--use_fast_math`` is never used.
 
+Every launch of a solver kernel goes through :func:`launch` (or a launcher
+:func:`bind` made), which checks the entry point's return code and counts
+the launch in :data:`LAUNCHES` under the kernel's form, one of
+:data:`KERNEL_FORMS`.
+
 Nothing here runs at import.  A missing nvcc or a failed build raises.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import fcntl
 import hashlib
@@ -45,6 +51,15 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 LINK_FLAGS = ("-shared",)
+
+# The 22 kernel forms of PERF.md's kernel table, in its order: the names
+# LAUNCHES counts under (and tools/verify_device.py's probes).
+KERNEL_FORMS = ("K1", "K1-i16", "K1-slab", "K1-slab-i16", "K2", "K3", "K3-i16", "K4", "K4-i16",
+                "K4-slab", "K4-slab-i16", "K5", "K5-i16", "K6", "K7", "K8", "K8-i16", "K9", "K10",
+                "K1-batch", "K2-batch", "K11")
+_FORMS = frozenset(KERNEL_FORMS)
+# Kernel launches made so far in this process, by form; raised only by launch().
+LAUNCHES: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -218,8 +233,52 @@ def load_variant(replace: dict[str, pathlib.Path]) -> ctypes.CDLL:
     return _open(build(src), strict=False)
 
 
-def check(rc: int, what: str) -> None:
-    """Raise on a nonzero cudaError_t returned by an entry point."""
+def check(rc: int, what: str, lib: ctypes.CDLL | None = None) -> None:
+    """Raise on a nonzero cudaError_t returned by an entry point of ``lib``
+    (the package's library by default), with that library's text for it."""
     if rc != 0:
-        text = load().lbm_error_string(rc).decode()
+        text = (lib or load()).lbm_error_string(rc).decode()
         raise RuntimeError(f"{what} failed: CUDA error {rc} ({text})")
+
+
+def _check_form(kernel: str) -> None:
+    if kernel not in _FORMS:
+        raise ValueError(f"unknown kernel form {kernel!r}; the table's are {KERNEL_FORMS}")
+
+
+def launch(lib: ctypes.CDLL, entry: str, kernel: str, *args, n: int = 1) -> None:
+    """Call ``lib``'s entry point ``entry`` with ``args``, raise on the error
+    it returns, and count ``n`` launches of ``kernel`` (a name of
+    :data:`KERNEL_FORMS`) in :data:`LAUNCHES`: the kernel launches the call
+    made (steps for K1 and K1-batch, sweeps for K4, K5 and K9, chunks for
+    the persistent kernels)."""
+    _check_form(kernel)
+    rc = getattr(lib, entry)(*args)
+    if rc != 0:
+        check(rc, f"{kernel} ({entry})", lib)
+    LAUNCHES[kernel] += n
+
+
+def bind(lib: ctypes.CDLL, entry: str, kernel: str, head: tuple, tots, steps: int,
+         tail: tuple, keep: tuple):
+    """A slab or sweep binder's ``launch(t0)``: :func:`launch` of ``entry``
+    with ``head``, the address of ``tots[t0]`` (a 1-D float32 tensor) and
+    ``tail``, the call's ``steps`` sums landing in ``tots[t0 : t0 + steps]``,
+    one launch of ``kernel`` a call.  Its arguments are fixed here, so that
+    a launch costs one Python call: a sharded step makes one a shard, and
+    the host paces it.  ``keep`` holds what the call reads and writes by
+    address, alive while the launcher is."""
+    _check_form(kernel)
+    fn = getattr(lib, entry)
+    tot0, tot_n = tots.data_ptr(), tots.shape[0]
+
+    def launch(t0):
+        if not 0 <= t0 <= tot_n - steps:
+            raise IndexError(f"steps {t0}..{t0 + steps} outside tots of {tot_n}")
+        rc = fn(*head, tot0 + 4 * t0, *tail)
+        if rc != 0:
+            check(rc, f"{kernel} ({entry})", lib)
+        LAUNCHES[kernel] += 1
+
+    launch.keep = keep
+    return launch

@@ -27,23 +27,21 @@ Beside the kernel:
 
 - the plain version, :func:`run_plain` (``fused_torch.blocked_chunk``),
   which the kernel matches bitwise on fields and, through the same
-  grouping of the |u| sums, on tot_u;
-- ``LAUNCHES``: the number of chunk launches so far, raised only where the
-  kernel is launched.
+  grouping of the |u| sums, on tot_u.
 
-A wrapper takes the plain version only for a tensor on the CPU.  For a CUDA
-tensor it launches the kernel or raises; it never falls back.  float32
-only, as B4.
+Launches count in ``_build.LAUNCHES`` under ``K10``, one a chunk.  A wrapper
+takes the plain version only for a tensor on the CPU.  For a CUDA tensor it
+launches the kernel or raises; it never falls back (ops/_runner.py).
+float32 only, as B4.
 """
 
 from __future__ import annotations
 
 import torch
 
-from lbm_tpu_torch.ops import _build, fused_cuda, fused_torch, quant
+from lbm_tpu_torch.ops import _build, _runner, fused_torch, quant
 from lbm_tpu_torch.params import LBMParams
 
-LAUNCHES = 0
 DEFAULT_CHUNK = 256
 # Rows per tile (a divisor of the kernel's 256 threads; the tile is then
 # 256 / B columns wide).  Any ny: the last row block is partial where B does
@@ -111,67 +109,52 @@ def make_run_all(
     check_storage(storage)
     if block_rows < 1 or 256 % block_rows:
         raise ValueError(f"block_rows must divide 256, got {block_rows}")
-    chunk = max(1, min(chunk, num_steps)) if num_steps else 1
-    n_full, rem = divmod(num_steps, chunk)
-    chunks = [chunk] * n_full + ([rem] if rem else [])
+    chunks = _runner.chunk_lengths(num_steps, chunk)
 
-    if obstacles.device.type == "cpu":
-
-        def run_all_plain(f):
-            if not fused_cuda.is_plain(f):
-                raise ValueError(f"state on {f.device} but obstacle mask on the CPU")
-            parts = []
-            for n in chunks:
-                f, tot = run_plain(f, obstacles, params, n, block_rows)
-                parts.append(tot)
-            return f, (torch.cat(parts) if parts else torch.empty(0, dtype=torch.float32))
-
-        return run_all_plain
-
-    fused_cuda.check_mask(obstacles, params)
-    lib = lib or _build.load()
-    dev = obstacles.device
-    grid = lib.lbm_blocked_grid(params.ny, params.nx, block_rows, dev.index)
-    if grid <= 0:
-        raise RuntimeError(
-            f"K10 cannot be launched cooperatively on {torch.cuda.get_device_name(dev)}"
-        )
-    shape = (9, params.ny, params.nx)
-    fa = torch.empty(shape, dtype=torch.float32, device=dev)
-    fb = torch.empty(shape, dtype=torch.float32, device=dev)
-    nby = -(-params.ny // block_rows)
-    # The step counters, as 32-bit words (at least the (2, 9, nx) float
-    # scratch row of the earlier K10, which takes this buffer in their place
-    # when it is timed through this runner in turns).
-    sync = torch.zeros(max(sync_words(params.ny, params.nx, block_rows), 18 * params.nx),
-                       dtype=torch.int32, device=dev)
-    part = torch.empty((PART_SLOTS, nby, params.nx), dtype=torch.float32, device=dev)
-    colsum = torch.empty((chunk, params.nx), dtype=torch.float32, device=dev)
-    omega, w1, w2 = fused_torch.step_constants(params)
-
-    def run_all(f):
-        global LAUNCHES
-        if fused_cuda.is_plain(f):
-            raise ValueError("state on the CPU but obstacle mask on a CUDA device")
-        fused_cuda.check_state(f, obstacles, params)
-        tot = torch.empty(num_steps, dtype=torch.float32, device=dev)
-        if f.data_ptr() != fa.data_ptr():
-            fa.copy_(f)
-        src, dst, done = fa, fb, 0
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    def plain(f):
+        parts = []
         for n in chunks:
-            sync.zero_()
-            rc = lib.lbm_blocked_chunk(
-                src.data_ptr(), dst.data_ptr(), obstacles.data_ptr(), sync.data_ptr(),
-                part.data_ptr(), colsum.data_ptr(), tot.data_ptr() + 4 * done, params.ny,
-                params.nx, params.accel_row, omega, w1, w2, n, block_rows, grid, stream,
-                dev.index,
-            )
-            _build.check(rc, "K10 blocked kernel")
-            LAUNCHES += 1
-            if n % 2:
-                src, dst = dst, src
-            done += n
-        return src, tot
+            f, tot = run_plain(f, obstacles, params, n, block_rows)
+            parts.append(tot)
+        return f, (torch.cat(parts) if parts else torch.empty(0, dtype=torch.float32))
 
-    return run_all
+    def card(lib):
+        dev = obstacles.device
+        grid = _runner.cooperative_grid(lib, "lbm_blocked_grid", "K10", dev, params.ny,
+                                        params.nx, block_rows)
+        shape = (9, params.ny, params.nx)
+        fa = torch.empty(shape, dtype=torch.float32, device=dev)
+        fb = torch.empty(shape, dtype=torch.float32, device=dev)
+        nby = -(-params.ny // block_rows)
+        # The step counters, as 32-bit words (at least the (2, 9, nx) float
+        # scratch row of the earlier K10, which takes this buffer in their
+        # place when it is timed through this runner in turns).
+        sync = torch.zeros(max(sync_words(params.ny, params.nx, block_rows), 18 * params.nx),
+                           dtype=torch.int32, device=dev)
+        part = torch.empty((PART_SLOTS, nby, params.nx), dtype=torch.float32, device=dev)
+        colsum = torch.empty((max(chunks, default=1), params.nx), dtype=torch.float32,
+                             device=dev)
+        omega, w1, w2 = fused_torch.step_constants(params)
+
+        def run_all(f):
+            tot = torch.empty(num_steps, dtype=torch.float32, device=dev)
+            if f.data_ptr() != fa.data_ptr():
+                fa.copy_(f)
+            src, dst, done = fa, fb, 0
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for n in chunks:
+                sync.zero_()
+                _build.launch(
+                    lib, "lbm_blocked_chunk", "K10", src.data_ptr(), dst.data_ptr(),
+                    obstacles.data_ptr(), sync.data_ptr(), part.data_ptr(), colsum.data_ptr(),
+                    tot.data_ptr() + 4 * done, params.ny, params.nx, params.accel_row, omega,
+                    w1, w2, n, block_rows, grid, stream, dev.index,
+                )
+                if n % 2:
+                    src, dst = dst, src
+                done += n
+            return src, tot
+
+        return run_all
+
+    return _runner.card_or_plain(params, obstacles, plain, card, lib=lib)

@@ -35,13 +35,12 @@ Beside the kernels:
 
 - the plain version, :func:`sweep_plain`: ``fused_torch.ca_sweep``, K
   periodic steps of the extended slab (int16 quantized per step for K8),
-  which the kernels match bitwise on the body's fields;
-- ``RESIDENT_LAUNCHES`` (K7), ``INPLACE_LAUNCHES`` and
-  ``INPLACE_LAUNCHES_I16`` (K8, one per sub-slab): raised only where a
-  kernel is launched.
+  which the kernels match bitwise on the body's fields.
 
-A wrapper takes the plain version only for a tensor on the CPU.  For a CUDA
-tensor it launches the kernel or raises; it never falls back.
+Launches count in ``_build.LAUNCHES`` under ``K7``, ``K8`` and ``K8-i16``
+(one a sub-slab).  A wrapper takes the plain version only for a tensor on
+the CPU.  For a CUDA tensor it launches the kernel or raises; it never
+falls back (ops/_runner.py).
 """
 
 from __future__ import annotations
@@ -50,7 +49,7 @@ import torch
 
 from lbm_tpu_torch.ops import (
     _build,
-    fused_cuda,
+    _runner,
     fused_torch,
     inplace_cuda,
     quant,
@@ -59,10 +58,6 @@ from lbm_tpu_torch.ops import (
 )
 from lbm_tpu_torch.ops.temporal_cuda import bind_plain, check_ext_args
 from lbm_tpu_torch.params import LBMParams
-
-RESIDENT_LAUNCHES = 0
-INPLACE_LAUNCHES = 0
-INPLACE_LAUNCHES_I16 = 0
 
 
 def supports_resident(nloc: int, nx: int, K: int) -> bool:
@@ -165,39 +160,29 @@ def bind_resident(params: LBMParams, lo: torch.Tensor, body: torch.Tensor, hi: t
     if not supports_resident(n, nx, K):
         raise ValueError(f"K7 (K={K}) cannot map a {n}x{nx} shard: two copies of its "
                          "extended slab do not fit the L2 budget")
-    if fused_cuda.is_plain(body):
-        return bind_plain(
-            lambda lo_, b, hi_, ob: sweep_plain(lo_, b, hi_, ob, params, row_offset, ny_global),
-            lo, body, hi, obst_ext, out, tots)
 
-    lib = lib or _build.load()
-    dev = body.device
-    ext = n + 2 * K
-    card_grid = lib.lbm_ca_resident_grid(ext, nx, dev.index)
-    if card_grid <= 0:
-        raise RuntimeError(
-            f"K7 cannot be launched cooperatively on {torch.cuda.get_device_name(dev)}")
-    grid = resident_grid(card_grid, n, nx)
-    scratch = torch.empty((2, 9, ext, nx), dtype=torch.float32, device=dev)
-    partials = resident_cuda.partials_buffer(resident_plan(ext, nx, K, grid), K, dev)
-    omega, w1, w2 = fused_torch.step_constants(params)
-    head = (lo.data_ptr(), lo.stride(0), body.data_ptr(), body.stride(0), hi.data_ptr(),
-            hi.stride(0), scratch[0].data_ptr(), scratch[1].data_ptr(), obst_ext.data_ptr(),
-            out.data_ptr(), out.stride(0), partials.data_ptr())
-    tail = (n, nx, K, row_offset, ny_global, params.accel_row, omega, w1, w2, grid,
-            torch.cuda.current_stream(dev).cuda_stream, dev.index)
-    tot0, tot_n = tots.data_ptr(), tots.shape[0]
+    def card(lib):
+        dev = body.device
+        ext = n + 2 * K
+        grid = resident_grid(_runner.cooperative_grid(lib, "lbm_ca_resident_grid", "K7", dev,
+                                                      ext, nx), n, nx)
+        scratch = torch.empty((2, 9, ext, nx), dtype=torch.float32, device=dev)
+        partials = resident_cuda.partials_buffer(resident_plan(ext, nx, K, grid), K, dev)
+        omega, w1, w2 = fused_torch.step_constants(params)
+        head = (lo.data_ptr(), lo.stride(0), body.data_ptr(), body.stride(0), hi.data_ptr(),
+                hi.stride(0), scratch[0].data_ptr(), scratch[1].data_ptr(), obst_ext.data_ptr(),
+                out.data_ptr(), out.stride(0), partials.data_ptr())
+        tail = (n, nx, K, row_offset, ny_global, params.accel_row, omega, w1, w2, grid,
+                torch.cuda.current_stream(dev).cuda_stream, dev.index)
+        return _build.bind(lib, "lbm_ca_resident", "K7", head, tots, K, tail,
+                           (scratch, partials))
 
-    def launch(t0):
-        global RESIDENT_LAUNCHES
-        if not 0 <= t0 <= tot_n - K:
-            raise IndexError(f"steps {t0}..{t0 + K} outside tots of {tot_n}")
-        rc = lib.lbm_ca_resident(*head, tot0 + 4 * t0, *tail)
-        _build.check(rc, "K7 ca resident kernel")
-        RESIDENT_LAUNCHES += 1
-
-    launch.keep = (scratch, partials)  # alive while the launcher is
-    return launch
+    return _runner.launcher(
+        body,
+        bind_plain(lambda lo_, b, hi_, ob: sweep_plain(lo_, b, hi_, ob, params, row_offset,
+                                                       ny_global),
+                   lo, body, hi, obst_ext, out, tots),
+        card, lib)
 
 
 def bind_inplace(params: LBMParams, lo: torch.Tensor, body: torch.Tensor, hi: torch.Tensor,
@@ -213,49 +198,35 @@ def bind_inplace(params: LBMParams, lo: torch.Tensor, body: torch.Tensor, hi: to
     On CPU tensors ``launch`` runs the plain version; on CUDA tensors it
     launches the kernel or raises."""
     quant.check_storage(storage)
-    n, nx, K = check_ext_args(lo, body, hi, obst_ext, out, tots,
-                              fused_cuda.STATE_DTYPES[storage])
+    n, nx, K = check_ext_args(lo, body, hi, obst_ext, out, tots, _runner.STATE_DTYPES[storage])
     if not parts_valid(n, nx, K, ny_global, 1):
         raise ValueError(f"K8 (K={K}) cannot map a {n}x{nx} slab of a {ny_global}-row grid")
-    if fused_cuda.is_plain(body):
-        return bind_plain(
-            lambda lo_, b, hi_, ob: sweep_plain(lo_, b, hi_, ob, params, row_offset, ny_global,
-                                                storage),
-            lo, body, hi, obst_ext, out, tots, accumulate)
+    kernel = _runner.form("K8", storage)
 
-    lib = lib or _build.load()
-    dev = body.device
-    ext = n + 2 * K
-    i16, codec = fused_cuda.codec_arg(params, storage)
-    grid = lib.lbm_ca_inplace_grid(ext, nx, i16, dev.index)
-    if grid <= 0:
-        raise RuntimeError(
-            f"K8 cannot be launched cooperatively on {torch.cuda.get_device_name(dev)}")
-    scratch = torch.empty((9, ext, nx), dtype=fused_cuda.STATE_DTYPES[storage], device=dev)
-    gate = torch.empty((2, nx), dtype=torch.uint8, device=dev)
-    partials = inplace_cuda.partials_buffer(sweep_plan(ext, nx, K, grid), K, dev)
-    omega, w1, w2 = fused_torch.step_constants(params)
-    head = (lo.data_ptr(), lo.stride(0), body.data_ptr(), body.stride(0), hi.data_ptr(),
-            hi.stride(0), scratch.data_ptr(), gate.data_ptr(), obst_ext.data_ptr(),
-            out.data_ptr(), out.stride(0), partials.data_ptr())
-    tail = (n, nx, K, driven_ext_row(params.accel_row, row_offset, K, n, ny_global),
-            int(accumulate), params.accel_row, omega, w1, w2, i16, fused_cuda.codec_ptr(codec),
-            grid, torch.cuda.current_stream(dev).cuda_stream, dev.index)
-    tot0, tot_n = tots.data_ptr(), tots.shape[0]
+    def card(lib):
+        dev = body.device
+        ext = n + 2 * K
+        i16, codec = _runner.codec_arg(params, storage)
+        grid = _runner.cooperative_grid(lib, "lbm_ca_inplace_grid", kernel, dev, ext, nx, i16)
+        scratch = torch.empty((9, ext, nx), dtype=_runner.STATE_DTYPES[storage], device=dev)
+        gate = torch.empty((2, nx), dtype=torch.uint8, device=dev)
+        partials = inplace_cuda.partials_buffer(sweep_plan(ext, nx, K, grid), K, dev)
+        omega, w1, w2 = fused_torch.step_constants(params)
+        head = (lo.data_ptr(), lo.stride(0), body.data_ptr(), body.stride(0), hi.data_ptr(),
+                hi.stride(0), scratch.data_ptr(), gate.data_ptr(), obst_ext.data_ptr(),
+                out.data_ptr(), out.stride(0), partials.data_ptr())
+        tail = (n, nx, K, driven_ext_row(params.accel_row, row_offset, K, n, ny_global),
+                int(accumulate), params.accel_row, omega, w1, w2, i16, _runner.codec_ptr(codec),
+                grid, torch.cuda.current_stream(dev).cuda_stream, dev.index)
+        return _build.bind(lib, "lbm_ca_inplace", kernel, head, tots, K, tail,
+                           (scratch, gate, partials, codec))
 
-    def launch(t0):
-        global INPLACE_LAUNCHES, INPLACE_LAUNCHES_I16
-        if not 0 <= t0 <= tot_n - K:
-            raise IndexError(f"steps {t0}..{t0 + K} outside tots of {tot_n}")
-        rc = lib.lbm_ca_inplace(*head, tot0 + 4 * t0, *tail)
-        _build.check(rc, "K8 ca in-place kernel")
-        if i16:
-            INPLACE_LAUNCHES_I16 += 1
-        else:
-            INPLACE_LAUNCHES += 1
-
-    launch.keep = (scratch, gate, partials, codec)  # alive while the launcher is
-    return launch
+    return _runner.launcher(
+        body,
+        bind_plain(lambda lo_, b, hi_, ob: sweep_plain(lo_, b, hi_, ob, params, row_offset,
+                                                       ny_global, storage),
+                   lo, body, hi, obst_ext, out, tots, accumulate),
+        card, lib)
 
 
 def bind_sweep(engine: str, params: LBMParams, lo: torch.Tensor, body: torch.Tensor,

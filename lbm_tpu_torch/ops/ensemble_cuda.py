@@ -9,7 +9,7 @@ instances in one launch:
 
 - **K1-batch** (``csrc/step.cu``): K1's step with the instance as the
   grid's third dimension, one launch a step, one reduce every
-  ``fused_cuda.TOT_BATCH`` steps.  It maps every grid.  Bound: 72 bytes of
+  ``_runner.TOT_BATCH`` steps.  It maps every grid.  Bound: 72 bytes of
   device memory per instance-cell-step, and a mask byte per cell (B of them
   for a geometry batch).
 - **K2-batch** (``csrc/resident.cu`` on ``csrc/two_copy.cuh``): K2's
@@ -40,31 +40,24 @@ Beside the kernels:
 
 - the plain version, :func:`run_plain` (``fused_torch.run_ensemble_plain``):
   the twin step over a leading instance dimension, the CPU path and the
-  card's yardstick;
-- ``LAUNCHES_BATCH`` (K1-batch step launches),
-  ``LAUNCHES_BATCH_RESIDENT`` (K2-batch chunk launches) and
-  ``LAUNCHES_BATCH_CLUSTER`` (K11 chunk launches; by (threads, C) in
-  ``LAUNCHES_CLUSTER_FORMS``), raised only where a kernel launches.
+  card's yardstick.
 
-A runner takes the plain version only for a mask on the CPU.  For a CUDA
-mask it launches a kernel or raises; it never falls back.
+Launches count in ``_build.LAUNCHES`` under ``K1-batch`` (one a step),
+``K2-batch`` and ``K11`` (one a chunk; K11's block shape and C are the
+runner's ``plan``).  A runner takes the plain version only for a mask on
+the CPU.  For a CUDA mask it launches a kernel or raises; it never falls
+back (ops/_runner.py).
 """
 
 from __future__ import annotations
 
-from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from lbm_tpu_torch.ops import _build, fused_cuda, fused_torch, resident_cuda
+from lbm_tpu_torch.ops import _build, _runner, fused_torch, resident_cuda
 from lbm_tpu_torch.params import LBMParams
-
-LAUNCHES_BATCH = 0
-LAUNCHES_BATCH_RESIDENT = 0
-LAUNCHES_BATCH_CLUSTER = 0
-LAUNCHES_CLUSTER_FORMS: Counter = Counter()  # K11 chunk launches by (threads, C)
 
 KERNELS = ("K1-batch", "K2-batch", "K11")
 MAX_INSTANCES = 65535  # K1-batch: the launch grid's z extent
@@ -368,106 +361,91 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, omegas, accels=None
         if f_b.dtype != torch.float32 or not f_b.is_contiguous() or tuple(f_b.shape) != shape:
             raise ValueError(f"states must be a contiguous float32 tensor of shape {shape}")
 
-    if dev.type == "cpu":
-        planes = tuple(torch.from_numpy(a) for a in (om, w1, w2))
+    planes = tuple(torch.from_numpy(a) for a in (om, w1, w2))
 
-        def run_all_plain(f_b):
-            check(f_b)
-            return fused_torch.run_ensemble_plain(f_b, obstacles, *planes, params.accel_row,
-                                                  num_steps)
-
-        run_all_plain.kernel = "plain"
-        run_all_plain.plan = None
-        return run_all_plain
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}; use cuda or cpu")
-
-    lib = lib or _build.load()
-    ny, nx = params.ny, params.nx
-    if B > MAX_INSTANCES:
-        raise ValueError(f"{B} instances: the ensemble kernels take at most {MAX_INSTANCES}")
-    state_bytes = 2 * B * 9 * ny * nx * 4
-    total = torch.cuda.get_device_properties(dev).total_memory
-    if state_bytes > total:
-        raise ValueError(f"two copies of {B} {ny}x{nx} float32 states ({state_bytes} bytes) "
-                         f"exceed the card's {total} bytes")
-    resident = lib.lbm_resident_batch_blocks(dev.index)
-    if resident <= 0:
-        raise RuntimeError(f"K2-batch cannot be launched cooperatively on "
-                           f"{torch.cuda.get_device_name(dev)}")
-    clusters = card_clusters(lib, dev.index)
-    chosen = kernel or kernel_choice(ny, nx, B, resident, clusters)
-    plan = cluster_plan(ny, nx, B, clusters) if chosen == "K11" else None
-    if chosen == "K11":
-        if plan is None:
-            raise ValueError(f"K11 cannot map {ny}x{nx}: one instance fits no cluster of at "
-                             f"most {CLUSTER_SIZES[-1]} blocks")
-    if chosen == "K2-batch":
-        if group_blocks(ny, nx, B, resident) < 1:
-            raise ValueError(f"K2-batch cannot map {B} instances: at most {resident} blocks "
-                             "are resident at once")
-        if 9 * ny * nx >= 2**31:
-            raise ValueError(f"K2-batch cannot map {ny}x{nx}: 9 planes exceed 32-bit offsets")
-    fa = torch.empty(shape, dtype=torch.float32, device=dev)
-    fb = torch.empty_like(fa)
-    sc = torch.from_numpy(np.stack([om, w1, w2], axis=1).copy()).to(dev)
-    mask_stride = ny * nx if obstacles.dim() == 3 else 0
-    if chosen == "K1-batch":
-        nblocks = lib.lbm_step_blocks(ny, nx)
-        batch = max(1, min(fused_cuda.TOT_BATCH, num_steps, PARTIALS_WORDS // (B * nblocks)))
-        partials = torch.empty((batch, B, nblocks), dtype=torch.float32, device=dev)
-    elif chosen == "K2-batch":
-        G = group_blocks(ny, nx, B, resident)
-        chunk = max(1, min(resident_cuda.DEFAULT_CHUNK, num_steps))
-        partials, words = batch_partials(ny, nx, B, G, chunk)
-        partials = partials.to(dev)
-    else:
-        chunk = resident_cuda.DEFAULT_CHUNK
-
-    def run_all(f_b):
-        global LAUNCHES_BATCH, LAUNCHES_BATCH_RESIDENT, LAUNCHES_BATCH_CLUSTER
+    def plain(f_b):
         check(f_b)
-        tot = torch.empty((num_steps, B), dtype=torch.float32, device=dev)
-        if num_steps == 0:
-            return f_b, tot
-        fa.copy_(f_b)
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        return fused_torch.run_ensemble_plain(f_b, obstacles, *planes, params.accel_row,
+                                              num_steps)
+
+    chosen, plan = "plain", None
+
+    def card(lib):
+        nonlocal chosen, plan
+        ny, nx = params.ny, params.nx
+        if B > MAX_INSTANCES:
+            raise ValueError(f"{B} instances: the ensemble kernels take at most "
+                             f"{MAX_INSTANCES}")
+        state_bytes = 2 * B * 9 * ny * nx * 4
+        total = torch.cuda.get_device_properties(dev).total_memory
+        if state_bytes > total:
+            raise ValueError(f"two copies of {B} {ny}x{nx} float32 states ({state_bytes} "
+                             f"bytes) exceed the card's {total} bytes")
+        resident = _runner.cooperative_grid(lib, "lbm_resident_batch_blocks", "K2-batch", dev)
+        clusters = card_clusters(lib, dev.index)
+        chosen = kernel or kernel_choice(ny, nx, B, resident, clusters)
+        if chosen == "K11":
+            plan = cluster_plan(ny, nx, B, clusters)
+            if plan is None:
+                raise ValueError(f"K11 cannot map {ny}x{nx}: one instance fits no cluster of "
+                                 f"at most {CLUSTER_SIZES[-1]} blocks")
+        if chosen == "K2-batch":
+            if group_blocks(ny, nx, B, resident) < 1:
+                raise ValueError(f"K2-batch cannot map {B} instances: at most {resident} "
+                                 "blocks are resident at once")
+            if 9 * ny * nx >= 2**31:
+                raise ValueError(f"K2-batch cannot map {ny}x{nx}: 9 planes exceed 32-bit "
+                                 "offsets")
+        fa = torch.empty(shape, dtype=torch.float32, device=dev)
+        fb = torch.empty_like(fa)
+        sc = torch.from_numpy(np.stack([om, w1, w2], axis=1).copy()).to(dev)
+        mask_stride = ny * nx if obstacles.dim() == 3 else 0
+        chunks = _runner.chunk_lengths(num_steps, resident_cuda.DEFAULT_CHUNK)
         if chosen == "K1-batch":
-            rc = lib.lbm_step_batch_run(
-                fa.data_ptr(), fb.data_ptr(), obstacles.data_ptr(), mask_stride, sc.data_ptr(),
-                partials.data_ptr(), tot.data_ptr(), ny, nx, params.accel_row, B, num_steps,
-                batch, stream, dev.index)
-            _build.check(rc, "K1-batch step kernel")
-            LAUNCHES_BATCH += num_steps
-            return (fb if num_steps % 2 else fa), tot
-        src, dst, done = fa, fb, 0
-        while done < num_steps:
-            n = min(chunk, num_steps - done)
-            if chosen == "K11":
-                # The state ends in dst for an odd n, in src for an even one.
-                rc = lib.lbm_cluster_batch_chunk(
-                    src.data_ptr(), (dst if n % 2 else src).data_ptr(), obstacles.data_ptr(),
-                    mask_stride, sc.data_ptr(), tot.data_ptr() + 4 * done * B, ny, nx,
-                    params.accel_row, n, plan.C, B, plan.smem, plan.threads, stream,
-                    dev.index)
-                _build.check(rc, "K11 cluster kernel")
-                LAUNCHES_BATCH_CLUSTER += 1
-                LAUNCHES_CLUSTER_FORMS[plan.threads, plan.C] += 1
+            nblocks = lib.lbm_step_blocks(ny, nx)
+            batch = max(1, min(_runner.TOT_BATCH, num_steps,
+                               PARTIALS_WORDS // (B * nblocks)))
+            partials = torch.empty((batch, B, nblocks), dtype=torch.float32, device=dev)
+        elif chosen == "K2-batch":
+            G = group_blocks(ny, nx, B, resident)
+            partials, words = batch_partials(ny, nx, B, G, max(chunks, default=1))
+            partials = partials.to(dev)
+
+        def run_all(f_b):
+            tot = torch.empty((num_steps, B), dtype=torch.float32, device=dev)
+            if num_steps == 0:
+                return f_b, tot
+            fa.copy_(f_b)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if chosen == "K1-batch":
+                _build.launch(
+                    lib, "lbm_step_batch_run", "K1-batch", fa.data_ptr(), fb.data_ptr(),
+                    obstacles.data_ptr(), mask_stride, sc.data_ptr(), partials.data_ptr(),
+                    tot.data_ptr(), ny, nx, params.accel_row, B, num_steps, batch, stream,
+                    dev.index, n=num_steps)
+                return (fb if num_steps % 2 else fa), tot
+            src, dst, done = fa, fb, 0
+            for n in chunks:
+                if chosen == "K11":
+                    # The state ends in dst for an odd n, in src for an even one.
+                    _build.launch(
+                        lib, "lbm_cluster_batch_chunk", "K11", src.data_ptr(),
+                        (dst if n % 2 else src).data_ptr(), obstacles.data_ptr(), mask_stride,
+                        sc.data_ptr(), tot.data_ptr() + 4 * done * B, ny, nx, params.accel_row,
+                        n, plan.C, B, plan.smem, plan.threads, stream, dev.index)
+                else:
+                    _build.launch(
+                        lib, "lbm_resident_batch_chunk", "K2-batch", src.data_ptr(),
+                        dst.data_ptr(), obstacles.data_ptr(), mask_stride, sc.data_ptr(),
+                        partials.data_ptr(), words, tot.data_ptr() + 4 * done * B, ny, nx,
+                        params.accel_row, n, G, B, stream, dev.index)
                 if n % 2:
                     src, dst = dst, src
                 done += n
-                continue
-            rc = lib.lbm_resident_batch_chunk(
-                src.data_ptr(), dst.data_ptr(), obstacles.data_ptr(), mask_stride,
-                sc.data_ptr(), partials.data_ptr(), words, tot.data_ptr() + 4 * done * B, ny,
-                nx, params.accel_row, n, G, B, stream, dev.index)
-            _build.check(rc, "K2-batch resident kernel")
-            LAUNCHES_BATCH_RESIDENT += 1
-            if n % 2:
-                src, dst = dst, src
-            done += n
-        return src, tot
+            return src, tot
 
-    run_all.kernel = chosen
-    run_all.plan = plan
+        return run_all
+
+    run_all = _runner.card_or_plain(params, obstacles, plain, card, lib=lib, check=check)
+    run_all.kernel, run_all.plan = chosen, plan
     return run_all

@@ -18,22 +18,19 @@ Beside the kernel:
   ``resident_cuda.L2_STATE_BUDGET`` (``lbm_tpu``'s ``supports_shard`` asks
   for VMEM and 128 lanes; the kernel takes any nx);
 - the plain version, :func:`chunk_plain`: ``chunk`` plain slab steps
-  (``fused_torch.fused_step_slab``) with the same ghost rows each step;
-- ``LAUNCHES``: the number of chunk launches so far, raised only where the
-  kernel is launched.
+  (``fused_torch.fused_step_slab``) with the same ghost rows each step.
 
-A wrapper takes the plain version only for a tensor on the CPU.  For a CUDA
-tensor it launches the kernel or raises; it never falls back.
+Launches count in ``_build.LAUNCHES`` under ``K6``, one a chunk.  A wrapper
+takes the plain version only for a tensor on the CPU.  For a CUDA tensor it
+launches the kernel or raises; it never falls back (ops/_runner.py).
 """
 
 from __future__ import annotations
 
 import torch
 
-from lbm_tpu_torch.ops import _build, fused_cuda, fused_torch, inplace_cuda, resident_cuda
+from lbm_tpu_torch.ops import _build, _runner, fused_torch, inplace_cuda, resident_cuda
 from lbm_tpu_torch.params import LBMParams
-
-LAUNCHES = 0
 
 
 def supports_shard(nloc: int, nx: int) -> bool:
@@ -82,54 +79,33 @@ def bind_chunk(params: LBMParams, f: torch.Tensor, lo: torch.Tensor, hi: torch.T
     n, nx = f.shape[1], f.shape[2]
     dev = f.device
     for name, t, rows in (("f", f, n), ("lo", lo, 1), ("hi", hi, 1), ("out", out, n)):
-        fused_cuda._check_window(name, t, rows, nx, torch.float32, dev)
+        _runner.check_window(name, t, rows, nx, torch.float32, dev)
     if not (f.is_contiguous() and out.is_contiguous()):
         raise ValueError("K6 state buffers must be contiguous")
-    if (obst_slab.device != dev or obst_slab.dtype != torch.bool
-            or not obst_slab.is_contiguous() or tuple(obst_slab.shape) != (n + 2, nx)):
-        raise ValueError(f"obstacle slab must be a contiguous ({n + 2}, {nx}) bool tensor on "
-                         f"{dev}")
-    if tots.device != dev or tots.dtype != torch.float32 or tots.dim() != 1:
-        raise ValueError(f"tots must be a 1-D float32 tensor on {dev}")
+    _runner.check_slab("obstacle slab", obst_slab, n + 2, nx, tots, dev)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-
     result = out if chunk % 2 else f
 
-    if fused_cuda.is_plain(f):
+    def launch_plain(t0):
+        new, tot = chunk_plain(f, lo, hi, obst_slab, params, row_offset, chunk)
+        result.copy_(new)
+        tots[t0:t0 + chunk] = tot
 
-        def launch_plain(t0):
-            new, tot = chunk_plain(f, lo, hi, obst_slab, params, row_offset, chunk)
-            result.copy_(new)
-            tots[t0:t0 + chunk] = tot
+    def card(lib):
+        if not supports_shard(n, nx):
+            raise ValueError(f"shard {n}x{nx} does not fit K6's L2 budget")
+        grid = _runner.cooperative_grid(lib, "lbm_ghosted_grid", "K6", dev, n, nx)
+        partials = resident_cuda.partials_buffer(shard_plan(n, nx, grid), chunk, dev)
+        omega, w1, w2 = fused_torch.step_constants(params)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        head = (f.data_ptr(), out.data_ptr(), lo.data_ptr(), lo.stride(0), hi.data_ptr(),
+                hi.stride(0), obst_slab.data_ptr(), partials.data_ptr())
+        tail = (n, nx, row_offset, params.accel_row, omega, w1, w2, chunk, grid, stream,
+                dev.index)
+        return _build.bind(lib, "lbm_ghosted_chunk", "K6", head, tots, chunk, tail,
+                           (partials, tots, f, out, lo, hi, obst_slab))
 
-        launch_plain.result = result
-        return launch_plain
-
-    if not supports_shard(n, nx):
-        raise ValueError(f"shard {n}x{nx} does not fit K6's L2 budget")
-    lib = lib or _build.load()
-    grid = lib.lbm_ghosted_grid(n, nx, dev.index)
-    if grid <= 0:
-        raise RuntimeError(
-            f"K6 cannot be launched cooperatively on {torch.cuda.get_device_name(dev)}")
-    partials = resident_cuda.partials_buffer(shard_plan(n, nx, grid), chunk, dev)
-    omega, w1, w2 = fused_torch.step_constants(params)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    head = (f.data_ptr(), out.data_ptr(), lo.data_ptr(), lo.stride(0), hi.data_ptr(),
-            hi.stride(0), obst_slab.data_ptr(), partials.data_ptr())
-    tail = (n, nx, row_offset, params.accel_row, omega, w1, w2, chunk, grid, stream, dev.index)
-    tot0, tot_n = tots.data_ptr(), tots.shape[0]
-
-    def launch(t0):
-        global LAUNCHES
-        if not 0 <= t0 <= tot_n - chunk:
-            raise IndexError(f"steps {t0}..{t0 + chunk} outside tots of {tot_n}")
-        rc = lib.lbm_ghosted_chunk(*head, tot0 + 4 * t0, *tail)
-        _build.check(rc, "K6 ghosted chunk kernel")
-        LAUNCHES += 1
-
-    # Alive while the launcher is: what it writes to and reads from by address.
-    launch.keep = (partials, tots, f, out, lo, hi, obst_slab)
+    launch = _runner.launcher(f, launch_plain, card, lib)
     launch.result = result
     return launch

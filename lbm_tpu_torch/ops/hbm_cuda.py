@@ -42,14 +42,13 @@ Beside the kernel:
   groups it (each part's slab K steps, the parts' |u| added in part order);
 - :func:`slot_schedule`, the order of one block's loads, steps and slot
   waits, and the order of the |u| pass, which the tests hold to the
-  pipeline's hazards;
-- ``LAUNCHES``: the number of K9 launches, one per sweep, raised only where
-  the kernel is launched.
+  pipeline's hazards.
 
-It runs only when forced (``LBM_TEMPORAL_IMPL=hbm``, models/program.py), as
-in ``lbm_tpu``.  A wrapper takes the plain version only for a tensor on the
+Launches count in ``_build.LAUNCHES`` under ``K9``, one a sweep.  It runs
+only when forced (``LBM_TEMPORAL_IMPL=hbm``, models/program.py), as in
+``lbm_tpu``.  A wrapper takes the plain version only for a tensor on the
 CPU.  For a CUDA tensor it launches the kernel or raises; it never falls
-back.
+back (ops/_runner.py).
 """
 
 from __future__ import annotations
@@ -58,6 +57,7 @@ import torch
 
 from lbm_tpu_torch.ops import (
     _build,
+    _runner,
     ca_cuda,
     fused_cuda,
     fused_torch,
@@ -68,8 +68,6 @@ from lbm_tpu_torch.ops import (
 )
 from lbm_tpu_torch.params import LBMParams
 from lbm_tpu_torch.utils.timing import span
-
-LAUNCHES = 0
 
 # The L2 bytes K9's S slots may take (f32 extended slabs), K2's budget for
 # its two copies (resident_cuda.L2_STATE_BUDGET).  In turns at K = 4 and 8
@@ -198,53 +196,46 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, num_steps: int, K: 
         raise ValueError(f"K9 cannot sweep {params.ny} rows as parts of {R} rows in {S} slots "
                          f"at K={K}")
     n_sweeps, rem = divmod(num_steps, K)
-    if obstacles.device.type == "cpu":
-        return temporal_cuda.plain_runner(params, obstacles, num_steps, K)
 
-    fused_cuda.check_mask(obstacles, params)
-    lib = lib or _build.load()
-    dev = obstacles.device
-    P, ext = params.ny // R, R + 2 * K
-    S = min(S, P)
-    grid = lib.lbm_hbm_grid(ext, params.nx, dev.index)
-    if grid <= 0:
-        raise RuntimeError(
-            f"K9 cannot be launched cooperatively on {torch.cuda.get_device_name(dev)}")
-    shape = (9, params.ny, params.nx)
-    fa = torch.empty(shape, dtype=torch.float32, device=dev)
-    fb = torch.empty_like(fa)
-    scratch = torch.empty((S, 9, ext, params.nx), dtype=torch.float32, device=dev)
-    gates = torch.empty((P, 2, params.nx), dtype=torch.uint8, device=dev)
-    partials = resident_cuda.partials_buffer(  # the step counters and the part count
-        ca_cuda.sweep_plan(ext, params.nx, K, grid), P * K, dev, counters=grid + 1)
-    obst_parts = part_obstacles(obstacles, R, K)
-    tail = fused_cuda.make_run_all(params, obstacles, rem) if rem else None
-    omega, w1, w2 = fused_torch.step_constants(params)
+    def card(lib):
+        dev = obstacles.device
+        P, ext = params.ny // R, R + 2 * K
+        slots = min(S, P)
+        grid = _runner.cooperative_grid(lib, "lbm_hbm_grid", "K9", dev, ext, params.nx)
+        shape = (9, params.ny, params.nx)
+        fa = torch.empty(shape, dtype=torch.float32, device=dev)
+        fb = torch.empty_like(fa)
+        scratch = torch.empty((slots, 9, ext, params.nx), dtype=torch.float32, device=dev)
+        gates = torch.empty((P, 2, params.nx), dtype=torch.uint8, device=dev)
+        partials = resident_cuda.partials_buffer(  # the step counters and the part count
+            ca_cuda.sweep_plan(ext, params.nx, K, grid), P * K, dev, counters=grid + 1)
+        obst_parts = part_obstacles(obstacles, R, K)
+        tail = fused_cuda.make_run_all(params, obstacles, rem) if rem else None
+        omega, w1, w2 = fused_torch.step_constants(params)
 
-    def run_all(f):
-        global LAUNCHES
-        if fused_cuda.is_plain(f):
-            raise ValueError("state on the CPU but obstacle mask on a CUDA device")
-        fused_cuda.check_state(f, obstacles, params)
-        tot = torch.empty(num_steps, dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if n_sweeps:
-            fa.copy_(f)
-            with span(f"sweeps.k{K}"):
-                for s in range(n_sweeps):
-                    src, dst = (fa, fb) if s % 2 == 0 else (fb, fa)
-                    rc = lib.lbm_hbm_run(
-                        src.data_ptr(), dst.data_ptr(), obst_parts.data_ptr(),
-                        scratch.data_ptr(), gates.data_ptr(), partials.data_ptr(),
-                        tot.data_ptr() + 4 * s * K, params.ny, params.nx, R, K, S,
-                        params.accel_row, omega, w1, w2, grid, stream, dev.index)
-                    _build.check(rc, "K9 HBM-parts sweep")
-                    LAUNCHES += 1
-            f = fb if n_sweeps % 2 else fa
-        if rem:
-            with span("tail"):
-                f, tot_rem = tail(f)
-            tot[n_sweeps * K:] = tot_rem
-        return f, tot
+        def run_all(f):
+            tot = torch.empty(num_steps, dtype=torch.float32, device=dev)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if n_sweeps:
+                fa.copy_(f)
+                with span(f"sweeps.k{K}"):
+                    for s in range(n_sweeps):
+                        src, dst = (fa, fb) if s % 2 == 0 else (fb, fa)
+                        _build.launch(
+                            lib, "lbm_hbm_run", "K9", src.data_ptr(), dst.data_ptr(),
+                            obst_parts.data_ptr(), scratch.data_ptr(), gates.data_ptr(),
+                            partials.data_ptr(), tot.data_ptr() + 4 * s * K, params.ny,
+                            params.nx, R, K, slots, params.accel_row, omega, w1, w2, grid,
+                            stream, dev.index)
+                f = fb if n_sweeps % 2 else fa
+            if rem:
+                with span("tail"):
+                    f, tot_rem = tail(f)
+                tot[n_sweeps * K:] = tot_rem
+            return f, tot
 
-    return run_all
+        return run_all
+
+    return _runner.card_or_plain(params, obstacles,
+                                 temporal_cuda.plain_runner(params, obstacles, num_steps, K),
+                                 card, lib=lib)

@@ -29,12 +29,12 @@ Beside the kernel:
 
 - the plain version, :func:`run_plain`: a loop of the twin step
   (ops/fused_torch.py; the int16 step for ``storage="i16"``), which the
-  kernel matches bitwise on fields;
-- ``LAUNCHES`` (f32) and ``LAUNCHES_I16`` (int16): the number of chunk
-  launches so far, raised only where the kernel is launched.
+  kernel matches bitwise on fields.
 
-A wrapper takes the plain version only for a tensor on the CPU.  For a CUDA
-tensor it launches the kernel or raises; it never falls back.
+Launches count in ``_build.LAUNCHES`` under ``K3`` and ``K3-i16``, one a
+chunk.  A wrapper takes the plain version only for a tensor on the CPU.
+For a CUDA tensor it launches the kernel or raises; it never falls back
+(ops/_runner.py).
 """
 
 from __future__ import annotations
@@ -43,11 +43,9 @@ import bisect
 
 import torch
 
-from lbm_tpu_torch.ops import _build, fused_cuda, fused_torch, quant
+from lbm_tpu_torch.ops import _build, _runner, fused_torch, quant
 from lbm_tpu_torch.params import LBMParams
 
-LAUNCHES = 0
-LAUNCHES_I16 = 0
 DEFAULT_CHUNK = 256
 
 # One copy of the state must fit this many bytes for the program to pick K3
@@ -177,62 +175,44 @@ def make_run_all(
     ``lib`` is the kernel library (``_build.load()`` by default;
     ``_build.load_variant`` gives another version of the kernel to time)."""
     quant.check_storage(storage)
-    chunk = max(1, min(chunk, num_steps)) if num_steps else 1
-    n_full, rem = divmod(num_steps, chunk)
-    chunks = [chunk] * n_full + ([rem] if rem else [])
+    chunks = _runner.chunk_lengths(num_steps, chunk)
+    kernel = _runner.form("K3", storage)
 
-    if obstacles.device.type == "cpu":
+    def card(lib):
+        dev = obstacles.device
+        i16, codec = _runner.codec_arg(params, storage)
+        grid = _runner.cooperative_grid(lib, "lbm_inplace_grid", kernel, dev, params.ny,
+                                        params.nx, i16)
+        shape = (9, params.ny, params.nx)
+        dtype = _runner.STATE_DTYPES[storage]
+        state = torch.empty(shape, dtype=dtype, device=dev)
+        spare = torch.empty(shape, dtype=dtype, device=dev) if num_steps % 2 else state
+        gate = torch.empty((2, params.nx), dtype=torch.uint8, device=dev)
+        partials = partials_buffer(band_plan([(0, params.ny)], params.nx, grid, params.ny),
+                                   max(chunks, default=1), dev)
+        omega, w1, w2 = fused_torch.step_constants(params)
 
-        def run_all_plain(f):
-            if not fused_cuda.is_plain(f):
-                raise ValueError(f"state on {f.device} but obstacle mask on the CPU")
-            return run_plain(f, obstacles, params, num_steps, storage)
+        def run_all(f):
+            tot = torch.empty(num_steps, dtype=torch.float32, device=dev)
+            if num_steps == 0:
+                return f, tot
+            if f.data_ptr() != state.data_ptr():
+                state.copy_(f)
+            done = 0
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for n in chunks:
+                _build.launch(
+                    lib, "lbm_inplace_chunk", kernel, state.data_ptr(), spare.data_ptr(),
+                    obstacles.data_ptr(), gate.data_ptr(), partials.data_ptr(),
+                    tot.data_ptr() + 4 * done, params.ny, params.nx, params.accel_row, omega,
+                    w1, w2, i16, _runner.codec_ptr(codec), done, n, int(done == 0),
+                    int(done + n == num_steps), grid, stream, dev.index,
+                )
+                done += n
+            return spare, tot
 
-        return run_all_plain
+        return run_all
 
-    fused_cuda.check_mask(obstacles, params)
-    lib = lib or _build.load()
-    dev = obstacles.device
-    i16, codec = fused_cuda.codec_arg(params, storage)
-    grid = lib.lbm_inplace_grid(params.ny, params.nx, i16, dev.index)
-    if grid <= 0:
-        raise RuntimeError(
-            f"K3 cannot be launched cooperatively on {torch.cuda.get_device_name(dev)}"
-        )
-    shape = (9, params.ny, params.nx)
-    dtype = fused_cuda.STATE_DTYPES[storage]
-    state = torch.empty(shape, dtype=dtype, device=dev)
-    spare = torch.empty(shape, dtype=dtype, device=dev) if num_steps % 2 else state
-    gate = torch.empty((2, params.nx), dtype=torch.uint8, device=dev)
-    partials = partials_buffer(band_plan([(0, params.ny)], params.nx, grid, params.ny), chunk,
-                               dev)
-    omega, w1, w2 = fused_torch.step_constants(params)
-
-    def run_all(f):
-        global LAUNCHES, LAUNCHES_I16
-        if fused_cuda.is_plain(f):
-            raise ValueError("state on the CPU but obstacle mask on a CUDA device")
-        fused_cuda.check_state(f, obstacles, params, storage)
-        tot = torch.empty(num_steps, dtype=torch.float32, device=dev)
-        if num_steps == 0:
-            return f, tot
-        if f.data_ptr() != state.data_ptr():
-            state.copy_(f)
-        done = 0
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for n in chunks:
-            rc = lib.lbm_inplace_chunk(
-                state.data_ptr(), spare.data_ptr(), obstacles.data_ptr(), gate.data_ptr(),
-                partials.data_ptr(), tot.data_ptr() + 4 * done, params.ny, params.nx,
-                params.accel_row, omega, w1, w2, i16, fused_cuda.codec_ptr(codec), done, n,
-                int(done == 0), int(done + n == num_steps), grid, stream, dev.index,
-            )
-            _build.check(rc, "K3 in-place kernel")
-            if i16:
-                LAUNCHES_I16 += 1
-            else:
-                LAUNCHES += 1
-            done += n
-        return spare, tot
-
-    return run_all
+    return _runner.card_or_plain(
+        params, obstacles, lambda f: run_plain(f, obstacles, params, num_steps, storage), card,
+        storage, lib)

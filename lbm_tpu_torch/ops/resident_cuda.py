@@ -19,22 +19,20 @@ Beside the kernel:
 
 - the plain version, :func:`run_plain`: a loop of the twin step
   (ops/fused_torch.py) returning per-step tot_u, which the kernel matches
-  bitwise on fields;
-- ``LAUNCHES``: the number of chunk launches so far, raised only where the
-  kernel is launched.
+  bitwise on fields.
 
-A wrapper takes the plain version only for a tensor on the CPU.  For a CUDA
-tensor it launches the kernel or raises; it never falls back.
+Launches count in ``_build.LAUNCHES`` under ``K2``, one a chunk.  A wrapper
+takes the plain version only for a tensor on the CPU.  For a CUDA tensor it
+launches the kernel or raises; it never falls back (ops/_runner.py).
 """
 
 from __future__ import annotations
 
 import torch
 
-from lbm_tpu_torch.ops import _build, fused_cuda, fused_torch, inplace_cuda
+from lbm_tpu_torch.ops import _build, _runner, fused_torch, inplace_cuda
 from lbm_tpu_torch.params import LBMParams
 
-LAUNCHES = 0
 DEFAULT_CHUNK = 256
 
 # Two f32 copies of the state must fit this many bytes for the multi-step
@@ -111,53 +109,37 @@ def make_run_all(
     runner's next call.  ``lib`` is the kernel library (``_build.load()``
     by default; ``_build.load_variant`` gives another version of the kernel
     to time)."""
-    chunk = max(1, min(chunk, num_steps)) if num_steps else 1
-    n_full, rem = divmod(num_steps, chunk)
-    chunks = [chunk] * n_full + ([rem] if rem else [])
+    chunks = _runner.chunk_lengths(num_steps, chunk)
 
-    if obstacles.device.type == "cpu":
+    def card(lib):
+        dev = obstacles.device
+        grid = _runner.cooperative_grid(lib, "lbm_resident_grid", "K2", dev, params.ny,
+                                        params.nx)
+        shape = (9, params.ny, params.nx)
+        fa = torch.empty(shape, dtype=torch.float32, device=dev)
+        fb = torch.empty(shape, dtype=torch.float32, device=dev)
+        partials = partials_buffer(grid_plan(params.ny, params.nx, grid), max(chunks, default=1),
+                                   dev)
+        omega, w1, w2 = fused_torch.step_constants(params)
 
-        def run_all_plain(f):
-            if not fused_cuda.is_plain(f):
-                raise ValueError(f"state on {f.device} but obstacle mask on the CPU")
-            return run_plain(f, obstacles, params, num_steps)
+        def run_all(f):
+            tot = torch.empty(num_steps, dtype=torch.float32, device=dev)
+            fa.copy_(f)
+            src, dst, done = fa, fb, 0
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for n in chunks:
+                _build.launch(
+                    lib, "lbm_resident_chunk", "K2", src.data_ptr(), dst.data_ptr(),
+                    obstacles.data_ptr(), partials.data_ptr(), tot.data_ptr() + 4 * done,
+                    params.ny, params.nx, params.accel_row, omega, w1, w2, n, grid, stream,
+                    dev.index,
+                )
+                if n % 2:
+                    src, dst = dst, src
+                done += n
+            return src, tot
 
-        return run_all_plain
+        return run_all
 
-    fused_cuda.check_mask(obstacles, params)
-    lib = lib or _build.load()
-    dev = obstacles.device
-    grid = lib.lbm_resident_grid(params.ny, params.nx, dev.index)
-    if grid <= 0:
-        raise RuntimeError(
-            f"K2 cannot be launched cooperatively on {torch.cuda.get_device_name(dev)}"
-        )
-    shape = (9, params.ny, params.nx)
-    fa = torch.empty(shape, dtype=torch.float32, device=dev)
-    fb = torch.empty(shape, dtype=torch.float32, device=dev)
-    partials = partials_buffer(grid_plan(params.ny, params.nx, grid), chunk, dev)
-    omega, w1, w2 = fused_torch.step_constants(params)
-
-    def run_all(f):
-        global LAUNCHES
-        if fused_cuda.is_plain(f):
-            raise ValueError("state on the CPU but obstacle mask on a CUDA device")
-        fused_cuda.check_state(f, obstacles, params)
-        tot = torch.empty(num_steps, dtype=torch.float32, device=dev)
-        fa.copy_(f)
-        src, dst, done = fa, fb, 0
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for n in chunks:
-            rc = lib.lbm_resident_chunk(
-                src.data_ptr(), dst.data_ptr(), obstacles.data_ptr(), partials.data_ptr(),
-                tot.data_ptr() + 4 * done, params.ny, params.nx, params.accel_row,
-                omega, w1, w2, n, grid, stream, dev.index,
-            )
-            _build.check(rc, "K2 resident kernel")
-            LAUNCHES += 1
-            if n % 2:
-                src, dst = dst, src
-            done += n
-        return src, tot
-
-    return run_all
+    return _runner.card_or_plain(
+        params, obstacles, lambda f: run_plain(f, obstacles, params, num_steps), card, lib=lib)

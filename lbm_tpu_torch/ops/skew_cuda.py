@@ -21,14 +21,14 @@ Beside the kernel:
 
 - the plain version, :func:`run_plain`: ``fused_torch.run_sweeps`` (as
   K4's), which the kernel matches bitwise on fields;
-- ``LAUNCHES`` (f32) and ``LAUNCHES_I16`` (int16): the number of sweep
-  launches so far, raised only where the kernel is launched;
 - the host's model of the walk, :func:`walk_plan` and :func:`thread_pairs`,
   which the CPU tests hold to every hazard of the rings;
 - :func:`band_rows`, the band height that fills the card's slots.
 
-A wrapper takes the plain version only for a tensor on the CPU.  For a CUDA
-tensor it launches the kernel or raises; it never falls back.
+Launches count in ``_build.LAUNCHES`` under ``K5`` and ``K5-i16``, one a
+sweep.  A wrapper takes the plain version only for a tensor on the CPU.
+For a CUDA tensor it launches the kernel or raises; it never falls back
+(ops/_runner.py).
 """
 
 from __future__ import annotations
@@ -37,9 +37,6 @@ import torch
 
 from lbm_tpu_torch.ops import _build, quant, temporal_cuda
 from lbm_tpu_torch.params import LBMParams
-
-LAUNCHES = 0
-LAUNCHES_I16 = 0
 
 ROWS_PER_STEP = 2  # R: rows of every level per walk step (kR in csrc/skew.cu)
 PREFETCH = 1  # steps between a level-0 copy's issue and the barrier it lands by (kPrefetch)
@@ -209,14 +206,6 @@ def supports(params: LBMParams, K: int, storage: str = "f32") -> bool:
     return need is not None and need <= temporal_cuda.SMEM_LIMIT
 
 
-def _count(i16: bool, n: int) -> None:
-    global LAUNCHES, LAUNCHES_I16
-    if i16:
-        LAUNCHES_I16 += n
-    else:
-        LAUNCHES += n
-
-
 def make_run_all(params: LBMParams, obstacles: torch.Tensor, num_steps: int, K: int,
                  storage: str = "f32", lib=None, strip_band: tuple[int, int] | None = None):
     """Build ``f0 -> (f_final, tot_us (num_steps,))``: K5 sweeps, then K1
@@ -226,14 +215,9 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, num_steps: int, K: 
     (strip width, band rows), which :func:`geometry` gives otherwise."""
     if not supports(params, K, storage):
         raise ValueError(f"skewed sweep (K={K}) cannot map a {params.ny}x{params.nx} grid")
-    if strip_band is None:
-        if obstacles.device.type == "cpu":
-            strip_band = (strip_width(K), BAND_MAX)  # the plain version takes none
-        else:
-            with torch.cuda.device(obstacles.device):
-                strip_band = geometry(K, params.ny, params.nx, lib)
-    return temporal_cuda.sweep_runner("K5 skewed sweep kernel", "skew", tuple(strip_band),
-                                      _count, params, obstacles, num_steps, K, storage, lib)
+    return temporal_cuda.sweep_runner(
+        "K5", "skew", lambda lib: strip_band or geometry(K, params.ny, params.nx, lib), params,
+        obstacles, num_steps, K, storage, lib)
 
 
 def make_sweep(params: LBMParams, obstacles: torch.Tensor, K: int, storage: str = "f32"):

@@ -17,16 +17,16 @@ K4-slab (and K4-slab-i16), the same kernel's slab form, replaces
 K steps of one shard's body rows from its ghost-extended slab, the K ghost
 rows on each side and the body each a window with its own plane stride
 (:func:`bind_slab_sweep`).  Its plain version is ``fused_torch.ca_sweep``
-(int16 quantized once per sweep); its counts are ``SLAB_LAUNCHES`` and
-``SLAB_LAUNCHES_I16``.
+(int16 quantized once per sweep).
 
 Beside the kernel:
 
 - the plain version, :func:`run_plain`: ``fused_torch.run_sweeps``, K twin
   steps per sweep (int16: decoded once, encoded once per sweep), which the
-  kernel matches bitwise on fields;
-- ``LAUNCHES`` (f32) and ``LAUNCHES_I16`` (int16): the number of sweep
-  launches so far, raised only where the kernel is launched.
+  kernel matches bitwise on fields.
+
+Launches count in ``_build.LAUNCHES`` under ``K4`` and ``K4-i16`` (one a
+sweep), ``K4-slab`` and ``K4-slab-i16``.
 
 Also here: :func:`pick_k`, the depth policy (``temporal_pallas.pick_k``
 :608), and :func:`sweep_runner`, the runner K4 and K5 (ops/skew_cuda.py)
@@ -35,7 +35,8 @@ sweeps with the range ``lbm.sweeps.k<K>`` and its K1 remainder with
 ``lbm.tail`` (``utils/timing.span``; K9's runner, ops/hbm_cuda.py, too):
 the sweeps stay one library call, with no synchronize and no range a
 sweep.  A wrapper takes the plain version only for a tensor on the CPU.  For
-a CUDA tensor it launches the kernel or raises; it never falls back.
+a CUDA tensor it launches the kernel or raises; it never falls back
+(ops/_runner.py).
 """
 
 from __future__ import annotations
@@ -46,14 +47,9 @@ from typing import Callable
 
 import torch
 
-from lbm_tpu_torch.ops import _build, fused_cuda, fused_torch, quant
+from lbm_tpu_torch.ops import _build, _runner, fused_cuda, fused_torch, quant
 from lbm_tpu_torch.params import LBMParams
 from lbm_tpu_torch.utils.timing import span
-
-LAUNCHES = 0
-LAUNCHES_I16 = 0
-SLAB_LAUNCHES = 0
-SLAB_LAUNCHES_I16 = 0
 
 # The regions compiled into csrc/temporal.cu (LBM_TRAPEZOID_REGIONS):
 # (rows, columns) -> threads per block.  Each block holds two float32
@@ -192,15 +188,13 @@ def run_plain(f: torch.Tensor, obstacles: torch.Tensor, params: LBMParams, num_s
 
 def plain_runner(params: LBMParams, obstacles: torch.Tensor, num_steps: int, K: int,
                  storage: str = "f32"):
-    """Build ``f0 -> (f_final, tot_us (num_steps,))`` on CPU tensors:
-    :func:`run_plain`, its whole sweeps inside ``lbm.sweeps.k<K>`` and its
-    remainder's single steps inside ``lbm.tail``, as the card's runners mark
-    theirs."""
+    """The plain version of a sweep runner, ``f0 -> (f_final, tot_us
+    (num_steps,))`` on CPU tensors: :func:`run_plain`, its whole sweeps
+    inside ``lbm.sweeps.k<K>`` and its remainder's single steps inside
+    ``lbm.tail``, as the card's runners mark theirs."""
     n_sweeps, rem = divmod(num_steps, K)
 
     def run_all_plain(f):
-        if not fused_cuda.is_plain(f):
-            raise ValueError(f"state on {f.device} but obstacle mask on the CPU")
         with span(f"sweeps.k{K}") if n_sweeps else contextlib.nullcontext():
             f, tot = run_plain(f, obstacles, params, n_sweeps * K, K, storage)
         if rem:
@@ -213,10 +207,9 @@ def plain_runner(params: LBMParams, obstacles: torch.Tensor, num_steps: int, K: 
 
 
 def sweep_runner(
-    what: str,
+    kernel: str,
     kind: str,
-    geometry: tuple[int, int],
-    count: Callable[[bool, int], None],
+    geometry: Callable[[object], tuple[int, int]],
     params: LBMParams,
     obstacles: torch.Tensor,
     num_steps: int,
@@ -226,65 +219,58 @@ def sweep_runner(
 ):
     """Build ``f0 -> (f_final, tot_us (num_steps,))`` on a sweep kernel:
     ``num_steps // K`` sweeps in one call of the library's
-    ``lbm_<kind>_run`` (``kind`` ``trapezoid`` or ``skew``, with its two
-    geometry integers), then the remainder as K1 steps.
+    ``lbm_<kind>_run`` (``kind`` ``trapezoid`` or ``skew``, with the two
+    geometry integers ``geometry(lib)`` gives on the card), counted as
+    ``kernel`` (``K4`` or ``K5``, its ``-i16`` form for int16), then the
+    remainder as K1 steps.
 
     The two state buffers, the K1 tail's runner and the partials are
-    allocated here, once; ``count(i16, launches)`` raises the kernel's
-    counter.  ``lib`` is the kernel library (``_build.load()`` by default;
-    ``_build.load_variant`` gives another version of the kernel to time).  ``f0`` is not modified.  On the card the returned state is one
-    of the runner's buffers and stays valid until its next call."""
+    allocated here, once.  ``lib`` is the kernel library (``_build.load()``
+    by default; ``_build.load_variant`` gives another version of the kernel
+    to time).  ``f0`` is not modified.  On the card the returned state is
+    one of the runner's buffers and stays valid until its next call."""
     quant.check_storage(storage)
     n_sweeps, rem = divmod(num_steps, K)
-    if obstacles.device.type == "cpu":
-        return plain_runner(params, obstacles, num_steps, K, storage)
+    kernel = _runner.form(kernel, storage)
 
-    fused_cuda.check_mask(obstacles, params)
-    lib = lib or _build.load()
-    dev = obstacles.device
-    shape = (9, params.ny, params.nx)
-    fa = torch.empty(shape, dtype=fused_cuda.STATE_DTYPES[storage], device=dev)
-    fb = torch.empty_like(fa)
-    nblocks = getattr(lib, f"lbm_{kind}_blocks")(params.ny, params.nx, K, *geometry)
-    batch = max(1, min(fused_cuda.TOT_BATCH // K, n_sweeps))
-    partials = torch.empty((batch * K, nblocks), dtype=torch.float32, device=dev)
-    tail = fused_cuda.make_run_all(params, obstacles, rem, storage) if rem else None
-    omega, w1, w2 = fused_torch.step_constants(params)
-    i16, codec = fused_cuda.codec_arg(params, storage)
-    run = getattr(lib, f"lbm_{kind}_run")
+    def card(lib):
+        dev = obstacles.device
+        with torch.cuda.device(dev):
+            geom = tuple(geometry(lib))
+        shape = (9, params.ny, params.nx)
+        fa = torch.empty(shape, dtype=_runner.STATE_DTYPES[storage], device=dev)
+        fb = torch.empty_like(fa)
+        nblocks = getattr(lib, f"lbm_{kind}_blocks")(params.ny, params.nx, K, *geom)
+        batch = max(1, min(_runner.TOT_BATCH // K, n_sweeps))
+        partials = torch.empty((batch * K, nblocks), dtype=torch.float32, device=dev)
+        tail = fused_cuda.make_run_all(params, obstacles, rem, storage) if rem else None
+        omega, w1, w2 = fused_torch.step_constants(params)
+        i16, codec = _runner.codec_arg(params, storage)
 
-    def run_all(f):
-        if fused_cuda.is_plain(f):
-            raise ValueError("state on the CPU but obstacle mask on a CUDA device")
-        fused_cuda.check_state(f, obstacles, params, storage)
-        tot = torch.empty(num_steps, dtype=torch.float32, device=dev)
-        if n_sweeps:
-            fa.copy_(f)
-            with span(f"sweeps.k{K}"):
-                rc = run(
-                    fa.data_ptr(), fb.data_ptr(), obstacles.data_ptr(), partials.data_ptr(),
-                    tot.data_ptr(), params.ny, params.nx, params.accel_row, omega, w1, w2,
-                    i16, fused_cuda.codec_ptr(codec), K, *geometry, n_sweeps, batch,
-                    torch.cuda.current_stream(dev).cuda_stream, dev.index,
-                )
-            _build.check(rc, what)
-            count(bool(i16), n_sweeps)
-            f = fb if n_sweeps % 2 else fa
-        if rem:
-            with span("tail"):
-                f, tot_rem = tail(f)
-            tot[n_sweeps * K:] = tot_rem
-        return f, tot
+        def run_all(f):
+            tot = torch.empty(num_steps, dtype=torch.float32, device=dev)
+            if n_sweeps:
+                fa.copy_(f)
+                with span(f"sweeps.k{K}"):
+                    _build.launch(
+                        lib, f"lbm_{kind}_run", kernel, fa.data_ptr(), fb.data_ptr(),
+                        obstacles.data_ptr(), partials.data_ptr(), tot.data_ptr(), params.ny,
+                        params.nx, params.accel_row, omega, w1, w2, i16,
+                        _runner.codec_ptr(codec), K, *geom, n_sweeps, batch,
+                        torch.cuda.current_stream(dev).cuda_stream, dev.index, n=n_sweeps,
+                    )
+                f = fb if n_sweeps % 2 else fa
+            if rem:
+                with span("tail"):
+                    f, tot_rem = tail(f)
+                tot[n_sweeps * K:] = tot_rem
+            return f, tot
 
-    return run_all
+        return run_all
 
-
-def _count(i16: bool, n: int) -> None:
-    global LAUNCHES, LAUNCHES_I16
-    if i16:
-        LAUNCHES_I16 += n
-    else:
-        LAUNCHES += n
+    return _runner.card_or_plain(params, obstacles,
+                                 plain_runner(params, obstacles, num_steps, K, storage), card,
+                                 storage, lib)
 
 
 def make_run_all(params: LBMParams, obstacles: torch.Tensor, num_steps: int, K: int,
@@ -296,8 +282,8 @@ def make_run_all(params: LBMParams, obstacles: torch.Tensor, num_steps: int, K: 
     kernel library (:func:`sweep_runner`)."""
     if not supports(params, K, storage):
         raise ValueError(f"trapezoid sweep (K={K}) cannot map a {params.ny}x{params.nx} grid")
-    return sweep_runner("K4 trapezoid sweep kernel", "trapezoid", tile_hw or tile(K),
-                        _count, params, obstacles, num_steps, K, storage, lib)
+    return sweep_runner("K4", "trapezoid", lambda lib: tile_hw or tile(K), params, obstacles,
+                        num_steps, K, storage, lib)
 
 
 def make_sweep(params: LBMParams, obstacles: torch.Tensor, K: int, storage: str = "f32"):
@@ -332,13 +318,8 @@ def check_ext_args(lo, body, hi, obst_ext, out, tots, dtype) -> tuple[int, int, 
     n, nx, K = body.shape[1], body.shape[2], lo.shape[1]
     dev = body.device
     for name, t, rows in (("lo", lo, K), ("body", body, n), ("hi", hi, K), ("out", out, n)):
-        fused_cuda._check_window(name, t, rows, nx, dtype, dev)
-    if (obst_ext.device != dev or obst_ext.dtype != torch.bool or not obst_ext.is_contiguous()
-            or tuple(obst_ext.shape) != (n + 2 * K, nx)):
-        raise ValueError(f"extended obstacle slab must be a contiguous ({n + 2 * K}, {nx}) "
-                         f"bool tensor on {dev}")
-    if tots.device != dev or tots.dtype != torch.float32 or tots.dim() != 1:
-        raise ValueError(f"tots must be a 1-D float32 tensor on {dev}")
+        _runner.check_window(name, t, rows, nx, dtype, dev)
+    _runner.check_slab("extended obstacle slab", obst_ext, n + 2 * K, nx, tots, dev)
     return n, nx, K
 
 
@@ -378,41 +359,30 @@ def bind_slab_sweep(params: LBMParams, lo: torch.Tensor, body: torch.Tensor, hi:
     launches the kernel or raises.  ``tile_hw`` and ``lib`` as for
     :func:`make_run_all`."""
     quant.check_storage(storage)
-    n, nx, K = check_ext_args(lo, body, hi, obst_ext, out, tots,
-                              fused_cuda.STATE_DTYPES[storage])
+    n, nx, K = check_ext_args(lo, body, hi, obst_ext, out, tots, _runner.STATE_DTYPES[storage])
     if not supports_shard(n, nx, K):
         raise ValueError(f"K4-slab (K={K}) cannot map a {n}x{nx} shard")
-    if fused_cuda.is_plain(body):
-        return bind_plain(
-            lambda lo_, b, hi_, ob: slab_plain(lo_, b, hi_, ob, params, row_offset, ny_global,
-                                               storage),
-            lo, body, hi, obst_ext, out, tots)
+    kernel = _runner.form("K4-slab", storage)
 
-    lib = lib or _build.load()
-    dev = body.device
-    th, tw = tile_hw or tile(K)
-    partials = torch.empty((K, lib.lbm_trapezoid_blocks(n, nx, K, th, tw)), dtype=torch.float32,
-                           device=dev)
-    omega, w1, w2 = fused_torch.step_constants(params)
-    i16, codec = fused_cuda.codec_arg(params, storage)
-    head = (lo.data_ptr(), lo.stride(0), body.data_ptr(), body.stride(0), hi.data_ptr(),
-            hi.stride(0), obst_ext.data_ptr(), out.data_ptr(), out.stride(0),
-            partials.data_ptr())
-    tail = (n, nx, row_offset, ny_global, params.accel_row, omega, w1, w2, i16,
-            fused_cuda.codec_ptr(codec), K, th, tw, torch.cuda.current_stream(dev).cuda_stream,
-            dev.index)
-    tot0, tot_n = tots.data_ptr(), tots.shape[0]
+    def card(lib):
+        dev = body.device
+        th, tw = tile_hw or tile(K)
+        partials = torch.empty((K, lib.lbm_trapezoid_blocks(n, nx, K, th, tw)),
+                               dtype=torch.float32, device=dev)
+        omega, w1, w2 = fused_torch.step_constants(params)
+        i16, codec = _runner.codec_arg(params, storage)
+        head = (lo.data_ptr(), lo.stride(0), body.data_ptr(), body.stride(0), hi.data_ptr(),
+                hi.stride(0), obst_ext.data_ptr(), out.data_ptr(), out.stride(0),
+                partials.data_ptr())
+        tail = (n, nx, row_offset, ny_global, params.accel_row, omega, w1, w2, i16,
+                _runner.codec_ptr(codec), K, th, tw, torch.cuda.current_stream(dev).cuda_stream,
+                dev.index)
+        return _build.bind(lib, "lbm_trapezoid_slab", kernel, head, tots, K, tail,
+                           (partials, codec))
 
-    def launch(t0):
-        global SLAB_LAUNCHES, SLAB_LAUNCHES_I16
-        if not 0 <= t0 <= tot_n - K:
-            raise IndexError(f"steps {t0}..{t0 + K} outside tots of {tot_n}")
-        rc = lib.lbm_trapezoid_slab(*head, tot0 + 4 * t0, *tail)
-        _build.check(rc, "K4-slab sweep kernel")
-        if i16:
-            SLAB_LAUNCHES_I16 += 1
-        else:
-            SLAB_LAUNCHES += 1
-
-    launch.keep = (partials, codec)  # alive while the launcher is
-    return launch
+    return _runner.launcher(
+        body,
+        bind_plain(lambda lo_, b, hi_, ob: slab_plain(lo_, b, hi_, ob, params, row_offset,
+                                                      ny_global, storage),
+                   lo, body, hi, obst_ext, out, tots),
+        card, lib)

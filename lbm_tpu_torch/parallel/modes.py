@@ -81,7 +81,7 @@ import torch
 
 from lbm_tpu_torch.core import lattice
 from lbm_tpu_torch.models.program import StepProgram, u_mag_fn
-from lbm_tpu_torch.ops import ca_cuda, fused_cuda, ghosted_cuda, quant, temporal_cuda
+from lbm_tpu_torch.ops import _runner, ca_cuda, fused_cuda, ghosted_cuda, quant, temporal_cuda
 from lbm_tpu_torch.params import LBMParams
 from lbm_tpu_torch.parallel import mesh as mesh_lib
 from lbm_tpu_torch.parallel.exchange import Exchange, gather
@@ -454,7 +454,7 @@ class _Runner:
     def __init__(self, lay: _Layout, num_steps: int, kind: str):
         self.lay, self.n, self.kind = lay, num_steps, kind
         nloc, nx = lay.nloc, lay.nx
-        dtype = fused_cuda.STATE_DTYPES[lay.storage]
+        dtype = _runner.STATE_DTYPES[lay.storage]
         devs = lay.mesh.devices
         self.slots = lay.queue + 1 if lay.mode == "async" else 1
         self.F = [[torch.empty((9, nloc, nx), dtype=dtype, device=d) for _ in range(2)]

@@ -271,12 +271,10 @@ def l2_copy_gbps(device, nbytes: int, barrier: bool, passes: int = L2_PASSES,
     with a grid barrier after every pass when ``barrier``."""
     import torch
 
-    from lbm_tpu_torch.ops import _build
+    from lbm_tpu_torch.ops import _build, _runner
 
     lib = _build.load()
-    grid = lib.lbm_l2_copy_grid(device.index)
-    if grid <= 0:
-        raise RuntimeError("the L2 copy cannot be launched cooperatively")
+    grid = _runner.cooperative_grid(lib, "lbm_l2_copy_grid", "the L2 copy", device)
     buf = torch.zeros(nbytes // 16 * 4, dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
 

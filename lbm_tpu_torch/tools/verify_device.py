@@ -54,14 +54,14 @@ import sys
 import numpy as np
 import torch
 
+from lbm_tpu_torch.ops import _build
+
 _REPO = pathlib.Path(__file__).resolve().parents[2]
 GOLDEN = _REPO / "golden"
 SHARDS = 4  # the slab and ca probes take the last shard of the grid over 4
 
 # The 22 kernel forms of PERF.md's kernel table, in its order.
-PROBES = ("K1", "K1-i16", "K1-slab", "K1-slab-i16", "K2", "K3", "K3-i16", "K4", "K4-i16",
-          "K4-slab", "K4-slab-i16", "K5", "K5-i16", "K6", "K7", "K8", "K8-i16", "K9", "K10",
-          "K1-batch", "K2-batch", "K11")
+PROBES = _build.KERNEL_FORMS
 
 # Tolerances on max |diff| (float32 fields; int16 fields in quantization
 # steps): the card's claim is bitwise; on the CPU the plain versions are

@@ -23,6 +23,7 @@ from lbm_tpu_torch.core import lattice
 from lbm_tpu_torch.io.scene import Scene
 from lbm_tpu_torch.models import driver, program
 from lbm_tpu_torch.ops import blocked_cuda, fused_torch, stencil_math
+from lbm_tpu_torch.ops._build import LAUNCHES
 from lbm_tpu_torch.params import LBMParams, with_driven_row
 
 torch.set_num_threads(1)
@@ -453,10 +454,10 @@ def test_k10_repeats_bitwise_on_card(cuda_device):
 def test_k10_counts_its_launches_and_refuses_cpu_state(cuda_device):
     params, mask = _scene(32, 64)
     obst = torch.from_numpy(mask).to(cuda_device)
-    before = blocked_cuda.LAUNCHES
+    before = LAUNCHES["K10"]
     run = blocked_cuda.make_run_all(params, obst, 600, chunk=256)
     f, tot = run(torch.from_numpy(_mixed(params)).to(cuda_device))
-    assert blocked_cuda.LAUNCHES == before + 3 and tot.shape == (600,)
+    assert LAUNCHES["K10"] == before + 3 and tot.shape == (600,)
     assert bool(torch.isfinite(f).all())
     with pytest.raises(ValueError, match="state on the CPU"):
         run(torch.from_numpy(_mixed(params)))

@@ -20,6 +20,7 @@ import torch
 
 from lbm_tpu_torch.core import lattice
 from lbm_tpu_torch.ops import fused_cuda, ghosted_cuda, resident_cuda
+from lbm_tpu_torch.ops._build import LAUNCHES
 from lbm_tpu_torch.params import LBMParams
 from lbm_tpu_torch.parallel import mesh, modes
 
@@ -172,11 +173,11 @@ def test_k6_matches_plain_on_card(cuda_device, chunk, shape, where):
     body, lo, hi = t[:, 1:-1].contiguous(), t[:, :1], t[:, -1:]
     out = torch.empty_like(body)
     tots = torch.zeros(chunk, dtype=torch.float32, device=cuda_device)
-    before = ghosted_cuda.LAUNCHES
+    before = LAUNCHES["K6"]
     launch = ghosted_cuda.bind_chunk(p, body.clone(), lo, hi, mt, out, tots, off, chunk)
     launch(0)
     torch.cuda.synchronize()
-    assert ghosted_cuda.LAUNCHES == before + 1
+    assert LAUNCHES["K6"] == before + 1
     ref, ref_tots = ghosted_cuda.chunk_plain(body, lo, hi, mt, p, off, chunk)
     assert torch.equal(launch.result, ref)
     torch.testing.assert_close(tots, ref_tots, rtol=1e-6, atol=0.0)
@@ -213,11 +214,11 @@ def test_k6_band_edges_match_plain_on_card(cuda_device, chunk, shape, where):
     bwd = ghosted_cuda.bind_chunk(p, b, lo, hi, mt, a, tots, off, chunk)
     assert fwd.result is (b if chunk % 2 else a)
     nxt = bwd if fwd.result is b else fwd
-    before = ghosted_cuda.LAUNCHES
+    before = LAUNCHES["K6"]
     fwd(0)
     nxt(chunk)
     torch.cuda.synchronize()
-    assert ghosted_cuda.LAUNCHES == before + 2
+    assert LAUNCHES["K6"] == before + 2
     ref, ref_tots = ghosted_cuda.chunk_plain(body, lo, hi, mt, p, off, 2 * chunk)
     assert torch.equal(nxt.result, ref)
     torch.testing.assert_close(tots, ref_tots, rtol=1e-6, atol=0.0)

@@ -25,6 +25,7 @@ from lbm_tpu_torch import cli
 from lbm_tpu_torch.core import lattice
 from lbm_tpu_torch.models import program
 from lbm_tpu_torch.ops import fused_cuda, hbm_cuda, inplace_cuda, resident_cuda
+from lbm_tpu_torch.ops._build import LAUNCHES
 from lbm_tpu_torch.params import LBMParams, with_driven_row
 from lbm_tpu_torch.tools import scenegen
 
@@ -287,9 +288,9 @@ def test_k9_matches_plain_and_k1_on_card(cuda_device, shape, K, kind):
     obst = torch.from_numpy(mask).to(cuda_device)
     f0 = _start(p, kind, cuda_device)
     steps = 2 * K + 1
-    before = hbm_cuda.LAUNCHES
+    before = LAUNCHES["K9"]
     f_k, tot_k = (t.clone() for t in hbm_cuda.make_run_all(p, obst, steps, K)(f0))
-    assert hbm_cuda.LAUNCHES == before + 2
+    assert LAUNCHES["K9"] == before + 2
     f_p, tot_p = hbm_cuda.run_plain(f0, obst, p, steps, K)
     assert torch.equal(f_k, f_p), float((f_k - f_p).abs().max())
     torch.testing.assert_close(tot_k, tot_p, rtol=1e-6, atol=0.0)
@@ -323,9 +324,9 @@ def test_k9_parts_slots_and_driven_rows_on_card(cuda_device, case, where):
     f0 = _start(p, "mixed", cuda_device)
     steps = 3 * K + 1
     run = hbm_cuda.make_run_all(p, obst, steps, K, rows=R, slots=S)
-    before = hbm_cuda.LAUNCHES
+    before = LAUNCHES["K9"]
     f_k, tot_k = (t.clone() for t in run(f0))
-    assert hbm_cuda.LAUNCHES == before + 3
+    assert LAUNCHES["K9"] == before + 3
     f_p, _ = hbm_cuda.run_plain(f0, obst, p, steps, K)
     assert torch.equal(f_k, f_p), float((f_k - f_p).abs().max())
     _, tot_q = hbm_cuda.run_parts_plain(f0, obst, p, steps, K, R)

@@ -21,6 +21,7 @@ from lbm_tpu.core import lattice as jlattice
 from lbm_tpu.ops import resident_pallas
 from lbm_tpu.params import LBMParams as JParams
 from lbm_tpu_torch.ops import inplace_cuda, quant
+from lbm_tpu_torch.ops._build import LAUNCHES
 from lbm_tpu_torch.params import LBMParams
 
 torch.set_num_threads(1)
@@ -56,10 +57,10 @@ def test_k3_plain_matches_b3_f32(scene):
     """13 steps in chunks of 5: two full chunks and a remainder chunk."""
     params, jparams, mask, f0 = scene
     f_j, tot_j = _b3(jparams, mask, f0, 13, 5, "f32")
-    launches = inplace_cuda.LAUNCHES
+    launches = LAUNCHES["K3"]
     run = inplace_cuda.make_run_all(params, torch.from_numpy(mask), 13, chunk=5)
     f_t, tot_t = run(torch.from_numpy(f0))
-    assert inplace_cuda.LAUNCHES == launches  # CPU tensors take the plain version
+    assert LAUNCHES["K3"] == launches  # CPU tensors take the plain version
     assert tot_t.shape == (13,) and f_t.dtype == torch.float32
     np.testing.assert_allclose(f_t.numpy(), f_j, rtol=0, atol=5e-8)
     np.testing.assert_allclose(tot_t.numpy()[:1], tot_j[:1], rtol=1e-6)
@@ -75,7 +76,7 @@ def test_k3_plain_matches_b3_i16(scene):
         jparams, mask, 1, chunk=1, inplace=True, block_rows=8, interpret=True, storage="i16"))
     q_j = jnp.asarray(quant.quantize(torch.from_numpy(f0), params.density).numpy())
     run_t = inplace_cuda.make_run_all(params, torch.from_numpy(mask), 1, storage="i16")
-    launches = inplace_cuda.LAUNCHES_I16
+    launches = LAUNCHES["K3-i16"]
     for _ in range(4):
         q_t, tot_t = run_t(torch.from_numpy(np.array(q_j)))
         q_j, tot_j = run_j(q_j)
@@ -84,7 +85,7 @@ def test_k3_plain_matches_b3_i16(scene):
         assert d.max() <= 1, f"max int16 diff {d.max()}"
         assert (d != 0).mean() < 0.01, f"{int((d != 0).sum())} cells differ"
         np.testing.assert_allclose(tot_t.numpy(), np.asarray(tot_j), rtol=1e-6)
-    assert inplace_cuda.LAUNCHES_I16 == launches
+    assert LAUNCHES["K3-i16"] == launches
 
 
 def test_k3_budget_and_state_bytes():

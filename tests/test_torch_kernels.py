@@ -33,6 +33,7 @@ from lbm_tpu_torch.ops import (
     quant,
     resident_cuda,
 )
+from lbm_tpu_torch.ops._build import LAUNCHES
 from lbm_tpu_torch.params import LBMParams
 from lbm_tpu_torch.tools import kernel_times
 
@@ -84,9 +85,9 @@ def test_k1_matches_plain_on_card(cuda_device, shape, kind):
     params, mask = _scene(*shape)
     obst = torch.from_numpy(mask).to(cuda_device)
     f0 = _state(params, kind, cuda_device)
-    before = fused_cuda.LAUNCHES
+    before = LAUNCHES["K1"]
     f_k, tot_k = fused_cuda.make_run_all(params, obst, 20)(f0)
-    assert fused_cuda.LAUNCHES == before + 20
+    assert LAUNCHES["K1"] == before + 20
     f_p, tot_p = fused_cuda.run_plain(f0, obst, params, 20)
     _assert_matches(f_k, tot_k, f_p, tot_p)
     one, tot_one = fused_cuda.step(f0, obst, params)
@@ -105,7 +106,8 @@ def test_ensemble_kernels_match_plain_on_card(cuda_device, shape, B, geometry, k
     or K2 run of its omega, accel (1.0: the guard split on the driven row)
     and mask; a second run bitwise.  200 x 7x33 puts K11 at C = 1 (one
     block an instance; on the H100 in one wave of 512-thread blocks, two an
-    SM).  K11's launches are also counted by its plan's block shape and C."""
+    SM).  K11's launches take its plan's block shape and C: the card's
+    ``cluster_plan`` for the shape."""
     params, mask = _scene(*shape)
     masks = np.stack([mask] * B)
     if geometry:
@@ -116,19 +118,15 @@ def test_ensemble_kernels_match_plain_on_card(cuda_device, shape, B, geometry, k
     omegas = np.linspace(0.7, 1.9, B, dtype=np.float32)
     accels = np.asarray([(0.005, 1.0)[b % 2] for b in range(B)], dtype=np.float32)
     steps = 20 if kernel == "K1-batch" else 300
-    counts = (ensemble_cuda.LAUNCHES_BATCH, ensemble_cuda.LAUNCHES_BATCH_RESIDENT,
-              ensemble_cuda.LAUNCHES_BATCH_CLUSTER)
-    forms = dict(ensemble_cuda.LAUNCHES_CLUSTER_FORMS)
+    counts = {k: LAUNCHES[k] for k in ensemble_cuda.KERNELS}
     run = ensemble_cuda.make_run_all(params, obst, omegas, accels, steps, kernel=kernel)
     assert run.kernel == kernel and (run.plan is not None) == (kernel == "K11")
     f_k, tot_k = (t.clone() for t in run(f0))
-    assert (ensemble_cuda.LAUNCHES_BATCH - counts[0],
-            ensemble_cuda.LAUNCHES_BATCH_RESIDENT - counts[1],
-            ensemble_cuda.LAUNCHES_BATCH_CLUSTER - counts[2]) == {
+    assert tuple(LAUNCHES[k] - counts[k] for k in ensemble_cuda.KERNELS) == {
         "K1-batch": (steps, 0, 0), "K2-batch": (0, 2, 0), "K11": (0, 0, 2)}[kernel]
-    if run.plan is not None:
-        form = (run.plan.threads, run.plan.C)
-        assert ensemble_cuda.LAUNCHES_CLUSTER_FORMS[form] - forms.get(form, 0) == 2
+    if run.plan is not None:  # the form K11 launched in: the card's plan for the shape
+        assert run.plan == ensemble_cuda.cluster_plan(
+            *shape, B, ensemble_cuda.card_clusters(_build.load(), cuda_device.index))
     f_p, tot_p = ensemble_cuda.run_plain(f0, obst, params, omegas, accels, steps)
     _assert_matches(f_k, tot_k, f_p, tot_p)
     f_2, tot_2 = run(f0)
@@ -174,9 +172,9 @@ def test_k2_matches_plain_on_card(cuda_device, steps, chunk, kind):
     params, mask = _scene(32, 64)
     obst = torch.from_numpy(mask).to(cuda_device)
     f0 = _state(params, kind, cuda_device)
-    before = resident_cuda.LAUNCHES
+    before = LAUNCHES["K2"]
     f_k, tot_k = resident_cuda.make_run_all(params, obst, steps, chunk=chunk)(f0)
-    assert resident_cuda.LAUNCHES == before + -(-steps // chunk)
+    assert LAUNCHES["K2"] == before + -(-steps // chunk)
     f_p, tot_p = resident_cuda.run_plain(f0, obst, params, steps)
     _assert_matches(f_k, tot_k, f_p, tot_p)
 
@@ -201,9 +199,9 @@ def test_k2_band_edges_match_plain_on_card(cuda_device, shape, chunk):
         assert any(s // nx == params.accel_row for s, _, _, _ in plan)
         assert any((e - 1) // nx == params.accel_row for _, e, _, _ in plan)
     steps = 2 * chunk + 1
-    before = resident_cuda.LAUNCHES
+    before = LAUNCHES["K2"]
     f_k, tot_k = resident_cuda.make_run_all(params, obst, steps, chunk=chunk)(f0)
-    assert resident_cuda.LAUNCHES == before + 3
+    assert LAUNCHES["K2"] == before + 3
     f_p, tot_p = resident_cuda.run_plain(f0, obst, params, steps)
     _assert_matches(f_k, tot_k, f_p, tot_p)
 
@@ -222,11 +220,11 @@ def test_k3_matches_plain_on_card(cuda_device, shape, steps, chunk, kind, storag
     params, mask = _scene(*shape)
     obst = torch.from_numpy(mask).to(cuda_device)
     f0 = _start(params, kind, cuda_device, storage)
-    counter = "LAUNCHES_I16" if storage == "i16" else "LAUNCHES"
-    before = getattr(inplace_cuda, counter)
+    kernel = "K3-i16" if storage == "i16" else "K3"
+    before = LAUNCHES[kernel]
     run = inplace_cuda.make_run_all(params, obst, steps, chunk=chunk, storage=storage)
     f_k, tot_k = run(f0)
-    assert getattr(inplace_cuda, counter) == before + -(-steps // chunk)
+    assert LAUNCHES[kernel] == before + -(-steps // chunk)
     f_p, tot_p = inplace_cuda.run_plain(f0, obst, params, steps, storage)
     assert f_k.dtype == f0.dtype
     _assert_matches(f_k, tot_k, f_p, tot_p)
@@ -239,9 +237,9 @@ def test_k1_i16_matches_plain_on_card(cuda_device, shape, kind):
     params, mask = _scene(*shape)
     obst = torch.from_numpy(mask).to(cuda_device)
     q0 = _start(params, kind, cuda_device, "i16")
-    before = fused_cuda.LAUNCHES_I16
+    before = LAUNCHES["K1-i16"]
     q_k, tot_k = fused_cuda.make_run_all(params, obst, 20, "i16")(q0)
-    assert fused_cuda.LAUNCHES_I16 == before + 20
+    assert LAUNCHES["K1-i16"] == before + 20
     q_p, tot_p = fused_cuda.run_plain(q0, obst, params, 20, "i16")
     assert q_k.dtype == torch.int16
     _assert_matches(q_k, tot_k, q_p, tot_p)
@@ -288,10 +286,10 @@ def test_k1_slab_i16_edge_shapes_match_plain_on_card(cuda_device, nx, where):
                    "lo": params.accel_row + 1, "hi": params.accel_row - rows, "none": 0}[where]
             new = torch.zeros_like(shard)
             tots = torch.zeros(1, dtype=torch.float32, device=cuda_device)
-            before = fused_cuda.SLAB_LAUNCHES_I16
+            before = LAUNCHES["K1-slab-i16"]
             fused_cuda.bind_slab_step(params, body, glo, ghi, ob.contiguous(), new[:, win], tots,
                                       off, "i16")(0)
-            assert fused_cuda.SLAB_LAUNCHES_I16 == before + 1
+            assert LAUNCHES["K1-slab-i16"] == before + 1
             ref, ref_tot = fused_cuda.slab_plain(body, glo, ghi, ob, params, off, "i16")
             _assert_matches(new[:, win], tots, ref, ref_tot.reshape(1))
 
@@ -538,7 +536,7 @@ def test_cpu_tensors_take_the_plain_version():
     params, mask = _scene(16, 24)
     obst = torch.from_numpy(mask)
     f0 = _state(params, "mixed", "cpu")
-    k1, k2 = fused_cuda.LAUNCHES, resident_cuda.LAUNCHES
+    k1, k2 = LAUNCHES["K1"], LAUNCHES["K2"]
     f_p, tot_p = fused_torch.run_steps(f0, obst, params, 9)
     for run in (fused_cuda.make_run_all(params, obst, 9),
                 resident_cuda.make_run_all(params, obst, 9, chunk=4)):
@@ -547,7 +545,7 @@ def test_cpu_tensors_take_the_plain_version():
     f1, tot1 = fused_cuda.step(f0, obst, params)
     f1_p, tot1_p = fused_torch.fused_step_single(f0, obst, params)
     assert torch.equal(f1, f1_p) and torch.equal(tot1, tot1_p)
-    assert (fused_cuda.LAUNCHES, resident_cuda.LAUNCHES) == (k1, k2)
+    assert (LAUNCHES["K1"], LAUNCHES["K2"]) == (k1, k2)
     # f0 is never modified
     assert torch.equal(f0, _state(params, "mixed", "cpu"))
 
@@ -628,7 +626,7 @@ def test_i16_wrappers_on_cpu_take_the_plain_version():
     params, mask = _scene(16, 24)
     obst = torch.from_numpy(mask)
     q0 = quant.quantize(_state(params, "mixed", "cpu"), params.density)
-    counts = (fused_cuda.LAUNCHES_I16, inplace_cuda.LAUNCHES, inplace_cuda.LAUNCHES_I16)
+    counts = (LAUNCHES["K1-i16"], LAUNCHES["K3"], LAUNCHES["K3-i16"])
     q_p, tot_p = fused_torch.run_steps(q0, obst, params, 9, "i16")
     for run in (fused_cuda.make_run_all(params, obst, 9, "i16"),
                 inplace_cuda.make_run_all(params, obst, 9, chunk=4, storage="i16")):
@@ -638,7 +636,7 @@ def test_i16_wrappers_on_cpu_take_the_plain_version():
     f, tot = inplace_cuda.make_run_all(params, obst, 9, chunk=4)(f0)
     f_p, tot_p = fused_torch.run_steps(f0, obst, params, 9)
     assert torch.equal(f, f_p) and torch.equal(tot, tot_p)
-    assert (fused_cuda.LAUNCHES_I16, inplace_cuda.LAUNCHES, inplace_cuda.LAUNCHES_I16) == counts
+    assert (LAUNCHES["K1-i16"], LAUNCHES["K3"], LAUNCHES["K3-i16"]) == counts
     q1, _ = fused_cuda.step(q0, obst, params, "i16")
     assert torch.equal(q1, fused_torch.fused_step_i16(q0, obst, params).f)
 

@@ -29,6 +29,7 @@ from lbm_tpu_torch.io.scene import Scene
 from lbm_tpu_torch.models import driver, program
 from lbm_tpu_torch.models.variants import resolve_variant
 from lbm_tpu_torch.ops import fused_cuda, fused_torch, ghosted_cuda, quant
+from lbm_tpu_torch.ops._build import LAUNCHES
 from lbm_tpu_torch.params import LBMParams
 from lbm_tpu_torch.parallel import mesh, modes
 from lbm_tpu_torch.tools import dryrun, pod, scenegen
@@ -445,12 +446,12 @@ def test_sharded_kernels_match_plain_on_card(cuda_device, mode, k, storage):
         warnings.simplefilter("ignore", UserWarning)
         kern = modes.build_sharded_program(p, m, mesh.make_row_mesh(4, [cuda_device] * 4),
                                            mode, k, storage=storage, backend="cuda")
-    counts = (fused_cuda.SLAB_LAUNCHES + fused_cuda.SLAB_LAUNCHES_I16, ghosted_cuda.LAUNCHES)
+    counts = (LAUNCHES["K1-slab"] + LAUNCHES["K1-slab-i16"], LAUNCHES["K6"])
     st, tots = kern.make_run_all(12)(kern.init_state)
     f = kern.f_of(st).cpu()
     k6 = mode == "chunked" and storage == "f32"
-    assert ghosted_cuda.LAUNCHES > counts[1] if k6 else (
-        fused_cuda.SLAB_LAUNCHES + fused_cuda.SLAB_LAUNCHES_I16 > counts[0])
+    assert LAUNCHES["K6"] > counts[1] if k6 else (
+        LAUNCHES["K1-slab"] + LAUNCHES["K1-slab-i16"] > counts[0])
     twin = _build(p, m, 4, mode, k, storage=storage, backend="cuda")
     st2, tots2 = twin.make_run_all(12)(twin.init_state)
     assert torch.equal(f, twin.f_of(st2))

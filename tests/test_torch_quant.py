@@ -23,6 +23,7 @@ from lbm_tpu.ops import quant as jquant
 from lbm_tpu.params import LBMParams as JParams
 from lbm_tpu_torch.core import lattice
 from lbm_tpu_torch.ops import fused_cuda, fused_torch, quant
+from lbm_tpu_torch.ops._build import LAUNCHES
 from lbm_tpu_torch.params import LBMParams
 
 torch.set_num_threads(1)
@@ -118,7 +119,7 @@ def test_i16_step_matches_pallas_i16():
     step = jax.jit(fused_pallas.make_step(jparams, mask, storage="i16", interpret=True))
     q_j = jnp.asarray(q0.numpy())
     obst = torch.from_numpy(mask)
-    launches = fused_cuda.LAUNCHES_I16
+    launches = LAUNCHES["K1-i16"]
     for _ in range(4):
         q_t, tu_t = fused_cuda.step(torch.from_numpy(np.array(q_j)), obst, params, "i16")
         q_j, tu_j = step(q_j)
@@ -127,7 +128,7 @@ def test_i16_step_matches_pallas_i16():
         assert d.max() <= 1, f"max int16 diff {d.max()}"
         assert (d != 0).mean() < 0.01, f"{int((d != 0).sum())} cells differ"
         np.testing.assert_allclose(float(tu_t), float(tu_j), rtol=1e-6)
-    assert fused_cuda.LAUNCHES_I16 == launches  # CPU tensors take the plain version
+    assert LAUNCHES["K1-i16"] == launches  # CPU tensors take the plain version
 
 
 def test_i16_step_is_quantized_f32_step():

@@ -21,6 +21,7 @@ from lbm_tpu.ops import fused_jnp, fused_pallas, resident_pallas
 from lbm_tpu.params import LBMParams as JParams
 from lbm_tpu_torch.core import lattice, oracle
 from lbm_tpu_torch.ops import fused_cuda, fused_torch, resident_cuda
+from lbm_tpu_torch.ops._build import LAUNCHES
 from lbm_tpu_torch.params import LBMParams
 
 torch.set_num_threads(1)
@@ -154,7 +155,7 @@ def test_k1_plain_matches_pallas_step(scene128):
     f_j = jnp.asarray(jlattice.equilibrium_rest(params.density, params.ny, params.nx))
     f_free = torch.from_numpy(np.array(f_j))
     obst = torch.from_numpy(mask)
-    launches = fused_cuda.LAUNCHES
+    launches = LAUNCHES["K1"]
     for _ in range(6):
         f_t, tu_t = fused_cuda.step(torch.from_numpy(np.array(f_j)), obst, params)
         f_free, _ = fused_cuda.step(f_free, obst, params)
@@ -162,7 +163,7 @@ def test_k1_plain_matches_pallas_step(scene128):
         np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=0, atol=5e-8)
         np.testing.assert_allclose(float(tu_t), float(tu_j), rtol=1e-6)
     np.testing.assert_allclose(f_free.numpy(), np.asarray(f_j), rtol=0, atol=5e-8)
-    assert fused_cuda.LAUNCHES == launches  # CPU tensors take the plain version
+    assert LAUNCHES["K1"] == launches  # CPU tensors take the plain version
 
 
 @pytest.mark.parametrize("steps,chunk", [(7, 4), (8, 4), (5, 8)])
@@ -179,10 +180,10 @@ def test_k2_plain_matches_pallas_resident(scene128, steps, chunk):
     run_j = jax.jit(resident_pallas.make_run_all(_jparams(params), mask, steps, chunk=chunk,
                                                  interpret=True))
     f_j, tot_j = run_j(jnp.asarray(f0))
-    launches = resident_cuda.LAUNCHES
+    launches = LAUNCHES["K2"]
     run_t = resident_cuda.make_run_all(params, torch.from_numpy(mask), steps, chunk=chunk)
     f_t, tot_t = run_t(torch.from_numpy(f0))
-    assert resident_cuda.LAUNCHES == launches  # CPU tensors take the plain version
+    assert LAUNCHES["K2"] == launches  # CPU tensors take the plain version
     assert tot_t.shape == (steps,)
     np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=0, atol=5e-8)
     np.testing.assert_allclose(tot_t.numpy()[:1], np.asarray(tot_j)[:1], rtol=1e-6)

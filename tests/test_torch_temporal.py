@@ -36,6 +36,7 @@ from lbm_tpu_torch.ops import (
     skew_cuda,
     temporal_cuda,
 )
+from lbm_tpu_torch.ops._build import LAUNCHES
 from lbm_tpu_torch.params import LBMParams
 from lbm_tpu_torch.tools import scenegen
 
@@ -77,10 +78,10 @@ def test_trapezoid_plain_matches_b5(ny, K, steps):
     params, jparams, mask = _scene(ny, 128, seed=K + ny)
     f0 = jlattice.equilibrium_rest(DENSITY, ny, 128)
     want = temporal_pallas.make_run_all(jparams, mask, steps, K)(jnp.asarray(f0))
-    launches = temporal_cuda.LAUNCHES
+    launches = LAUNCHES["K4"]
     got = temporal_cuda.make_run_all(params, torch.from_numpy(mask), steps, K)(
         torch.from_numpy(f0))
-    assert temporal_cuda.LAUNCHES == launches  # CPU tensors take the plain version
+    assert LAUNCHES["K4"] == launches  # CPU tensors take the plain version
     _compare(got, want)
 
 
@@ -472,10 +473,11 @@ def _sweep_matches_plain(mod, device, shape, K, kind, storage, **kw):
     obst = torch.from_numpy(mask).to(device)
     s0 = _start(params, kind, device, storage)
     steps = 2 * K + 1  # two sweeps and a K1 tail step
-    counter = "LAUNCHES_I16" if storage == "i16" else "LAUNCHES"
-    before, k1 = getattr(mod, counter), getattr(fused_cuda, counter)
+    sfx = "-i16" if storage == "i16" else ""
+    kernel = ("K4" if mod is temporal_cuda else "K5") + sfx
+    before, k1 = LAUNCHES[kernel], LAUNCHES["K1" + sfx]
     f_k, tot_k = mod.make_run_all(params, obst, steps, K, storage, **kw)(s0)
-    assert getattr(mod, counter) == before + 2 and getattr(fused_cuda, counter) == k1 + 1
+    assert LAUNCHES[kernel] == before + 2 and LAUNCHES["K1" + sfx] == k1 + 1
     f_p, tot_p = mod.run_plain(s0, obst, params, steps, K, storage)
     assert f_k.dtype == s0.dtype
     assert torch.equal(f_k, f_p), float((f_k.double() - f_p.double()).abs().max())
@@ -507,7 +509,7 @@ def test_k4_geometry_and_refusal_on_card(cuda_device):
     params, mask = _box(60, 100)
     obst = torch.from_numpy(mask).to(cuda_device)
     f0 = _start(params, "mixed", cuda_device, "f32")
-    with pytest.raises(RuntimeError, match="K4 trapezoid sweep kernel failed"):
+    with pytest.raises(RuntimeError, match=r"K4 \(lbm_trapezoid_run\) failed"):
         temporal_cuda.make_run_all(params, obst, 8, 8, tile_hw=(100, 100))(f0)
     assert temporal_cuda.persistent_grid(4, 3) == 3
     assert temporal_cuda.persistent_grid(4, 1 << 20) >= torch.cuda.get_device_properties(
